@@ -1,0 +1,59 @@
+"""Masked scatter primitives over padded COO chunks.
+
+Counterpart of ``gelly_tpu/ops/segments.py``. JAX's
+``target.at[idx].min/max/add(updates, mode="drop")`` becomes
+``scatter_reduce(0, idx, updates, "amin"|"amax"|"sum", include_self=True)``
+with masked lanes routed to slot 0 carrying the reduction's neutral value,
+exactly as the JAX versions do. Every function returns a new tensor (the
+callers compare old and new states); ``scatter_reduce`` takes ``int64``
+indices, so the cast happens at the call and stored state stays ``i32``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+INT_MAX = torch.iinfo(torch.int32).max
+
+
+def _neutral(dtype: torch.dtype, high: bool):
+    if dtype.is_floating_point:
+        return float("inf") if high else float("-inf")
+    info = torch.iinfo(dtype)
+    return info.max if high else info.min
+
+
+def _masked(target, idx, updates, valid, fill):
+    upd = torch.where(valid, updates.to(target.dtype), fill)
+    return torch.where(valid, idx, 0).long(), upd
+
+
+def masked_scatter_add(target: torch.Tensor, idx: torch.Tensor, updates,
+                       valid) -> torch.Tensor:
+    """target[idx] += updates where valid (padding routed to a no-op)."""
+    i, u = _masked(target, idx, updates, valid, 0)
+    return target.scatter_reduce(0, i, u, "sum", include_self=True)
+
+
+def masked_scatter_min(target: torch.Tensor, idx: torch.Tensor, updates,
+                       valid) -> torch.Tensor:
+    i, u = _masked(target, idx, updates, valid, _neutral(target.dtype, True))
+    return target.scatter_reduce(0, i, u, "amin", include_self=True)
+
+
+def masked_scatter_max(target: torch.Tensor, idx: torch.Tensor, updates,
+                       valid) -> torch.Tensor:
+    i, u = _masked(target, idx, updates, valid, _neutral(target.dtype, False))
+    return target.scatter_reduce(0, i, u, "amax", include_self=True)
+
+
+def mark_seen(seen: torch.Tensor, idx: torch.Tensor, valid) -> torch.Tensor:
+    """seen[idx] |= valid — bool presence scatter.
+
+    Every write stores the same value (True), so duplicate indices need no
+    reduction; masked lanes write into a spare slot past the end.
+    """
+    n = seen.shape[0]
+    hit = torch.zeros(n + 1, dtype=torch.bool, device=seen.device)
+    hit[torch.where(valid, idx, n).long()] = True
+    return seen | hit[:n]
