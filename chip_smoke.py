@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive gelly_torch's streaming connected-components path on one CUDA card.
+"""Drive gelly_torch's streaming connected-components and window-triangle
+paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -22,7 +23,20 @@ Phases (any failure exits nonzero and prints no result line):
    same run with ``fold_backend="plain"``, the final labels must equal a
    ``scipy.sparse.csgraph`` oracle, and the kernel's launch count in that
    run must be exactly 3 per dedup-branch chunk (counted independently);
-5. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
+5. wedge kernel: ``wedge_count_matrix`` on the wedge mask of the triangle
+   path's first window at ``N = 2^15`` must equal
+   ``wedge_count_matrix_plain`` exactly; prints its time (CUDA events, mean
+   of 5 after one warm-up), the plain version's, the faster of two exact
+   single PyTorch calls for ``MᵀM`` (``torch._int_mm`` on int8 copies, an
+   f32 matmul with TF32) and the least time the card could take;
+6. triangle path: ``2^24`` Zipf edges (seed 17) over ``2^15`` slots, EVENT
+   time ``ts = arange``, 4 tumbling windows of ``2^22`` ms, ``2^20``-edge
+   chunks, through ``window_triangle_counts_batched(..., batch=4,
+   method="auto")``. Every window's ``int64`` count must equal an oracle on
+   the card (``((A @ A) * A).sum() / 6`` of the window's simple undirected
+   adjacency), and the kernel's launch count must equal the number of
+   windows whose group picked the kernel (counted independently);
+7. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 
 Needs one CUDA card, ``nvcc`` and scipy; imports nothing of JAX.
 """
@@ -44,6 +58,17 @@ MERGE_EVERY = 4
 SEED = 17
 REPS = 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+INT8_OPS_PER_S = 1.979e15  # H100 SXM data sheet, dense int8 tensor cores
+
+# The triangle path: the largest power-of-two slot space the packed dense
+# path takes (n * n < 2^31), 4 tumbling windows of 2^22 edges.
+TRI_N = 1 << 15
+TRI_EDGES = 1 << 24
+TRI_WINDOW_MS = 1 << 22
+TRI_WINDOW_CAPACITY = 1 << 23  # the doubled ALL-direction calibration
+TRI_CHUNK = 1 << 20
+TRI_BATCH = 4
+WEDGE_REPS = 5
 
 
 def check(cond, msg: str) -> None:
@@ -61,11 +86,11 @@ def synth_edges(num_edges: int, num_vertices: int, seed: int):
     return perm[src].astype(np.int32), perm[dst].astype(np.int32)
 
 
-def time_ms(torch, fn, device, reps: int = REPS) -> float:
+def time_ms(torch, fn, device, reps: int = REPS, warmup: int = 3) -> float:
     """Mean device time of ``fn`` over ``reps`` calls, each measured with
     CUDA events after a 256 MB write that evicts the 50 MB L2."""
     flush = torch.empty(64 << 20, dtype=torch.int32, device=device)
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     total = 0.0
     for i in range(reps):
@@ -95,6 +120,75 @@ def scipy_oracle(src: np.ndarray, dst: np.ndarray, n: int) -> np.ndarray:
     return np.where(seen, first[comp], -1).astype(np.int32)
 
 
+def window_edges(torch, src, dst, w: int, device):
+    """The window's simple undirected edges ``(a, b)``, ``a < b``, on the
+    card (ts = arange, so window ``w`` is one contiguous range)."""
+    lo, hi = w * TRI_WINDOW_MS, (w + 1) * TRI_WINDOW_MS
+    s = torch.from_numpy(src[lo:hi]).to(device).long()
+    d = torch.from_numpy(dst[lo:hi]).to(device).long()
+    a, b = torch.minimum(s, d), torch.maximum(s, d)
+    key = torch.unique((a * TRI_N + b)[a != b])
+    return key // TRI_N, key % TRI_N
+
+
+def triangle_oracle(torch, a, b, device) -> int:
+    """Triangles of a simple undirected graph: ``trace(A³) / 6`` taken as
+    ``((A @ A) * A).sum() / 6`` over the f32 adjacency (exact: the path
+    counts are integers below 2^24, the sum is taken in f64)."""
+    adj = torch.zeros((TRI_N, TRI_N), dtype=torch.float32, device=device)
+    adj[a, b] = 1.0
+    adj[b, a] = 1.0
+    paths = adj @ adj
+    paths.mul_(adj)
+    six = float(paths.sum(dtype=torch.float64))
+    del adj, paths
+    check(six % 6 == 0, f"oracle sum {six} is not a multiple of 6")
+    return int(six) // 6
+
+
+def library_yardstick(torch, m, want, device):
+    """(name, ms, lines) of the fastest exact single PyTorch call for
+    ``MᵀM`` among ``torch._int_mm`` on int8 copies (exact int32) and an f32
+    matmul with TF32 allowed (exact for 0/1). Each candidate is checked
+    against ``want``, then timed like the kernel; ``lines`` reports every
+    candidate."""
+    mi8 = m.to(torch.int8)
+    mi8t = mi8.t().contiguous()
+    mf = m.to(torch.float32)
+    mft = mf.t().contiguous()
+
+    def tf32_mm():
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return torch.matmul(mft, mf)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+    candidates = [
+        ("torch._int_mm(int8 M.t(), int8 M)",
+         lambda: torch._int_mm(mi8t, mi8)),
+        ("torch.matmul(f32 M.t(), f32 M) with TF32", tf32_mm),
+    ]
+    lines = []
+    best = None
+    for name, fn in candidates:
+        try:
+            exact = torch.equal(fn().to(torch.float32), want)
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            lines.append(f"{name}: refused ({str(e).splitlines()[0]})")
+            continue
+        if not exact:
+            lines.append(f"{name}: result differs, not timed")
+            continue
+        ms = time_ms(torch, fn, device, reps=WEDGE_REPS, warmup=1)
+        lines.append(f"{name}: exact, {ms:.6f} ms")
+        if best is None or ms < best[1]:
+            best = (name, ms)
+    check(best is not None, f"no exact library call for MᵀM: {lines}")
+    return best[0], best[1], lines
+
+
 def main() -> int:
     import torch
 
@@ -114,10 +208,11 @@ def main() -> int:
         print("chip_smoke: gelly_torch was imported from outside the "
               "checkout", file=sys.stderr)
         return 2
-    from gelly_torch.core.io import EdgeChunkSource
+    from gelly_torch.core.io import EdgeChunkSource, TimeCharacteristic
     from gelly_torch.core.stream import edge_stream_from_source
     from gelly_torch.core.vertices import IdentityVertexTable
     from gelly_torch.library import connected_components as cc
+    from gelly_torch.library import triangles as tri
     from gelly_torch.ops import _build, kernels, unionfind
 
     t_start = time.perf_counter()
@@ -196,6 +291,7 @@ def main() -> int:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
         kernels.sorted_window_gather.launches = 0
+        kernels.wedge_count_matrix.launches = 0
         unionfind.host_sync.count = 0
         t = time.perf_counter()
         out = list(stream.aggregate(agg, merge_every=MERGE_EVERY))
@@ -249,7 +345,114 @@ def main() -> int:
           f"{st['launches']} launches != 3 x {dedup_chunks} dedup chunks")
     check(st_plain["launches"] == 0, "the plain backend launched the kernel")
 
-    # 5. result lines
+    del labels, labels_plain, oracle
+
+    # The triangle stream (set-up, not timed).
+    t0 = time.perf_counter()
+    tsrc, tdst = synth_edges(TRI_EDGES, TRI_N, SEED)
+    tts = np.arange(TRI_EDGES, dtype=np.int64)
+    print(f"triangle stream: {TRI_EDGES} Zipf edges over {TRI_N} slots "
+          f"(seed {SEED}), {TRI_EDGES // TRI_WINDOW_MS} windows of "
+          f"{TRI_WINDOW_MS} edges, in {time.perf_counter() - t0:.2f} s")
+
+    def tri_stream():
+        return edge_stream_from_source(
+            EdgeChunkSource(tsrc, tdst, timestamps=tts, chunk_size=TRI_CHUNK,
+                            table=IdentityVertexTable(TRI_N),
+                            time=TimeCharacteristic.EVENT),
+            TRI_N)
+
+    # 5. wedge kernel phase: the first window's wedge mask
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, col0 = next(tri._packed_out_windows(
+        tri_stream(), TRI_WINDOW_MS, TRI_WINDOW_CAPACITY, TRI_N))
+    m, _, _ = tri._wedge_mask(torch.from_numpy(col0).to(device), TRI_N, TRI_N)
+    w_kernel = kernels.wedge_count_matrix(m)
+    torch.cuda.synchronize()
+    w_plain = kernels.wedge_count_matrix_plain(m)
+    w_err = float((w_kernel - w_plain).abs().max())
+    check(torch.equal(w_kernel, w_plain),
+          f"wedge kernel != plain version (max abs err {w_err})")
+    nnz = int(m.sum())
+    del w_kernel
+    lib_name, wedge_lib_ms, lib_lines = library_yardstick(
+        torch, m, w_plain, device)
+    del w_plain
+    torch.cuda.empty_cache()
+    wedge_ms = time_ms(torch, lambda: kernels.wedge_count_matrix(m), device,
+                       reps=WEDGE_REPS, warmup=1)
+    wedge_plain_ms = time_ms(
+        torch, lambda: kernels.wedge_count_matrix_plain(m), device,
+        reps=WEDGE_REPS, warmup=1)
+    ops_ms = 2 * TRI_N ** 3 / INT8_OPS_PER_S * 1e3
+    bytes_ms = 5 * TRI_N ** 2 / HBM_BYTES_PER_S * 1e3
+    wedge_bound_ms = max(ops_ms, bytes_ms)
+    wedge_bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+    for line in lib_lines:
+        print(f"  library candidate {line}")
+    print(f"kernel wedge_count_matrix: N={TRI_N} mask nnz={nnz} exact=True "
+          f"kernel_ms={wedge_ms:.6f} plain_ms={wedge_plain_ms:.6f} "
+          f"library_ms={wedge_lib_ms:.6f} ({lib_name}) "
+          f"bound_ms={wedge_bound_ms:.6f} ({wedge_bound_by}: 2N^3 ops / "
+          f"{INT8_OPS_PER_S:.4g} vs 5N^2 bytes / {HBM_BYTES_PER_S:.4g})")
+    del m
+    torch.cuda.empty_cache()
+
+    # Host side alone (window assembly, dedup, packing): how much of the
+    # path's wall the device cannot overlap with batch = #windows.
+    t0 = time.perf_counter()
+    n_cols = sum(1 for _ in tri._packed_out_windows(
+        tri_stream(), TRI_WINDOW_MS, TRI_WINDOW_CAPACITY, TRI_N))
+    host_s = time.perf_counter() - t0
+    print(f"triangle host windows alone: {n_cols} packed columns in "
+          f"{host_s:.4f} s")
+
+    # 6. triangle path at full width
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.sorted_window_gather.launches = 0
+    kernels.wedge_count_matrix.launches = 0
+    unionfind.host_sync.count = 0
+    t = time.perf_counter()
+    wins, counts = zip(*tri.window_triangle_counts_batched(
+        tri_stream(), TRI_WINDOW_MS, window_capacity=TRI_WINDOW_CAPACITY,
+        method="auto", batch=TRI_BATCH))
+    counts = torch.stack(counts).cpu()  # the one pull of the run
+    tri_wall = time.perf_counter() - t
+    tri_launches = kernels.wedge_count_matrix.launches
+    tri_peak = torch.cuda.max_memory_allocated(device)
+    print(f"path window_triangle_counts_batched: "
+          f"{TRI_EDGES / tri_wall:.1f} edges/s wall={tri_wall:.4f} s "
+          f"peak_mem={tri_peak} B windows={len(wins)} "
+          f"wedge_launches={tri_launches} "
+          f"gather_launches={kernels.sorted_window_gather.launches}")
+
+    # Checks: dtype, per-window oracle, independent launch count.
+    n_windows = TRI_EDGES // TRI_WINDOW_MS
+    check(list(wins) == list(range(n_windows)), f"windows {wins}")
+    check(counts.dtype == torch.int64, f"count dtype {counts.dtype}")
+    t0 = time.perf_counter()
+    uniques = []
+    for w in range(n_windows):
+        a, b = window_edges(torch, tsrc, tdst, w, device)
+        uniques.append(int(a.numel()))
+        want = triangle_oracle(torch, a, b, device)
+        check(int(counts[w]) == want,
+              f"window {w}: {int(counts[w])} triangles != oracle {want}")
+        print(f"  window {w}: {want} triangles over {uniques[-1]} unique "
+              f"edges (oracle equal)")
+    print(f"oracle: A^3 on the card in {time.perf_counter() - t0:.2f} s")
+    expect = 0
+    for lo in range(0, n_windows, TRI_BATCH):
+        group = uniques[lo:lo + TRI_BATCH]
+        bucket = max(1024, 1 << max(0, max(group) - 1).bit_length())
+        if 2 * bucket >= TRI_N:
+            expect += len(group)
+    check(tri_launches > 0, "the triangle path launched no wedge kernel")
+    check(tri_launches == expect,
+          f"{tri_launches} wedge launches != {expect} kernel windows")
+
+    # 7. result lines
     print(json.dumps({"kernels": [{
         "name": "sorted_window_gather",
         "route": "cuda",
@@ -262,6 +465,18 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": "bytes",
         "library_ms": library_ms,
+    }, {
+        "name": "wedge_count_matrix",
+        "route": "cuda",
+        "source": "gelly_torch/csrc/wedge_count_matrix.cu",
+        "replaces": "gelly_tpu/ops/pallas_kernels.py:69",
+        "launches": tri_launches,
+        "max_abs_err": w_err,
+        "ms": wedge_ms,
+        "plain_ms": wedge_plain_ms,
+        "bound_ms": wedge_bound_ms,
+        "bound_by": wedge_bound_by,
+        "library_ms": wedge_lib_ms,
     }]}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

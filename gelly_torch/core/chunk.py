@@ -65,6 +65,14 @@ class EdgeChunk(NamedTuple):
             src=self.dst, dst=self.src, raw_src=self.raw_dst, raw_dst=self.raw_src
         )
 
+    def undirected(self) -> "EdgeChunk":
+        """Emit each edge in both directions (GraphStream.undirected).
+
+        Doubles the chunk capacity: the result holds ``e`` followed by
+        ``e.reverse()``.
+        """
+        return EdgeChunk(*(torch.cat([x, y]) for x, y in zip(self, self.reverse())))
+
     def mask(self, keep) -> "EdgeChunk":
         """Return the chunk with ``valid &= keep`` (filter without moving data)."""
         return self._replace(valid=self.valid & keep)

@@ -1,8 +1,8 @@
 """EdgeStream — the ``GraphStream`` / ``SimpleEdgeStream`` surface of the port.
 
-Counterpart of ``gelly_tpu/core/stream.py``, in this slice the part the
-streaming-CC path runs: the stream context (with its device), chunk
-iteration, resume seeks and the ``aggregate`` plugin boundary. The
+Counterpart of ``gelly_tpu/core/stream.py``, the parts the ported paths
+run: the stream context (with its device), chunk iteration, resume seeks,
+the ``aggregate`` plugin boundary and ``slice`` (tumbling windows). The
 transforms and property streams of ``gelly_tpu`` come with later slices.
 """
 
@@ -80,6 +80,18 @@ class EdgeStream:
         from ..engine.aggregation import run_aggregation
 
         return run_aggregation(aggregation, self, **runner_kw)
+
+    def slice(self, window_ms: int, direction: str = "out",
+              window_capacity: int | None = None,
+              allowed_lateness: int = 0):
+        """Discretize into per-vertex tumbling-window neighborhoods
+        (SimpleEdgeStream.slice). direction ∈ {out, in, all}. A nonzero
+        ``allowed_lateness`` raises ``NotImplementedError`` when the
+        windows are drained (not ported yet)."""
+        from .snapshot import SnapshotStream
+
+        return SnapshotStream(self, window_ms, direction, window_capacity,
+                              allowed_lateness)
 
 
 def edge_stream_from_source(source: EdgeChunkSource, vertex_capacity: int,

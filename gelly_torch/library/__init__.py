@@ -1,1 +1,5 @@
 """One-pass graph algorithms."""
+
+from .triangles import window_triangles
+
+__all__ = ["window_triangles"]

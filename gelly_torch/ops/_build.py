@@ -39,6 +39,10 @@ SIGNATURES = {
         ),
         "sorted_window_gather_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
+    "wedge_count_matrix": {
+        "wedge_count_matrix_launch": ([_P, _P, ctypes.c_int, _P], ctypes.c_int),
+        "wedge_count_matrix_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
 }
 
 

@@ -1,8 +1,12 @@
 """Hand-written Hopper kernels and their plain PyTorch versions.
 
-Counterpart of ``gelly_tpu/ops/pallas_kernels.py``. This slice ports the
-union-find fold's windowed gather:
+Counterpart of ``gelly_tpu/ops/pallas_kernels.py``, both of its kernels:
 
+- :func:`wedge_count_matrix` — the wrapper of the CUDA kernel
+  ``csrc/wedge_count_matrix.cu`` (replacing the Pallas ``_wedge_kernel``):
+  ``W = MᵀM`` for the window-triangle wedge mask. On a CPU tensor it runs
+  :func:`wedge_count_matrix_plain`; on a CUDA tensor it launches the
+  kernel or raises. ``wedge_count_matrix.launches`` counts launches.
 - :func:`sorted_window_gather` — the wrapper of the CUDA kernel
   ``csrc/sorted_window_gather.cu`` (replacing the Pallas
   ``_sorted_gather_kernel``). On a CPU tensor it runs
@@ -21,6 +25,71 @@ agree on what they accept.
 from __future__ import annotations
 
 import torch
+
+# Output tile edge of the wedge kernel; the mask's side must be a multiple.
+TILE = 128
+
+
+def _check_wedge_mask(m: torch.Tensor) -> int:
+    """Side ``n`` of a square wedge mask; raises like the reference on a
+    side that is not a multiple of :data:`TILE`.
+
+    The reference casts any input to f32; the port takes ``bool`` only
+    (its stated contract) and raises ``TypeError`` otherwise."""
+    if m.ndim != 2 or m.shape[0] != m.shape[1]:
+        raise ValueError(f"wedge mask must be square, got shape {tuple(m.shape)}")
+    n = m.shape[0]
+    if n % TILE:
+        raise ValueError(f"wedge matrix size {n} not a multiple of {TILE}")
+    if m.dtype != torch.bool:
+        raise TypeError(f"wedge_count_matrix takes a bool mask, got {m.dtype}")
+    return n
+
+
+def wedge_count_matrix_plain(m: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`wedge_count_matrix` on any device:
+    an f32 product, exact for 0/1 entries while counts stay below 2^24."""
+    _check_wedge_mask(m)
+    mf = m.to(torch.float32)
+    return mf.T @ mf
+
+
+def wedge_count_matrix(m: torch.Tensor) -> torch.Tensor:
+    """``W = MᵀM`` in f32 for a square bool wedge mask ``M[u, x]`` whose
+    side is a multiple of 128: ``W[a, b]`` counts the rows ``u`` set in
+    both columns ``a`` and ``b`` (common smaller neighbours of ``a`` and
+    ``b``), the whole matrix, as the reference's Pallas kernel writes it.
+
+    A CPU mask runs :func:`wedge_count_matrix_plain`; a CUDA mask (which
+    must be contiguous) launches the kernel, counted in
+    ``wedge_count_matrix.launches``, or raises.
+    """
+    n = _check_wedge_mask(m)
+    if m.device.type == "cpu":
+        return wedge_count_matrix_plain(m)
+    if m.device.type != "cuda":
+        raise ValueError(f"wedge_count_matrix runs on CPU or CUDA, got {m.device}")
+    if not m.is_contiguous() or m.data_ptr() % 16:
+        raise ValueError("wedge_count_matrix needs a contiguous, 16-byte "
+                         "aligned mask")
+    out = torch.empty((n, n), dtype=torch.float32, device=m.device)
+    if n == 0:
+        return out
+    from . import _build
+
+    lib = _build.load("wedge_count_matrix")
+    with torch.cuda.device(m.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.wedge_count_matrix_launch(m.data_ptr(), out.data_ptr(), n,
+                                           stream)
+    if rc:
+        msg = lib.wedge_count_matrix_error_string(rc).decode()
+        raise RuntimeError(f"wedge_count_matrix launch failed: {msg}")
+    wedge_count_matrix.launches += 1
+    return out
+
+
+wedge_count_matrix.launches = 0
 
 # Lane width of the reference's 2D table view (the TPU vector lane count);
 # the window geometry below is defined in these units.

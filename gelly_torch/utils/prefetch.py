@@ -1,0 +1,115 @@
+"""Ordered parallel map with bounded lookahead (host work overlap).
+
+Counterpart of ``gelly_tpu/utils/prefetch.py`` (:func:`prefetch_map` and
+what it calls; pure threading). Host staging for upcoming items runs on a
+worker pool while the consumer drives the device with earlier ones.
+Exceptions re-raise at the consumer.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Iterable, Iterator
+
+_DONE = object()
+
+
+class _Error:
+    """Private out-of-band wrapper: user items can never alias it."""
+
+    __slots__ = ("exc",)
+
+    def __init__(self, exc: BaseException):
+        self.exc = exc
+
+
+def prefetch_map(fn, it: Iterable, depth: int = 2,
+                 workers: int = 2,
+                 cancel: "threading.Event | None" = None) -> Iterator:
+    """Apply ``fn`` to up to ``depth`` upcoming items of ``it`` on a pool
+    of ``workers`` threads, yielding results in input order (a plain map
+    when depth or workers is 0).
+
+    Cancellation-safe: closing or abandoning the generator cancels the
+    submitter thread, drains the queue (so a submitter parked on a full
+    queue unblocks at once), cancels the drained futures and shuts the
+    pool down without waiting on queued work.
+
+    ``cancel`` (optional ``threading.Event``) ends the stream from OUTSIDE
+    the consuming thread: a generator can only be closed between items, so
+    a consumer parked inside ``__next__`` on a stalled source is reached
+    only through the event, which the parked get polls.
+    """
+    if depth <= 0 or workers <= 0:
+        yield from map(fn, it)
+        return
+    from concurrent.futures import Future, ThreadPoolExecutor
+
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    if cancel is None:
+        cancel = threading.Event()
+    pool = ThreadPoolExecutor(max_workers=workers,
+                              thread_name_prefix="gelly-codec")
+
+    def submitter():
+        try:
+            for item in it:
+                fut = pool.submit(fn, item)
+                while not cancel.is_set():
+                    try:
+                        q.put(fut, timeout=0.1)
+                        break
+                    except queue.Full:
+                        continue
+                if cancel.is_set():
+                    fut.cancel()
+                    return
+        except BaseException as e:
+            while not cancel.is_set():
+                try:
+                    q.put(_Error(e), timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+        finally:
+            while True:
+                try:
+                    q.put(_DONE, timeout=0.1)
+                    break
+                except queue.Full:
+                    if cancel.is_set():
+                        break
+
+    t = threading.Thread(target=submitter, daemon=True,
+                         name="gelly-prefetch-submit")
+    t.start()
+    try:
+        while True:
+            # Checked every iteration: with a fast source the queue is
+            # never empty, and an external cancel must still end the
+            # stream.
+            if cancel.is_set():
+                return
+            try:
+                got = q.get(timeout=0.1)
+            except queue.Empty:
+                continue
+            if got is _DONE:
+                return
+            if isinstance(got, _Error):
+                raise got.exc  # the submitter's traceback is kept
+            yield got.result()  # re-raises fn's exception in order
+    finally:
+        cancel.set()
+        try:
+            while True:
+                got = q.get_nowait()
+                if isinstance(got, Future):
+                    got.cancel()
+        except queue.Empty:
+            pass
+        pool.shutdown(wait=False, cancel_futures=True)
+        # A submitter parked inside a stalled source's __next__ cannot be
+        # interrupted; it is a daemon thread and exits at its next poll.
+        t.join(timeout=0.2)

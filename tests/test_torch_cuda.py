@@ -1,5 +1,5 @@
-"""gelly_torch on the card: the CUDA kernel vs its plain version, and the
-CC path on CUDA vs the same path on the CPU.
+"""gelly_torch on the card: each CUDA kernel vs its plain version, and the
+CC and window-triangle paths on CUDA vs the same paths on the CPU.
 
 Marked ``cuda``; every test takes the ``cuda_device`` fixture, which skips
 when the machine has no card (decided at run time, never at import time,
@@ -12,10 +12,11 @@ import numpy as np
 import pytest
 import torch
 
-from gelly_torch.core.io import EdgeChunkSource
+from gelly_torch.core.io import EdgeChunkSource, TimeCharacteristic
 from gelly_torch.core.stream import edge_stream_from_source
 from gelly_torch.core.vertices import IdentityVertexTable
 from gelly_torch.library import connected_components as tcc
+from gelly_torch.library import triangles as ttri
 from gelly_torch.ops import kernels
 
 pytestmark = pytest.mark.cuda
@@ -87,3 +88,43 @@ def test_cc_path_on_card_equals_cpu(cuda_device, monkeypatch):
         assert torch.equal(a, b)
     assert np.array_equal(on_card[-1].numpy(),
                           tcc.cc_labels_numpy(src, dst, None, n))
+
+
+@pytest.mark.parametrize("density", [0.01, 0.1, 0.5])
+@pytest.mark.parametrize("n", [128, 384, 1024, 4096])
+def test_wedge_kernel_equals_plain(cuda_device, n, density):
+    rng = np.random.default_rng(n)
+    m = torch.from_numpy(rng.random((n, n)) < density).to(cuda_device)
+    before = kernels.wedge_count_matrix.launches
+    got = kernels.wedge_count_matrix(m)
+    torch.cuda.synchronize()
+    assert kernels.wedge_count_matrix.launches == before + 1
+    want = kernels.wedge_count_matrix_plain(m.cpu())
+    assert got.dtype == torch.float32
+    assert torch.equal(got.cpu(), want)
+
+
+def test_window_triangles_on_card_equals_cpu(cuda_device):
+    n, per_window = 1024, 1 << 14
+    rng = np.random.default_rng(5)
+    src = (rng.zipf(1.3, 4 * per_window) % n).astype(np.int32)
+    dst = (rng.zipf(1.3, 4 * per_window) % n).astype(np.int32)
+    ts = np.arange(src.shape[0], dtype=np.int64)
+
+    def run(device):
+        s = edge_stream_from_source(
+            EdgeChunkSource(src, dst, timestamps=ts, chunk_size=1 << 12,
+                            table=IdentityVertexTable(n),
+                            time=TimeCharacteristic.EVENT),
+            n, device=device)
+        wins, counts = zip(*ttri.window_triangle_counts_batched(
+            s, per_window, window_capacity=2 * per_window, batch=3))
+        return wins, torch.stack(counts).cpu()
+
+    before = kernels.wedge_count_matrix.launches
+    on_card = run("cuda")
+    assert kernels.wedge_count_matrix.launches == before + 4
+    on_cpu = run("cpu")
+    assert on_card[0] == on_cpu[0] == (0, 1, 2, 3)
+    assert on_card[1].dtype == torch.int64
+    assert torch.equal(on_card[1], on_cpu[1]) and int(on_cpu[1].sum()) > 0
