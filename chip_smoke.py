@@ -24,11 +24,14 @@ Phases (any failure exits nonzero and prints no result line):
    ``scipy.sparse.csgraph`` oracle, and the kernel's launch count in that
    run must be exactly 3 per dedup-branch chunk (counted independently);
 5. wedge kernel: ``wedge_count_matrix`` on the wedge mask of the triangle
-   path's first window at ``N = 2^15`` must equal
+   path's first window at ``N = 2^15``, and on a dense random mask at
+   ``N = 4096`` (every block live, every tile mirrored), must equal
    ``wedge_count_matrix_plain`` exactly; prints its time (CUDA events, mean
-   of 5 after one warm-up), the plain version's, the faster of two exact
-   single PyTorch calls for ``MᵀM`` (``torch._int_mm`` on int8 copies, an
-   f32 matmul with TF32) and the least time the card could take;
+   of 5 after one warm-up), its pre-pass's share, the plain version's, the
+   faster of two exact single PyTorch calls for ``MᵀM`` (``torch._int_mm``
+   on int8 copies, an f32 matmul with TF32), the least time the card could
+   take for the work this mask needs (its live block triples, from
+   ``wedge_needed_ops``) and, beside it, the dense product's;
 6. triangle path: ``2^24`` Zipf edges (seed 17) over ``2^15`` slots, EVENT
    time ``ts = arange``, 4 tumbling windows of ``2^22`` ms, ``2^20``-edge
    chunks, through ``window_triangle_counts_batched(..., batch=4,
@@ -37,6 +40,10 @@ Phases (any failure exits nonzero and prints no result line):
    adjacency), and the kernel's launch count must equal the number of
    windows whose group picked the kernel (counted independently);
 7. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
+
+After the checks of each path, one more run of it under ``torch.profiler``
+prints the device's busy time and idle share (the profiler's cost is in
+that run's wall, so its wall is not the path's).
 
 Needs one CUDA card, ``nvcc`` and scipy; imports nothing of JAX.
 """
@@ -69,6 +76,7 @@ TRI_WINDOW_CAPACITY = 1 << 23  # the doubled ALL-direction calibration
 TRI_CHUNK = 1 << 20
 TRI_BATCH = 4
 WEDGE_REPS = 5
+DENSE_N = 4096  # the dense random wedge check
 
 
 def check(cond, msg: str) -> None:
@@ -144,6 +152,44 @@ def triangle_oracle(torch, a, b, device) -> int:
     del adj, paths
     check(six % 6 == 0, f"oracle sum {six} is not a multiple of 6")
     return int(six) // 6
+
+
+def profiled(torch, fn):
+    """(wall_s, device_busy_s, spans) of one run of ``fn`` under
+    ``torch.profiler``: busy is the union of the device's kernel and copy
+    intervals (``None`` when the profiler recorded no device activity).
+    The profiler's own cost is in the wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return wall, None, 0
+    busy, (lo, hi) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > hi:
+            busy += hi - lo
+            lo, hi = s, e
+        else:
+            hi = max(hi, e)
+    busy += hi - lo
+    return wall, busy * 1e-6, len(spans)
+
+
+def print_profiled(name, wall, busy, spans) -> None:
+    if busy is None:
+        print(f"profiled {name}: wall={wall:.4f} s, device time not recorded")
+        return
+    print(f"profiled {name}: wall={wall:.4f} s device_busy={busy:.4f} s "
+          f"({spans} device spans) idle_share={1 - busy / wall:.4f}")
 
 
 def library_yardstick(torch, m, want, device):
@@ -234,7 +280,8 @@ def main() -> int:
         print(f"build {res.name}: nvcc {res.seconds:.2f} s -> "
               f"{os.path.relpath(res.path, here)}")
         for line in res.log.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
+            if any(key in line for key in ("entry function", "registers",
+                                           "smem", "spill", "Performance")):
                 print(f"  ptxas {line.strip()}")
 
     # The stream (set-up, not timed).
@@ -272,11 +319,17 @@ def main() -> int:
     plain_ms = time_ms(torch, lambda: kernels.sorted_window_gather_plain(
         table, sidx), device)
     library_ms = time_ms(torch, lambda: table[sidx], device)
+    # Floors of this timing harness: an event pair around no work, and a
+    # streaming copy of the index lanes (the gather's bytes without the
+    # table sectors).
+    floor_ms = time_ms(torch, lambda: None, device)
+    copy_ms = time_ms(torch, lambda: got.copy_(sidx), device)
     print(f"kernel sorted_window_gather: n={N_VERTICES} L={L} "
           f"live={int(ucount)} hit_share={hit_share:.6f} exact=True "
           f"kernel_ms={kernel_ms:.6f} plain_ms={plain_ms:.6f} "
           f"library_ms={library_ms:.6f} bound_ms={bound_ms:.6f} "
-          f"(bytes: {8 * L} idx+out + {32 * sectors} table sectors)")
+          f"(bytes: {8 * L} idx+out + {32 * sectors} table sectors) "
+          f"event_floor_ms={floor_ms:.6f} index_copy_ms={copy_ms:.6f}")
     del c1, c2, table, uu, live0, sidx, got, want, hit
 
     # 4. path phase at full size
@@ -344,6 +397,8 @@ def main() -> int:
     check(st["launches"] == 3 * dedup_chunks,
           f"{st['launches']} launches != 3 x {dedup_chunks} dedup chunks")
     check(st_plain["launches"] == 0, "the plain backend launched the kernel")
+    print_profiled("CC path fold_backend=kernel",
+                   *profiled(torch, lambda: run_path("kernel")))
 
     del labels, labels_plain, oracle
 
@@ -375,27 +430,65 @@ def main() -> int:
           f"wedge kernel != plain version (max abs err {w_err})")
     nnz = int(m.sum())
     del w_kernel
+    # The work this mask needs: upper tiles, live k-blocks only.
+    flags = kernels.wedge_block_flags_plain(m)
+    wedge_ops = kernels.wedge_needed_ops(flags)
+    triples = wedge_ops // (2 * kernels.TILE ** 3)
+    live_blocks = int(flags.sum())
+    del flags
     lib_name, wedge_lib_ms, lib_lines = library_yardstick(
         torch, m, w_plain, device)
     del w_plain
     torch.cuda.empty_cache()
     wedge_ms = time_ms(torch, lambda: kernels.wedge_count_matrix(m), device,
                        reps=WEDGE_REPS, warmup=1)
+    prepass_ms = time_ms(torch, lambda: kernels.wedge_block_prepass(m),
+                         device, reps=WEDGE_REPS, warmup=1)
     wedge_plain_ms = time_ms(
         torch, lambda: kernels.wedge_count_matrix_plain(m), device,
         reps=WEDGE_REPS, warmup=1)
-    ops_ms = 2 * TRI_N ** 3 / INT8_OPS_PER_S * 1e3
+    ops_ms = wedge_ops / INT8_OPS_PER_S * 1e3
+    dense_ops_ms = 2 * TRI_N ** 3 / INT8_OPS_PER_S * 1e3
     bytes_ms = 5 * TRI_N ** 2 / HBM_BYTES_PER_S * 1e3
     wedge_bound_ms = max(ops_ms, bytes_ms)
     wedge_bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+    dense_bound_ms = max(dense_ops_ms, bytes_ms)
     for line in lib_lines:
         print(f"  library candidate {line}")
+    # Shared-memory fill of the tile kernel: two Mt tiles a live triple,
+    # one on the diagonal tiles.
+    fill_tbps = (triples * 2 * kernels.TILE ** 2 / ((wedge_ms - prepass_ms)
+                                                    * 1e-3) / 1e12)
     print(f"kernel wedge_count_matrix: N={TRI_N} mask nnz={nnz} exact=True "
-          f"kernel_ms={wedge_ms:.6f} plain_ms={wedge_plain_ms:.6f} "
+          f"kernel_ms={wedge_ms:.6f} prepass_ms={prepass_ms:.6f} "
+          f"(share {prepass_ms / wedge_ms:.4f}) "
+          f"plain_ms={wedge_plain_ms:.6f} "
           f"library_ms={wedge_lib_ms:.6f} ({lib_name}) "
-          f"bound_ms={wedge_bound_ms:.6f} ({wedge_bound_by}: 2N^3 ops / "
-          f"{INT8_OPS_PER_S:.4g} vs 5N^2 bytes / {HBM_BYTES_PER_S:.4g})")
+          f"bound_ms={wedge_bound_ms:.6f} ({wedge_bound_by}: {triples} live "
+          f"block triples of {live_blocks} live blocks = {wedge_ops} ops / "
+          f"{INT8_OPS_PER_S:.4g} vs 5N^2 bytes / {HBM_BYTES_PER_S:.4g}) "
+          f"dense_bound_ms={dense_bound_ms:.6f} (2N^3 ops) "
+          f"tile_fill_TBps<={fill_tbps:.3f}")
     del m
+    torch.cuda.empty_cache()
+
+    # A dense random mask: every block live, so every k-block is summed and
+    # every off-diagonal tile mirrored.
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    m_dense = torch.rand((DENSE_N, DENSE_N), generator=gen,
+                         device=device) < 0.3
+    check(bool(kernels.wedge_block_flags_plain(m_dense).all()),
+          "the dense check mask has a dead block")
+    w_dense = kernels.wedge_count_matrix(m_dense)
+    torch.cuda.synchronize()
+    w_dense_plain = kernels.wedge_count_matrix_plain(m_dense)
+    dense_err = float((w_dense - w_dense_plain).abs().max())
+    check(torch.equal(w_dense, w_dense_plain),
+          f"wedge kernel != plain version on the dense N={DENSE_N} mask "
+          f"(max abs err {dense_err})")
+    print(f"kernel wedge_count_matrix: dense random N={DENSE_N} mask "
+          f"exact=True")
+    del m_dense, w_dense, w_dense_plain
     torch.cuda.empty_cache()
 
     # Host side alone (window assembly, dedup, packing): how much of the
@@ -451,6 +544,11 @@ def main() -> int:
     check(tri_launches > 0, "the triangle path launched no wedge kernel")
     check(tri_launches == expect,
           f"{tri_launches} wedge launches != {expect} kernel windows")
+    print_profiled("triangle path", *profiled(torch, lambda: torch.stack([
+        c for _, c in tri.window_triangle_counts_batched(
+            tri_stream(), TRI_WINDOW_MS,
+            window_capacity=TRI_WINDOW_CAPACITY, method="auto",
+            batch=TRI_BATCH)]).cpu()))
 
     # 7. result lines
     print(json.dumps({"kernels": [{
@@ -471,12 +569,16 @@ def main() -> int:
         "source": "gelly_torch/csrc/wedge_count_matrix.cu",
         "replaces": "gelly_tpu/ops/pallas_kernels.py:69",
         "launches": tri_launches,
-        "max_abs_err": w_err,
+        "max_abs_err": max(w_err, dense_err),
         "ms": wedge_ms,
         "plain_ms": wedge_plain_ms,
         "bound_ms": wedge_bound_ms,
         "bound_by": wedge_bound_by,
         "library_ms": wedge_lib_ms,
+        "dense_bound_ms": dense_bound_ms,
+        "live_block_triples": triples,
+        "prepass_ms": prepass_ms,
+        "prepass_share": prepass_ms / wedge_ms,
     }]}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ compiled on first use with ``nvcc`` into ``gelly_torch/_build/lib<name>.so``
 (a shared library that does not include PyTorch's headers, so a build takes
 seconds), then loaded with ``ctypes``. Nothing here runs at import time.
 
-A library is rebuilt when its source is newer than it. Builds write to a
+A library is rebuilt when its source, or any shared header
+``csrc/*.cuh``, is newer than it. Builds write to a
 temporary name and ``os.replace`` it into place, so concurrent processes
 never load a half-written library.
 """
@@ -40,7 +41,10 @@ SIGNATURES = {
         "sorted_window_gather_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
     "wedge_count_matrix": {
-        "wedge_count_matrix_launch": ([_P, _P, ctypes.c_int, _P], ctypes.c_int),
+        "wedge_count_matrix_launch": (
+            [_P, _P, _P, _P, ctypes.c_int, _P], ctypes.c_int),
+        "wedge_count_matrix_prepass": (
+            [_P, _P, _P, ctypes.c_int, _P], ctypes.c_int),
         "wedge_count_matrix_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
 }
@@ -77,8 +81,13 @@ def _paths(name: str) -> tuple[str, str]:
 
 
 def _fresh(name: str) -> bool:
+    """Is the library newer than its source and every shared header?"""
     src, lib = _paths(name)
-    return os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(src)
+    if not os.path.exists(lib):
+        return False
+    deps = [src] + [os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                    if f.endswith(".cuh")]
+    return os.path.getmtime(lib) >= max(os.path.getmtime(d) for d in deps)
 
 
 def build_all(names=None, force: bool = False) -> list[BuildResult]:

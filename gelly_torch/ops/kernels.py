@@ -2,11 +2,15 @@
 
 Counterpart of ``gelly_tpu/ops/pallas_kernels.py``, both of its kernels:
 
-- :func:`wedge_count_matrix` — the wrapper of the CUDA kernel
+- :func:`wedge_count_matrix` — the wrapper of the CUDA kernels
   ``csrc/wedge_count_matrix.cu`` (replacing the Pallas ``_wedge_kernel``):
-  ``W = MᵀM`` for the window-triangle wedge mask. On a CPU tensor it runs
+  ``W = MᵀM`` for the window-triangle wedge mask, on the tensor cores,
+  upper tiles only and live k-blocks only. On a CPU tensor it runs
   :func:`wedge_count_matrix_plain`; on a CUDA tensor it launches the
-  kernel or raises. ``wedge_count_matrix.launches`` counts launches.
+  kernels or raises. ``wedge_count_matrix.launches`` counts launches.
+  :func:`wedge_tile_schedule`, :func:`wedge_block_flags_plain` and
+  :func:`wedge_needed_ops` state the tile order, the block flags and the
+  work the kernel does, in plain PyTorch.
 - :func:`sorted_window_gather` — the wrapper of the CUDA kernel
   ``csrc/sorted_window_gather.cu`` (replacing the Pallas
   ``_sorted_gather_kernel``). On a CPU tensor it runs
@@ -28,63 +32,147 @@ import torch
 
 # Output tile edge of the wedge kernel; the mask's side must be a multiple.
 TILE = 128
+# Largest tile count per side the kernel takes (N <= 131072).
+WEDGE_MAX_TILES = 1024
+# Mask types whose bytes the kernel reads as they are (0/1 entries).
+WEDGE_MASK_DTYPES = (torch.bool, torch.uint8, torch.int8)
 
 
 def _check_wedge_mask(m: torch.Tensor) -> int:
     """Side ``n`` of a square wedge mask; raises like the reference on a
     side that is not a multiple of :data:`TILE`.
 
-    The reference casts any input to f32; the port takes ``bool`` only
-    (its stated contract) and raises ``TypeError`` otherwise."""
+    The reference casts any input to f32. The port takes one-byte masks
+    (``bool``, ``uint8``, ``int8``) with 0/1 entries, the bytes its kernel
+    reads, and raises ``TypeError`` on any other type."""
     if m.ndim != 2 or m.shape[0] != m.shape[1]:
         raise ValueError(f"wedge mask must be square, got shape {tuple(m.shape)}")
     n = m.shape[0]
     if n % TILE:
         raise ValueError(f"wedge matrix size {n} not a multiple of {TILE}")
-    if m.dtype != torch.bool:
-        raise TypeError(f"wedge_count_matrix takes a bool mask, got {m.dtype}")
+    if m.dtype not in WEDGE_MASK_DTYPES:
+        raise TypeError(
+            f"wedge_count_matrix takes a bool, uint8 or int8 mask, got {m.dtype}")
     return n
 
 
 def wedge_count_matrix_plain(m: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of :func:`wedge_count_matrix` on any device:
-    an f32 product, exact for 0/1 entries while counts stay below 2^24."""
+    the mask cast to f32 as the reference casts it, and an f32 product,
+    exact for 0/1 entries while counts stay below 2^24."""
     _check_wedge_mask(m)
     mf = m.to(torch.float32)
     return mf.T @ mf
 
 
-def wedge_count_matrix(m: torch.Tensor) -> torch.Tensor:
-    """``W = MᵀM`` in f32 for a square bool wedge mask ``M[u, x]`` whose
-    side is a multiple of 128: ``W[a, b]`` counts the rows ``u`` set in
-    both columns ``a`` and ``b`` (common smaller neighbours of ``a`` and
-    ``b``), the whole matrix, as the reference's Pallas kernel writes it.
+def wedge_tile_schedule(t: int) -> torch.Tensor:
+    """The kernel's upper tiles ``(i, j)``, ``i <= j``, of a ``t x t`` tile
+    grid, in launch order (``int64 [t(t+1)/2, 2]``): rows of descending
+    ``i``, each row by ascending ``j``. Block ``b`` of the kernel takes
+    row ``q`` from the bottom with ``q(q+1)/2 <= b < (q+1)(q+2)/2``.
 
-    A CPU mask runs :func:`wedge_count_matrix_plain`; a CUDA mask (which
-    must be contiguous) launches the kernel, counted in
-    ``wedge_count_matrix.launches``, or raises.
-    """
+    Tile ``(i, j)`` of a triangular (``triu``) mask has at most ``i + 1``
+    live k-blocks, so the heaviest tiles come first."""
+    b = torch.arange(t * (t + 1) // 2, dtype=torch.int64)
+    q = ((torch.sqrt((8 * b + 1).double()) - 1) / 2).floor().long()
+    q += ((q + 1) * (q + 2) // 2 <= b).long()  # exact past float rounding
+    q -= (q * (q + 1) // 2 > b).long()
+    i = t - 1 - q
+    return torch.stack([i, i + b - q * (q + 1) // 2], dim=1)
+
+
+def wedge_block_flags_plain(m: torch.Tensor) -> torch.Tensor:
+    """``flags[k, i]``: does the ``128 x 128`` block of rows ``128k..`` and
+    columns ``128i..`` of the mask hold a nonzero entry? (``bool [t, t]``,
+    ``t = n / 128``, on the mask's device.) The kernel's pre-pass computes
+    the same flags, and tile ``(i, j)`` sums only the k-blocks with
+    ``flags[k, i] & flags[k, j]``."""
     n = _check_wedge_mask(m)
-    if m.device.type == "cpu":
-        return wedge_count_matrix_plain(m)
+    t = n // TILE
+    nz = m if m.dtype == torch.bool else m != 0
+    return nz.reshape(t, TILE, t, TILE).any(dim=3).any(dim=1)
+
+
+def wedge_needed_ops(flags: torch.Tensor) -> int:
+    """Integer operations the kernel's tensor cores do for a mask with
+    block flags ``flags``: ``2 * 128^3`` for every live block triple
+    ``(k, i, j)``, ``i <= j``, ``flags[k, i] & flags[k, j]`` (the upper
+    tiles only, dead k-blocks skipped)."""
+    f = flags.to(torch.float64)
+    pairs = f.T @ f  # pairs[i, j] = live k-blocks of tile (i, j), exact
+    triples = int((pairs.sum() + pairs.trace()).item()) // 2
+    return 2 * TILE ** 3 * triples
+
+
+def _wedge_launch_args(m: torch.Tensor, n: int):
     if m.device.type != "cuda":
         raise ValueError(f"wedge_count_matrix runs on CPU or CUDA, got {m.device}")
     if not m.is_contiguous() or m.data_ptr() % 16:
         raise ValueError("wedge_count_matrix needs a contiguous, 16-byte "
                          "aligned mask")
-    out = torch.empty((n, n), dtype=torch.float32, device=m.device)
-    if n == 0:
-        return out
+    if n // TILE > WEDGE_MAX_TILES:
+        raise ValueError(f"wedge_count_matrix takes n <= "
+                         f"{WEDGE_MAX_TILES * TILE}, got {n}")
+    t = n // TILE
+    mt = torch.empty((n, n), dtype=torch.uint8, device=m.device)
+    flags = torch.empty((t, t), dtype=torch.uint8, device=m.device)
+    return mt, flags
+
+
+def _wedge_launch(entry: str, m: torch.Tensor, n: int, *scratch_and_out):
+    """Call the library's C entry ``entry`` on ``m`` and the given output
+    tensors, on the current stream of the mask's card; raises on a
+    refused launch."""
     from . import _build
 
     lib = _build.load("wedge_count_matrix")
     with torch.cuda.device(m.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.wedge_count_matrix_launch(m.data_ptr(), out.data_ptr(), n,
-                                           stream)
+        rc = getattr(lib, entry)(m.data_ptr(),
+                                 *(x.data_ptr() for x in scratch_and_out),
+                                 n, stream)
     if rc:
         msg = lib.wedge_count_matrix_error_string(rc).decode()
-        raise RuntimeError(f"wedge_count_matrix launch failed: {msg}")
+        raise RuntimeError(f"{entry} failed: {msg}")
+
+
+def wedge_block_prepass(m: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's pre-pass alone: ``(Mt, flags)`` with ``flags`` the
+    ``uint8 [t, t]`` block flags of :func:`wedge_block_flags_plain` and
+    ``Mt`` the ``uint8`` transpose of the mask, written on the live blocks
+    only (a dead block of ``Mt`` is never read). On a CPU mask the plain
+    version (a full transpose); on a CUDA mask the pre-pass kernel, which
+    is not counted in ``wedge_count_matrix.launches``. Used to time the
+    pre-pass's share of a launch."""
+    n = _check_wedge_mask(m)
+    if m.device.type == "cpu":
+        return (m.T.contiguous().to(torch.uint8),
+                wedge_block_flags_plain(m).to(torch.uint8))
+    mt, flags = _wedge_launch_args(m, n)
+    _wedge_launch("wedge_count_matrix_prepass", m, n, mt, flags)
+    return mt, flags
+
+
+def wedge_count_matrix(m: torch.Tensor) -> torch.Tensor:
+    """``W = MᵀM`` in f32 for a square one-byte wedge mask ``M[u, x]``
+    (``bool``, ``uint8`` or ``int8``, 0/1 entries) whose side is a
+    multiple of 128: ``W[a, b]`` counts the rows ``u`` set in both columns
+    ``a`` and ``b`` (common smaller neighbours of ``a`` and ``b``), the
+    whole matrix, as the reference's Pallas kernel writes it.
+
+    A CPU mask runs :func:`wedge_count_matrix_plain`; a CUDA mask (which
+    must be contiguous) launches the kernel pair (pre-pass and tile
+    kernel, with ``n^2 + (n/128)^2`` bytes of scratch), counted once in
+    ``wedge_count_matrix.launches``, or raises.
+    """
+    n = _check_wedge_mask(m)
+    if m.device.type == "cpu":
+        return wedge_count_matrix_plain(m)
+    mt, flags = _wedge_launch_args(m, n)
+    out = torch.empty((n, n), dtype=torch.float32, device=m.device)
+    if n == 0:
+        return out
+    _wedge_launch("wedge_count_matrix_launch", m, n, mt, flags, out)
     wedge_count_matrix.launches += 1
     return out
 

@@ -54,6 +54,34 @@ def test_kernel_equals_plain(cuda_device, n, L, window_rows, tile):
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("case", ["ragged-tile-100", "tile-6", "offset-view",
+                                  "negative"])
+def test_kernel_equals_plain_off_the_fast_path(cuda_device, case):
+    # Lane quads that straddle tiles, a sidx view at a 4-byte offset, and
+    # negative indices (which stay -1 misses) take the scalar path.
+    n, L = 1 << 16, 5003
+    rng = np.random.default_rng(len(case))
+    table = torch.from_numpy(rng.integers(0, n, n).astype(np.int32))
+    idx = torch.from_numpy(np.sort(rng.integers(0, n, L + 1)).astype(np.int32))
+    tile = {"ragged-tile-100": 100, "tile-6": 6}.get(case, 1024)
+    if case == "negative":
+        idx[:700] = torch.arange(-700, 0, dtype=torch.int32)
+    t, i = table.to(cuda_device), idx.to(cuda_device)
+    if case == "offset-view":
+        i, idx = i[1:], idx[1:]
+        assert i.data_ptr() % 16 == 4
+    got = kernels.sorted_window_gather(t, i, window_rows=4, tile=tile)
+    torch.cuda.synchronize()
+    want = kernels.sorted_window_gather_plain(table, idx, window_rows=4,
+                                              tile=tile)
+    assert torch.equal(got.cpu(), want)
+    assert bool((want >= 0).any())
+    if case != "tile-6":  # 6-lane tiles never leave their window pair
+        assert bool((want < 0).any())
+    if case == "negative":
+        assert bool((got[:699] == -1).all())
+
+
 def test_kernel_wrapper_rejects(cuda_device):
     t = torch.arange(1 << 12, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
@@ -102,6 +130,57 @@ def test_wedge_kernel_equals_plain(cuda_device, n, density):
     want = kernels.wedge_count_matrix_plain(m.cpu())
     assert got.dtype == torch.float32
     assert torch.equal(got.cpu(), want)
+
+
+def _structured_mask(n, kind, rng):
+    if kind == "upper":
+        return np.triu(rng.random((n, n)) < 0.3, k=1)
+    if kind == "block":  # one live 128 x 128 block
+        m = np.zeros((n, n), bool)
+        k, i = n // 128 - 1, max(0, n // 128 - 2)
+        m[k * 128:(k + 1) * 128, i * 128:(i + 1) * 128] = \
+            rng.random((128, 128)) < 0.3
+        return m
+    if kind == "rows":  # whole zero block rows
+        m = rng.random((n, n)) < 0.3
+        for k in range(0, n // 128, 2):
+            m[k * 128:(k + 1) * 128] = False
+        return m
+    return np.ones((n, n), bool)
+
+
+@pytest.mark.parametrize("kind,n", [
+    ("upper", 128), ("upper", 384), ("upper", 2048), ("block", 128),
+    ("block", 384), ("block", 1024), ("rows", 384), ("rows", 1024),
+    ("ones", 128), ("ones", 384), ("ones", 1024),
+])
+def test_wedge_kernel_skip_and_mirror_equal_plain(cuda_device, kind, n):
+    m = _structured_mask(n, kind, np.random.default_rng(n + len(kind)))
+    tm = torch.from_numpy(m).to(cuda_device)
+    got = kernels.wedge_count_matrix(tm)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), kernels.wedge_count_matrix_plain(
+        torch.from_numpy(m)))
+    # The pre-pass: flags equal the plain flags, Mt the transpose on every
+    # live block (dead blocks of Mt are never written).
+    mt, flags = kernels.wedge_block_prepass(tm)
+    torch.cuda.synchronize()
+    want_flags = kernels.wedge_block_flags_plain(torch.from_numpy(m))
+    assert torch.equal(flags.cpu().bool(), want_flags)
+    mt = mt.cpu()
+    for k, i in want_flags.nonzero().tolist():
+        assert torch.equal(
+            mt[i * 128:(i + 1) * 128, k * 128:(k + 1) * 128].bool(),
+            torch.from_numpy(m[k * 128:(k + 1) * 128,
+                               i * 128:(i + 1) * 128]).T)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int8])
+def test_wedge_kernel_int_mask_equals_plain(cuda_device, dtype):
+    m = torch.from_numpy(np.random.default_rng(9).random((512, 512)) < 0.2)
+    got = kernels.wedge_count_matrix(m.to(dtype).to(cuda_device))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), kernels.wedge_count_matrix_plain(m))
 
 
 def test_window_triangles_on_card_equals_cpu(cuda_device):

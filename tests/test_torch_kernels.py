@@ -6,11 +6,14 @@ tensors; the JAX side runs the Pallas kernel in interpret mode, as
 outputs, ``-1`` (window-miss) lanes included.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from gelly_torch.ops import _build
 from gelly_torch.ops import kernels as tk
 from gelly_tpu.ops import pallas_kernels as pk
 
@@ -140,3 +143,31 @@ def test_negative_index_divergence_is_a_miss():
     idx = np.array([-200, -5, 0, 3], np.int32)
     assert _torch_gather(table, idx).tolist() == [-1, -1, 7, 10]
     assert _jax_gather(table, idx).tolist() == [-1, 0, 7, 10]
+
+
+def test_build_freshness_follows_source_and_shared_headers(tmp_path,
+                                                           monkeypatch):
+    # No nvcc needed: only modification times are compared.
+    csrc, build = tmp_path / "csrc", tmp_path / "_build"
+    csrc.mkdir()
+    build.mkdir()
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(build))
+
+    def touch(path, t):
+        path.write_text("")
+        os.utime(path, (t, t))
+
+    touch(csrc / "k.cu", 100)
+    assert not _build._fresh("k")  # no library yet
+    touch(build / "libk.so", 200)
+    assert _build._fresh("k")
+    touch(csrc / "hopper.cuh", 300)  # a shared header changed
+    assert not _build._fresh("k")
+    touch(build / "libk.so", 400)
+    assert _build._fresh("k")
+    touch(csrc / "k.cu", 500)
+    assert not _build._fresh("k")
+    touch(csrc / "other.cu", 600)  # another library's source
+    touch(build / "libk.so", 550)
+    assert _build._fresh("k")

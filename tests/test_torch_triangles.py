@@ -84,11 +84,23 @@ def _mask(n, kind):
         return np.ones((n, n), bool)
     if kind == "upper":
         return np.triu(rng.random((n, n)) < 0.3, k=1)
+    if kind == "block":  # one live 128 x 128 block, the last one
+        m = np.zeros((n, n), bool)
+        m[-128:, -128:] = rng.random((128, 128)) < 0.3
+        return m
+    if kind == "rows":  # whole zero block rows (every other one)
+        m = rng.random((n, n)) < 0.3
+        for k in range(0, n // tk.TILE, 2):
+            m[k * tk.TILE:(k + 1) * tk.TILE] = False
+        return m
     return rng.random((n, n)) < float(kind)
 
 
-@pytest.mark.parametrize("kind", ["0.01", "0.1", "0.5", "zeros", "ones",
-                                  "upper"])
+MASK_KINDS = ["0.01", "0.1", "0.5", "zeros", "ones", "upper", "block",
+              "rows"]
+
+
+@pytest.mark.parametrize("kind", MASK_KINDS)
 @pytest.mark.parametrize("n", [128, 256, 384])
 def test_wedge_count_matrix_equals_pallas(n, kind):
     m = _mask(n, kind)
@@ -113,15 +125,95 @@ def test_wedge_size_not_multiple_of_tile_raises_in_both(n):
             fn(torch.from_numpy(m))
 
 
-def test_wedge_non_bool_mask_divergence_is_a_type_error():
-    # ROADMAP queue 3: the reference casts any mask to f32 and counts;
-    # the port takes bool only (the stated contract) and raises.
-    m = (np.random.default_rng(3).random((128, 128)) < 0.2).astype(np.uint8)
+@pytest.mark.parametrize("dtype", ["uint8", "int8"])
+def test_wedge_int_mask_equals_pallas(dtype):
+    # The reference casts any mask to f32; the port takes one-byte masks
+    # (0/1 entries) and counts them exactly as the reference does.
+    m = (np.random.default_rng(3).random((256, 256)) < 0.2).astype(dtype)
     want = np.asarray(pk.wedge_count_matrix(jnp.asarray(m), interpret=True))
     assert want.sum() > 0
     for fn in (tk.wedge_count_matrix, tk.wedge_count_matrix_plain):
-        with pytest.raises(TypeError, match="bool"):
-            fn(torch.from_numpy(m))
+        got = fn(torch.from_numpy(m))
+        assert got.dtype == torch.float32
+        assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_wedge_wide_mask_is_a_type_error(dtype):
+    m = torch.ones((128, 128), dtype=dtype)
+    for fn in (tk.wedge_count_matrix, tk.wedge_count_matrix_plain):
+        with pytest.raises(TypeError, match="uint8 or int8"):
+            fn(m)
+
+
+@pytest.mark.parametrize("t", [1, 2, 3, 8])
+def test_wedge_tile_schedule_upper_tiles_once_heavy_first(t):
+    sched = tk.wedge_tile_schedule(t)
+    assert sched.dtype == torch.int64 and sched.shape == (t * (t + 1) // 2, 2)
+    tiles = [tuple(x) for x in sched.tolist()]
+    assert sorted(tiles) == [(i, j) for i in range(t) for j in range(i, t)]
+    # A triu mask gives tile (i, j) at most min(i, j) + 1 = i + 1 live
+    # k-blocks: that bound never rises along the launch order.
+    bound = [i + 1 for i, _ in tiles]
+    assert bound == sorted(bound, reverse=True)
+    assert tiles[0] == (t - 1, t - 1) and tiles[-1] == (0, t - 1)
+
+
+def _brute_flags(m):
+    t = m.shape[0] // tk.TILE
+    return np.array([[m[k * tk.TILE:(k + 1) * tk.TILE,
+                        i * tk.TILE:(i + 1) * tk.TILE].any()
+                      for i in range(t)] for k in range(t)])
+
+
+@pytest.mark.parametrize("kind", MASK_KINDS)
+@pytest.mark.parametrize("n", [256, 384])
+def test_wedge_block_flags_and_ops_equal_brute_force(n, kind):
+    m = _mask(n, kind)
+    t = n // tk.TILE
+    want = _brute_flags(m)
+    flags = tk.wedge_block_flags_plain(torch.from_numpy(m))
+    assert flags.dtype == torch.bool and np.array_equal(flags.numpy(), want)
+    triples = sum(int(want[k, i] and want[k, j])
+                  for i in range(t) for j in range(i, t) for k in range(t))
+    assert tk.wedge_needed_ops(flags) == 2 * tk.TILE ** 3 * triples
+    if kind == "upper":  # blocks below the block diagonal are dead
+        assert not np.tril(want, -1).any()
+    # The pre-pass's plain version: flags as bytes, Mt the transpose.
+    mt, f8 = tk.wedge_block_prepass(torch.from_numpy(m))
+    assert f8.dtype == mt.dtype == torch.uint8
+    assert np.array_equal(f8.numpy(), want)
+    assert np.array_equal(mt.numpy(), m.T)
+
+
+def _wedge_tiled(m):
+    """W assembled as the kernel assembles it: upper tiles in schedule
+    order, dead k-blocks skipped, off-diagonal tiles mirrored."""
+    n = m.shape[0]
+    t, b = n // tk.TILE, tk.TILE
+    tm = torch.from_numpy(m)
+    flags = tk.wedge_block_flags_plain(tm)
+    mt = tm.T.to(torch.int64)
+    w = torch.full((n, n), -1, dtype=torch.int64)  # -1: never written
+    for i, j in tk.wedge_tile_schedule(t).tolist():
+        acc = torch.zeros((b, b), dtype=torch.int64)
+        for k in range(t):
+            if flags[k, i] and flags[k, j]:
+                acc += (mt[i * b:(i + 1) * b, k * b:(k + 1) * b]
+                        @ mt[j * b:(j + 1) * b, k * b:(k + 1) * b].T)
+        w[i * b:(i + 1) * b, j * b:(j + 1) * b] = acc
+        if i != j:
+            w[j * b:(j + 1) * b, i * b:(i + 1) * b] = acc.T
+    assert int(w.min()) >= 0
+    return w.to(torch.float32)
+
+
+@pytest.mark.parametrize("kind", MASK_KINDS)
+@pytest.mark.parametrize("n", [128, 384])
+def test_wedge_tiled_skip_and_mirror_equal_pallas(n, kind):
+    m = _mask(n, kind)
+    want = np.asarray(pk.wedge_count_matrix(jnp.asarray(m), interpret=True))
+    assert np.array_equal(_wedge_tiled(m).numpy(), want)
 
 
 def test_wedge_launches_stay_zero_on_cpu():
