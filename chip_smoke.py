@@ -39,13 +39,32 @@ Phases (any failure exits nonzero and prints no result line):
    the card (``((A @ A) * A).sum() / 6`` of the window's simple undirected
    adjacency), and the kernel's launch count must equal the number of
    windows whose group picked the kernel (counted independently);
-7. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
+7. compact CC path (``bench.py:bench_cc_large``'s call): ``2^28`` Zipf edges
+   (seed 17) over ``2^24`` slots in ``2^20``-edge chunks through
+   ``connected_components(2^24, merge="gather", codec="compact",
+   compact_capacity=2^23)`` with ``merge_every=64`` and ``fold_batch=16``
+   (the native unit codec built from ``native/chunk_combiner.cc`` with
+   ``g++``; default codec workers, ``prefetch_depth`` and ``h2d_depth``): a
+   warm-up on the first 16 chunks, then two timed runs, each with its
+   wall, edges/s, stage busy seconds, host syncs per unit, peak device
+   memory, wire bytes per edge and ``session.assigned``; the host codec
+   alone (unit builder, id session and stacker, no device) with 1 worker
+   and with the pipeline's worker count. Checks: the segments wire and
+   its fold were taken; 4 emissions of ``int32[2^24]``, each equal to the
+   raw plan's (``2^22``-edge chunks, ``merge_every=16``) at the same
+   boundary; the final labels equal the scipy oracle;
+   ``session.assigned`` equals the seen slots; on the first ``2^26``
+   edges, the pairs wire and the sparse plan (``connected_components(2^24)``,
+   which folds with ``union_pairs_compact``) equal the first emission.
+   The path launches neither hand-written kernel (counted);
+8. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 
 After the checks of each path, one more run of it under ``torch.profiler``
-prints the device's busy time and idle share (the profiler's cost is in
-that run's wall, so its wall is not the path's).
+prints the device's busy time, idle share and the five device ops that
+took the most time (the profiler's cost is in that run's wall, so its
+wall is not the path's).
 
-Needs one CUDA card, ``nvcc`` and scipy; imports nothing of JAX.
+Needs one CUDA card, ``nvcc``, ``g++`` and scipy; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -77,6 +96,16 @@ TRI_CHUNK = 1 << 20
 TRI_BATCH = 4
 WEDGE_REPS = 5
 DENSE_N = 4096  # the dense random wedge check
+
+# The compact CC path: bench.py:bench_cc_large (streaming_cc_large) at its
+# full size, 2^28 edges in 2^20-edge chunks, 4 windows of 2^26 edges.
+CC_EDGES = 1 << 28
+CC_CHUNK = 1 << 20
+CC_MERGE_EVERY = 64
+CC_FOLD_BATCH = 16
+CC_COMPACT = 1 << 23
+CC_RAW_MERGE_EVERY = 16  # 2^22-edge raw chunks: the same 2^26 boundaries
+CC_PREFIX = 1 << 26  # one window: the pairs wire and the sparse plan
 
 
 def check(cond, msg: str) -> None:
@@ -155,10 +184,11 @@ def triangle_oracle(torch, a, b, device) -> int:
 
 
 def profiled(torch, fn):
-    """(wall_s, device_busy_s, spans) of one run of ``fn`` under
+    """(wall_s, device_busy_s, spans, top) of one run of ``fn`` under
     ``torch.profiler``: busy is the union of the device's kernel and copy
-    intervals (``None`` when the profiler recorded no device activity).
-    The profiler's own cost is in the wall."""
+    intervals (``None`` when the profiler recorded no device activity),
+    ``top`` the five device ops with the most summed time, as
+    ``(name, seconds, count)``. The profiler's own cost is in the wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -169,10 +199,16 @@ def profiled(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     if not spans:
-        return wall, None, 0
+        return wall, None, 0, []
+    per_op: dict = {}
+    for e in events:
+        t, c = per_op.get(e.name, (0.0, 0))
+        per_op[e.name] = (t + (e.time_range.end - e.time_range.start), c + 1)
+    top = sorted(((name, t * 1e-6, c) for name, (t, c) in per_op.items()),
+                 key=lambda x: -x[1])[:5]
     busy, (lo, hi) = 0.0, spans[0]
     for s, e in spans[1:]:
         if s > hi:
@@ -181,15 +217,19 @@ def profiled(torch, fn):
         else:
             hi = max(hi, e)
     busy += hi - lo
-    return wall, busy * 1e-6, len(spans)
+    return wall, busy * 1e-6, len(spans), top
 
 
-def print_profiled(name, wall, busy, spans) -> None:
+def print_profiled(name, wall, busy, spans, top) -> None:
     if busy is None:
         print(f"profiled {name}: wall={wall:.4f} s, device time not recorded")
         return
     print(f"profiled {name}: wall={wall:.4f} s device_busy={busy:.4f} s "
           f"({spans} device spans) idle_share={1 - busy / wall:.4f}")
+    for op, t, c in top:
+        if len(op) > 200:  # template arguments: keep both ends
+            op = f"{op[:110]} ... {op[-80:]}"
+        print(f"  top device op {t:.6f} s in {c} spans: {op}")
 
 
 def library_yardstick(torch, m, want, device):
@@ -233,6 +273,180 @@ def library_yardstick(torch, m, want, device):
             best = (name, ms)
     check(best is not None, f"no exact library call for MᵀM: {lines}")
     return best[0], best[1], lines
+
+
+def compact_cc_phase(torch, device) -> None:
+    """Phase 7: the compact CC plan at bench_cc_large's full size."""
+    from gelly_torch.core.io import EdgeChunkSource
+    from gelly_torch.core.stream import edge_stream_from_source
+    from gelly_torch.core.vertices import IdentityVertexTable
+    from gelly_torch.engine.aggregation import available_cores
+    from gelly_torch.library import connected_components as cc
+    from gelly_torch.ops import kernels, unionfind
+    from gelly_torch.utils import native
+    from gelly_torch.utils.prefetch import prefetch_map
+
+    t0 = time.perf_counter()
+    check(native.unit_segments_available(),
+          "the native unit codec did not build or load")
+    print(f"native chunk_combiner: g++ build and load "
+          f"{time.perf_counter() - t0:.2f} s -> "
+          f"{os.path.relpath(native.library_path('chunk_combiner'))}")
+    t0 = time.perf_counter()
+    src, dst = synth_edges(CC_EDGES, N_VERTICES, SEED)
+    print(f"compact stream: {CC_EDGES} Zipf edges over {N_VERTICES} slots "
+          f"(seed {SEED}) in {time.perf_counter() - t0:.2f} s")
+
+    def source(n_edges, chunk):
+        return EdgeChunkSource(src[:n_edges], dst[:n_edges],
+                               chunk_size=chunk,
+                               table=IdentityVertexTable(N_VERTICES))
+
+    def compact_plan():
+        return cc.connected_components(
+            N_VERTICES, merge="gather", codec="compact",
+            compact_capacity=CC_COMPACT)
+
+    def run(agg, n_edges, chunk=CC_CHUNK, merge_every=CC_MERGE_EVERY,
+            fold_batch=CC_FOLD_BATCH, pull=True):
+        stream = edge_stream_from_source(source(n_edges, chunk), N_VERTICES,
+                                         device=device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        kernels.sorted_window_gather.launches = 0
+        kernels.wedge_count_matrix.launches = 0
+        unionfind.host_sync.count = 0
+        t = time.perf_counter()
+        res = stream.aggregate(agg, merge_every=merge_every,
+                               fold_batch=fold_batch)
+        out = list(res)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        stats = {
+            "wall_s": wall, "edges_per_s": n_edges / wall,
+            "busy": res.timer.busy(), "units": res.stats["units"],
+            "host_syncs": unionfind.host_sync.count,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(device),
+            "wire_bytes": res.stats["h2d_bytes"],
+            "launches": (kernels.sorted_window_gather.launches,
+                         kernels.wedge_count_matrix.launches),
+        }
+        return [x.cpu().numpy() for x in out] if pull else out, stats
+
+    def report(name, st, n_edges, agg=None):
+        busy = " ".join(f"{k}={v:.4f}" for k, v in sorted(st["busy"].items()))
+        extra = (f" session.assigned={agg.session.assigned}"
+                 if agg is not None and hasattr(agg, "session") else "")
+        print(f"{name}: {st['edges_per_s']:.1f} edges/s "
+              f"wall={st['wall_s']:.4f} s units={st['units']} "
+              f"host_syncs/unit={st['host_syncs'] / max(st['units'], 1):.3f} "
+              f"peak_mem={st['peak_mem_bytes']} B "
+              f"wire_bytes/edge={st['wire_bytes'] / n_edges:.4f} "
+              f"gather/wedge launches={st['launches']}{extra}")
+        print(f"  stage busy s: {busy}")
+
+    agg = compact_plan()
+    check(agg.wire == "segments"
+          and agg.fold_compressed.__name__ == "fold_segments"
+          and agg.stack_payloads.__name__ == "stack_segments",
+          f"the compact plan took the {agg.wire} wire, not segments")
+    workers = min(available_cores(), 8)
+    print(f"compact plan: wire={agg.wire} fold={agg.fold_compressed.__name__}"
+          f" codec_workers={workers} available_cores={available_cores()} "
+          f"torch_threads={torch.get_num_threads()}")
+
+    warm, st = run(compact_plan(), CC_FOLD_BATCH * CC_CHUNK)
+    report("compact warm-up (16 chunks)", st, CC_FOLD_BATCH * CC_CHUNK)
+    del warm
+    runs = []
+    for i in range(2):
+        labels, st = run(agg, CC_EDGES)
+        report(f"compact path run {i + 1}", st, CC_EDGES, agg)
+        check(st["launches"] == (0, 0), "the compact path launched a kernel")
+        runs.append((labels, st, agg.session.assigned))
+    labels, st, assigned = runs[0]
+
+    # Checks: the emissions, the raw plan at the same boundaries, scipy.
+    n_windows = CC_EDGES // (CC_MERGE_EVERY * CC_CHUNK)
+    check(len(labels) == n_windows, f"{len(labels)} compact emissions")
+    for i, lab in enumerate(labels):
+        check(lab.dtype == np.int32 and lab.shape == (N_VERTICES,),
+              f"compact emission {i}: {lab.dtype} {lab.shape}")
+        check(np.array_equal(lab, runs[1][0][i]),
+              f"compact emission {i} differs between the two runs")
+    raw, raw_st = run(
+        cc.connected_components(N_VERTICES, merge="gather",
+                                ingest_combine=False, fold_backend="plain"),
+        CC_EDGES, chunk=CHUNK, merge_every=CC_RAW_MERGE_EVERY, fold_batch=1)
+    report("raw plan at the same boundaries", raw_st, CC_EDGES)
+    check(len(raw) == n_windows, f"{len(raw)} raw emissions")
+    for i, (a, b) in enumerate(zip(labels, raw)):
+        check(np.array_equal(a, b), f"compact emission {i} != raw plan's")
+    del raw
+    t0 = time.perf_counter()
+    oracle = scipy_oracle(src, dst, N_VERTICES)
+    check(np.array_equal(labels[-1], oracle),
+          "compact final labels != scipy oracle")
+    seen = int((labels[-1] >= 0).sum())
+    check(assigned == seen,
+          f"session.assigned {assigned} != {seen} seen slots")
+    print(f"oracle: scipy csgraph labels equal ({seen} seen slots = "
+          f"session.assigned, {int(np.unique(oracle[oracle >= 0]).size)} "
+          f"components) in {time.perf_counter() - t0:.2f} s")
+    del oracle
+
+    # The first window through the pairs wire and the sparse plan.
+    pairs = cc.connected_components_compact(
+        N_VERTICES, merge="gather", compact_capacity=CC_COMPACT,
+        wire="pairs")
+    check(pairs.fold_compressed.__name__ == "fold_compressed",
+          "the pairs plan did not take the pairs fold")
+    got, pst = run(pairs, CC_PREFIX)
+    report("pairs wire, first window", pst, CC_PREFIX, pairs)
+    check(len(got) == 1 and np.array_equal(got[0], labels[0]),
+          "pairs wire != segments wire on the first window")
+    sparse = cc.connected_components(N_VERTICES)
+    check(sparse.codec_pad_values == {"v": -1, "r": 0},
+          "connected_components(2^24) did not build the sparse plan")
+    got, sst = run(sparse, CC_PREFIX)
+    report("sparse plan (union_pairs_compact), first window", sst,
+           CC_PREFIX)
+    check(len(got) == 1 and np.array_equal(got[0], labels[0]),
+          "sparse plan != compact plan on the first window")
+    del got, labels, runs
+
+    # The host codec alone: unit builder, id session and stacker, no device
+    # (the timed runs' plan, so its id table is as warm as theirs).
+    def codec_alone(n_workers):
+        plan = agg
+        plan.on_run_start()
+        unit = CC_FOLD_BATCH
+
+        def units():
+            chunks = iter(source(CC_EDGES, CC_CHUNK))
+            for seq in range(CC_EDGES // (unit * CC_CHUNK)):
+                yield seq, [next(chunks) for _ in range(unit)]
+
+        def stage(item):
+            seq, group = item
+            payloads = [plan.host_compress(c) for c in group]
+            stacked = plan.stack_payloads(payloads, 1, seq=seq)
+            return sum(a.nbytes for a in stacked.values())
+
+        t = time.perf_counter()
+        wire = sum(prefetch_map(stage, units(), depth=max(2, n_workers),
+                                workers=n_workers))
+        return time.perf_counter() - t, wire
+
+    for n_workers in sorted({1, workers}):
+        dt, wire = codec_alone(n_workers)
+        print(f"host codec alone, {n_workers} worker(s): "
+              f"{CC_EDGES / dt:.1f} edges/s wall={dt:.4f} s "
+              f"wire_bytes/edge={wire / CC_EDGES:.4f} "
+              f"(share of run 1's wall: {dt / st['wall_s']:.4f})")
+
+    print_profiled("compact CC path", *profiled(
+        torch, lambda: run(agg, CC_EDGES, pull=False)))
 
 
 def main() -> int:
@@ -550,7 +764,13 @@ def main() -> int:
             window_capacity=TRI_WINDOW_CAPACITY, method="auto",
             batch=TRI_BATCH)]).cpu()))
 
-    # 7. result lines
+    del tsrc, tdst, tts, counts
+    torch.cuda.empty_cache()
+
+    # 7. the compact CC path
+    compact_cc_phase(torch, device)
+
+    # 8. result lines
     print(json.dumps({"kernels": [{
         "name": "sorted_window_gather",
         "route": "cuda",

@@ -2,28 +2,38 @@
 
 Counterpart of ``gelly_tpu/engine/aggregation.py``. An algorithm supplies
 the reference's plugin contract (``init``, ``fold``, ``combine``,
-``transform``, ``transient``) and the engine runs it. This slice runs one
-physical plan: **one device, ``merge_every`` windows, raw chunks, the
-accumulate plan** (``fold_accumulates`` and not ``transient``) — the plan
-``gelly_tpu`` picks for CC on a one-device mesh. Each chunk is staged to
-the stream's device and folded into ONE running summary; every
-``merge_every`` chunks, and once more at the end of the stream for a
-partial window, the engine yields ``transform(summary)``.
+``transform``, ``transient``, optionally an ingest codec) and the engine
+runs it. This slice runs the plan ``gelly_tpu`` picks on a one-device
+mesh: **one device, ``merge_every`` windows, the accumulate plan**
+(``fold_accumulates`` and not ``transient``), with raw chunks or codec
+payloads, through the pipelined executor::
 
-Where ``gelly_tpu`` donates the fold state to XLA, the port rebinds it:
-the fold returns new tensors and the old ones go back to PyTorch's caching
-allocator. An emission is a transform output or a clone, never a view of
-live state. The chunk copy is asynchronous (pinned host memory,
-``non_blocking``) in a plain in-order loop; the codec workers, the
-``h2d_depth`` pipeline, meshes, windows, checkpoints and tracing come with
-later slices, and asking for any of them raises ``NotImplementedError``.
+    produce -> [K codec workers: host compress + stack] -> [H2D thread]
+            -> [consumer: folds, one sync per window at merge_emit]
+
+Units of ``fold_batch`` chunks are numbered in stream order (ordered
+stackers take their stateful step in that order); the H2D thread copies
+each unit through a ring of reusable pinned buffers on a side stream,
+waiting on a slot's last copy event before it reuses the slot, and the
+consumer orders its fold after the copy on the device (``wait_event``),
+so it never blocks on an upload. Raw-chunk plans run the same stages
+inline by default. Where ``gelly_tpu`` donates the fold state to XLA, the
+port rebinds it: the fold returns new tensors. An emission is a transform
+output or a clone, never a view of live state. Meshes, event-time
+windows, pane rings, checkpoints, pre-compressed streams and source
+providers come with later slices; asking for any of them raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import threading
+import time
 from typing import Any, Callable, Iterator
 
+import numpy as np
 import torch
 
 from ..core.chunk import EdgeChunk
@@ -47,6 +57,30 @@ class SummaryAggregation:
       combine(a, fold(b, c))``: the engine may carry ONE running summary
       across windows (the accumulate plan).
     - ``fold_backend`` — the kernel backend the plan's folds were built for.
+
+    The ingest codec (both of the first two must be set to engage):
+
+    - ``host_compress(chunk) -> payload`` runs on a codec worker and
+      reduces a host chunk to a numpy payload;
+    - ``fold_compressed(summary, stacked_payload)`` folds a unit's stacked
+      payloads (tensors on the device, leading axis K);
+    - ``stack_payloads(payloads, groups[, seq=])`` stacks a unit's
+      variable-length payloads (None: equal shapes, ``np.stack``);
+    - ``stack_ordered`` — the stacker mutates per-run state in STREAM
+      order and takes ``seq=`` (units are numbered from 0 per run);
+    - ``on_stage_error(seq)`` — releases a failed unit's ordered turn;
+    - ``ordered_wait_s()`` — seconds stagers spent blocked in that turn
+      (moved from ``ingest_compress`` to a ``codec_wait`` stage);
+    - ``on_run_start()`` fires at the start of every run (fresh codec
+      state); ``on_resume(summary)`` is stored for the durability slice;
+    - ``requires_codec`` — the plan folds only through its codec;
+    - ``codec_pad_values`` / ``codec_payload_check`` — the payload's pad
+      values and an id-range validator for producer-compressed payloads.
+
+    ``device_fields`` names the chunk fields the raw ``fold`` reads (None:
+    all). The engine copies only those to the device, as ``gelly_tpu``'s
+    jit drops the arguments a fold never reads; the others stay host
+    tensors in the chunk the fold gets.
     """
 
     init: Callable[[torch.device], Summary]
@@ -55,10 +89,136 @@ class SummaryAggregation:
     transform: Callable[[Summary], Any] | None = None
     transient: bool = False
     merge_stacked: Callable[[Summary], Summary] | None = None
+    host_compress: Callable[[EdgeChunk], Any] | None = None
+    fold_compressed: Callable[[Summary, Any], Summary] | None = None
+    stack_payloads: Callable[..., Any] | None = None
+    codec_payload_check: Callable[[Any], None] | None = None
+    codec_pad_values: dict | None = None
+    stack_ordered: bool = False
+    on_stage_error: Callable[[int], None] | None = None
+    ordered_wait_s: Callable[[], float] | None = None
+    on_run_start: Callable[[], None] | None = None
+    on_resume: Callable[[Summary], None] | None = None
+    requires_codec: bool = False
+    device_fields: tuple[str, ...] | None = None
     flatten: Callable[[Summary], Summary] | None = None
     fold_accumulates: bool = False
     fold_backend: str = "plain"
     name: str = "aggregation"
+
+
+# Auto-codec threshold: below this slot-space size a dense per-chunk
+# payload (n_v * 4 bytes) is cheaper than touched-slot pairs.
+SPARSE_CODEC_MIN_CAPACITY = 1 << 20
+
+
+def available_cores() -> int:
+    """Cores this process may run on (affinity-aware)."""
+    try:
+        return len(os.sched_getaffinity(0)) or 1
+    except AttributeError:
+        return os.cpu_count() or 1
+
+
+def resolve_sparse_codec(codec: str, vertex_capacity: int) -> bool:
+    """Validate and resolve ``codec=`` ``"auto"``/``"dense"``/``"sparse"``
+    to a bool (sparse?)."""
+    if codec not in ("auto", "dense", "sparse"):
+        raise ValueError(f"codec must be auto/dense/sparse, got {codec}")
+    return codec == "sparse" or (
+        codec == "auto" and vertex_capacity >= SPARSE_CODEC_MIN_CAPACITY
+    )
+
+
+def group_combine_payloads(payloads: list, groups: int,
+                           combine_fn: Callable[[list], dict],
+                           empty_payload: dict) -> list:
+    """Merge a batch larger than ``groups`` down to exactly ``groups``
+    payloads (ceil-sized contiguous groups, padded with ``empty_payload``);
+    ``len(payloads) <= groups`` returns the list unchanged."""
+    if len(payloads) <= groups:
+        return payloads
+    size = -(-len(payloads) // groups)
+    combined = [
+        combine_fn(payloads[i:i + size])
+        for i in range(0, len(payloads), size)
+    ]
+    while len(combined) < groups:
+        combined.append(empty_payload)
+    return combined
+
+
+def bucket_stack_payloads(payloads: list, pad_values: dict,
+                          min_bucket: int = 1024,
+                          quantum: int | None = None,
+                          per_key: dict | None = None) -> dict:
+    """Stack variable-length dict payloads to a shared bucket.
+
+    Keys in ``pad_values`` are padded with their value to ``max(min_bucket,
+    next_pow2(longest))`` (or, with ``quantum``, the next multiple of
+    ``quantum``); ``per_key`` gives a key its own ``(min_bucket,
+    quantum)`` ladder. Other keys are stacked as-is.
+    """
+    def _cap(longest, mb, q):
+        if q:
+            return max(mb, -(-longest // q) * q)
+        return max(mb, 1 << max(0, longest - 1).bit_length())
+
+    per_key = per_key or {}
+    shared = [k for k in pad_values if k not in per_key]
+    longest = max(
+        (p[k].shape[0] for p in payloads for k in shared), default=0
+    )
+    caps = {k: _cap(longest, min_bucket, quantum) for k in shared}
+    for k, (mb, q) in per_key.items():
+        lk = max((p[k].shape[0] for p in payloads), default=0)
+        caps[k] = _cap(lk, mb, q)
+    out = {}
+    for key in payloads[0]:
+        if key in pad_values:
+            stacked = np.full(
+                (len(payloads), caps[key]), pad_values[key],
+                dtype=payloads[0][key].dtype,
+            )
+            for i, p in enumerate(payloads):
+                stacked[i, : p[key].shape[0]] = p[key]
+            out[key] = stacked
+        else:
+            out[key] = np.stack([p[key] for p in payloads])
+    return out
+
+
+def sparse_payload_id_check(vertex_capacity: int, *keys: str):
+    """A ``codec_payload_check`` that every listed key of a sparse codec
+    payload carries vertex ids in ``[0, vertex_capacity)``."""
+    def check(payload) -> None:
+        if not isinstance(payload, dict):
+            raise ValueError(
+                f"compressed payload must be a dict of arrays, got "
+                f"{type(payload).__name__} — was it compressed by a "
+                "different plan/codec?"
+            )
+        for key in keys:
+            if key not in payload:
+                raise ValueError(
+                    f"compressed payload is missing key {key!r} — was "
+                    "it compressed by a different plan/codec?"
+                )
+            a = np.asarray(payload[key])
+            if a.size == 0:
+                continue
+            lo, hi = int(a.min()), int(a.max())
+            if lo < 0 or hi >= vertex_capacity:
+                bad = lo if lo < 0 else hi
+                raise ValueError(
+                    f"compressed payload key {key!r} carries vertex id "
+                    f"{bad} out of range for vertex_capacity "
+                    f"{vertex_capacity} — compressed by a plan with a "
+                    "different capacity? (an out-of-range id would "
+                    "silently drop/clamp in the device scatter)"
+                )
+
+    return check
 
 
 class SummaryStream:
@@ -66,7 +226,8 @@ class SummaryStream:
 
     Iterating yields ``transform(summary)`` once per closed window (plus
     once at end of stream for a final partial window). ``result()`` drains
-    the stream and returns the last emission.
+    the stream and returns the last emission. ``timer`` holds the stage
+    busy seconds; ``stats`` the run's unit, chunk and H2D byte counts.
     """
 
     def __init__(self, gen_fn: Callable[[], Iterator]):
@@ -92,16 +253,9 @@ _NOT_YET = {
     "ttl_panes": (None, "queue 1 item 10 (stream API and windows)"),
     "checkpoint_path": (None, "queue 1 item 6 (durability)"),
     "resume": (False, "queue 1 item 6 (durability)"),
-    "prefetch_depth": (None, "queue 1 item 4 (pipelined executor)"),
-    "device_fields": (None, "queue 1 item 4 (pipelined executor)"),
     "host_precombine": (None, "queue 1 item 4 (pipelined executor)"),
-    "fold_batch": (1, "queue 1 item 4 (pipelined executor)"),
-    "ingest_workers": (None, "queue 1 item 4 (pipelined executor)"),
-    "codec_workers": (None, "queue 1 item 4 (pipelined executor)"),
-    "h2d_depth": (None, "queue 1 item 4 (pipelined executor)"),
-    "timer": (None, "queue 1 item 12 (host planes: obs)"),
     "source_provider": (None, "queue 1 item 12 (host planes: ingest)"),
-    "precompressed": (False, "queue 1 items 3 and 5 (host codec)"),
+    "precompressed": (False, "queue 1 item 12 (host planes: ingest)"),
     "queries": (None, "queue 1 item 11 (batched engines)"),
 }
 
@@ -128,43 +282,340 @@ def _fresh(emission):
     return emission
 
 
+def _flatten(payload):
+    """``(leaves, rebuild)`` of a payload: a dict (sorted keys), a
+    NamedTuple (its fields) or a single array."""
+    if isinstance(payload, dict):
+        keys = sorted(payload)
+        return ([(k, payload[k]) for k in keys],
+                lambda ls: dict(zip(keys, ls)))
+    if isinstance(payload, tuple):
+        fields = getattr(payload, "_fields", range(len(payload)))
+        return (list(zip(fields, payload)),
+                lambda ls: type(payload)(*ls))
+    return [("", payload)], lambda ls: ls[0]
+
+
+def _stack_tree(payloads: list):
+    """Generic stacker of equal-shape payloads (leading axis K)."""
+    leaves = [_flatten(p)[0] for p in payloads]
+    rebuild = _flatten(payloads[0])[1]
+    return rebuild([np.stack([np.asarray(ls[i][1]) for ls in leaves])
+                    for i in range(len(leaves[0]))])
+
+
+def _host_tensor(x) -> torch.Tensor:
+    return x if isinstance(x, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(x))
+
+
+class PinnedRing:
+    """Host-to-device staging through reusable pinned buffers.
+
+    ``slots`` buffers per payload key (``h2d_depth + 1`` in the engine),
+    taken in turn. :meth:`put` copies each host leaf into its slot's
+    pinned buffer, then issues the device copy on a side stream and
+    records one event for the unit; before a slot's buffers are written
+    again, the calling (H2D) thread waits on that slot's previous event.
+    The consumer orders its folds after the copy with a device-side
+    ``wait_event``, so it never blocks on an upload. Device tensors are
+    marked used by ``consumer`` (``record_stream``), so the caching
+    allocator does not hand their memory to the side stream while the
+    consumer's folds may still read it. Leaves named in ``skip`` stay on
+    the host. Off CUDA, :meth:`put` wraps the host arrays as CPU tensors
+    (no copy) and returns no event.
+    """
+
+    def __init__(self, device: torch.device, slots: int,
+                 consumer: "torch.cuda.Stream | None" = None):
+        self.device = device
+        self.slots = max(1, int(slots))
+        self.cuda = device.type == "cuda"
+        self.stream = torch.cuda.Stream(device) if self.cuda else None
+        self.consumer = consumer
+        self._bufs: dict = {}  # (key, slot) -> pinned uint8 tensor
+        self._events: list = [None] * self.slots
+        self._turn = 0
+        self.bytes = 0
+        self.reuses = 0  # slot writes that found an earlier copy's buffer
+
+    def _buffer(self, key, slot: int, nbytes: int) -> torch.Tensor:
+        buf = self._bufs.get((key, slot))
+        if buf is None or buf.numel() < nbytes:
+            # Headroom: bucketed payloads grow a quantum at a time.
+            buf = torch.empty(max(nbytes + nbytes // 4, 1 << 12),
+                              dtype=torch.uint8, pin_memory=True)
+            self._bufs[(key, slot)] = buf
+        return buf
+
+    def put(self, payload, skip: frozenset = frozenset()):
+        """``(device payload, event or None)`` of one staged unit."""
+        leaves, rebuild = _flatten(payload)
+        hosts = [(k, _host_tensor(x)) for k, x in leaves]
+        self.bytes += sum(h.numel() * h.element_size()
+                          for k, h in hosts if k not in skip)
+        if not self.cuda:
+            return rebuild([h for _, h in hosts]), None
+        slot = self._turn % self.slots
+        self._turn += 1
+        prev = self._events[slot]
+        if prev is not None:
+            self.reuses += 1
+            prev.synchronize()  # the slot's last copy has left its buffers
+        out = []
+        with torch.cuda.stream(self.stream):
+            for key, h in hosts:
+                if key in skip:
+                    out.append(h)
+                    continue
+                nbytes = h.numel() * h.element_size()
+                staged = self._buffer(key, slot, nbytes)[:nbytes]
+                staged = staged.view(h.dtype).view(h.shape)
+                staged.copy_(h)
+                dev = torch.empty(h.shape, dtype=h.dtype, device=self.device)
+                dev.copy_(staged, non_blocking=True)
+                if self.consumer is not None:
+                    dev.record_stream(self.consumer)
+                out.append(dev)
+            event = torch.cuda.Event()
+            event.record(self.stream)
+        self._events[slot] = event
+        return rebuild(out), event
+
+
 def run_aggregation(agg: SummaryAggregation, stream,
-                    merge_every: int | None = None, **knobs) -> SummaryStream:
+                    merge_every: int | None = None,
+                    prefetch_depth: int | None = None,
+                    fold_batch: int = 1,
+                    ingest_workers: int | None = None,
+                    codec_workers: int | None = None,
+                    h2d_depth: int | None = None,
+                    device_fields: tuple[str, ...] | None = None,
+                    timer=None, **knobs) -> SummaryStream:
     """Execute ``agg`` over ``stream`` on ``stream.ctx.device``.
 
-    ``merge_every`` (chunks, default 1) sets the emit cadence. Every other
-    knob of ``gelly_tpu``'s ``run_aggregation`` is accepted by name and
-    raises ``NotImplementedError`` (naming its ROADMAP.md item) unless it
-    is left at its "off" value.
+    ``merge_every`` (chunks, default 1) sets the emit cadence.
+    ``fold_batch`` groups up to that many chunks into one unit (clamped
+    to a divisor of ``merge_every``): codec plans stack the unit's
+    payloads (a short last unit is padded with identity payloads), raw
+    plans stack its chunks (padded with empty chunks) and fold the rows
+    in order. ``device_fields`` (default: the plan's) names the chunk
+    fields a raw unit copies to the device. ``codec_workers`` (alias
+    ``ingest_workers``) sizes the staging pool (default for codec plans
+    one a core, at most 8; for raw plans 0, staging inline),
+    ``prefetch_depth`` (default ``max(2, workers)``) the staged units in
+    flight, ``h2d_depth`` the transferred units ahead of the fold
+    (default 2 for codec plans, 0 for raw ones: 0 copies inline on the
+    consumer). ``timer`` (a
+    :class:`~gelly_torch.utils.metrics.StageTimer`, also
+    ``stream.timer``) collects busy seconds of ``ingest_compress``,
+    ``codec_wait``, ``h2d``, ``fold_dispatch`` and ``merge_emit``.
+
+    Every other knob of ``gelly_tpu``'s ``run_aggregation`` is accepted
+    by name and raises ``NotImplementedError`` (naming its ROADMAP.md
+    item) unless it is left at its "off" value.
     """
+    from ..utils.metrics import StageTimer
+    from ..utils.prefetch import prefetch, prefetch_map
+
     _refuse_later_knobs(knobs)
     if merge_every is None:
         merge_every = 1
     if merge_every < 1:
         raise ValueError(f"merge_every must be >= 1, got {merge_every}")
+    if codec_workers is not None:
+        if ingest_workers is not None:
+            raise ValueError(
+                "pass codec_workers or ingest_workers, not both (they are "
+                "the same knob; codec_workers is the executor-facing name)"
+            )
+        ingest_workers = codec_workers
     if not agg.fold_accumulates or agg.transient:
         raise NotImplementedError(
             f"aggregation {agg.name!r} needs the per-window Merger plan "
             "(transient or non-accumulating folds), which is not ported "
             "yet: ROADMAP.md queue 1 item 4"
         )
+    use_codec = (agg.host_compress is not None
+                 and agg.fold_compressed is not None)
+    # Raw units stage nothing and copy a few bytes an edge, while their
+    # folds sync with the device every round: by default they run inline,
+    # where helper threads would only delay the consumer's wake-ups
+    # (measured with chip_ab.py, PERF.md). Explicit values are honored
+    # for every plan.
+    if h2d_depth is None:
+        h2d_depth = 2 if use_codec else 0  # codec: double buffer
+    if h2d_depth < 0:
+        raise ValueError(f"h2d_depth must be >= 0, got {h2d_depth}")
+    if ingest_workers is None:
+        # One codec worker per available core, capped at 8 (each staged
+        # unit holds host payloads and pinned buffers).
+        ingest_workers = min(available_cores(), 8) if use_codec else 0
+    if prefetch_depth is None:
+        prefetch_depth = max(2, ingest_workers)
+    if agg.requires_codec and not use_codec:
+        raise ValueError(
+            f"aggregation '{agg.name}' folds only through its ingest codec, "
+            "but it supplies no host_compress/fold_compressed pair"
+        )
+    # A divisor of merge_every, so window boundaries are unit boundaries.
+    batch = max(1, min(fold_batch, merge_every))
+    while merge_every % batch:
+        batch -= 1
     device = stream.ctx.device
+    if device_fields is None:
+        device_fields = agg.device_fields
+    skip = frozenset()
+    if device_fields is not None and not use_codec:
+        bad = set(device_fields) - set(EdgeChunk._fields)
+        if bad:
+            raise ValueError(f"device_fields: no chunk field {sorted(bad)}")
+        skip = frozenset(EdgeChunk._fields) - set(device_fields)
+    if timer is None:
+        timer = StageTimer()
+    stats = {"units": 0, "chunks": 0, "h2d_bytes": 0}
 
     def emit(summary):
-        if agg.transform is None:
-            return _fresh(summary)
-        return agg.transform(summary)
+        out = agg.transform(summary) if agg.transform is not None \
+            else _fresh(summary)
+        if device.type == "cuda":
+            # The window's one completion barrier.
+            torch.cuda.current_stream(device).synchronize()
+        return out
+
+    def fold_many(summary, stacked: EdgeChunk):
+        for i in range(stacked.src.shape[0]):
+            summary = agg.fold(summary, EdgeChunk(*(f[i] for f in stacked)))
+        return summary
+
+    if use_codec:
+        fold_unit = agg.fold_compressed
+    elif batch > 1:
+        fold_unit = fold_many
+    else:
+        fold_unit = agg.fold
 
     def gen():
+        if agg.on_run_start is not None:
+            agg.on_run_start()
+        wait0 = agg.ordered_wait_s() if agg.ordered_wait_s is not None \
+            else 0.0
+        stats.update(units=0, chunks=0, h2d_bytes=0)
+        consumer = (torch.cuda.current_stream(device)
+                    if device.type == "cuda" else None)
+        ring = PinnedRing(device, h2d_depth + 1, consumer)
+        identity_payload = None
+        if use_codec:
+            from ..core.chunk import make_chunk
+
+            identity_payload = agg.host_compress(make_chunk(
+                np.zeros(0, np.int64), np.zeros(0, np.int64), capacity=1,
+                device=None))
+
+        def produced_units():
+            seq = 0
+            group: list = []
+            for chunk in stream:
+                group.append(chunk)
+                if len(group) == batch:
+                    yield seq, group
+                    seq += 1
+                    group = []
+            if group:
+                yield seq, group
+
+        def stage_unit(unit):
+            seq, group = unit
+            try:
+                with timer("ingest_compress"):
+                    return _stage(seq, group), len(group), seq
+            except BaseException:
+                # Release the unit's ordered turn so the units parked
+                # behind it unwind; the error reaches the consumer.
+                if agg.stack_ordered and agg.on_stage_error is not None:
+                    agg.on_stage_error(seq)
+                raise
+
+        def _stage(seq, group):
+            k = len(group)
+            if use_codec:
+                payloads = [agg.host_compress(c) for c in group]
+                payloads += [identity_payload] * (batch - k)
+                if agg.stack_payloads is None:
+                    return _stack_tree(payloads)
+                if agg.stack_ordered:
+                    return agg.stack_payloads(payloads, 1, seq=seq)
+                return agg.stack_payloads(payloads, 1)
+            if batch == 1:
+                return group[0]
+            rows = [c.to_numpy() for c in group]
+            zero = EdgeChunk(*(np.zeros_like(f) for f in rows[0]))
+            rows += [zero] * (batch - k)
+            return EdgeChunk(*(np.stack(fs) for fs in zip(*rows)))
+
+        def h2d_unit(staged):
+            payload, k, seq = staged
+            with timer("h2d"):
+                dev, event = ring.put(payload, skip)
+            stats["h2d_bytes"] = ring.bytes
+            return dev, event, k, seq
+
+        def release(unit):  # a unit cancelled before it ran
+            agg.on_stage_error(unit[0])
+
+        pipe_cancel = threading.Event()
+        staged = prefetch_map(
+            stage_unit, produced_units(), depth=prefetch_depth,
+            workers=ingest_workers, cancel=pipe_cancel,
+            on_cancel=(release if agg.stack_ordered
+                       and agg.on_stage_error is not None else None))
+        transferred = map(h2d_unit, staged)
+        if h2d_depth > 0:
+            transferred = prefetch(transferred, depth=h2d_depth,
+                                   name="gelly-h2d")
         summary = agg.init(device)
         in_window = 0
-        for chunk in stream:
-            summary = agg.fold(summary, chunk.to(device, non_blocking=True))
-            in_window += 1
-            if in_window >= merge_every:
-                in_window = 0
-                yield emit(summary)
-        if in_window:
-            yield emit(summary)
+        try:
+            for unit, event, k, seq in transferred:
+                with timer("fold_dispatch"):
+                    if event is not None:
+                        consumer.wait_event(event)  # on the device
+                    summary = fold_unit(summary, unit)
+                del unit
+                stats["units"] += 1
+                stats["chunks"] += k
+                in_window += k
+                if in_window >= merge_every:
+                    in_window = 0
+                    with timer("merge_emit"):
+                        out = emit(summary)
+                    yield out
+            if in_window:
+                with timer("merge_emit"):
+                    out = emit(summary)
+                yield out
+        finally:
+            # Tear down outermost-first on any exit. The event goes first:
+            # the H2D thread may be parked inside ``staged`` on a stalled
+            # source, where a generator close cannot reach it.
+            pipe_cancel.set()
+            close = getattr(transferred, "close", None)
+            if close is not None:
+                close()
+            deadline = time.monotonic() + 2.0
+            while True:
+                try:
+                    staged.close()
+                    break
+                except ValueError:  # still executing on the H2D thread
+                    if time.monotonic() >= deadline:
+                        break
+                    time.sleep(0.01)
+            if agg.ordered_wait_s is not None:
+                timer.reattribute("ingest_compress", "codec_wait",
+                                  agg.ordered_wait_s() - wait0)
 
-    return SummaryStream(gen)
+    out_stream = SummaryStream(gen)
+    out_stream.timer = timer
+    out_stream.stats = stats
+    return out_stream

@@ -1,17 +1,24 @@
-"""Streaming Connected Components — the raw device-fold plan.
+"""Streaming Connected Components — the raw, dense, sparse and compact plans.
 
-Counterpart of ``gelly_tpu/library/connected_components.py`` for the plan
-without the ingest codec (``ingest_combine=False``): each raw chunk folds
-into a dense ``i32 parent[]`` forest plus a ``bool seen[]`` mask, and every
-emitted window is the canonical label array (minimum vertex slot of each
-component, ``-1`` for slots never seen). Chunks of at least
-:data:`RAW_DEDUP_MIN_CHUNK` edges take the sort-dedup fold
-(:func:`~gelly_torch.ops.unionfind.union_edges_dedup`), whose
-``fold_backend="kernel"`` runs the hand-written ``sorted_window_gather``;
-smaller chunks take the generic :func:`~gelly_torch.ops.unionfind.union_edges`.
+Counterpart of ``gelly_tpu/library/connected_components.py``. Every plan
+emits, per window, the canonical label array (minimum vertex slot of each
+component, ``-1`` for slots never seen):
 
-The codec plans (``ingest_combine=True``: dense, sparse and compact) come
-with the next slice; asking for them raises ``NotImplementedError``.
+- **raw** (``ingest_combine=False``): each raw chunk folds into a dense
+  ``i32 parent[]`` forest plus a ``bool seen[]`` mask. Chunks of at least
+  :data:`RAW_DEDUP_MIN_CHUNK` edges take the sort-dedup fold
+  (:func:`~gelly_torch.ops.unionfind.union_edges_dedup`), whose
+  ``fold_backend="kernel"`` runs the hand-written ``sorted_window_gather``;
+  smaller chunks take :func:`~gelly_torch.ops.unionfind.union_edges`.
+- **dense** / **sparse** codecs (``ingest_combine=True``): the host codec
+  reduces each chunk to its spanning forest (a label array, or counted
+  ``(vertex, root)`` pairs) and the device unions the star edges.
+- **compact** (``codec="compact"``, :func:`connected_components_compact`):
+  the host codec also assigns persistent compact ids, and the device folds
+  in an ``M``-slot space with :func:`~gelly_torch.ops.unionfind.union_pairs_star`.
+
+The pane ring (``windowed=`` / ``ttl_panes=``) and the multi-device delta
+merge raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -21,9 +28,16 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core.device import to_numpy
-from ..engine.aggregation import SummaryAggregation
+from ..core.device import DEFAULT_DEVICE, to_numpy
+from ..engine.aggregation import (
+    SummaryAggregation,
+    bucket_stack_payloads,
+    group_combine_payloads,
+    resolve_sparse_codec,
+    sparse_payload_id_check,
+)
 from ..ops import segments, unionfind
+from ..utils import native
 
 
 class CCSummary(NamedTuple):
@@ -31,18 +45,35 @@ class CCSummary(NamedTuple):
     seen: torch.Tensor  # bool[N] vertices observed in the stream
 
 
+class CCCompactSummary(NamedTuple):
+    """Compact-space CC summary (``codec="compact"``): the forest over a
+    persistent compact id space of M slots, with the cid -> vertex-slot
+    table as the decode side."""
+
+    croot: torch.Tensor  # i32[M] union-find forest over compact ids
+    vertex_of: torch.Tensor  # i32[M] global vertex slot per cid (-1 unassigned)
+
+
 # Raw folds switch from the generic union_edges fixpoint to the sort-dedup
 # fold at this chunk size: below it the dedup sorts cost more than the
 # rounds they save. Read at fold time, so it can be patched per run.
 RAW_DEDUP_MIN_CHUNK = 1 << 22
 
-_CODEC_ITEM = "ROADMAP.md queue 1 items 3 and 5 (compact plan and host codec)"
+_WINDOWS_ITEM = "ROADMAP.md queue 1 item 10 (stream API and windows)"
+_MESH_ITEM = "ROADMAP.md queue 1 item 8 (multi-GPU merge)"
+
+
+def _host(x) -> np.ndarray:
+    """numpy view of a host chunk field (no copy for CPU tensors)."""
+    if isinstance(x, torch.Tensor):
+        return x.numpy()
+    return np.asarray(x)
 
 
 def cc_labels_numpy(src: np.ndarray, dst: np.ndarray,
                     valid: np.ndarray | None, n_v: int) -> np.ndarray:
     """Pure-numpy spanning-forest labels i32[n_v] of one chunk (-1 for
-    untouched slots) — a copy of ``gelly_tpu``'s oracle."""
+    untouched slots) — a copy of ``gelly_tpu``'s dense-codec fallback."""
     if valid is not None:
         m = np.asarray(valid, bool)
         src, dst = np.asarray(src)[m], np.asarray(dst)[m]
@@ -68,7 +99,7 @@ def cc_labels_numpy(src: np.ndarray, dst: np.ndarray,
 def cc_pairs_numpy(src: np.ndarray, dst: np.ndarray,
                    valid: np.ndarray | None, n_v: int):
     """Pure-numpy counted (vertex, root) pairs of one chunk's spanning
-    forest — a copy of ``gelly_tpu``'s sparse-combiner fallback."""
+    forest — a copy of ``gelly_tpu``'s sparse-codec fallback."""
     if valid is not None:
         m = np.asarray(valid, bool)
         src, dst = np.asarray(src)[m], np.asarray(dst)[m]
@@ -92,6 +123,324 @@ def cc_pairs_numpy(src: np.ndarray, dst: np.ndarray,
         if np.array_equal(lab, prev):
             break
     return ids.astype(np.int32), ids[lab].astype(np.int32)
+
+
+def merge_chunk_forest(glob: np.ndarray, lab: np.ndarray) -> np.ndarray:
+    """Hook a chunk's spanning-forest labels into a global dense forest on
+    the host (numpy): hooks at LABEL (root) indices plus one doubling step
+    per round until fixpoint. Returns the updated ``glob``."""
+    ok = lab >= 0
+    v = np.nonzero(ok)[0].astype(np.int32)
+    r = lab[v]
+    while True:
+        prev = glob
+        lab_u = glob[v]
+        lab_v = glob[r]
+        lab_lo = np.minimum(lab_u, lab_v)
+        lab_hi = np.maximum(lab_u, lab_v)
+        glob = glob.copy()
+        np.minimum.at(glob, lab_hi, lab_lo)
+        glob = np.minimum(glob, glob[glob])
+        if np.array_equal(glob, prev):
+            break
+    return glob
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """``[K, cap]`` view of a payload leaf (``jnp.atleast_2d``)."""
+    return x if x.dim() >= 2 else x.reshape(1, -1)
+
+
+def _row_offsets(ri: torch.Tensor, cap: int) -> torch.Tensor:
+    """Row-local indices of a ``[K, cap]`` leaf to flat lane indices."""
+    k = ri.shape[0]
+    off = cap * torch.arange(k, dtype=torch.int32, device=ri.device)
+    return (ri + off[:, None]).reshape(-1)
+
+
+def connected_components_compact(
+    vertex_capacity: int, merge: str = "gather",
+    compact_capacity: int | None = None, wire: str = "auto",
+    unit_block: int = 1 << 18, merge_mode: str = "auto",
+    delta_auto_rows: int | None = None,
+    windowed: int | None = None, ttl_panes: int | None = None,
+) -> SummaryAggregation:
+    """CC over a persistent compact root space (``codec="compact"``).
+
+    The host codec assigns each touched vertex a persistent first-seen
+    compact id (:class:`~gelly_torch.ops.compact_space.CompactIdSession`,
+    one table probe per member) and ships members already dense in
+    ``[0, M)``; the device fold is a pair-sized union in the M-slot space
+    and full-capacity arrays are touched once per window, in
+    ``transform``. ``M = compact_capacity`` (default ``min(n, 2^22)``)
+    bounds distinct touched vertices per run; overflow raises
+    :class:`~gelly_torch.ops.compact_space.CompactSpaceOverflow`.
+
+    ``wire`` picks the payload format:
+
+    - ``"segments"`` — one native call per unit
+      (``cc_unit_forest_segments``) emits members grouped by component,
+      each component's root first; the device derives each member's
+      root-row index as its segment start (cumsum + row-wise searchsorted
+      + gather), so a member costs 4 bytes on the wire;
+    - ``"pairs"`` — per-chunk sparse combines, merged per unit into
+      ``(v, root-row index)`` rows (8 bytes a member);
+    - ``"auto"`` — segments when the native unit codec loads.
+
+    The plan folds compressed payloads only. ``windowed=`` / ``ttl_panes=``
+    (the pane ring) and ``delta_auto_rows`` (the multi-device delta
+    merge) raise ``NotImplementedError``.
+    """
+    from ..ops.compact_space import CompactIdSession
+
+    if windowed is not None or ttl_panes is not None:
+        raise NotImplementedError(
+            "connected_components_compact(windowed=/ttl_panes=) is not "
+            f"ported yet: {_WINDOWS_ITEM}"
+        )
+    if delta_auto_rows is not None:
+        raise NotImplementedError(
+            "connected_components_compact(delta_auto_rows=) is not ported "
+            f"yet: {_MESH_ITEM}"
+        )
+    if wire not in ("auto", "segments", "pairs"):
+        raise ValueError(f"wire must be auto/segments/pairs, got {wire}")
+    if merge not in ("tree", "gather"):
+        raise ValueError(f"merge must be tree/gather, got {merge!r}")
+    resolve_merge_mode(merge_mode)
+    n = vertex_capacity
+    m = compact_capacity or min(n, 1 << 22)
+    session = CompactIdSession(m)
+    use_segments = wire == "segments" or (
+        wire == "auto" and native.unit_segments_available()
+    )
+
+    def init(device=DEFAULT_DEVICE) -> CCCompactSummary:
+        croot = unionfind.fresh_forest(m, device)
+        return CCCompactSummary(
+            croot=croot, vertex_of=torch.full_like(croot, -1))
+
+    def fold(s, chunk):
+        raise NotImplementedError(
+            "codec='compact' folds compressed payloads only (its id space "
+            "is assigned by the host ingest codec); use codec='sparse' for "
+            "raw-chunk folds"
+        )
+
+    def host_compress(chunk) -> dict:
+        src, dst, valid = (_host(chunk.src), _host(chunk.dst),
+                           _host(chunk.valid))
+        if native.sparse_codecs_available():
+            v, r = native.cc_chunk_combine_sparse(src, dst, valid, n)
+        else:
+            v, r = cc_pairs_numpy(src, dst, valid, n)
+        return {"v": v, "r": r}
+
+    def host_compress_raw(chunk) -> dict:
+        # Segment wire: per-chunk compression is zero-copy views; the
+        # whole unit combines in one native call in the stacker.
+        return {"src": _host(chunk.src), "dst": _host(chunk.dst),
+                "valid": _host(chunk.valid)}
+
+    def _combine_pairs_idx(av: np.ndarray, ar: np.ndarray):
+        """Merge a group's pairs into one forest, each pair's root given
+        as its INDEX in the output (the star fold's wire)."""
+        if native.sparse_idx_available():
+            return native.cc_chunk_combine_sparse_idx(av, ar, None, n)
+        v, r = cc_pairs_numpy(av, ar, None, n)
+        return v, r, np.searchsorted(v, r).astype(np.int32)
+
+    def stack_compact(payloads: list, groups: int = 1,
+                      seq: int | None = None) -> dict:
+        # Stateless group combine first (parallel across stagers).
+        size = -(-max(len(payloads), 1) // groups)
+        combined = [
+            _combine_pairs_idx(
+                np.concatenate([q["v"] for q in payloads[i:i + size]]),
+                np.concatenate([q["r"] for q in payloads[i:i + size]]),
+            )
+            for i in range(0, len(payloads), size)
+        ]
+        # Stateful cid assignment in STREAM order.
+        if seq is not None:
+            session.await_turn(seq)
+        try:
+            rows = []
+            for v2, _, ri2 in combined:
+                cv, new_ids, base = session.assign(v2)
+                rows.append({
+                    "v": cv, "ri": ri2, "newv": new_ids,
+                    "base": np.asarray(base, np.int32),
+                })
+            while len(rows) < groups:
+                rows.append({
+                    "v": np.empty(0, np.int32), "ri": np.empty(0, np.int32),
+                    "newv": np.empty(0, np.int32),
+                    "base": np.asarray(session.assigned, np.int32),
+                })
+        finally:
+            if seq is not None:
+                session.complete_turn(seq)
+        # Quantum buckets capped at m: a row never exceeds the capacity.
+        return bucket_stack_payloads(
+            rows, {"v": -1, "ri": 0, "newv": -1},
+            min_bucket=min(1024, m), quantum=min(1 << 18, m),
+        )
+
+    def stack_segments(payloads: list, groups: int = 1,
+                       seq: int | None = None) -> dict:
+        # Fused unit combine (stateless, heavy): one native call per group
+        # over the group's raw edges, root-first segments in vertex space.
+        size = -(-max(len(payloads), 1) // groups)
+        combined = []
+        for i in range(0, len(payloads), size):
+            builder = native.UnitForestBuilder(n, block=unit_block)
+            for p in payloads[i:i + size]:
+                va = np.asarray(p["valid"])
+                builder.add(
+                    p["src"], p["dst"], None if bool(va.all()) else va
+                )
+            combined.append(builder.finish())
+        # Stateful cid remap in STREAM order (order-preserving, so the
+        # segment structure carries over to cid space).
+        if seq is not None:
+            session.await_turn(seq)
+        try:
+            rows = []
+            for mv, ln in combined:
+                cids, new_ids, base = session.assign(mv)
+                rows.append({
+                    "m": cids, "len": ln, "newv": new_ids,
+                    "base": np.asarray(base, np.int32),
+                })
+            while len(rows) < groups:
+                rows.append({
+                    "m": np.empty(0, np.int32),
+                    "len": np.empty(0, np.int32),
+                    "newv": np.empty(0, np.int32),
+                    "base": np.asarray(session.assigned, np.int32),
+                })
+        finally:
+            if seq is not None:
+                session.complete_turn(seq)
+        # Per-key buckets: lengths and fresh ids run far below members.
+        return bucket_stack_payloads(
+            rows, {"m": -1, "len": 0, "newv": -1},
+            min_bucket=min(1024, m), quantum=min(1 << 18, m),
+            per_key={
+                "len": (min(1024, m), min(1 << 13, m)),
+                "newv": (min(1024, m), min(1 << 16, m)),
+            },
+        )
+
+    def _append_vertex_of(s: CCCompactSummary, payload) -> torch.Tensor:
+        # Decode-table append: rows carry their own base. JAX's
+        # mode="drop" scatter becomes a scatter into one spare slot (m).
+        newv = _rows(payload["newv"])
+        base = payload["base"].reshape(-1)
+        cap = newv.shape[1]
+        pos = base[:, None] + torch.arange(cap, dtype=torch.int32,
+                                           device=newv.device)[None, :]
+        okn = (newv >= 0) & (pos < m)
+        idx = torch.where(okn, pos, m).reshape(-1).long()
+        vo = torch.cat([s.vertex_of, s.vertex_of.new_zeros(1)])
+        vo = vo.scatter(0, idx, torch.where(okn, newv, 0).reshape(-1))
+        return vo[:m]
+
+    def fold_compressed(s: CCCompactSummary, payload) -> CCCompactSummary:
+        # Pairs wire: leaves [K, cap]; ri is row-local.
+        vertex_of = _append_vertex_of(s, payload)
+        v = _rows(payload["v"])
+        ri = _row_offsets(_rows(payload["ri"]), v.shape[1])
+        v = v.reshape(-1)
+        croot = unionfind.union_pairs_star(s.croot, v, ri, v >= 0)
+        return CCCompactSummary(croot, vertex_of)
+
+    def fold_segments(s: CCCompactSummary, payload) -> CCCompactSummary:
+        # Segment wire: members [K, capm] grouped by component, root first;
+        # lengths [K, capr]. Each member lane's root-row index is its
+        # segment START, derived here from the lengths.
+        vertex_of = _append_vertex_of(s, payload)
+        mm = _rows(payload["m"])
+        ln = _rows(payload["len"])
+        kb, capm = mm.shape
+        cum = torch.cumsum(ln, dim=1, dtype=torch.int32)
+        total = cum[:, -1]
+        lane = torch.arange(capm, dtype=torch.int32, device=mm.device)
+        # Segment of each lane = # cum entries <= lane; the clamp covers
+        # padding lanes past the last segment.
+        seg = torch.searchsorted(cum, lane.expand(kb, capm).contiguous(),
+                                 right=True)
+        seg = torch.clamp(seg, max=ln.shape[1] - 1)
+        starts = cum - ln
+        ri = torch.gather(starts, 1, seg)
+        valid = lane[None, :] < total[:, None]
+        croot = unionfind.union_pairs_star(
+            s.croot, mm.reshape(-1), _row_offsets(ri, capm),
+            valid.reshape(-1),
+        )
+        return CCCompactSummary(croot, vertex_of)
+
+    def combine(a: CCCompactSummary, b: CCCompactSummary) -> CCCompactSummary:
+        return CCCompactSummary(
+            croot=unionfind.merge_forests(a.croot, b.croot),
+            # Each cid's vertex is recorded by exactly one payload row.
+            vertex_of=torch.maximum(a.vertex_of, b.vertex_of),
+        )
+
+    def merge_stacked(st: CCCompactSummary) -> CCCompactSummary:
+        return CCCompactSummary(
+            croot=unionfind.merge_forest_stack(st.croot),
+            vertex_of=st.vertex_of.max(dim=0).values,
+        )
+
+    def transform(s: CCCompactSummary) -> torch.Tensor:
+        # The plan's only full-capacity op: i32[n] labels per window.
+        root = unionfind.pointer_jump(s.croot)
+        ok = s.vertex_of >= 0
+        canon = torch.full((m + 1,), segments.INT_MAX, dtype=torch.int32,
+                           device=root.device)
+        canon = canon.scatter_reduce(
+            0, torch.where(ok, root, m).long(),
+            torch.where(ok, s.vertex_of, segments.INT_MAX), "amin",
+            include_self=True,
+        )
+        lab_c = canon[root]
+        out = torch.full((n + 1,), -1, dtype=torch.int32, device=root.device)
+        out = out.scatter(0, torch.where(ok, s.vertex_of, n).long(),
+                          torch.where(ok, lab_c, -1))
+        return out[:n]
+
+    def flatten(s: CCCompactSummary) -> CCCompactSummary:
+        # The pair folds skip the global flatten; this bounds chase depth.
+        return CCCompactSummary(unionfind.pointer_jump(s.croot), s.vertex_of)
+
+    agg = SummaryAggregation(
+        init=init,
+        fold=fold,
+        combine=combine,
+        transform=transform,
+        merge_stacked=merge_stacked if merge == "gather" else None,
+        transient=False,
+        host_compress=host_compress_raw if use_segments else host_compress,
+        fold_compressed=fold_segments if use_segments else fold_compressed,
+        stack_payloads=stack_segments if use_segments else stack_compact,
+        fold_accumulates=True,
+        flatten=flatten,
+        requires_codec=True,
+        stack_ordered=True,
+        on_stage_error=session.complete_turn,
+        on_run_start=session.reset,
+        ordered_wait_s=lambda: session.wait_s,
+        on_resume=lambda summary: session.rebuild_from_vertex_of(
+            to_numpy(summary.vertex_of)
+        ),
+        name="connected-components-compact",
+    )
+    agg.session = session
+    agg.compact_capacity = m
+    agg.wire = "segments" if use_segments else "pairs"
+    return agg
 
 
 def resolve_merge_mode(merge_mode: str) -> str:
@@ -136,41 +485,52 @@ def connected_components(
 ) -> SummaryAggregation:
     """Build the CC aggregation over a slot space of ``vertex_capacity``.
 
-    Same signature as ``gelly_tpu``'s. This slice builds the raw plan only:
-    ``ingest_combine=False`` with ``codec="auto"``; ``merge`` is
+    Same signature and plan choice as ``gelly_tpu``'s: ``merge`` is
     ``"tree"`` or ``"gather"`` (it shapes the ``combine``/``merge_stacked``
-    the plan exports). ``fold_backend`` (:func:`resolve_fold_backend`)
-    picks the sort-dedup fold's gather: ``"kernel"`` for the hand-written
-    CUDA ``sorted_window_gather``, ``"plain"``/``"auto"`` for plain
-    PyTorch gathers. The codec plans and the windowed/TTL/delta knobs
-    raise ``NotImplementedError``.
+    the plan exports). ``ingest_combine`` (default on) attaches the host
+    codec, and ``codec`` picks its payload:
+
+    - ``"dense"`` — an i32[n] label array per chunk;
+    - ``"sparse"`` — counted (vertex, root) pairs, bucket-padded per unit,
+      folded by :func:`~gelly_torch.ops.unionfind.union_pairs_compact`;
+    - ``"compact"`` — :func:`connected_components_compact`;
+    - ``"auto"`` — sparse iff ``vertex_capacity >= 2^20``.
+
+    ``ingest_combine=False`` builds the raw plan; ``fold_backend``
+    (:func:`resolve_fold_backend`) picks its sort-dedup gather:
+    ``"kernel"`` for the hand-written CUDA ``sorted_window_gather``,
+    ``"plain"``/``"auto"`` for plain PyTorch gathers. The windowed, TTL
+    and delta knobs raise ``NotImplementedError``.
     """
-    if ingest_combine or codec != "auto" or compact_capacity is not None:
-        raise NotImplementedError(
-            "connected_components: only the raw plan (ingest_combine=False, "
-            f"codec='auto') is ported; the codec plans are {_CODEC_ITEM}"
+    if codec == "compact":
+        if not ingest_combine:
+            raise ValueError("codec='compact' requires ingest_combine=True")
+        return connected_components_compact(
+            vertex_capacity, merge=merge, compact_capacity=compact_capacity,
+            merge_mode=merge_mode, delta_auto_rows=delta_auto_rows,
+            windowed=windowed, ttl_panes=ttl_panes,
         )
     if windowed is not None or ttl_panes is not None:
         raise NotImplementedError(
             "connected_components(windowed=/ttl_panes=) is not ported yet: "
-            "ROADMAP.md queue 1 item 10 (stream API and windows)"
+            f"{_WINDOWS_ITEM}"
         )
     if delta_auto_rows is not None:
         raise NotImplementedError(
             "connected_components(delta_auto_rows=) is not ported yet: "
-            "ROADMAP.md queue 1 item 8 (multi-GPU merge)"
+            f"{_MESH_ITEM}"
         )
     if merge not in ("tree", "gather"):
         raise ValueError(f"merge must be tree/gather, got {merge!r}")
-    resolve_merge_mode(merge_mode)
     n = vertex_capacity
+    sparse = resolve_sparse_codec(codec, n)
+    resolve_merge_mode(merge_mode)
     backend = resolve_fold_backend(fold_backend, n)
 
-    def init(device) -> CCSummary:
-        return CCSummary(
-            parent=unionfind.fresh_forest(n, device),
-            seen=torch.zeros(n, dtype=torch.bool, device=device),
-        )
+    def init(device=DEFAULT_DEVICE) -> CCSummary:
+        parent = unionfind.fresh_forest(n, device)
+        return CCSummary(parent=parent,
+                         seen=torch.zeros_like(parent, dtype=torch.bool))
 
     def fold(s: CCSummary, chunk) -> CCSummary:
         if chunk.capacity >= RAW_DEDUP_MIN_CHUNK:
@@ -189,6 +549,68 @@ def connected_components(
             )
         seen = segments.mark_seen(s.seen, chunk.src, chunk.valid)
         seen = segments.mark_seen(seen, chunk.dst, chunk.valid)
+        return CCSummary(parent, seen)
+
+    def host_compress(chunk) -> np.ndarray:
+        src, dst, valid = (_host(chunk.src), _host(chunk.dst),
+                           _host(chunk.valid))
+        if native.available("chunk_combiner"):
+            return native.cc_chunk_combine(src, dst, valid, n)
+        return cc_labels_numpy(src, dst, valid, n)
+
+    def fold_compressed(s: CCSummary, labels: torch.Tensor) -> CCSummary:
+        # labels: i32[K, n] — K chunk forests; every (v, labels[k, v] >= 0)
+        # is a union edge, all K unioned in one fixpoint.
+        k = labels.shape[0]
+        present = (labels >= 0).any(dim=0)
+        v = torch.arange(n, dtype=torch.int32,
+                         device=labels.device).expand(k, n).reshape(-1)
+        lab = labels.reshape(-1)
+        ok = lab >= 0
+        parent = unionfind.union_edges(s.parent, v, torch.where(ok, lab, 0),
+                                       ok)
+        return CCSummary(parent, s.seen | present)
+
+    def host_compress_sparse(chunk) -> dict:
+        src, dst, valid = (_host(chunk.src), _host(chunk.dst),
+                           _host(chunk.valid))
+        if native.sparse_codecs_available():
+            v, r = native.cc_chunk_combine_sparse(src, dst, valid, n)
+        else:
+            v, r = cc_pairs_numpy(src, dst, valid, n)
+        return {"v": v, "r": r}
+
+    def _combine_pairs(av: np.ndarray, ar: np.ndarray):
+        # Pairs are union edges: one more sparse-combiner pass merges a
+        # group's chunk forests into one.
+        if native.sparse_codecs_available():
+            return native.cc_chunk_combine_sparse(av, ar, None, n)
+        return cc_pairs_numpy(av, ar, None, n)
+
+    def stack_sparse(payloads: list, groups: int = 1) -> dict:
+        payloads = group_combine_payloads(
+            payloads, groups,
+            lambda grp: dict(zip(("v", "r"), _combine_pairs(
+                np.concatenate([q["v"] for q in grp]),
+                np.concatenate([q["r"] for q in grp]),
+            ))),
+            {"v": np.empty(0, np.int32), "r": np.empty(0, np.int32)},
+        )
+        return bucket_stack_payloads(payloads, {"v": -1, "r": 0})
+
+    def fold_compressed_sparse(s: CCSummary, payload) -> CCSummary:
+        # payload: {"v", "r"} i32[K, cap], -1-padded (vertex, root) pairs.
+        v = payload["v"].reshape(-1)
+        r = payload["r"].reshape(-1)
+        ok = v >= 0
+        vi = torch.where(ok, v, 0)
+        if 4 * v.numel() <= n:
+            # Compacted-root-space union (per-round work ∝ pairs), while
+            # the local space stays well below the capacity.
+            parent = unionfind.union_pairs_compact(s.parent, vi, r, ok)
+        else:
+            parent = unionfind.union_edges(s.parent, vi, r, ok)
+        seen = segments.mark_seen(s.seen, vi, ok)
         return CCSummary(parent, seen)
 
     def combine(a: CCSummary, b: CCSummary) -> CCSummary:
@@ -210,6 +632,7 @@ def connected_components(
         # Label-preserving: pointer_jump only shortcuts chains.
         return CCSummary(unionfind.pointer_jump(s.parent), s.seen)
 
+    codec_on = ingest_combine
     return SummaryAggregation(
         init=init,
         fold=fold,
@@ -217,9 +640,26 @@ def connected_components(
         transform=transform,
         merge_stacked=merge_stacked if merge == "gather" else None,
         transient=False,
+        host_compress=(
+            (host_compress_sparse if sparse else host_compress)
+            if codec_on else None
+        ),
+        fold_compressed=(
+            (fold_compressed_sparse if sparse else fold_compressed)
+            if codec_on else None
+        ),
+        stack_payloads=stack_sparse if (codec_on and sparse) else None,
+        # The sparse payload's pad values (-1 lanes fold as no-ops) and its
+        # id range check for producer-compressed payloads.
+        codec_pad_values={"v": -1, "r": 0} if (codec_on and sparse) else None,
+        codec_payload_check=(
+            sparse_payload_id_check(n, "v", "r")
+            if (codec_on and sparse) else None
+        ),
         flatten=flatten,
         fold_accumulates=True,  # CC forests are pure edge-set summaries
         fold_backend=backend,
+        device_fields=("src", "dst", "valid"),  # what the raw fold reads
         name=f"connected-components-{merge}",
     )
 

@@ -1,6 +1,8 @@
 """Tensor union-find: scatter-min hooking + pointer jumping.
 
-Counterpart of ``gelly_tpu/ops/unionfind.py`` for the raw-chunk CC fold.
+Counterpart of ``gelly_tpu/ops/unionfind.py``: the raw-chunk CC fold and
+the codec plans' payload folds (:func:`union_pairs_compact`,
+:func:`union_pairs_star`).
 The forest is a dense ``i32 parent[capacity]`` tensor over vertex slots;
 a whole chunk of edges is unioned at once. At convergence every vertex's
 root is the **minimum vertex slot in its component**, the canonical label
@@ -126,6 +128,93 @@ def union_pairs_rooted(parent: torch.Tensor, src: torch.Tensor,
     return _rooted_fixpoint(
         parent, src, lambda p, ru: _chase_roots(p, dst), valid, True
     )
+
+
+def union_pairs_compact(parent: torch.Tensor, src: torch.Tensor,
+                        dst: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Union (src, dst) pairs through a compacted root space — the sparse
+    codec's payload fold, where touched slots << capacity.
+
+    REQUIRES a flat forest (``parent[parent] == parent``), which
+    :func:`union_edges` and this function both (re)establish. Each round
+    of the inner fixpoint works on arrays sized to the pairs:
+
+    1. gather the pairs' current roots;
+    2. sort + searchsorted give each distinct root a local id equal to
+       its first position in the sorted roots (order-preserving, so
+       min-local-id unions keep the canonical min-slot convention);
+    3. :func:`union_edges` in the local space;
+    4. scatter-min each root occurrence's new global root back, then one
+       ``parent[parent]`` restores flatness.
+
+    Invalid lanes' lookups stay in range: with any invalid lane the
+    sorted roots end in ``INT_MAX`` sentinels, so ``searchsorted`` never
+    returns past the last slot.
+    """
+    ps = parent[src]
+    pd = parent[dst]
+    roots = torch.cat([ps, pd])
+    ok2 = torch.cat([valid, valid])
+    sorted_roots, _ = torch.sort(torch.where(ok2, roots, INT_MAX))
+    lsrc = torch.searchsorted(sorted_roots, ps).to(torch.int32)
+    ldst = torch.searchsorted(sorted_roots, pd).to(torch.int32)
+    local = union_edges(
+        fresh_forest(sorted_roots.shape[0], parent.device), lsrc, ldst,
+        valid,
+    )
+    # Route every occurrence of a root through its FIRST occurrence's
+    # local root, so all occurrences write the same value.
+    first = torch.searchsorted(sorted_roots, sorted_roots)
+    new_root = sorted_roots[local[first]]
+    live = sorted_roots != INT_MAX
+    parent = masked_scatter_min(parent, sorted_roots, new_root, live)
+    return parent[parent]
+
+
+def union_pairs_star(parent: torch.Tensor, v: torch.Tensor, ri: torch.Tensor,
+                     valid: torch.Tensor,
+                     fast_depths: tuple[int, ...] = (2, 3),
+                     check_depth: int = 3) -> torch.Tensor:
+    """Union star-forest payload rows — the compact codec's device fold.
+
+    ``(v[j], v[ri[j]])`` are the pairs: every payload row is a
+    host-combined spanning forest whose root is itself a row entry, and
+    ``ri`` is the root's row index (in range for every lane, padding
+    included), so the root side of each pair is one gather from the
+    already-chased array (``rv = ru[ri]``).
+
+    1. one round per ``fast_depths`` entry: a fixed-depth pointer chase,
+       then one scatter-min hook MASKED to verified roots
+       (``p[hi] == hi``; a hook at an interior node would replace a real
+       parent edge). No host sync.
+    2. a depth-limited check: ``any(valid & (ru != ru[ri]))`` — the ONE
+       counted :func:`host_sync` of a call that converges in step 1.
+    3. the exact fixpoint (:func:`_rooted_fixpoint`) only when the check
+       found live pairs.
+
+    Every step is a deterministic scatter-min, so the forest equals
+    ``gelly_tpu``'s bit for bit. Like :func:`union_pairs_rooted`, it is
+    returned without a global flatten.
+    """
+    v = torch.where(valid, v, 0)
+
+    def chase_fixed(p, x, depth):
+        g = p[x]
+        for _ in range(depth - 1):
+            g = p[g]
+        return g
+
+    p = parent
+    for depth in fast_depths:
+        ru = chase_fixed(p, v, depth)
+        rv = ru[ri]
+        lo = torch.minimum(ru, rv)
+        hi = torch.maximum(ru, rv)
+        live = valid & (lo != hi) & (p[hi] == hi)
+        p = masked_scatter_min(p, hi, lo, live)
+    ru = chase_fixed(p, v, check_depth)
+    live0 = bool(host_sync((valid & (ru != ru[ri])).any()))
+    return _rooted_fixpoint(p, v, lambda p_, ru_: ru_[ri], valid, live0)
 
 
 def _dedup_pairs(src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor,

@@ -1,0 +1,467 @@
+"""ctypes bindings for the native chunk combiner (the CC host codec).
+
+Counterpart of ``gelly_tpu/utils/native.py``, the part the CC codec plans
+call: the spanning-forest combiners (dense, sparse, root-indexed sparse),
+the fused unit segment codec (:func:`cc_unit_forest_segments`,
+:class:`UnitForestBuilder`) and the persistent compact-id table
+(:class:`NativeCompactSession`), all from ``native/chunk_combiner.cc``.
+
+The port builds that source itself, at first use, with ``g++ -O3 -shared
+-fPIC`` into ``gelly_torch/_build/libchunk_combiner.so``: the build is
+rebuilt when the source is newer, runs under a thread lock and a file lock
+(concurrent processes build once), writes to a temporary name that
+``os.replace`` moves into place, and never writes into ``native/``. Every
+call releases the GIL (ctypes), so codec workers on a thread pool run in
+parallel. A missing compiler makes :func:`available` report False and the
+codec plans fall back to their numpy codecs.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import os
+import subprocess
+import threading
+import weakref
+
+import numpy as np
+
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+NATIVE_DIR = os.path.join(_REPO, "native")
+BUILD_DIR = os.path.join(_REPO, "gelly_torch", "_build")
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+_i32p = ctypes.POINTER(ctypes.c_int32)
+_u8p = ctypes.POINTER(ctypes.c_uint8)
+_i64p = ctypes.POINTER(ctypes.c_int64)
+
+
+def _stamp(exc: BaseException, stem: str) -> BaseException:
+    """Attach the originating stem (as ``gelly_tpu`` does)."""
+    exc.stem = stem
+    return exc
+
+
+def library_path(stem: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{stem}.so")
+
+
+def _stale(src: str, so: str) -> bool:
+    return not os.path.exists(so) or (
+        os.path.exists(src) and os.path.getmtime(src) > os.path.getmtime(so)
+    )
+
+
+def _load_lib(stem: str) -> ctypes.CDLL:
+    """Compile ``native/<stem>.cc`` into ``gelly_torch/_build/`` (mtime
+    fresh, under a lock) and dlopen it."""
+    with _lock:
+        if stem in _libs:
+            return _libs[stem]
+        src = os.path.join(NATIVE_DIR, f"{stem}.cc")
+        so = library_path(stem)
+        if _stale(src, so):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            with open(os.path.join(BUILD_DIR, f"lib{stem}.lock"), "w") as lk:
+                fcntl.flock(lk, fcntl.LOCK_EX)
+                if _stale(src, so):  # another process may have built it
+                    tmp = f"{so}.{os.getpid()}.tmp"
+                    subprocess.run(
+                        ["g++", "-O3", "-shared", "-fPIC", "-o", tmp, src],
+                        check=True, capture_output=True,
+                    )
+                    os.replace(tmp, so)
+        lib = ctypes.CDLL(so)
+        _libs[stem] = lib
+        return lib
+
+
+def _load_combiner() -> ctypes.CDLL:
+    lib = _load_lib("chunk_combiner")
+    if not getattr(lib, "_sigs_set", False):
+        lib.cc_chunk_combine.restype = ctypes.c_int
+        lib.cc_chunk_combine.argtypes = [
+            _i32p, _i32p, _u8p, ctypes.c_int64, ctypes.c_int32, _i32p,
+        ]
+        # Bound separately (as in gelly_tpu): a library that predates a
+        # symbol only disables the codec that needs it.
+        try:
+            lib.cc_chunk_combine_sparse.restype = ctypes.c_int64
+            lib.cc_chunk_combine_sparse.argtypes = [
+                _i32p, _i32p, _u8p, ctypes.c_int64, ctypes.c_int32,
+                _i32p, _i32p, ctypes.c_int64,
+            ]
+            lib._has_sparse_codecs = True
+        except AttributeError:
+            lib._has_sparse_codecs = False
+        try:
+            lib.cc_chunk_combine_sparse_idx.restype = ctypes.c_int64
+            lib.cc_chunk_combine_sparse_idx.argtypes = [
+                _i32p, _i32p, _u8p, ctypes.c_int64, ctypes.c_int32,
+                _i32p, _i32p, _i32p, ctypes.c_int64,
+            ]
+            lib._has_sparse_idx = True
+        except AttributeError:
+            lib._has_sparse_idx = False
+        try:
+            lib.compact_session_create.restype = ctypes.c_void_p
+            lib.compact_session_create.argtypes = [ctypes.c_int32]
+            lib.compact_session_destroy.restype = None
+            lib.compact_session_destroy.argtypes = [ctypes.c_void_p]
+            lib.compact_session_reset.restype = None
+            lib.compact_session_reset.argtypes = [ctypes.c_void_p]
+            lib.compact_session_assigned.restype = ctypes.c_int32
+            lib.compact_session_assigned.argtypes = [ctypes.c_void_p]
+            lib.compact_session_assign.restype = ctypes.c_int64
+            lib.compact_session_assign.argtypes = [
+                ctypes.c_void_p, _i32p, ctypes.c_int64, _i32p,
+            ]
+            lib.compact_session_new_ids.restype = None
+            lib.compact_session_new_ids.argtypes = [
+                ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32, _i32p,
+            ]
+            lib.compact_session_lookup.restype = ctypes.c_int64
+            lib.compact_session_lookup.argtypes = [
+                ctypes.c_void_p, _i32p, ctypes.c_int64, _i32p,
+            ]
+            lib.compact_session_rebuild.restype = ctypes.c_int
+            lib.compact_session_rebuild.argtypes = [
+                ctypes.c_void_p, _i32p, ctypes.c_int32,
+            ]
+            lib._has_compact_session = True
+        except AttributeError:
+            lib._has_compact_session = False
+        try:
+            lib.cc_unit_forest_segments.restype = ctypes.c_int
+            lib.cc_unit_forest_segments.argtypes = [
+                _i32p, _i32p, _u8p, ctypes.c_int64, ctypes.c_int32,
+                ctypes.c_int64, _i32p, ctypes.c_int64, _i32p,
+                ctypes.c_int64, _i64p,
+            ]
+            lib.cc_unit_begin.restype = ctypes.c_void_p
+            lib.cc_unit_begin.argtypes = []
+            lib.cc_unit_destroy.restype = None
+            lib.cc_unit_destroy.argtypes = [ctypes.c_void_p]
+            lib.cc_unit_members.restype = ctypes.c_int64
+            lib.cc_unit_members.argtypes = [ctypes.c_void_p]
+            lib.cc_unit_add.restype = ctypes.c_int
+            lib.cc_unit_add.argtypes = [
+                ctypes.c_void_p, _i32p, _i32p, _u8p, ctypes.c_int64,
+                ctypes.c_int32, ctypes.c_int64,
+            ]
+            lib.cc_unit_finish.restype = ctypes.c_int
+            lib.cc_unit_finish.argtypes = [
+                ctypes.c_void_p, _i32p, ctypes.c_int64, _i32p,
+                ctypes.c_int64, _i64p,
+            ]
+            lib._has_unit_segments = True
+        except AttributeError:
+            lib._has_unit_segments = False
+        lib._sigs_set = True
+    return lib
+
+
+def _as_i32p(a: np.ndarray):
+    return a.ctypes.data_as(_i32p)
+
+
+_AVAILABLE: dict[str, bool] = {}
+
+
+def available(stem: str) -> bool:
+    """Probe (compile + dlopen + bind) one native component by source
+    stem; failures are negative-cached so a missing toolchain does not
+    re-run g++ per chunk."""
+    if stem not in _AVAILABLE:
+        loader = {"chunk_combiner": _load_combiner}[stem]
+        try:
+            loader()
+            _AVAILABLE[stem] = True
+        except (OSError, subprocess.SubprocessError, AttributeError):
+            _AVAILABLE[stem] = False
+    return _AVAILABLE[stem]
+
+
+def sparse_codecs_available() -> bool:
+    """The chunk-combiner library loads AND exports the sparse codecs."""
+    return available("chunk_combiner") and _load_combiner()._has_sparse_codecs
+
+
+def sparse_idx_available() -> bool:
+    """The combiner exports the root-indexed sparse codec."""
+    return available("chunk_combiner") and getattr(
+        _load_combiner(), "_has_sparse_idx", False
+    )
+
+
+def compact_session_available() -> bool:
+    """The combiner exports the persistent compact-id session."""
+    return available("chunk_combiner") and getattr(
+        _load_combiner(), "_has_compact_session", False
+    )
+
+
+def unit_segments_available() -> bool:
+    """The combiner exports the fused unit-level segment codec."""
+    return available("chunk_combiner") and getattr(
+        _load_combiner(), "_has_unit_segments", False
+    )
+
+
+def _valid_ptr(valid):
+    """(kept-alive uint8 array, pointer) of an optional valid mask."""
+    if valid is None:
+        return None, None
+    valid = np.ascontiguousarray(valid, np.uint8)
+    return valid, valid.ctypes.data_as(_u8p)
+
+
+def cc_chunk_combine(src: np.ndarray, dst: np.ndarray,
+                     valid: np.ndarray | None, n_v: int) -> np.ndarray:
+    """Spanning-forest labels i32[n_v] of one chunk; -1 for untouched
+    slots (the dense codec)."""
+    lib = _load_combiner()
+    src = np.ascontiguousarray(src, np.int32)
+    dst = np.ascontiguousarray(dst, np.int32)
+    labels = np.empty((n_v,), np.int32)
+    valid, vp = _valid_ptr(valid)
+    rc = lib.cc_chunk_combine(
+        _as_i32p(src), _as_i32p(dst), vp, src.shape[0], n_v, _as_i32p(labels)
+    )
+    if rc != 0:
+        raise _stamp(ValueError(
+            f"cc_chunk_combine: vertex slot out of range (rc={rc})"
+        ), "chunk_combiner")
+    return labels
+
+
+def _sparse_rc_check(rc: int, fn: str) -> None:
+    if rc == -2:
+        raise _stamp(ValueError(f"{fn}: vertex slot out of range"),
+                     "chunk_combiner")
+    if rc == -3:
+        raise _stamp(ValueError(f"{fn}: pair capacity overflow"),
+                     "chunk_combiner")
+    if rc < 0:
+        raise _stamp(MemoryError(f"{fn}: allocation failed (rc={rc})"),
+                     "chunk_combiner")
+
+
+def cc_chunk_combine_sparse(src: np.ndarray, dst: np.ndarray,
+                            valid: np.ndarray | None, n_v: int):
+    """Counted (vertex, root) pairs of one chunk's spanning forest — the
+    touched-slot codec. Returns ``(verts i32[t], roots i32[t])``."""
+    lib = _load_combiner()
+    src = np.ascontiguousarray(src, np.int32)
+    dst = np.ascontiguousarray(dst, np.int32)
+    cap = 2 * max(1, src.shape[0])
+    out_v = np.empty((cap,), np.int32)
+    out_r = np.empty((cap,), np.int32)
+    valid, vp = _valid_ptr(valid)
+    rc = lib.cc_chunk_combine_sparse(
+        _as_i32p(src), _as_i32p(dst), vp, src.shape[0], n_v,
+        _as_i32p(out_v), _as_i32p(out_r), cap,
+    )
+    _sparse_rc_check(rc, "cc_chunk_combine_sparse")
+    return out_v[:rc], out_r[:rc]
+
+
+def cc_chunk_combine_sparse_idx(src: np.ndarray, dst: np.ndarray,
+                                valid: np.ndarray | None, n_v: int):
+    """Counted (vertex, root, root-index) triples of one chunk's spanning
+    forest — the compact pairs wire: ``verts[ri[j]] == roots[j]``."""
+    lib = _load_combiner()
+    src = np.ascontiguousarray(src, np.int32)
+    dst = np.ascontiguousarray(dst, np.int32)
+    cap = 2 * max(1, src.shape[0])
+    out_v = np.empty((cap,), np.int32)
+    out_r = np.empty((cap,), np.int32)
+    out_ri = np.empty((cap,), np.int32)
+    valid, vp = _valid_ptr(valid)
+    rc = lib.cc_chunk_combine_sparse_idx(
+        _as_i32p(src), _as_i32p(dst), vp, src.shape[0], n_v,
+        _as_i32p(out_v), _as_i32p(out_r), _as_i32p(out_ri), cap,
+    )
+    _sparse_rc_check(rc, "cc_chunk_combine_sparse_idx")
+    return out_v[:rc], out_r[:rc], out_ri[:rc]
+
+
+def cc_unit_forest_segments(src: np.ndarray, dst: np.ndarray,
+                            valid: np.ndarray | None, n_v: int,
+                            block: int = 1 << 16):
+    """Segment-format spanning forest of one merge-window unit. Returns
+    ``(members i32[t], lengths i32[s])``: members grouped by component,
+    each component's ROOT first in its segment."""
+    lib = _load_combiner()
+    src = np.ascontiguousarray(src, np.int32)
+    dst = np.ascontiguousarray(dst, np.int32)
+    cap = 2 * max(1, src.shape[0])
+    out_v = np.empty((cap,), np.int32)
+    out_len = np.empty((cap,), np.int32)
+    counts = np.zeros((2,), np.int64)
+    valid, vp = _valid_ptr(valid)
+    rc = lib.cc_unit_forest_segments(
+        _as_i32p(src), _as_i32p(dst), vp, src.shape[0], n_v, block,
+        _as_i32p(out_v), cap, _as_i32p(out_len), cap,
+        counts.ctypes.data_as(_i64p),
+    )
+    _sparse_rc_check(rc, "cc_unit_forest_segments")
+    return out_v[: counts[0]], out_len[: counts[1]]
+
+
+class UnitForestBuilder:
+    """Streaming form of :func:`cc_unit_forest_segments`: ``add`` each
+    chunk's buffers as they arrive (no host concatenation of the unit's
+    edges), then ``finish`` sizes the output exactly from the interned
+    member count. One builder per unit; not thread-safe."""
+
+    def __init__(self, n_v: int, block: int = 1 << 18):
+        self._lib = _load_combiner()
+        self._n_v = int(n_v)
+        self._block = int(block)
+        self._h = self._lib.cc_unit_begin()
+        if not self._h:
+            raise _stamp(MemoryError("cc_unit_begin failed"),
+                         "chunk_combiner")
+        # weakref.finalize runs at most once and before module teardown.
+        self._finalize = weakref.finalize(
+            self, self._lib.cc_unit_destroy, self._h
+        )
+
+    def add(self, src: np.ndarray, dst: np.ndarray,
+            valid: np.ndarray | None) -> None:
+        if not self._h:
+            raise RuntimeError(
+                "UnitForestBuilder already finished; create a new one"
+            )
+        src = np.ascontiguousarray(src, np.int32)
+        dst = np.ascontiguousarray(dst, np.int32)
+        valid, vp = _valid_ptr(valid)
+        rc = self._lib.cc_unit_add(
+            self._h, _as_i32p(src), _as_i32p(dst), vp, src.shape[0],
+            self._n_v, self._block,
+        )
+        _sparse_rc_check(rc, "cc_unit_add")
+
+    def finish(self):
+        """(members, lengths) — root-first segment format; consumes the
+        builder."""
+        if not self._h:
+            raise RuntimeError(
+                "UnitForestBuilder already finished; create a new one"
+            )
+        count = int(self._lib.cc_unit_members(self._h))
+        out_v = np.empty((count,), np.int32)
+        out_len = np.empty((count,), np.int32)
+        counts = np.zeros((2,), np.int64)
+        rc = self._lib.cc_unit_finish(
+            self._h, _as_i32p(out_v), count, _as_i32p(out_len), count,
+            counts.ctypes.data_as(_i64p),
+        )
+        _sparse_rc_check(rc, "cc_unit_finish")
+        self._finalize()  # destroys the handle now; idempotent thereafter
+        self._h = None
+        return out_v[: counts[0]], out_len[: counts[1]]
+
+
+class NativeCompactSession:
+    """Handle over the native open-addressing id -> cid table: one hash
+    probe per id, O(1) amortized insert. Not internally locked; the
+    caller (:class:`~gelly_torch.ops.compact_space.CompactIdSession`)
+    serializes access."""
+
+    def __init__(self, capacity: int):
+        self._lib = _load_combiner()
+        self._capacity = int(capacity)
+        self._h = self._lib.compact_session_create(self._capacity)
+        if not self._h:
+            raise _stamp(MemoryError("compact_session_create failed"),
+                         "chunk_combiner")
+        self._finalize = weakref.finalize(
+            self, self._lib.compact_session_destroy, self._h
+        )
+
+    def _handle(self):
+        if not self._h:
+            raise RuntimeError(
+                "compact session discarded after a native allocation "
+                "failure; create a new session"
+            )
+        return self._h
+
+    def _poison(self):
+        """Destroy the handle after a native -4: the table may alias
+        dropped cids, so the session must not be reused."""
+        self._finalize()
+        self._h = None
+
+    def reset(self) -> None:
+        self._lib.compact_session_reset(self._handle())
+
+    @property
+    def assigned(self) -> int:
+        return int(self._lib.compact_session_assigned(self._handle()))
+
+    def assign(self, ids: np.ndarray):
+        """(cids, new_ids, base) — fresh ids get cids in first-seen ARRAY
+        order. Returns base=-1 on capacity overflow (session unchanged).
+        Negative ids raise ValueError."""
+        ids = np.ascontiguousarray(ids, np.int32)
+        if ids.size and int(ids.min()) < 0:
+            raise ValueError(
+                "compact_session_assign: negative vertex ids "
+                f"(min={int(ids.min())})"
+            )
+        out = np.empty(ids.shape[0], np.int32)
+        base = self._lib.compact_session_assign(
+            self._handle(), _as_i32p(ids), ids.shape[0], _as_i32p(out)
+        )
+        if base == -4:
+            self._poison()
+            raise _stamp(
+                MemoryError("compact_session_assign: allocation failed"),
+                "chunk_combiner",
+            )
+        if base == -2:
+            raise ValueError("compact_session_assign: negative vertex id")
+        if base < 0:
+            return None, None, -1
+        top = self.assigned
+        new_ids = np.empty(top - base, np.int32)
+        if top > base:
+            self._lib.compact_session_new_ids(
+                self._h, base, top, _as_i32p(new_ids)
+            )
+        return out, new_ids, int(base)
+
+    def lookup(self, ids: np.ndarray):
+        """(cids, n_unknown) — unknown ids get cid -1."""
+        ids = np.ascontiguousarray(ids, np.int32)
+        out = np.empty(ids.shape[0], np.int32)
+        bad = self._lib.compact_session_lookup(
+            self._handle(), _as_i32p(ids), ids.shape[0], _as_i32p(out)
+        )
+        return out, int(bad)
+
+    def rebuild(self, vertex_of: np.ndarray) -> None:
+        vertex_of = np.ascontiguousarray(vertex_of, np.int32)
+        rc = self._lib.compact_session_rebuild(
+            self._handle(), _as_i32p(vertex_of), vertex_of.shape[0]
+        )
+        if rc == -1:
+            raise ValueError(
+                f"compact_session_rebuild: checkpoint holds "
+                f"{vertex_of.shape[0]} cids but session capacity is "
+                f"{self._capacity}; resume with compact_capacity >= "
+                f"{vertex_of.shape[0]}"
+            )
+        if rc != 0:
+            self._poison()
+            raise _stamp(
+                MemoryError("compact_session_rebuild: allocation failed"),
+                "chunk_combiner",
+            )

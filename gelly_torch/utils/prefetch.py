@@ -1,16 +1,18 @@
-"""Ordered parallel map with bounded lookahead (host work overlap).
+"""Background prefetch and an ordered parallel map (host work overlap).
 
-Counterpart of ``gelly_tpu/utils/prefetch.py`` (:func:`prefetch_map` and
-what it calls; pure threading). Host staging for upcoming items runs on a
-worker pool while the consumer drives the device with earlier ones.
-Exceptions re-raise at the consumer.
+Counterpart of ``gelly_tpu/utils/prefetch.py`` (:func:`prefetch` and
+:func:`prefetch_map`; pure threading). Host staging for upcoming items
+runs on a background thread or a worker pool while the consumer drives
+the device with earlier ones. Exceptions re-raise at the consumer.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterable, Iterator
+from typing import Iterable, Iterator, TypeVar
+
+T = TypeVar("T")
 
 _DONE = object()
 
@@ -24,22 +26,85 @@ class _Error:
         self.exc = exc
 
 
+def prefetch(it: Iterable[T], depth: int = 2,
+             name: str = "gelly-prefetch") -> Iterator[T]:
+    """Iterate ``it`` on a background thread, ``depth`` items ahead (a
+    plain pass-through when depth is 0).
+
+    Cancellation-safe: abandoning the returned generator signals the
+    worker, which stops pulling from the source instead of blocking on
+    the full queue. ``name`` names the worker thread.
+    """
+    if depth <= 0:
+        yield from it
+        return
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    cancel = threading.Event()
+
+    def put(item) -> bool:
+        while not cancel.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for item in it:
+                if not put(item):
+                    return
+        except BaseException as e:  # re-raised at the consumer
+            put(_Error(e))
+        finally:
+            # The consumer needs _DONE to stop, but a consumer that is gone
+            # (cancel set) must not leave this thread parked on a full queue.
+            while True:
+                try:
+                    q.put(_DONE, timeout=0.1)
+                    break
+                except queue.Full:
+                    if cancel.is_set():
+                        break
+
+    t = threading.Thread(target=worker, daemon=True, name=name)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is _DONE:
+                return
+            if isinstance(item, _Error):
+                raise item.exc  # the worker's traceback is kept
+            yield item
+    finally:
+        cancel.set()
+
+
 def prefetch_map(fn, it: Iterable, depth: int = 2,
                  workers: int = 2,
-                 cancel: "threading.Event | None" = None) -> Iterator:
+                 cancel: "threading.Event | None" = None,
+                 on_cancel=None) -> Iterator:
     """Apply ``fn`` to up to ``depth`` upcoming items of ``it`` on a pool
     of ``workers`` threads, yielding results in input order (a plain map
     when depth or workers is 0).
 
     Cancellation-safe: closing or abandoning the generator cancels the
     submitter thread, drains the queue (so a submitter parked on a full
-    queue unblocks at once), cancels the drained futures and shuts the
-    pool down without waiting on queued work.
+    queue unblocks at once), cancels the drained and queued futures, and
+    waits for the items already running, so no worker outlives the
+    generator.
 
     ``cancel`` (optional ``threading.Event``) ends the stream from OUTSIDE
     the consuming thread: a generator can only be closed between items, so
     a consumer parked inside ``__next__`` on a stalled source is reached
     only through the event, which the parked get polls.
+
+    ``on_cancel(item)`` (optional) is called for every item whose ``fn``
+    was submitted but never ran because the stream was cancelled: a
+    worker may take item i+1 while item i is being cancelled, so work
+    that waits on its predecessors (ordered turns) must be told.
     """
     if depth <= 0 or workers <= 0:
         yield from map(fn, it)
@@ -52,10 +117,17 @@ def prefetch_map(fn, it: Iterable, depth: int = 2,
     pool = ThreadPoolExecutor(max_workers=workers,
                               thread_name_prefix="gelly-codec")
 
+    def submit(item):
+        fut = pool.submit(fn, item)
+        if on_cancel is not None:
+            fut.add_done_callback(
+                lambda f: on_cancel(item) if f.cancelled() else None)
+        return fut
+
     def submitter():
         try:
             for item in it:
-                fut = pool.submit(fn, item)
+                fut = submit(item)
                 while not cancel.is_set():
                     try:
                         q.put(fut, timeout=0.1)
@@ -109,7 +181,7 @@ def prefetch_map(fn, it: Iterable, depth: int = 2,
                     got.cancel()
         except queue.Empty:
             pass
-        pool.shutdown(wait=False, cancel_futures=True)
+        pool.shutdown(wait=True, cancel_futures=True)
         # A submitter parked inside a stalled source's __next__ cannot be
         # interrupted; it is a daemon thread and exits at its next poll.
         t.join(timeout=0.2)

@@ -128,10 +128,13 @@ def test_plan_knobs_match_and_refuse():
                                  fold_backend="kernel")
     with pytest.raises(ValueError, match="fold_backend"):
         tcc.connected_components(N, ingest_combine=False, fold_backend="xla")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tcc.connected_components(N)  # the codec plan: next slice
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # The default builds the codec plan gelly_tpu builds (dense below
+    # 2^20 slots); the raw plan refuses the compact codec as JAX does.
+    assert tcc.connected_components(N).host_compress is not None
+    with pytest.raises(ValueError, match="ingest_combine"):
         tcc.connected_components(N, ingest_combine=False, codec="compact")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tcc.connected_components(N, windowed=2)
     src, dst = _zipf_stream()
     stream = t_stream(TSource(src, dst, chunk_size=256, table=TIdentity(N)),
                       N, device="cpu")
@@ -162,6 +165,11 @@ def test_default_device_raises_without_a_card():
         TEdgeStream(lambda: iter(()), TContext(TIdentity(N), N))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         t_stream(TSource(src, dst, table=TIdentity(N)), N)
+    for agg in (tcc.connected_components(N),
+                tcc.connected_components(1 << 20),
+                tcc.connected_components(N, codec="compact")):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            agg.init()
 
 
 def _imports(path):

@@ -1,5 +1,6 @@
-"""gelly_torch on the card: each CUDA kernel vs its plain version, and the
-CC and window-triangle paths on CUDA vs the same paths on the CPU.
+"""gelly_torch on the card: each CUDA kernel vs its plain version, the CC
+(raw, compact and sparse plans) and window-triangle paths on CUDA vs the
+same paths on the CPU, and the engine's pinned H2D ring.
 
 Marked ``cuda``; every test takes the ``cuda_device`` fixture, which skips
 when the machine has no card (decided at run time, never at import time,
@@ -15,6 +16,7 @@ import torch
 from gelly_torch.core.io import EdgeChunkSource, TimeCharacteristic
 from gelly_torch.core.stream import edge_stream_from_source
 from gelly_torch.core.vertices import IdentityVertexTable
+from gelly_torch.engine.aggregation import PinnedRing
 from gelly_torch.library import connected_components as tcc
 from gelly_torch.library import triangles as ttri
 from gelly_torch.ops import kernels
@@ -207,3 +209,79 @@ def test_window_triangles_on_card_equals_cpu(cuda_device):
     assert on_card[0] == on_cpu[0] == (0, 1, 2, 3)
     assert on_card[1].dtype == torch.int64
     assert torch.equal(on_card[1], on_cpu[1]) and int(on_cpu[1].sum()) > 0
+
+
+@pytest.mark.parametrize("plan", ["compact-segments", "compact-pairs",
+                                  "sparse"])
+def test_codec_plans_on_card_equal_cpu(cuda_device, plan):
+    n = 1 << 12
+    rng = np.random.default_rng(23)
+    src = (rng.zipf(1.3, 20000) % n).astype(np.int32)
+    dst = (rng.zipf(1.3, 20000) % n).astype(np.int32)
+
+    def make():
+        if plan == "sparse":
+            return tcc.connected_components(n, codec="sparse")
+        return tcc.connected_components_compact(
+            n, compact_capacity=n, wire=plan.split("-")[1])
+
+    def run(device):
+        s = edge_stream_from_source(
+            EdgeChunkSource(src, dst, chunk_size=1024,
+                            table=IdentityVertexTable(n)), n, device=device)
+        out = [x.cpu() for x in s.aggregate(make(), merge_every=4,
+                                            fold_batch=2, ingest_workers=2)]
+        assert all(x.device.type == "cpu" for x in out)
+        return out
+
+    on_card, on_cpu = run("cuda"), run("cpu")
+    assert len(on_card) == len(on_cpu) == 5
+    for a, b in zip(on_card, on_cpu):
+        assert torch.equal(a, b)
+    assert np.array_equal(on_card[-1].numpy(),
+                          tcc.cc_labels_numpy(src, dst, None, n))
+
+
+def test_pinned_ring_reuses_a_buffer_only_after_its_copy(cuda_device):
+    # 64 MiB units through 2 slots, no waits by the caller: put must wait
+    # on a slot's previous copy event before it writes the slot again, and
+    # every device copy must hold its own unit's values.
+    ring = PinnedRing(cuda_device, 2, torch.cuda.current_stream())
+    units = 8
+    outs, events = [], []
+    for i in range(units):
+        host = {"x": np.full(1 << 24, i, np.int32),
+                "base": np.asarray(i, np.int32)}
+        dev, event = ring.put(host)
+        outs.append(dev)
+        events.append(event)
+        if i >= 2:
+            assert events[i - 2].query()  # the slot's last copy is done
+    assert ring.reuses == units - 2
+    torch.cuda.synchronize()
+    for i, dev in enumerate(outs):
+        assert int(dev["base"]) == i
+        assert bool((dev["x"] == i).all())
+    assert ring.bytes == units * ((1 << 24) * 4 + 4)
+
+
+def test_raw_plan_copies_only_the_fields_its_fold_reads(cuda_device):
+    n = 1 << 12
+    rng = np.random.default_rng(29)
+    src = (rng.zipf(1.3, 8192) % n).astype(np.int32)
+    dst = (rng.zipf(1.3, 8192) % n).astype(np.int32)
+    s = edge_stream_from_source(
+        EdgeChunkSource(src, dst, chunk_size=1024,
+                        table=IdentityVertexTable(n)), n, device="cuda")
+    agg = tcc.connected_components(n, ingest_combine=False)
+    seen = []
+    fold = agg.fold
+    agg.fold = lambda st, c: (seen.append(
+        {f: getattr(c, f).device.type for f in c._fields}), fold(st, c))[1]
+    res = s.aggregate(agg, merge_every=4)
+    labels = res.result().cpu().numpy()
+    assert np.array_equal(labels, tcc.cc_labels_numpy(src, dst, None, n))
+    assert all(d["src"] == d["dst"] == d["valid"] == "cuda"
+               and d["raw_src"] == d["val"] == d["ts"] == "cpu"
+               for d in seen)
+    assert res.stats["h2d_bytes"] == 8 * 1024 * 9
