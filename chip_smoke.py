@@ -59,20 +59,51 @@ Phases (any failure exits nonzero and prints no result line):
    The path launches neither hand-written kernel (counted);
 8. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 
+The durable phases (checkpoints, exactly-once resume, the resilient
+runner), each checking that the native codec was never disabled:
+
+A. (in phase 7) the compact path with ``checkpoint_path`` and
+   ``checkpoint_every=1``, twice, timed: 4 checkpoints, every emission
+   equal to the plain runs'; its ``checkpoint`` busy seconds, bytes a
+   checkpoint and the checkpoint directory's filesystem. Then a run that
+   stops after the 3rd emission (the window-2 checkpoint at position 128
+   stays on disk) and a fresh plan resuming from it: 2 emissions equal to
+   windows 3 and 4, the load, ``on_resume`` and skip seconds and the time
+   to recover (call to first emission);
+B. (after phase 4) kill -9: phase 4's stream through the compact plan
+   (``2^20``-edge chunks, ``merge_every=16``, ``fold_batch=16``, 4
+   windows), written once as ``.npy``; a child ``python3 chip_smoke.py
+   --durable-child <dir>`` (internal to this phase) checkpoints every
+   window with a sleep before each unit and gets SIGKILL once the window-2
+   checkpoint is on disk; a second child resumes (position >= 32) and its
+   final labels must equal the in-process uninterrupted run's and scipy's.
+   Prints the time to recover and its parts;
+C. (after phase 4) ``ResilientRunner`` over phase 4's raw stream with
+   ``fold_backend="kernel"``, a ``CheckpointManager`` checkpoint every 4
+   chunks and a ``FaultPlan`` raising once at ``step`` and once at
+   ``checkpoint_write``: 2 retries, a forest bit-identical to the
+   uninterrupted chunk loop's (whose labels equal phase 4's), and the
+   gather's launches counted.
+
 After the checks of each path, one more run of it under ``torch.profiler``
 prints the device's busy time, idle share and the five device ops that
 took the most time (the profiler's cost is in that run's wall, so its
 wall is not the path's).
 
 Needs one CUDA card, ``nvcc``, ``g++`` and scipy; imports nothing of JAX.
+The checkpoint and stream files go to the temporary directory and are
+removed at the end of each phase.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -106,6 +137,20 @@ CC_FOLD_BATCH = 16
 CC_COMPACT = 1 << 23
 CC_RAW_MERGE_EVERY = 16  # 2^22-edge raw chunks: the same 2^26 boundaries
 CC_PREFIX = 1 << 26  # one window: the pairs wire and the sparse plan
+
+# Phase B (kill -9): phase 4's 2^26-edge stream through the compact plan in
+# 2^20-edge chunks, 4 windows of one 16-chunk unit each (a depth cut of
+# phase 7's 2^28, so that two child processes fit the time limit). The
+# killed child sleeps before each unit's fold, so the kill lands between
+# the window-2 checkpoint and the end of the stream.
+KILL_MERGE_EVERY = 16
+KILL_FOLD_BATCH = 16
+KILL_UNIT_SLEEP_S = 2.0
+KILL_AT_WINDOWS = 2
+CHILD_TIMEOUT_S = 300
+
+# Phase C (resilient raw fold): a checkpoint every 4 of phase 4's chunks.
+RESILIENT_EVERY = 4
 
 
 def check(cond, msg: str) -> None:
@@ -275,6 +320,427 @@ def library_yardstick(torch, m, want, device):
     return best[0], best[1], lines
 
 
+def filesystem_of(path: str) -> str:
+    """The ``/proc/mounts`` line of the filesystem holding ``path``, with
+    its block size and free bytes (``os.statvfs``)."""
+    real = os.path.realpath(path)
+    best = ""
+    try:
+        with open("/proc/mounts") as f:
+            for line in f:
+                mnt = line.split()[1]
+                if (real == mnt or real.startswith(mnt.rstrip("/") + "/")) \
+                        and len(mnt) > len(best.split()[1] if best else ""):
+                    best = line.strip()
+    except OSError:
+        best = "/proc/mounts unreadable"
+    st = os.statvfs(path)
+    return (f"{best} (bsize={st.f_bsize}, free={st.f_bavail * st.f_frsize}"
+            f" B)")
+
+
+def count_folds(agg):
+    """Wrap ``agg.fold_compressed`` with a call counter; returns the
+    wrapped fold's name and the one-element count."""
+    fold = agg.fold_compressed
+    calls = [0]
+
+    def counted(summary, payload):
+        calls[0] += 1
+        return fold(summary, payload)
+
+    agg.fold_compressed = counted
+    return fold.__name__, calls
+
+
+def check_durable_wire(agg, folds, units: int, what: str) -> None:
+    """A durable compact phase ran what it claims: the segments wire, one
+    ``fold_segments`` a unit, and the native codec never disabled."""
+    from gelly_torch.utils import native
+
+    name, calls = folds
+    check(agg.wire == "segments" and name == "fold_segments",
+          f"{what}: took the {agg.wire} wire ({name}), not segments")
+    check(calls[0] == units and units > 0,
+          f"{what}: {calls[0]} fold_segments calls for {units} units")
+    check(native.disabled_reason("chunk_combiner") is None,
+          f"{what}: the native codec was disabled "
+          f"({native.disabled_reason('chunk_combiner')})")
+
+
+def durable_compact_phase(torch, compact_plan, run, report, plain_labels,
+                          plain_walls) -> None:
+    """Phase A: phase 7's compact path with a checkpoint every window, then
+    a stop after the 3rd emission and an in-process resume."""
+    from gelly_torch.engine.checkpoint import read_checkpoint_header
+
+    tmp = tempfile.mkdtemp(prefix="gelly-durable-")
+    try:
+        path = os.path.join(tmp, "ck.npz")
+        print(f"phase A checkpoint dir {tmp}: {filesystem_of(tmp)}")
+        knobs = {"checkpoint_path": path, "checkpoint_every": 1}
+        n_windows = len(plain_labels)
+        for i in range(2):
+            agg = compact_plan()
+            folds = count_folds(agg)
+            got, st = run(agg, CC_EDGES, **knobs)
+            report(f"phase A durable compact run {i + 1}", st, CC_EDGES, agg)
+            check_durable_wire(agg, folds, st["units"], "phase A")
+            check(st["launches"] == (0, 0),
+                  "phase A: the compact path launched a kernel")
+            n_ck = st["stats"]["checkpoints"]
+            ck_bytes = st["stats"]["checkpoint_bytes"]
+            check(n_ck == n_windows, f"phase A: {n_ck} checkpoints, not "
+                  f"{n_windows}")
+            check(len(got) == n_windows and all(
+                np.array_equal(a, b) for a, b in zip(got, plain_labels)),
+                "phase A: a durable emission differs from the plain run's")
+            print(f"phase A run {i + 1}: wall={st['wall_s']:.4f} s "
+                  f"({st['edges_per_s']:.1f} edges/s) against the plain "
+                  f"walls {', '.join(f'{w:.4f}' for w in plain_walls)} s; "
+                  f"checkpoint busy={st['busy']['checkpoint']:.4f} s "
+                  f"({st['busy']['checkpoint'] / n_ck:.4f} s a window), "
+                  f"{n_ck} checkpoints of {ck_bytes // n_ck} bytes")
+        header = read_checkpoint_header(path)
+        n_chunks = CC_EDGES // CC_CHUNK
+        check(header["position"] == n_chunks
+              and header["meta"]["windows"] == n_windows,
+              f"phase A: last checkpoint header {header['position']} "
+              f"{header['meta']}")
+        checkpoint_parts(torch, compact_plan(), path, tmp)
+
+        # A consumer that stops after the 3rd emission leaves the window-2
+        # checkpoint; a fresh plan (a new id session) resumes from it.
+        got, st = run(compact_plan(), CC_EDGES, stop_after=3, **knobs)
+        check(len(got) == 3, f"phase A: the stopped run gave {len(got)}")
+        header = read_checkpoint_header(path)
+        want_pos = 2 * CC_MERGE_EVERY
+        check(header["position"] == want_pos
+              and header["meta"]["windows"] == 2,
+              f"phase A: after the stop the checkpoint is at "
+              f"{header['position']} {header['meta']}, not {want_pos}")
+        agg = compact_plan()
+        folds = count_folds(agg)
+        got, st = run(agg, CC_EDGES, resume=True, **knobs)
+        report("phase A resumed run", st, CC_EDGES, agg)
+        check_durable_wire(agg, folds, st["units"], "phase A resume")
+        check(st["stats"]["resumed_at"] == want_pos,
+              f"phase A: resumed at {st['stats']['resumed_at']}")
+        check(len(got) == n_windows - 2 and all(
+            np.array_equal(a, b) for a, b in zip(got, plain_labels[2:])),
+            "phase A: the resumed windows differ from the plain run's")
+        busy = st["busy"]
+        print(f"phase A resume at position {want_pos}: "
+              f"load={busy['resume_load']:.4f} s "
+              f"on_resume={busy['on_resume']:.4f} s "
+              f"skip={busy['resume_skip']:.4f} s; time to recover (call "
+              f"to first emission) {st['first_emission_s']:.4f} s; "
+              f"{len(got)} emissions equal windows 3-{n_windows}; "
+              f"wall={st['wall_s']:.4f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def checkpoint_parts(torch, agg, path: str, tmp: str) -> None:
+    """Where a compact checkpoint's seconds go: the last checkpoint loaded
+    onto the card, then its pull to the host, the CRC of its leaves, a
+    write without ``fsync`` and one with it (each timed once)."""
+    import zlib
+
+    from gelly_torch.engine import checkpoint as ck
+
+    summary, _, _ = ck.load_checkpoint(
+        path, like=agg.init(torch.device("cuda", 0)))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    host = ck.tree_map(ck.to_host, summary)
+    pull = time.perf_counter() - t
+    t = time.perf_counter()
+    for leaf in ck.tree_flatten(host)[0]:
+        zlib.crc32(np.ascontiguousarray(leaf).tobytes())
+    crc = time.perf_counter() - t
+    nbytes = sum(leaf.nbytes for leaf in ck.tree_flatten(host)[0])
+    times = []
+    for fsync in (False, True):
+        t = time.perf_counter()
+        ck.save_checkpoint(os.path.join(tmp, f"parts-{fsync}.npz"), summary,
+                           fsync=fsync)
+        times.append(time.perf_counter() - t)
+    print(f"phase A checkpoint parts ({nbytes} B): pull={pull:.4f} s "
+          f"crc32={crc:.4f} s save without fsync={times[0]:.4f} s "
+          f"save with fsync={times[1]:.4f} s")
+
+
+def kill_stream_run(torch, device, src, dst, path=None, resume=False,
+                    sleep_s=0.0):
+    """Phase B's compact run over phase 4's stream: ``(emissions on the
+    host, the SummaryStream, the plan, its fold count, (seconds from the
+    call to the first emission, its ``time.time()``))``."""
+    from gelly_torch.core.io import EdgeChunkSource
+    from gelly_torch.core.stream import edge_stream_from_source
+    from gelly_torch.core.vertices import IdentityVertexTable
+    from gelly_torch.library import connected_components as cc
+
+    agg = cc.connected_components(N_VERTICES, merge="gather",
+                                  codec="compact", compact_capacity=CC_COMPACT)
+    folds = count_folds(agg)
+    if sleep_s:
+        fold = agg.fold_compressed
+
+        def slow(summary, payload):
+            time.sleep(sleep_s)
+            return fold(summary, payload)
+
+        agg.fold_compressed = slow
+    stream = edge_stream_from_source(
+        EdgeChunkSource(src, dst, chunk_size=CC_CHUNK,
+                        table=IdentityVertexTable(N_VERTICES)),
+        N_VERTICES, device=device)
+    knobs = ({"checkpoint_path": path, "checkpoint_every": 1,
+              "resume": resume} if path else {})
+    t = time.perf_counter()
+    res = stream.aggregate(agg, merge_every=KILL_MERGE_EVERY,
+                           fold_batch=KILL_FOLD_BATCH, **knobs)
+    out, first = [], None
+    for x in res:
+        if first is None:
+            first = (time.perf_counter() - t, time.time())
+        out.append(x.cpu().numpy())
+    return out, res, agg, folds, first
+
+
+def durable_child(directory: str) -> int:
+    """Phase B's child: the compact run over the stream in ``directory``,
+    checkpointing every window to ``directory/ck.npz`` (resuming when it
+    exists); writes its final labels with ``save_checkpoint`` and prints
+    its parts as one JSON line."""
+    import torch
+
+    with open(os.path.join(directory, "run.json")) as f:
+        cfg = json.load(f)
+    torch.cuda.init()
+    device = torch.device("cuda", 0)
+    torch.zeros(1, device=device)
+    torch.cuda.synchronize()
+    t_cuda = time.time()
+    from gelly_torch.engine.checkpoint import save_checkpoint
+
+    src = np.load(os.path.join(directory, "src.npy"))
+    dst = np.load(os.path.join(directory, "dst.npy"))
+    t_data = time.time()
+    path = os.path.join(directory, "ck.npz")
+    resume = os.path.exists(path)
+    out, res, agg, folds, (first_s, first_at) = kill_stream_run(
+        torch, device, src, dst, path=path, resume=resume,
+        sleep_s=cfg["sleep_s"])
+    check_durable_wire(agg, folds, res.stats["units"], "phase B child")
+    busy = res.timer.busy()
+    parts = {
+        "resumed_at": res.stats["resumed_at"],
+        "emissions": len(out),
+        "spawn_to_cuda_s": t_cuda - cfg["spawned_at"],
+        "data_load_s": t_data - t_cuda,
+        "resume_load_s": busy.get("resume_load"),
+        "on_resume_s": busy.get("on_resume"),
+        "resume_skip_s": busy.get("resume_skip"),
+        "call_to_first_emission_s": first_s,
+        "spawn_to_first_emission_s": first_at - cfg["spawned_at"],
+        "checkpoint_busy_s": busy.get("checkpoint"),
+    }
+    save_checkpoint(os.path.join(directory, "final.npz"),
+                    {"labels": out[-1]}, position=res.stats["chunks"],
+                    meta=parts)
+    print(json.dumps({"durable_child": parts}))
+    return 0
+
+
+def kill9_phase(torch, device, src, dst, oracle) -> None:
+    """Phase B: a child checkpointing the compact run is killed with
+    SIGKILL once the window-2 checkpoint is on disk; a second child
+    resumes, and its final labels must equal the uninterrupted run's and
+    scipy's."""
+    from gelly_torch.engine.checkpoint import (
+        CheckpointCorruptError,
+        load_checkpoint,
+        read_checkpoint_header,
+    )
+
+    tmp = tempfile.mkdtemp(prefix="gelly-kill9-")
+    here = os.path.abspath(__file__)
+    procs = []
+
+    def spawn(sleep_s, name):
+        with open(os.path.join(tmp, "run.json"), "w") as f:
+            json.dump({"sleep_s": sleep_s, "spawned_at": time.time()}, f)
+        log = open(os.path.join(tmp, f"{name}.log"), "w")
+        p = subprocess.Popen([sys.executable, here, "--durable-child", tmp],
+                             stdout=log, stderr=subprocess.STDOUT)
+        log.close()
+        procs.append(p)
+        return p
+
+    def tail(name):
+        with open(os.path.join(tmp, f"{name}.log")) as f:
+            return f.read()[-3000:]
+
+    try:
+        t0 = time.perf_counter()
+        np.save(os.path.join(tmp, "src.npy"), src)
+        np.save(os.path.join(tmp, "dst.npy"), dst)
+        print(f"phase B stream written in {time.perf_counter() - t0:.2f} s "
+              f"to {tmp}: {filesystem_of(tmp)}")
+        ref, res, agg, folds, _ = kill_stream_run(torch, device, src, dst)
+        check_durable_wire(agg, folds, res.stats["units"], "phase B")
+        n_windows = N_EDGES // (KILL_MERGE_EVERY * CC_CHUNK)
+        check(len(ref) == n_windows and np.array_equal(ref[-1], oracle),
+              "phase B: the uninterrupted run != scipy")
+
+        p = spawn(KILL_UNIT_SLEEP_S, "killed")
+        deadline = time.monotonic() + CHILD_TIMEOUT_S
+        header = None
+        while time.monotonic() < deadline:
+            check(p.poll() is None, f"phase B: the child exited "
+                  f"(rc={p.returncode}) before the kill: {tail('killed')}")
+            try:
+                header = read_checkpoint_header(os.path.join(tmp, "ck.npz"))
+            except (FileNotFoundError, CheckpointCorruptError):
+                header = None
+            if header is not None and \
+                    header["meta"]["windows"] >= KILL_AT_WINDOWS:
+                break
+            time.sleep(0.02)
+        check(header is not None
+              and header["meta"]["windows"] >= KILL_AT_WINDOWS,
+              "phase B: no window-2 checkpoint before the deadline")
+        os.kill(p.pid, signal.SIGKILL)
+        check(p.wait(timeout=60) == -signal.SIGKILL,
+              f"phase B: the child ended with {p.returncode}")
+        check(not os.path.exists(os.path.join(tmp, "final.npz")),
+              "phase B: the killed child finished its stream")
+        killed_at = read_checkpoint_header(
+            os.path.join(tmp, "ck.npz"))["position"]
+
+        p = spawn(0.0, "resumed")
+        rc = p.wait(timeout=CHILD_TIMEOUT_S)
+        check(rc == 0, f"phase B: the resumed child failed (rc={rc}): "
+              f"{tail('resumed')}")
+        final, pos, parts = load_checkpoint(os.path.join(tmp, "final.npz"))
+        min_pos = KILL_AT_WINDOWS * KILL_MERGE_EVERY
+        check(parts["resumed_at"] is not None
+              and parts["resumed_at"] >= min_pos
+              and parts["resumed_at"] == killed_at,
+              f"phase B: resumed at {parts['resumed_at']} (checkpoint at "
+              f"the kill: {killed_at}, want >= {min_pos})")
+        check(pos == N_EDGES // CC_CHUNK, f"phase B: final position {pos}")
+        check(np.array_equal(final[0], ref[-1])
+              and np.array_equal(final[0], oracle),
+              "phase B: the resumed child's labels != the uninterrupted "
+              "run's / scipy's")
+        print(f"phase B kill -9 at checkpoint position {killed_at} "
+              f"(windows {header['meta']['windows']}); resumed child: "
+              f"{parts['emissions']} emissions, final labels equal the "
+              f"uninterrupted run's and scipy's")
+        print(f"phase B time to recover (spawn to first emission) "
+              f"{parts['spawn_to_first_emission_s']:.4f} s: spawn to CUDA "
+              f"ready {parts['spawn_to_cuda_s']:.4f} s, stream load "
+              f"{parts['data_load_s']:.4f} s, checkpoint load "
+              f"{parts['resume_load_s']:.4f} s, on_resume "
+              f"{parts['on_resume_s']:.4f} s, skip "
+              f"{parts['resume_skip_s']:.4f} s, call to first emission "
+              f"{parts['call_to_first_emission_s']:.4f} s; checkpoint busy "
+              f"{parts['checkpoint_busy_s']:.4f} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def resilient_raw_phase(torch, device, src, dst, plain_last,
+                        path_wall) -> int:
+    """Phase C: ``ResilientRunner`` over phase 4's raw stream with the
+    kernel backend, a checkpoint every 4 chunks and two injected faults;
+    returns the gather's launches in the run."""
+    from gelly_torch.core.io import EdgeChunkSource
+    from gelly_torch.core.stream import edge_stream_from_source
+    from gelly_torch.core.vertices import IdentityVertexTable
+    from gelly_torch.engine import faults
+    from gelly_torch.engine.resilience import (
+        ResilienceConfig,
+        ResilientRunner,
+        RetryPolicy,
+    )
+    from gelly_torch.library import connected_components as cc
+    from gelly_torch.ops import kernels, unionfind
+    from gelly_torch.utils import native
+
+    agg = cc.connected_components(N_VERTICES, merge="gather",
+                                  ingest_combine=False, fold_backend="kernel")
+
+    def stream():
+        return edge_stream_from_source(
+            EdgeChunkSource(src, dst, chunk_size=CHUNK,
+                            table=IdentityVertexTable(N_VERTICES)),
+            N_VERTICES, device=device)
+
+    def stage(c):  # the fields the raw fold reads, as the engine copies
+        return c._replace(**{
+            f: getattr(c, f).pin_memory().to(device, non_blocking=True)
+            for f in agg.device_fields})
+
+    ref = agg.init(device)
+    for c in stream():
+        ref = agg.fold(ref, stage(c))
+    check(np.array_equal(unionfind.component_labels(
+        ref.parent, ref.seen).cpu().numpy(), plain_last),
+        "phase C: the plain chunk loop != phase 4's last emission")
+    tmp = tempfile.mkdtemp(prefix="gelly-resilient-")
+    try:
+        plan = faults.FaultPlan([faults.Fault("step", at=5),
+                                 faults.Fault("checkpoint_write", at=1)])
+        torch.cuda.synchronize()
+        kernels.sorted_window_gather.launches = 0
+        t = time.perf_counter()
+        with faults.install(plan):
+            runner = ResilientRunner(
+                lambda s, c: (agg.fold(s, c), None), stream(),
+                lambda: agg.init(device), checkpoint_dir=tmp, stage=stage,
+                config=ResilienceConfig(
+                    checkpoint_every_chunks=RESILIENT_EVERY,
+                    retry=RetryPolicy(base_delay=0.01)))
+            final = runner.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = kernels.sorted_window_gather.launches
+        st = runner.stats
+        n_chunks = N_EDGES // CHUNK
+        check(torch.equal(final.parent, ref.parent)
+              and torch.equal(final.seen, ref.seen),
+              "phase C: the resilient forest != the uninterrupted fold's")
+        check(st["retries"] == 2 and len(plan.fired) == 2,
+              f"phase C: {st['retries']} retries, fired {plan.fired}")
+        check(launches > 0, "phase C: the gather never launched")
+        check(st["checkpoints"] == n_chunks // RESILIENT_EVERY
+              and st["checkpoint_writes"] == st["checkpoints"],
+              f"phase C: {st['checkpoints']} checkpoints, "
+              f"{st['checkpoint_writes']} written")
+        check(final.parent.device == ref.parent.device,
+              "phase C: the fold left the card")
+        check(native.disabled_reason("chunk_combiner") is None,
+              "phase C: the native codec was disabled")
+        print(f"phase C resilient raw fold (fold_backend=kernel): "
+              f"wall={wall:.4f} s ({N_EDGES / wall:.1f} edges/s) against "
+              f"phase 4's {path_wall:.4f} s; retries={st['retries']} "
+              f"(fired {plan.fired}), {st['checkpoints']} checkpoints of "
+              f"{st['checkpoint_bytes'] // max(st['checkpoint_writes'], 1)}"
+              f" bytes, last write {st['checkpoint_write_s']:.4f} s, "
+              f"gather launches={launches}; forest bit-identical")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def compact_cc_phase(torch, device) -> None:
     """Phase 7: the compact CC plan at bench_cc_large's full size."""
     from gelly_torch.core.io import EdgeChunkSource
@@ -308,7 +774,7 @@ def compact_cc_phase(torch, device) -> None:
             compact_capacity=CC_COMPACT)
 
     def run(agg, n_edges, chunk=CC_CHUNK, merge_every=CC_MERGE_EVERY,
-            fold_batch=CC_FOLD_BATCH, pull=True):
+            fold_batch=CC_FOLD_BATCH, pull=True, stop_after=None, **knobs):
         stream = edge_stream_from_source(source(n_edges, chunk), N_VERTICES,
                                          device=device)
         torch.cuda.synchronize()
@@ -318,12 +784,20 @@ def compact_cc_phase(torch, device) -> None:
         unionfind.host_sync.count = 0
         t = time.perf_counter()
         res = stream.aggregate(agg, merge_every=merge_every,
-                               fold_batch=fold_batch)
-        out = list(res)
+                               fold_batch=fold_batch, **knobs)
+        out = []
+        first_s = None
+        for x in res:
+            if first_s is None:
+                first_s = time.perf_counter() - t
+            out.append(x)
+            if len(out) == stop_after:
+                break
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         stats = {
             "wall_s": wall, "edges_per_s": n_edges / wall,
+            "first_emission_s": first_s, "stats": dict(res.stats),
             "busy": res.timer.busy(), "units": res.stats["units"],
             "host_syncs": unionfind.host_sync.count,
             "peak_mem_bytes": torch.cuda.max_memory_allocated(device),
@@ -394,6 +868,8 @@ def compact_cc_phase(torch, device) -> None:
           f"session.assigned, {int(np.unique(oracle[oracle >= 0]).size)} "
           f"components) in {time.perf_counter() - t0:.2f} s")
     del oracle
+    durable_compact_phase(torch, compact_plan, run, report, labels,
+                          [r[1]["wall_s"] for r in runs])
 
     # The first window through the pairs wire and the sparse plan.
     pairs = cc.connected_components_compact(
@@ -468,6 +944,8 @@ def main() -> int:
         print("chip_smoke: gelly_torch was imported from outside the "
               "checkout", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--durable-child"]:
+        return durable_child(sys.argv[2])
     from gelly_torch.core.io import EdgeChunkSource, TimeCharacteristic
     from gelly_torch.core.stream import edge_stream_from_source
     from gelly_torch.core.vertices import IdentityVertexTable
@@ -614,6 +1092,10 @@ def main() -> int:
     print_profiled("CC path fold_backend=kernel",
                    *profiled(torch, lambda: run_path("kernel")))
 
+    # C. the resilient raw fold with the kernel, under two faults
+    resilient_raw_phase(torch, device, src, dst, labels[-1], st["wall_s"])
+    # B. kill -9 of a child checkpointing the compact plan, then resume
+    kill9_phase(torch, device, src, dst, oracle)
     del labels, labels_plain, oracle
 
     # The triangle stream (set-up, not timed).

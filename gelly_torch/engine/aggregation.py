@@ -19,15 +19,20 @@ consumer orders its fold after the copy on the device (``wait_event``),
 so it never blocks on an upload. Raw-chunk plans run the same stages
 inline by default. Where ``gelly_tpu`` donates the fold state to XLA, the
 port rebinds it: the fold returns new tensors. An emission is a transform
-output or a clone, never a view of live state. Meshes, event-time
-windows, pane rings, checkpoints, pre-compressed streams and source
-providers come with later slices; asking for any of them raises
-``NotImplementedError`` naming its ROADMAP.md item.
+output or a clone, never a view of live state.
+
+Checkpoints (``checkpoint_path``) and exactly-once resume (``resume``)
+follow ``gelly_tpu``'s file format and rules, so a run either package
+checkpointed resumes in the other. Meshes, event-time windows, pane
+rings, pre-compressed streams and source providers come with later
+slices; asking for any of them raises ``NotImplementedError`` naming its
+ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 import threading
 import time
@@ -37,6 +42,8 @@ import numpy as np
 import torch
 
 from ..core.chunk import EdgeChunk
+from . import faults
+from .checkpoint import load_checkpoint, save_checkpoint
 
 Summary = Any
 
@@ -52,7 +59,8 @@ class SummaryAggregation:
     - ``transient`` — when True the global summary resets every window.
     - ``merge_stacked`` — optional ``stacked -> summary`` merge of K
       summaries at once (leading axis K).
-    - ``flatten`` — optional label-preserving compaction of the summary.
+    - ``flatten`` — optional label-preserving compaction of the summary,
+      run at checkpoint cadence; its result replaces the live summary.
     - ``fold_accumulates`` — declares ``fold(combine(a, b), c) ==
       combine(a, fold(b, c))``: the engine may carry ONE running summary
       across windows (the accumulate plan).
@@ -72,7 +80,8 @@ class SummaryAggregation:
     - ``ordered_wait_s()`` — seconds stagers spent blocked in that turn
       (moved from ``ingest_compress`` to a ``codec_wait`` stage);
     - ``on_run_start()`` fires at the start of every run (fresh codec
-      state); ``on_resume(summary)`` is stored for the durability slice;
+      state); ``on_resume(summary)`` fires after a resumed run loaded its
+      summary (the compact plan rebuilds its id session from it);
     - ``requires_codec`` — the plan folds only through its codec;
     - ``codec_pad_values`` / ``codec_payload_check`` — the payload's pad
       values and an id-range validator for producer-compressed payloads.
@@ -251,8 +260,6 @@ _NOT_YET = {
     "allowed_lateness": (0, "queue 1 item 10 (stream API and windows)"),
     "windowed": (None, "queue 1 item 10 (stream API and windows)"),
     "ttl_panes": (None, "queue 1 item 10 (stream API and windows)"),
-    "checkpoint_path": (None, "queue 1 item 6 (durability)"),
-    "resume": (False, "queue 1 item 6 (durability)"),
     "host_precombine": (None, "queue 1 item 4 (pipelined executor)"),
     "source_provider": (None, "queue 1 item 12 (host planes: ingest)"),
     "precompressed": (False, "queue 1 item 12 (host planes: ingest)"),
@@ -391,7 +398,9 @@ def run_aggregation(agg: SummaryAggregation, stream,
                     codec_workers: int | None = None,
                     h2d_depth: int | None = None,
                     device_fields: tuple[str, ...] | None = None,
-                    timer=None, **knobs) -> SummaryStream:
+                    timer=None, checkpoint_path: str | None = None,
+                    checkpoint_every: int = 1, resume: bool = False,
+                    **knobs) -> SummaryStream:
     """Execute ``agg`` over ``stream`` on ``stream.ctx.device``.
 
     ``merge_every`` (chunks, default 1) sets the emit cadence.
@@ -411,6 +420,20 @@ def run_aggregation(agg: SummaryAggregation, stream,
     ``stream.timer``) collects busy seconds of ``ingest_compress``,
     ``codec_wait``, ``h2d``, ``fold_dispatch`` and ``merge_emit``.
 
+    ``checkpoint_path`` writes the summary and the stream position every
+    ``checkpoint_every`` closed windows and after a final partial window
+    (``engine/checkpoint.py``'s format; the plan's ``flatten`` runs first
+    and its result replaces the live summary). The position is the number
+    of chunks whose fold the snapshot holds (the last-retired-chunk rule);
+    windows close on unit boundaries, so it is exact. A window's
+    checkpoint is written when the consumer asks for the next emission, so
+    a consumer that stops right after emission k leaves checkpoint k-1.
+    ``resume=True`` loads the summary onto ``stream.ctx.device``, fires
+    ``on_resume``, restores the window count and drops the folded chunks
+    before any staging. The timer adds ``checkpoint``, ``resume_load``,
+    ``on_resume`` and ``resume_skip`` busy seconds; ``stats`` adds
+    ``checkpoints``, ``checkpoint_bytes`` and ``resumed_at``.
+
     Every other knob of ``gelly_tpu``'s ``run_aggregation`` is accepted
     by name and raises ``NotImplementedError`` (naming its ROADMAP.md
     item) unless it is left at its "off" value.
@@ -419,6 +442,11 @@ def run_aggregation(agg: SummaryAggregation, stream,
     from ..utils.prefetch import prefetch, prefetch_map
 
     _refuse_later_knobs(knobs)
+    if resume and not checkpoint_path:
+        raise ValueError("resume=True requires checkpoint_path")
+    if checkpoint_every < 1:
+        raise ValueError(
+            f"checkpoint_every must be >= 1, got {checkpoint_every}")
     if merge_every is None:
         merge_every = 1
     if merge_every < 1:
@@ -473,7 +501,8 @@ def run_aggregation(agg: SummaryAggregation, stream,
         skip = frozenset(EdgeChunk._fields) - set(device_fields)
     if timer is None:
         timer = StageTimer()
-    stats = {"units": 0, "chunks": 0, "h2d_bytes": 0}
+    stats = {"units": 0, "chunks": 0, "h2d_bytes": 0, "checkpoints": 0,
+             "checkpoint_bytes": 0, "resumed_at": None}
 
     def emit(summary):
         out = agg.transform(summary) if agg.transform is not None \
@@ -496,11 +525,49 @@ def run_aggregation(agg: SummaryAggregation, stream,
         fold_unit = agg.fold
 
     def gen():
+        # The codec's run state is reset first and rebuilt from the loaded
+        # summary after: the other order would wipe the rebuilt id session.
         if agg.on_run_start is not None:
             agg.on_run_start()
         wait0 = agg.ordered_wait_s() if agg.ordered_wait_s is not None \
             else 0.0
-        stats.update(units=0, chunks=0, h2d_bytes=0)
+        stats.update(units=0, chunks=0, h2d_bytes=0, checkpoints=0,
+                     checkpoint_bytes=0, resumed_at=None)
+        summary = agg.init(device)
+        skip_until = 0
+        windows = last_ckpt_windows = 0
+        current_window = None  # event-time windows: not ported yet
+        if resume:
+            with timer("resume_load"):
+                summary, skip_until, meta_in = load_checkpoint(
+                    checkpoint_path, like=summary)
+            if agg.on_resume is not None:
+                with timer("on_resume"):
+                    agg.on_resume(summary)
+            current_window = meta_in.get("current_window")
+            windows = last_ckpt_windows = meta_in.get("windows", 0)
+            stats["resumed_at"] = skip_until
+        chunks_consumed = skip_until
+        stats["chunks"] = chunks_consumed
+
+        def maybe_checkpoint(summary, force=False):
+            nonlocal last_ckpt_windows
+            if not checkpoint_path or (
+                    not force
+                    and windows - last_ckpt_windows < checkpoint_every):
+                return summary
+            last_ckpt_windows = windows
+            with timer("checkpoint"):
+                if agg.flatten is not None:
+                    summary = agg.flatten(summary)
+                save_checkpoint(
+                    checkpoint_path, summary, position=chunks_consumed,
+                    meta={"name": agg.name, "windows": windows,
+                          "current_window": current_window})
+            stats["checkpoints"] += 1
+            stats["checkpoint_bytes"] += os.path.getsize(checkpoint_path)
+            return summary
+
         consumer = (torch.cuda.current_stream(device)
                     if device.type == "cuda" else None)
         ring = PinnedRing(device, h2d_depth + 1, consumer)
@@ -515,7 +582,13 @@ def run_aggregation(agg: SummaryAggregation, stream,
         def produced_units():
             seq = 0
             group: list = []
-            for chunk in stream:
+            it = iter(stream)
+            if skip_until:
+                # Chunks folded before the checkpoint: dropped unstaged.
+                with timer("resume_skip"):
+                    for _ in itertools.islice(it, skip_until):
+                        pass
+            for chunk in it:
                 group.append(chunk)
                 if len(group) == batch:
                     yield seq, group
@@ -527,6 +600,7 @@ def run_aggregation(agg: SummaryAggregation, stream,
         def stage_unit(unit):
             seq, group = unit
             try:
+                faults.inject("codec")
                 with timer("ingest_compress"):
                     return _stage(seq, group), len(group), seq
             except BaseException:
@@ -555,6 +629,7 @@ def run_aggregation(agg: SummaryAggregation, stream,
 
         def h2d_unit(staged):
             payload, k, seq = staged
+            faults.inject("h2d")
             with timer("h2d"):
                 dev, event = ring.put(payload, skip)
             stats["h2d_bytes"] = ring.bytes
@@ -573,7 +648,6 @@ def run_aggregation(agg: SummaryAggregation, stream,
         if h2d_depth > 0:
             transferred = prefetch(transferred, depth=h2d_depth,
                                    name="gelly-h2d")
-        summary = agg.init(device)
         in_window = 0
         try:
             for unit, event, k, seq in transferred:
@@ -582,18 +656,25 @@ def run_aggregation(agg: SummaryAggregation, stream,
                         consumer.wait_event(event)  # on the device
                     summary = fold_unit(summary, unit)
                 del unit
+                # Last-retired-chunk rule: a chunk counts toward the
+                # checkpoint position once its fold is dispatched.
+                chunks_consumed += k
                 stats["units"] += 1
-                stats["chunks"] += k
+                stats["chunks"] = chunks_consumed
                 in_window += k
                 if in_window >= merge_every:
                     in_window = 0
                     with timer("merge_emit"):
                         out = emit(summary)
+                    windows += 1
                     yield out
+                summary = maybe_checkpoint(summary)
             if in_window:
                 with timer("merge_emit"):
                     out = emit(summary)
+                windows += 1
                 yield out
+                maybe_checkpoint(summary, force=True)
         finally:
             # Tear down outermost-first on any exit. The event goes first:
             # the H2D thread may be parked inside ``staged`` on a stalled

@@ -14,6 +14,12 @@ rebuilt when the source is newer, runs under a thread lock and a file lock
 call releases the GIL (ctypes), so codec workers on a thread pool run in
 parallel. A missing compiler makes :func:`available` report False and the
 codec plans fall back to their numpy codecs.
+
+The resilient runner's hooks are here too, as in ``gelly_tpu``: every
+ctypes entry fires the fault hook (``engine/faults.install`` sets it),
+:func:`disable` takes a stem out of service process-wide (the degradation
+ladder), and :func:`classify_error` / :func:`classify_native` sort an
+error into transient or permanent and name the stem it came from.
 """
 
 from __future__ import annotations
@@ -40,8 +46,67 @@ _u8p = ctypes.POINTER(ctypes.c_uint8)
 _i64p = ctypes.POINTER(ctypes.c_int64)
 
 
+# Fault-injection hook: ``engine/faults.install`` points this at the active
+# plan's "native" boundary (a plain attribute write — utils never imports
+# engine). Checked at every ctypes entry point; None when no plan is
+# installed.
+_fault_hook = None
+
+# Stems disabled at run time (the resilient runner's degradation ladder, or
+# an operator override): available() reports them unavailable, so every
+# codec probe falls back to the numpy path.
+_DISABLED: dict[str, str] = {}
+
+
+def _inject(stem: str) -> None:
+    hook = _fault_hook
+    if hook is not None:
+        hook(stem)
+
+
+def disable(stem: str, reason: str = "") -> None:
+    """Force ``available(stem)`` False process-wide (numpy fallback)."""
+    _AVAILABLE[stem] = False
+    _DISABLED[stem] = reason or "disabled"
+
+
+def reenable(stem: str) -> None:
+    """Undo :func:`disable`; the next ``available()`` re-probes."""
+    _AVAILABLE.pop(stem, None)
+    _DISABLED.pop(stem, None)
+
+
+def disabled_reason(stem: str) -> str | None:
+    return _DISABLED.get(stem)
+
+
+# Retryable-error classification for the resilient runner: allocation and
+# I/O failures are environment pressure (transient — backoff and retry);
+# ValueError-class failures are data-dependent (permanent — the same chunk
+# will fail the same way forever).
+_TRANSIENT_TYPES = (MemoryError, OSError, ConnectionError, TimeoutError)
+
+
+def classify_error(exc: BaseException) -> str:
+    """``"transient"`` (worth retrying with backoff) or ``"permanent"``."""
+    return "transient" if isinstance(exc, _TRANSIENT_TYPES) else "permanent"
+
+
+def classify_native(exc: BaseException) -> str | None:
+    """The native component stem an error is attributable to, or None for
+    errors that did not originate in a native binding. Errors raised by the
+    wrappers here carry a ``.stem`` attribute; injected faults carry their
+    boundary."""
+    stem = getattr(exc, "stem", None)
+    if stem is not None:
+        return str(stem)
+    if getattr(exc, "boundary", None) == "native":
+        return "unknown"
+    return None
+
+
 def _stamp(exc: BaseException, stem: str) -> BaseException:
-    """Attach the originating stem (as ``gelly_tpu`` does)."""
+    """Attach the originating stem so classify_native can attribute it."""
     exc.stem = stem
     return exc
 
@@ -224,6 +289,7 @@ def cc_chunk_combine(src: np.ndarray, dst: np.ndarray,
                      valid: np.ndarray | None, n_v: int) -> np.ndarray:
     """Spanning-forest labels i32[n_v] of one chunk; -1 for untouched
     slots (the dense codec)."""
+    _inject("chunk_combiner")
     lib = _load_combiner()
     src = np.ascontiguousarray(src, np.int32)
     dst = np.ascontiguousarray(dst, np.int32)
@@ -255,6 +321,7 @@ def cc_chunk_combine_sparse(src: np.ndarray, dst: np.ndarray,
                             valid: np.ndarray | None, n_v: int):
     """Counted (vertex, root) pairs of one chunk's spanning forest — the
     touched-slot codec. Returns ``(verts i32[t], roots i32[t])``."""
+    _inject("chunk_combiner")
     lib = _load_combiner()
     src = np.ascontiguousarray(src, np.int32)
     dst = np.ascontiguousarray(dst, np.int32)
@@ -274,6 +341,7 @@ def cc_chunk_combine_sparse_idx(src: np.ndarray, dst: np.ndarray,
                                 valid: np.ndarray | None, n_v: int):
     """Counted (vertex, root, root-index) triples of one chunk's spanning
     forest — the compact pairs wire: ``verts[ri[j]] == roots[j]``."""
+    _inject("chunk_combiner")
     lib = _load_combiner()
     src = np.ascontiguousarray(src, np.int32)
     dst = np.ascontiguousarray(dst, np.int32)
@@ -296,6 +364,7 @@ def cc_unit_forest_segments(src: np.ndarray, dst: np.ndarray,
     """Segment-format spanning forest of one merge-window unit. Returns
     ``(members i32[t], lengths i32[s])``: members grouped by component,
     each component's ROOT first in its segment."""
+    _inject("chunk_combiner")
     lib = _load_combiner()
     src = np.ascontiguousarray(src, np.int32)
     dst = np.ascontiguousarray(dst, np.int32)

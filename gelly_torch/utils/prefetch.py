@@ -1,7 +1,7 @@
 """Background prefetch and an ordered parallel map (host work overlap).
 
-Counterpart of ``gelly_tpu/utils/prefetch.py`` (:func:`prefetch` and
-:func:`prefetch_map`; pure threading). Host staging for upcoming items
+Counterpart of ``gelly_tpu/utils/prefetch.py`` (:func:`prefetch`,
+:func:`prefetch_map` and :func:`restartable_prefetch`; pure threading). Host staging for upcoming items
 runs on a background thread or a worker pool while the consumer drives
 the device with earlier ones. Exceptions re-raise at the consumer.
 """
@@ -185,3 +185,54 @@ def prefetch_map(fn, it: Iterable, depth: int = 2,
         # A submitter parked inside a stalled source's __next__ cannot be
         # interrupted; it is a daemon thread and exits at its next poll.
         t.join(timeout=0.2)
+
+
+def restartable_prefetch(make_iter, depth: int = 2, *, start: int = 0,
+                         max_restarts: int = 3, should_restart=None,
+                         position=None, on_restart=None) -> Iterator:
+    """Prefetch that survives source/worker failure by reopening the source.
+
+    ``make_iter(i)`` must return a fresh iterator positioned at item ``i``
+    (items are numbered from 0; ``start`` is the first index pulled). When
+    iteration raises and ``should_restart(exc)`` returns True, the dead
+    prefetch pipeline (worker thread included) is torn down and a new one
+    opened at the next undelivered index — items already yielded are never
+    re-yielded, items that were only sitting in the prefetch queue are
+    re-read from the source. After ``max_restarts`` restarts (or a
+    non-restartable error) the exception propagates with its original
+    traceback.
+
+    ``position`` — optional zero-arg callable reporting the consumer's own
+    index of the next item it needs; when given it overrides the internal
+    delivered count at restart (the resilient runner's chunk position).
+    ``on_restart(exc, index)`` is called before each reopen.
+    """
+    delivered = start
+    restarts = 0
+    while True:
+        it = None
+        while True:
+            try:
+                # make_iter runs inside the try: an error OPENING the
+                # source (seek failure, injected source fault) restarts
+                # like any mid-stream error.
+                if it is None:
+                    it = prefetch(make_iter(delivered), depth)
+                item = next(it)
+            except StopIteration:
+                return
+            except BaseException as e:
+                restarts += 1
+                if (should_restart is not None and not should_restart(e)) \
+                        or restarts > max_restarts:
+                    raise
+                if position is not None:
+                    delivered = position()
+                if on_restart is not None:
+                    on_restart(e, delivered)
+                break  # reopen the source at ``delivered``
+            # The yield sits OUTSIDE the try: a consumer-side throw (incl.
+            # GeneratorExit on close) must propagate, never trigger a
+            # source restart.
+            yield item
+            delivered += 1

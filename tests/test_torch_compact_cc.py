@@ -772,7 +772,7 @@ def test_engine_knob_validation():
         stream.aggregate(agg, h2d_depth=-1)
     for knob, value in (("mesh", object()), ("window_ms", 10),
                         ("precompressed", True), ("source_provider", True),
-                        ("checkpoint_path", "x"), ("windowed", 2)):
+                        ("allowed_lateness", 5), ("windowed", 2)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             stream.aggregate(agg, **{knob: value})
     with pytest.raises(TypeError):

@@ -285,3 +285,93 @@ def test_raw_plan_copies_only_the_fields_its_fold_reads(cuda_device):
                and d["raw_src"] == d["val"] == d["ts"] == "cpu"
                for d in seen)
     assert res.stats["h2d_bytes"] == 8 * 1024 * 9
+
+
+def test_summary_checkpoint_round_trip_comes_back_on_the_card(cuda_device,
+                                                              tmp_path):
+    from gelly_torch.engine.checkpoint import load_checkpoint, save_checkpoint
+
+    agg = tcc.connected_components(1 << 12, codec="compact",
+                                   compact_capacity=1 << 11)
+    s = agg.init(cuda_device)
+    s = s._replace(vertex_of=torch.arange(1 << 11, dtype=torch.int32,
+                                          device=cuda_device))
+    p = str(tmp_path / "ck.npz")
+    save_checkpoint(p, s, position=5)
+    loaded, pos, _ = load_checkpoint(p, like=agg.init(cuda_device))
+    assert pos == 5
+    for got, want in zip(loaded, s):
+        assert got.device.type == "cuda"
+        assert torch.equal(got, want)
+
+
+def test_compact_resume_on_card_equals_uninterrupted(cuda_device, tmp_path):
+    n = 1 << 12
+    rng = np.random.default_rng(31)
+    src = (rng.zipf(1.3, 20000) % n).astype(np.int32)
+    dst = (rng.zipf(1.3, 20000) % n).astype(np.int32)
+    p = str(tmp_path / "ck.npz")
+
+    def run(stop_after=None, **kw):
+        s = edge_stream_from_source(
+            EdgeChunkSource(src, dst, chunk_size=1024,
+                            table=IdentityVertexTable(n)), n, device="cuda")
+        agg = tcc.connected_components(n, merge="gather", codec="compact",
+                                       compact_capacity=n)
+        res = s.aggregate(agg, merge_every=4, fold_batch=2,
+                          checkpoint_path=p, **kw)
+        out = []
+        for x in res:
+            assert x.device.type == "cuda"
+            out.append(x.cpu())
+            if len(out) == stop_after:
+                break
+        return out, res
+
+    full, _ = run()
+    assert len(full) == 5
+    run(stop_after=3)  # the window-2 checkpoint is on disk
+    got, res = run(resume=True)
+    assert res.stats["resumed_at"] == 8
+    assert len(got) == 3
+    for a, b in zip(got, full[2:]):
+        assert torch.equal(a, b)
+
+
+def test_resilient_kernel_fold_on_card_survives_a_step_fault(cuda_device,
+                                                             tmp_path,
+                                                             monkeypatch):
+    from gelly_torch.engine import faults
+    from gelly_torch.engine.resilience import (
+        ResilienceConfig,
+        ResilientRunner,
+        RetryPolicy,
+    )
+
+    monkeypatch.setattr(tcc, "RAW_DEDUP_MIN_CHUNK", 1 << 14)
+    n = 1 << 16
+    rng = np.random.default_rng(17)
+    src = (rng.zipf(1.3, 1 << 17) % n).astype(np.int32)
+    dst = (rng.zipf(1.3, 1 << 17) % n).astype(np.int32)
+    agg = tcc.connected_components(n, merge="gather", ingest_combine=False,
+                                   fold_backend="kernel")
+    stream = edge_stream_from_source(
+        EdgeChunkSource(src, dst, chunk_size=1 << 14,
+                        table=IdentityVertexTable(n)), n, device="cuda")
+    plan = faults.FaultPlan([faults.Fault("step", at=3)])
+    before = kernels.sorted_window_gather.launches
+    with faults.install(plan):
+        r = ResilientRunner(
+            lambda s, c: (agg.fold(s, c.to(cuda_device)), None), stream,
+            lambda: agg.init(cuda_device), checkpoint_dir=str(tmp_path),
+            flatten_state=agg.flatten,
+            config=ResilienceConfig(
+                checkpoint_every_chunks=2, watchdog_timeout=60.0,
+                retry=RetryPolicy(base_delay=0.01)))
+        final = r.run()
+    assert r.stats["retries"] == 1 and r.stats["checkpoints"] == 4
+    assert kernels.sorted_window_gather.launches > before
+    assert final.parent.device.type == "cuda"
+    labels = tcc.unionfind.component_labels(final.parent, final.seen)
+    assert np.array_equal(labels.cpu().numpy(),
+                          tcc.cc_labels_numpy(src, dst, None, n))
