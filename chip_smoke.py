@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive gelly_torch's streaming connected-components and window-triangle
-paths on one CUDA card.
+"""Drive gelly_torch's streaming connected-components, window-triangle,
+degree and bipartiteness paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -85,6 +85,43 @@ C. (after phase 4) ``ResilientRunner`` over phase 4's raw stream with
    uninterrupted chunk loop's (whose labels equal phase 4's), and the
    gather's launches counted.
 
+The degree and bipartiteness paths (after phase B, on the native degree and
+parity codecs, never disabled; neither launches a hand kernel, counted;
+each timed run prints its wall, edges or events a second, stage busy
+seconds, H2D bytes, host syncs a unit and peak device memory):
+
+D. degrees. D1 (``bench.py:bench_degrees``' call): ``data/facebook_like.txt``
+   read with ``read_edge_list``, cast to i32 and tiled to 64M edges over
+   ``IdentityVertexTable(4096)`` in ``2^21``-edge chunks through
+   ``degree_aggregate(4096)`` (the dense codec), ``merge_every`` =
+   ``fold_batch`` = 16: a warm-up and two runs, every emission equal to a
+   ``np.bincount`` oracle of the stream's prefix. D2: phase 4's stream plus
+   its first ``2^24`` edges again as deletions (``2^26 + 2^24`` events in
+   ``2^22``-edge chunks) through ``degree_aggregate(2^24)`` (the sparse
+   codec), ``merge_every`` = ``fold_batch`` = 4: two runs, 5 emissions of
+   ``int64[2^24]`` equal to the signed ``bincount`` oracle at their
+   boundaries and to the dense codec's and the raw fold's; then a
+   checkpointed run stopped after the 3rd emission and a fresh plan
+   resuming from it. D3, the stream API on D2's stream, each timed:
+   ``get_degrees`` (the last value of every touched slot equals the
+   oracle), ``get_vertices`` (every seen slot once), ``number_of_edges``
+   (ends at ``2^26 - 2^24``), ``number_of_vertices`` (ends at the seen
+   slots), ``degree_distribution`` at the oracle's peak (the final
+   histogram equals the oracle's) and one below it (``gelly_tpu``'s
+   ``ValueError``), ``final_degrees`` on a ``2^20``-edge prefix;
+E. bipartiteness. E1 (``bench.py:bench_bipartiteness``' call): 16M Zipf
+   edges over ``2^17`` slots (seed 7) in ``2^23``-edge chunks through
+   ``bipartiteness_check(2^17)`` (the dense codec), ``merge_every`` =
+   ``fold_batch`` = 4: a warm-up and two runs, ``ok`` equal to the
+   double-cover oracle (scipy components of the graph with ``(u, v)`` as
+   ``(u, v + n)`` and ``(u + n, v)``). E2: phase 4's stream made bipartite
+   (``src & ~1``, ``dst | 1``) through ``bipartiteness_check(2^24)`` (the
+   sparse codec): two runs, every emission ``ok``, every edge two-colored,
+   every root colored 0, the final labels equal to scipy's and to the
+   dense codec's and the raw fold's; then the stop and resume of D2. E3:
+   phase 4's stream without its self-loops, ``ok`` at every boundary equal
+   to the double-cover oracle and never back once ``False``.
+
 After the checks of each path, one more run of it under ``torch.profiler``
 prints the device's busy time, idle share and the five device ops that
 took the most time (the profiler's cost is in that run's wall, so its
@@ -151,6 +188,26 @@ CHILD_TIMEOUT_S = 300
 
 # Phase C (resilient raw fold): a checkpoint every 4 of phase 4's chunks.
 RESILIENT_EVERY = 4
+
+# Phase D (degrees). D1: bench.py:bench_degrees' call, the ego-Facebook-
+# shaped fixture tiled to 64M edges over its 4096-slot id space in
+# 2^21-edge chunks, merge_every = fold_batch = 16. D2: phase 4's stream
+# plus its first 2^24 edges again as deletions; D3 runs final_degrees (a
+# Python dict) on a 2^20-edge prefix.
+D1_EDGES = 64_000_000
+D1_N = 4096
+D1_CHUNK = 1 << 21
+D1_MERGE_EVERY = 16
+D2_DELETES = 1 << 24
+D3_PREFIX = 1 << 20
+
+# Phase E (bipartiteness). E1: bench.py:bench_bipartiteness' call, 16M Zipf
+# edges over 2^17 slots (seed 7) in 2^23-edge chunks, merge_every =
+# fold_batch = 4. E2 and E3 use phase 4's stream and chunks.
+E1_EDGES = 16_000_000
+E1_N = 1 << 17
+E1_SEED = 7
+E1_CHUNK = 1 << 23
 
 
 def check(cond, msg: str) -> None:
@@ -925,6 +982,488 @@ def compact_cc_phase(torch, device) -> None:
         torch, lambda: run(agg, CC_EDGES, pull=False)))
 
 
+def drive(torch, device, agg, source, n, n_events, merge_every, fold_batch,
+          pull, stop_after=None, **knobs):
+    """One run of ``agg`` over ``source`` on the card, with the hand
+    kernels' launch counts and the host-sync count set to 0 just before
+    it: ``(emissions, stats)``, the emissions pulled to the host with
+    ``pull`` after the timed run (left on the card when ``pull`` is None).
+    The wall ends when the last emission is ready on the card."""
+    from gelly_torch.core.stream import edge_stream_from_source
+    from gelly_torch.ops import kernels, unionfind
+
+    stream = edge_stream_from_source(source, n, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.sorted_window_gather.launches = 0
+    kernels.wedge_count_matrix.launches = 0
+    unionfind.host_sync.count = 0
+    t = time.perf_counter()
+    res = stream.aggregate(agg, merge_every=merge_every,
+                           fold_batch=fold_batch, **knobs)
+    out, first_s = [], None
+    for x in res:
+        if first_s is None:
+            first_s = time.perf_counter() - t
+        out.append(x)
+        if len(out) == stop_after:
+            break
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    stats = {
+        "wall_s": wall, "events_per_s": n_events / wall,
+        "first_emission_s": first_s, "stats": dict(res.stats),
+        "busy": res.timer.busy(), "units": res.stats["units"],
+        "host_syncs": unionfind.host_sync.count,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(device),
+        "h2d_bytes": res.stats["h2d_bytes"],
+        "launches": (kernels.sorted_window_gather.launches,
+                     kernels.wedge_count_matrix.launches),
+    }
+    return ([pull(x) for x in out] if pull else out), stats
+
+
+def report_run(name: str, st: dict, rate: str = "edges") -> None:
+    busy = " ".join(f"{k}={v:.4f}" for k, v in sorted(st["busy"].items()))
+    print(f"{name}: {st['events_per_s']:.1f} {rate}/s "
+          f"wall={st['wall_s']:.4f} s units={st['units']} "
+          f"host_syncs/unit={st['host_syncs'] / max(st['units'], 1):.3f} "
+          f"peak_mem={st['peak_mem_bytes']} B h2d_bytes={st['h2d_bytes']} "
+          f"gather/wedge launches={st['launches']}")
+    print(f"  stage busy s: {busy}")
+    check(st["launches"] == (0, 0), f"{name}: launched a hand kernel")
+
+
+def check_native_codecs(what: str) -> None:
+    from gelly_torch.utils import native
+
+    check(native.disabled_reason("chunk_combiner") is None,
+          f"{what}: the native codec was disabled "
+          f"({native.disabled_reason('chunk_combiner')})")
+
+
+def stop_and_resume(make_run, full, n_windows, merge_every, what):
+    """A checkpointed run that stops after the 3rd emission (the window-2
+    checkpoint stays on disk), then a fresh plan resuming from it: its
+    emissions must equal ``full[2:]``. ``make_run(**knobs)`` runs the path
+    and returns ``(emissions, stats)``."""
+    from gelly_torch.engine.checkpoint import read_checkpoint_header
+
+    tmp = tempfile.mkdtemp(prefix="gelly-de-")
+    try:
+        path = os.path.join(tmp, "ck.npz")
+        knobs = {"checkpoint_path": path, "checkpoint_every": 1}
+        got, st = make_run(stop_after=3, **knobs)
+        check(len(got) == 3, f"{what}: the stopped run gave {len(got)}")
+        header = read_checkpoint_header(path)
+        check(header["position"] == 2 * merge_every
+              and header["meta"]["windows"] == 2,
+              f"{what}: after the stop the checkpoint is at "
+              f"{header['position']} {header['meta']}")
+        got, st = make_run(resume=True, **knobs)
+        check(st["stats"]["resumed_at"] == 2 * merge_every,
+              f"{what}: resumed at {st['stats']['resumed_at']}")
+        check(len(got) == n_windows - 2
+              and all(same(a, b) for a, b in zip(got, full[2:])),
+              f"{what}: the resumed emissions differ from the "
+              "uninterrupted run's")
+        busy = st["busy"]
+        print(f"{what} resume at position {2 * merge_every}: "
+              f"load={busy['resume_load']:.4f} s "
+              f"skip={busy['resume_skip']:.4f} s, checkpoint "
+              f"{os.path.getsize(path)} B, call to first emission "
+              f"{st['first_emission_s']:.4f} s; {len(got)} emissions equal "
+              f"windows 3-{n_windows}; wall={st['wall_s']:.4f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def same(a, b) -> bool:
+    """Equal emissions: arrays, or tuples of arrays, dtype included."""
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+    return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+
+
+def signed_degrees(src, dst, sign: int, n: int) -> np.ndarray:
+    """``sign`` times the ``int64`` endpoint counts of one chunk."""
+    return sign * (np.bincount(src, minlength=n)
+                   + np.bincount(dst, minlength=n)).astype(np.int64)
+
+
+def degrees_phase(torch, device, src, dst) -> None:
+    """Phase D: the degree aggregate at BASELINE #1's size (D1), fully
+    dynamic at Twitter scale (D2) and the stream API on D2's stream
+    (D3)."""
+    from gelly_torch.core.io import EdgeChunkSource, read_edge_list
+    from gelly_torch.core.stream import edge_stream_from_source
+    from gelly_torch.core.vertices import IdentityVertexTable
+    from gelly_torch.library import degrees as deg
+    from gelly_torch.ops import unionfind
+    from gelly_torch.utils import native
+
+    check(native.degree_deltas_available()
+          and native.degree_sparse_available(),
+          "the native degree codecs did not build or load")
+    here = os.path.dirname(os.path.abspath(__file__))
+    pull = lambda x: x.cpu().numpy()  # noqa: E731
+
+    # D1: bench.py:bench_degrees' call on the ego-Facebook-shaped fixture.
+    t0 = time.perf_counter()
+    fsrc, fdst, _ = read_edge_list(os.path.join(here, "data",
+                                                "facebook_like.txt"))
+    reps = D1_EDGES // fsrc.shape[0]
+    s1 = np.concatenate([fsrc.astype(np.int32)] * reps)
+    d1 = np.concatenate([fdst.astype(np.int32)] * reps)
+    e1 = s1.shape[0]
+    print(f"phase D1 stream: {fsrc.shape[0]} fixture edges x {reps} = {e1} "
+          f"edges over {D1_N} slots in {time.perf_counter() - t0:.2f} s")
+
+    def d1_run(pull=pull):
+        agg = deg.degree_aggregate(D1_N)
+        check(agg.stack_payloads is None, "D1 did not take the dense codec")
+        return drive(torch, device, agg,
+                     EdgeChunkSource(s1, d1, chunk_size=D1_CHUNK,
+                                     table=IdentityVertexTable(D1_N)),
+                     D1_N, e1, D1_MERGE_EVERY, D1_MERGE_EVERY, pull)
+
+    _, st = d1_run()
+    report_run("phase D1 warm-up", st)
+    runs = [d1_run() for _ in range(2)]
+    for i, (_, st) in enumerate(runs):
+        report_run(f"phase D1 degrees run {i + 1}", st)
+    out = runs[0][0]
+    window = D1_MERGE_EVERY * D1_CHUNK
+    check(len(out) == -(-e1 // window), f"D1: {len(out)} emissions")
+    for i, got in enumerate(out):
+        hi = min((i + 1) * window, e1)
+        want = signed_degrees(s1[:hi], d1[:hi], 1, D1_N)
+        check(same(got, want) and same(got, runs[1][0][i]),
+              f"D1 emission {i} != bincount oracle")
+    print(f"phase D1: {len(out)} emissions of int64[{D1_N}] equal the "
+          f"bincount oracle at their boundaries")
+    print_profiled("phase D1 degrees", *profiled(
+        torch, lambda: d1_run(pull=None)))
+    del s1, d1, out, runs
+
+    # D2: phase 4's stream, then its first 2^24 edges again as deletions.
+    n = N_VERTICES
+    s2 = np.concatenate([src, src[:D2_DELETES]])
+    d2 = np.concatenate([dst, dst[:D2_DELETES]])
+    ev = np.concatenate([np.zeros(N_EDGES, np.int8),
+                         np.ones(D2_DELETES, np.int8)])
+    e2 = s2.shape[0]
+    n_chunks = e2 // CHUNK
+    t0 = time.perf_counter()
+    want, running, peak = [], np.zeros(n, np.int64), 0
+    touched = np.zeros(n, bool)
+    for c in range(n_chunks):
+        lo, hi = c * CHUNK, (c + 1) * CHUNK
+        running += signed_degrees(s2[lo:hi], d2[lo:hi],
+                                  -1 if ev[lo] else 1, n)
+        touched[s2[lo:hi]] = True
+        touched[d2[lo:hi]] = True
+        peak = max(peak, int(running.max()))
+        if (c + 1) % MERGE_EVERY == 0:
+            want.append(running.copy())
+    final = running
+    print(f"phase D2 oracle: {e2} events ({D2_DELETES} deletions), "
+          f"{len(want)} boundaries, peak degree {peak}, "
+          f"{int(touched.sum())} touched slots, in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    def d2_source(events=ev, edges=e2):
+        return EdgeChunkSource(s2[:edges], d2[:edges], events=events[:edges],
+                               chunk_size=CHUNK,
+                               table=IdentityVertexTable(n))
+
+    def d2_run(plan=None, pull=pull, **knobs):
+        agg = plan or deg.degree_aggregate(n)
+        return drive(torch, device, agg, d2_source(), n, e2, MERGE_EVERY,
+                     MERGE_EVERY, pull, **knobs)
+
+    check(deg.degree_aggregate(n).stack_payloads is not None,
+          "D2 did not take the sparse codec")
+    runs = [d2_run() for _ in range(2)]
+    for i, (_, st) in enumerate(runs):
+        report_run(f"phase D2 sparse codec run {i + 1}", st, "events")
+    sparse = runs[0][0]
+    check(len(sparse) == len(want) == n_chunks // MERGE_EVERY,
+          f"D2: {len(sparse)} emissions")
+    for i, (got, w) in enumerate(zip(sparse, want)):
+        check(same(got, w) and same(got, runs[1][0][i]),
+              f"D2 emission {i} != signed bincount oracle")
+    for name, plan in (
+            ("dense codec", deg.degree_aggregate(n, codec="dense")),
+            ("raw fold", deg.degree_aggregate(n, ingest_combine=False))):
+        got, st = d2_run(plan)
+        report_run(f"phase D2 {name}", st, "events")
+        check(len(got) == len(sparse) and all(
+            same(a, b) for a, b in zip(got, sparse)),
+            f"D2: the {name} differs from the sparse codec")
+        del got
+    print(f"phase D2: {len(sparse)} emissions of int64[{n}] equal the "
+          f"signed bincount oracle; the dense codec and the raw fold agree")
+    print_profiled("phase D2 sparse codec", *profiled(
+        torch, lambda: d2_run(pull=None)))
+    print_profiled("phase D2 raw fold", *profiled(
+        torch, lambda: d2_run(deg.degree_aggregate(n, ingest_combine=False),
+                              pull=None)))
+    stop_and_resume(d2_run, sparse, len(sparse),
+                    MERGE_EVERY, "phase D2")
+    del sparse, runs, want
+
+    # D3: the stream API on D2's stream, host-synced per chunk by design.
+    def api_stream(edges=e2):
+        return edge_stream_from_source(d2_source(edges=edges), n,
+                                       device=device)
+
+    def timed(name, fn, n_events=e2):
+        torch.cuda.synchronize()
+        unionfind.host_sync.count = 0
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        print(f"phase D3 {name}: wall={wall:.4f} s "
+              f"({n_events / wall:.1f} events/s) host_syncs="
+              f"{unionfind.host_sync.count}")
+        return out
+
+    def last_degrees():
+        last = np.zeros(n, np.int64)
+        hit = np.zeros(n, bool)
+        for upd in api_stream().get_degrees():
+            m = upd.valid.cpu().numpy()
+            slots = upd.slots.cpu().numpy()[m]
+            last[slots] = upd.values.cpu().numpy()[m]
+            hit[slots] = True
+        return last, hit
+
+    last, hit = timed("get_degrees (pulled per chunk)", last_degrees)
+    check(np.array_equal(hit, touched), "D3: get_degrees touched slots")
+    check(np.array_equal(last[hit], final[hit]),
+          "D3: a last get_degrees value != the oracle")
+
+    def vertex_counts():
+        count = np.zeros(n, np.int64)
+        for upd in api_stream().get_vertices():
+            m = upd.valid.cpu().numpy()
+            slots = upd.slots.cpu().numpy()[m]
+            check(np.array_equal(upd.values.cpu().numpy()[m], slots),
+                  "D3: get_vertices raw id != slot (identity table)")
+            count += np.bincount(slots, minlength=n)
+        return count
+
+    count = timed("get_vertices (pulled per chunk)", vertex_counts)
+    check(np.array_equal(count, touched.astype(np.int64)),
+          "D3: get_vertices did not emit every seen slot exactly once")
+    edges = timed("number_of_edges",
+                  lambda: list(api_stream().number_of_edges()))
+    check(edges[-1] == N_EDGES - D2_DELETES and len(edges) == n_chunks,
+          f"D3: number_of_edges ends at {edges[-1]}")
+    verts = timed("number_of_vertices",
+                  lambda: list(api_stream().number_of_vertices()))
+    check(verts[-1] == int(touched.sum()),
+          f"D3: number_of_vertices ends at {verts[-1]}")
+    hist = timed(f"degree_distribution(max_degree={peak})", lambda: list(
+        deg.degree_distribution(api_stream(), max_degree=peak))[-1])
+    check(np.array_equal(hist.cpu().numpy(),
+                         np.bincount(final[final > 0], minlength=peak + 1)),
+          "D3: the final degree histogram != the oracle's")
+    del hist
+    msg = f"degree {peak} exceeds max_degree {peak - 1}; raise max_degree"
+    try:
+        timed(f"degree_distribution(max_degree={peak - 1})",
+              lambda: list(deg.degree_distribution(api_stream(),
+                                                   max_degree=peak - 1)))
+        check(False, "D3: max_degree = peak - 1 did not raise")
+    except ValueError as e:
+        check(str(e) == msg, f"D3: raised {e!r}, not {msg!r}")
+    print(f"phase D3: max_degree={peak - 1} raised ValueError({msg!r})")
+    prefix = D3_PREFIX
+    got = timed(f"final_degrees on a {prefix}-edge prefix",
+                lambda: api_stream(prefix).get_degrees().final_degrees(),
+                prefix)
+    pre = signed_degrees(s2[:prefix], d2[:prefix], 1, n)
+    want_d = {int(v): int(pre[v]) for v in np.nonzero(pre)[0]}
+    check(got == want_d, "D3: final_degrees on the prefix != the oracle")
+    print(f"phase D3: get_degrees last values, get_vertices (each of "
+          f"{int(touched.sum())} seen slots once), number_of_edges "
+          f"{edges[-1]}, number_of_vertices {verts[-1]}, the degree "
+          f"histogram and final_degrees ({len(got)} vertices) equal the "
+          f"oracles")
+    print_profiled("phase D3 get_degrees (not pulled)", *profiled(
+        torch, lambda: sum(1 for _ in api_stream().get_degrees())))
+    check_native_codecs("phase D")
+
+
+def bipartite_oracle(src, dst, n: int) -> bool:
+    """A graph is bipartite iff, in its double cover (``(u, v)`` becomes
+    ``(u, v + n)`` and ``(u + n, v)``), no touched vertex ``u`` shares a
+    component with ``u + n``."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    s = np.concatenate([src, src + n]).astype(np.int64)
+    d = np.concatenate([dst + n, dst]).astype(np.int64)
+    g = coo_matrix((np.ones(s.shape[0], np.int8), (s, d)),
+                   shape=(2 * n, 2 * n)).tocsr()
+    _, comp = connected_components(g, directed=False)
+    t = np.unique(np.concatenate([src, dst]))
+    return not bool((comp[t] == comp[t + n]).any())
+
+
+def bipartite_oracle_at(src, dst, n: int, bounds) -> list[bool]:
+    """The double-cover oracle at each prefix end in ``bounds``; once a
+    prefix is not bipartite, no longer one is (it holds the odd cycle)."""
+    out: list[bool] = []
+    for hi in bounds:
+        if out and not out[-1]:
+            out.append(False)
+        else:
+            out.append(bipartite_oracle(src[:hi], dst[:hi], n))
+    return out
+
+
+def bipartiteness_phase(torch, device, src, dst) -> None:
+    """Phase E: the bipartiteness check at BASELINE #4's size (E1), a
+    bipartite stream at Twitter scale (E2) and an odd-cycle stream at
+    Twitter scale (E3)."""
+    from gelly_torch.core.io import EdgeChunkSource
+    from gelly_torch.core.vertices import IdentityVertexTable
+    from gelly_torch.library import bipartiteness as bp
+    from gelly_torch.utils import native
+
+    check(native.parity_combine_available()
+          and native.parity_sparse_available(),
+          "the native parity codecs did not build or load")
+    pull = lambda r: tuple(x.cpu().numpy() for x in r)  # noqa: E731
+
+    # E1: bench.py:bench_bipartiteness' call.
+    t0 = time.perf_counter()
+    s1, d1 = synth_edges(E1_EDGES, E1_N, E1_SEED)
+    print(f"phase E1 stream: {E1_EDGES} Zipf edges over {E1_N} slots "
+          f"(seed {E1_SEED}) in {time.perf_counter() - t0:.2f} s")
+
+    def e1_run(pull=pull):
+        agg = bp.bipartiteness_check(E1_N)
+        check(agg.stack_payloads is None, "E1 did not take the dense codec")
+        return drive(torch, device, agg,
+                     EdgeChunkSource(s1, d1, chunk_size=E1_CHUNK,
+                                     table=IdentityVertexTable(E1_N)),
+                     E1_N, E1_EDGES, MERGE_EVERY, MERGE_EVERY, pull)
+
+    _, st = e1_run()
+    report_run("phase E1 warm-up", st)
+    runs = [e1_run() for _ in range(2)]
+    for i, (_, st) in enumerate(runs):
+        report_run(f"phase E1 bipartiteness run {i + 1}", st)
+    out = runs[0][0]
+    window = MERGE_EVERY * E1_CHUNK
+    bounds = [min((i + 1) * window, E1_EDGES) for i in range(len(out))]
+    check(len(out) == -(-E1_EDGES // window)
+          and all(same(a, b) for a, b in zip(out, runs[1][0])),
+          f"E1: {len(out)} emissions, or the two runs differ")
+    t0 = time.perf_counter()
+    want = bipartite_oracle_at(s1, d1, E1_N, bounds)
+    got = [bool(r[0]) for r in out]
+    check(got == want, f"E1: ok {got} != the double-cover oracle {want}")
+    print(f"phase E1: ok {got} equals the double-cover oracle "
+          f"({time.perf_counter() - t0:.2f} s)")
+    print_profiled("phase E1 bipartiteness", *profiled(
+        torch, lambda: e1_run(pull=None)))
+    del s1, d1, runs, out
+
+    # E2: phase 4's stream made bipartite (every edge joins even to odd).
+    n = N_VERTICES
+    s2, d2 = src & ~1, dst | 1
+    e2 = s2.shape[0]
+
+    def e2_run(plan=None, pull=pull, **knobs):
+        agg = plan or bp.bipartiteness_check(n)
+        return drive(torch, device, agg,
+                     EdgeChunkSource(s2, d2, chunk_size=CHUNK,
+                                     table=IdentityVertexTable(n)),
+                     n, e2, MERGE_EVERY, MERGE_EVERY, pull, **knobs)
+
+    check(bp.bipartiteness_check(n).stack_payloads is not None,
+          "E2 did not take the sparse codec")
+    runs = [e2_run() for _ in range(2)]
+    for i, (_, st) in enumerate(runs):
+        report_run(f"phase E2 sparse codec run {i + 1}", st)
+    out = runs[0][0]
+    window = MERGE_EVERY * CHUNK
+    check(len(out) == e2 // window, f"E2: {len(out)} emissions")
+    t0 = time.perf_counter()
+    for i, (ok, labels, colors) in enumerate(out):
+        hi = (i + 1) * window
+        seen = np.zeros(n, bool)
+        seen[s2[:hi]] = True
+        seen[d2[:hi]] = True
+        check(bool(ok), f"E2 emission {i}: ok is False")
+        check(same(out[i], runs[1][0][i]), f"E2 emission {i}: runs differ")
+        check(labels.dtype == colors.dtype == np.int32
+              and np.array_equal(labels >= 0, seen)
+              and np.array_equal(colors >= 0, seen),
+              f"E2 emission {i}: labels/colors dtype or seen slots")
+        check(bool((colors[s2[:hi]] != colors[d2[:hi]]).all()),
+              f"E2 emission {i}: an edge joins two slots of one color")
+        check(bool((colors[labels[seen]] == 0).all()),
+              f"E2 emission {i}: a component root is not colored 0")
+    check(np.array_equal(out[-1][1], scipy_oracle(s2, d2, n)),
+          "E2: the final labels != scipy's")
+    print(f"phase E2: {len(out)} emissions ok=True, every edge two-colored "
+          f"and every root colored 0; the final labels equal scipy's "
+          f"({time.perf_counter() - t0:.2f} s)")
+    for name, plan in (
+            ("dense codec", bp.bipartiteness_check(n, codec="dense")),
+            ("raw fold", bp.bipartiteness_check(n, ingest_combine=False))):
+        got, st = e2_run(plan)
+        report_run(f"phase E2 {name}", st)
+        check(len(got) == len(out) and same(got[-1], out[-1]),
+              f"E2: the {name}'s final emission differs from the sparse "
+              "codec's")
+        del got
+    print_profiled("phase E2 sparse codec", *profiled(
+        torch, lambda: e2_run(pull=None)))
+    print_profiled("phase E2 raw fold", *profiled(
+        torch, lambda: e2_run(bp.bipartiteness_check(n, ingest_combine=False),
+                              pull=None)))
+    stop_and_resume(e2_run, out, len(out),
+                    MERGE_EVERY, "phase E2")
+    del out, runs, s2, d2
+
+    # E3: phase 4's stream without its self-loops: odd cycles of length 3+.
+    keep = src != dst
+    s3, d3 = src[keep], dst[keep]
+    e3 = s3.shape[0]
+
+    def e3_run(pull=pull):
+        return drive(torch, device, bp.bipartiteness_check(n),
+                     EdgeChunkSource(s3, d3, chunk_size=CHUNK,
+                                     table=IdentityVertexTable(n)),
+                     n, e3, MERGE_EVERY, MERGE_EVERY, pull)
+
+    out, st = e3_run()
+    report_run("phase E3 sparse codec", st)
+    window = MERGE_EVERY * CHUNK
+    bounds = [min((i + 1) * window, e3) for i in range(len(out))]
+    check(len(out) == -(-e3 // window), f"E3: {len(out)} emissions")
+    t0 = time.perf_counter()
+    want = bipartite_oracle_at(s3, d3, n, bounds)
+    got = [bool(r[0]) for r in out]
+    check(got == want, f"E3: ok {got} != the double-cover oracle {want}")
+    first_false = got.index(False) if False in got else len(got)
+    check(not any(got[first_false:]), "E3: ok came back after it was False")
+    print(f"phase E3: {e3} edges ({N_EDGES - e3} self-loops dropped), ok at "
+          f"the {len(got)} boundaries {got} equals the double-cover oracle "
+          f"({time.perf_counter() - t0:.2f} s)")
+    print_profiled("phase E3 sparse codec", *profiled(
+        torch, lambda: e3_run(pull=None)))
+    check_native_codecs("phase E")
+
+
 def main() -> int:
     import torch
 
@@ -1097,6 +1636,15 @@ def main() -> int:
     # B. kill -9 of a child checkpointing the compact plan, then resume
     kill9_phase(torch, device, src, dst, oracle)
     del labels, labels_plain, oracle
+    torch.cuda.empty_cache()
+
+    # D. degrees; E. bipartiteness (both on phase 4's stream at Twitter
+    # scale, after their bench-size cells)
+    degrees_phase(torch, device, src, dst)
+    torch.cuda.empty_cache()
+    bipartiteness_phase(torch, device, src, dst)
+    del src, dst
+    torch.cuda.empty_cache()
 
     # The triangle stream (set-up, not timed).
     t0 = time.perf_counter()

@@ -85,6 +85,12 @@ class EdgeChunk(NamedTuple):
         device are pinned first, so the copies run asynchronously on the
         current stream (the caching host allocator keeps the pinned
         buffers alive until their copies finish)."""
+        return self.to_fields(device, self._fields, non_blocking)
+
+    def to_fields(self, device, fields, non_blocking: bool = True
+                  ) -> "EdgeChunk":
+        """:meth:`to` for the named ``fields`` only; the others stay where
+        they are (a step copies only what it reads)."""
         dev = torch.device(device)
         pin = dev.type == "cuda"
 
@@ -95,7 +101,7 @@ class EdgeChunk(NamedTuple):
                 t = t.pin_memory()
             return t.to(dev, non_blocking=non_blocking)
 
-        return EdgeChunk(*(move(f) for f in self))
+        return self._replace(**{f: move(getattr(self, f)) for f in fields})
 
     def to_numpy(self) -> "EdgeChunk":
         return EdgeChunk(*(f.detach().cpu().numpy() for f in self))

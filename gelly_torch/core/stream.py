@@ -2,19 +2,29 @@
 
 Counterpart of ``gelly_tpu/core/stream.py``, the parts the ported paths
 run: the stream context (with its device), chunk iteration, resume seeks,
-the ``aggregate`` plugin boundary and ``slice`` (tumbling windows). The
-transforms and property streams of ``gelly_tpu`` come with later slices.
+the ``aggregate`` plugin boundary, ``slice`` (tumbling windows), and the
+vertex, degree and count streams. The transforms of ``gelly_tpu`` come
+with a later slice.
+
+Emission contract, as in ``gelly_tpu``: a property stream emits one
+:class:`Update` per chunk, holding the latest value of every key the
+chunk touched (the reference emits one record per edge; final values are
+identical). Stream state lives on ``ctx.device``; each chunk moves there
+with only the fields its step reads, and an :class:`Update` stays on the
+device until the caller asks for numpy (:meth:`Update.to_pairs`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Callable, Iterable, Iterator
+from typing import Callable, Iterable, Iterator, NamedTuple
 
 import numpy as np
 import torch
 
+from ..ops import segments
+from ..ops.unionfind import host_sync
 from .chunk import EdgeChunk
 from .device import DEFAULT_DEVICE, resolve_device, to_numpy
 from .io import EdgeChunkSource, TimeCharacteristic, chunks_from_edges, chunks_from_file
@@ -39,6 +49,73 @@ class StreamContext:
 
     def decode(self, slots) -> np.ndarray:
         return self.table.decode(to_numpy(slots))
+
+
+class Update(NamedTuple):
+    """A chunk-grained emission: latest ``values`` for the touched ``slots``
+    (lanes where ``valid`` is set)."""
+
+    slots: torch.Tensor  # i32[k] dense vertex slots
+    values: torch.Tensor
+    valid: torch.Tensor  # bool[k]
+
+    def to_pairs(self, ctx: StreamContext) -> list[tuple[int, object]]:
+        m = to_numpy(self.valid).astype(bool)
+        ids = ctx.decode(to_numpy(self.slots)[m])
+        vals = to_numpy(self.values)[m]
+        return list(zip(ids.tolist(), vals.tolist()))
+
+
+def _both_ends(c: EdgeChunk):
+    """``(ids, ok)``: both endpoint columns and their validity."""
+    return torch.cat([c.src, c.dst]), torch.cat([c.valid, c.valid])
+
+
+def _vertices_step(seen: torch.Tensor, c: EdgeChunk):
+    ids, ok = _both_ends(c)
+    raw = torch.cat([c.raw_src, c.raw_dst])
+    first_in_chunk = segments.first_occurrence_mask(ids, ok, seen.shape[0])
+    new = first_in_chunk & ~seen[ids]
+    return segments.mark_seen(seen, ids, ok), Update(ids, raw, new)
+
+
+def _edge_count_step(total: torch.Tensor, c: EdgeChunk) -> torch.Tensor:
+    delta = torch.where(c.event == 1, -1, 1)
+    return total + torch.where(c.valid, delta, 0).sum(dtype=torch.int64)
+
+
+def _vertex_count_step(seen: torch.Tensor, c: EdgeChunk):
+    ids, ok = _both_ends(c)
+    seen2 = segments.mark_seen(seen, ids, ok)
+    return seen2, seen2.sum(dtype=torch.int64)
+
+
+def scatter_degrees(deg: torch.Tensor, c: EdgeChunk, count_out: bool = True,
+                    count_in: bool = True) -> torch.Tensor:
+    """``deg`` (``int64``) plus the chunk's ±1 endpoint contributions in the
+    chosen directions: -1 for a deletion event, +1 otherwise."""
+    delta = torch.where(c.event == 1, -1, 1).to(torch.int64)
+    if count_out:
+        deg = segments.masked_scatter_add(deg, c.src, delta, c.valid)
+    if count_in:
+        deg = segments.masked_scatter_add(deg, c.dst, delta, c.valid)
+    return deg
+
+
+def _degree_step(deg: torch.Tensor, c: EdgeChunk, count_out: bool,
+                 count_in: bool):
+    deg = scatter_degrees(deg, c, count_out, count_in)
+    ids = torch.cat([c.src, c.dst])
+    ok = torch.cat([c.valid & count_out, c.valid & count_in])
+    touched = segments.first_occurrence_mask(ids, ok, deg.shape[0])
+    return deg, Update(ids, deg[ids], touched)
+
+
+# The chunk fields each step reads: only those move to the device.
+_VERTEX_FIELDS = ("src", "dst", "raw_src", "raw_dst", "valid")
+_EDGE_COUNT_FIELDS = ("event", "valid")
+_VERTEX_COUNT_FIELDS = ("src", "dst", "valid")
+DEGREE_FIELDS = ("src", "dst", "event", "valid")
 
 
 class EdgeStream:
@@ -73,6 +150,70 @@ class EdgeStream:
             return self.source.iter_from(position)
         return itertools.islice(self._chunks_fn(), position, None)
 
+    def device_chunks(self, fields) -> Iterator[EdgeChunk]:
+        """The chunks with the named ``fields`` moved to ``ctx.device``
+        (the others stay on the host): what a step that reads only those
+        fields consumes."""
+        dev = self.ctx.device
+        for c in self._chunks_fn():
+            yield c.to_fields(dev, fields)
+
+    def get_vertices(self) -> Iterator[Update]:
+        """Stream of first-seen vertices (GraphStream.getVertices): per
+        chunk, an Update whose valid lanes are the vertices never seen
+        before, each once, with its raw id as the value."""
+        n = self.ctx.vertex_capacity
+
+        def gen():
+            seen = torch.zeros(n, dtype=torch.bool, device=self.ctx.device)
+            for c in self.device_chunks(_VERTEX_FIELDS):
+                seen, upd = _vertices_step(seen, c)
+                yield upd
+
+        return gen()
+
+    def get_degrees(self) -> "DegreeStream":
+        """Continuous (vertex, degree) stream counting both directions
+        (SimpleEdgeStream.getDegrees)."""
+        return DegreeStream(self, count_out=True, count_in=True)
+
+    def get_out_degrees(self) -> "DegreeStream":
+        return DegreeStream(self, count_out=True, count_in=False)
+
+    def get_in_degrees(self) -> "DegreeStream":
+        return DegreeStream(self, count_out=False, count_in=True)
+
+    def number_of_edges(self) -> Iterator[int]:
+        """Running edge count, one value per chunk (TotalEdgeCountMapper);
+        a deletion event counts -1, so the total tracks the live graph.
+        Each value is one counted host sync."""
+
+        def gen():
+            total = torch.zeros((), dtype=torch.int64, device=self.ctx.device)
+            for c in self.device_chunks(_EDGE_COUNT_FIELDS):
+                total = _edge_count_step(total, c)
+                yield int(host_sync(total))
+
+        return gen()
+
+    def number_of_vertices(self) -> Iterator[int]:
+        """Running distinct-vertex count, emitted when it changes
+        (globalAggregate with emit-on-change). One counted host sync a
+        chunk."""
+        n = self.ctx.vertex_capacity
+
+        def gen():
+            seen = torch.zeros(n, dtype=torch.bool, device=self.ctx.device)
+            last = -1
+            for c in self.device_chunks(_VERTEX_COUNT_FIELDS):
+                seen, count = _vertex_count_step(seen, c)
+                count = int(host_sync(count))
+                if count != last:
+                    last = count
+                    yield count
+
+        return gen()
+
     def aggregate(self, aggregation, **runner_kw):
         """Run a SummaryAggregation over this stream
         (GraphStream.aggregate). Returns a SummaryStream; see
@@ -92,6 +233,37 @@ class EdgeStream:
 
         return SnapshotStream(self, window_ms, direction, window_capacity,
                               allowed_lateness)
+
+
+class DegreeStream:
+    """Continuous degree stream (the reference's getDegrees family).
+
+    Iterating yields one :class:`Update` per chunk with the new ``int64``
+    degrees of every vertex the chunk touched, counted in the chosen
+    directions; a deletion event contributes -1.
+    """
+
+    def __init__(self, stream: EdgeStream, count_out: bool, count_in: bool):
+        self.stream = stream
+        self.count_out = count_out
+        self.count_in = count_in
+
+    def __iter__(self) -> Iterator[Update]:
+        ctx = self.stream.ctx
+        deg = torch.zeros(ctx.vertex_capacity, dtype=torch.int64,
+                          device=ctx.device)
+        for c in self.stream.device_chunks(DEGREE_FIELDS):
+            deg, upd = _degree_step(deg, c, self.count_out, self.count_in)
+            yield upd
+
+    def final_degrees(self) -> dict[int, int]:
+        """Drain the stream; return ``{raw_vertex_id: degree}``."""
+        ctx = self.stream.ctx
+        result: dict[int, int] = {}
+        for upd in self:
+            for k, v in upd.to_pairs(ctx):
+                result[k] = int(v)
+        return result
 
 
 def edge_stream_from_source(source: EdgeChunkSource, vertex_capacity: int,

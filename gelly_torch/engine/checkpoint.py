@@ -244,8 +244,10 @@ def _like_leaf(arr: np.ndarray, template):
     """A loaded leaf in the template's kind: a tensor on the template's
     device for a tensor template, else the numpy array."""
     if isinstance(template, torch.Tensor):
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(
-            template.device)
+        # ascontiguousarray turns a 0-d leaf (a sticky flag) into shape
+        # (1,): keep the stored shape.
+        return torch.from_numpy(
+            np.ascontiguousarray(arr).reshape(arr.shape)).to(template.device)
     return arr
 
 

@@ -1,4 +1,4 @@
-"""Masked scatter primitives over padded COO chunks.
+"""Masked scatter and segment primitives over padded COO chunks.
 
 Counterpart of ``gelly_tpu/ops/segments.py``. JAX's
 ``target.at[idx].min/max/add(updates, mode="drop")`` becomes
@@ -57,3 +57,16 @@ def mark_seen(seen: torch.Tensor, idx: torch.Tensor, valid) -> torch.Tensor:
     hit = torch.zeros(n + 1, dtype=torch.bool, device=seen.device)
     hit[torch.where(valid, idx, n).long()] = True
     return seen | hit[:n]
+
+
+def first_occurrence_mask(keys: torch.Tensor, valid: torch.Tensor,
+                          num_slots: int) -> torch.Tensor:
+    """True for the first valid occurrence of each key within the chunk:
+    a scatter-min of positions followed by a gather-compare (first-seen
+    semantics without a host-side set). ``keys`` must lie in
+    ``[0, num_slots)`` on every lane, masked lanes included."""
+    pos = torch.arange(keys.shape[0], dtype=torch.int32, device=keys.device)
+    firsts = torch.full((num_slots,), INT_MAX, dtype=torch.int32,
+                        device=keys.device)
+    firsts = masked_scatter_min(firsts, keys, pos, valid)
+    return valid & (firsts[keys.long()] == pos)

@@ -1,10 +1,12 @@
-"""ctypes bindings for the native chunk combiner (the CC host codec).
+"""ctypes bindings for the native chunk combiner (the host codecs).
 
-Counterpart of ``gelly_tpu/utils/native.py``, the part the CC codec plans
+Counterpart of ``gelly_tpu/utils/native.py``, the part the codec plans
 call: the spanning-forest combiners (dense, sparse, root-indexed sparse),
 the fused unit segment codec (:func:`cc_unit_forest_segments`,
-:class:`UnitForestBuilder`) and the persistent compact-id table
-(:class:`NativeCompactSession`), all from ``native/chunk_combiner.cc``.
+:class:`UnitForestBuilder`), the persistent compact-id table
+(:class:`NativeCompactSession`), the parity combiners of the
+bipartiteness plan and the degree-delta codecs, all from
+``native/chunk_combiner.cc``.
 
 The port builds that source itself, at first use, with ``g++ -O3 -shared
 -fPIC`` into ``gelly_torch/_build/libchunk_combiner.so``: the build is
@@ -43,6 +45,7 @@ _libs: dict[str, ctypes.CDLL] = {}
 
 _i32p = ctypes.POINTER(ctypes.c_int32)
 _u8p = ctypes.POINTER(ctypes.c_uint8)
+_i8p = ctypes.POINTER(ctypes.c_int8)
 _i64p = ctypes.POINTER(ctypes.c_int64)
 
 
@@ -152,26 +155,16 @@ def _load_combiner() -> ctypes.CDLL:
         lib.cc_chunk_combine.argtypes = [
             _i32p, _i32p, _u8p, ctypes.c_int64, ctypes.c_int32, _i32p,
         ]
-        # Bound separately (as in gelly_tpu): a library that predates a
-        # symbol only disables the codec that needs it.
-        try:
-            lib.cc_chunk_combine_sparse.restype = ctypes.c_int64
-            lib.cc_chunk_combine_sparse.argtypes = [
-                _i32p, _i32p, _u8p, ctypes.c_int64, ctypes.c_int32,
-                _i32p, _i32p, ctypes.c_int64,
-            ]
-            lib._has_sparse_codecs = True
-        except AttributeError:
-            lib._has_sparse_codecs = False
-        try:
-            lib.cc_chunk_combine_sparse_idx.restype = ctypes.c_int64
-            lib.cc_chunk_combine_sparse_idx.argtypes = [
-                _i32p, _i32p, _u8p, ctypes.c_int64, ctypes.c_int32,
-                _i32p, _i32p, _i32p, ctypes.c_int64,
-            ]
-            lib._has_sparse_idx = True
-        except AttributeError:
-            lib._has_sparse_idx = False
+        # Bound separately (as in gelly_tpu), one flag a codec: a library
+        # that predates a symbol only disables the codec that needs it.
+        _bind(lib, "_has_sparse_codecs", "cc_chunk_combine_sparse",
+              ctypes.c_int64, [_i32p, _i32p, _u8p, ctypes.c_int64,
+                               ctypes.c_int32, _i32p, _i32p,
+                               ctypes.c_int64])
+        _bind(lib, "_has_sparse_idx", "cc_chunk_combine_sparse_idx",
+              ctypes.c_int64, [_i32p, _i32p, _u8p, ctypes.c_int64,
+                               ctypes.c_int32, _i32p, _i32p, _i32p,
+                               ctypes.c_int64])
         try:
             lib.compact_session_create.restype = ctypes.c_void_p
             lib.compact_session_create.argtypes = [ctypes.c_int32]
@@ -226,8 +219,37 @@ def _load_combiner() -> ctypes.CDLL:
             lib._has_unit_segments = True
         except AttributeError:
             lib._has_unit_segments = False
+        _bind(lib, "_has_parity_combine", "parity_chunk_combine",
+              ctypes.c_int, [_i32p, _i32p, _u8p, ctypes.c_int64,
+                             ctypes.c_int32, _i32p, _u8p, _i32p])
+        _bind(lib, "_has_degree_deltas", "degree_chunk_deltas",
+              ctypes.c_int, [_i32p, _i32p, _i8p, _u8p, ctypes.c_int64,
+                             ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+                             _i32p])
+        _bind(lib, "_has_parity_sparse", "parity_chunk_combine_sparse",
+              ctypes.c_int64, [_i32p, _i32p, _u8p, ctypes.c_int64,
+                               ctypes.c_int32, _i32p, _i32p, _u8p, _i32p,
+                               ctypes.c_int64])
+        _bind(lib, "_has_degree_sparse", "degree_chunk_deltas_sparse",
+              ctypes.c_int64, [_i32p, _i32p, _i8p, _u8p, ctypes.c_int64,
+                               ctypes.c_int32, ctypes.c_int32,
+                               ctypes.c_int32, _i32p, _i32p,
+                               ctypes.c_int64])
         lib._sigs_set = True
     return lib
+
+
+def _bind(lib: ctypes.CDLL, flag: str, name: str, restype, argtypes) -> None:
+    """Declare one symbol's signature and set ``lib.<flag>`` to whether
+    the library exports it."""
+    try:
+        fn = getattr(lib, name)
+    except AttributeError:
+        setattr(lib, flag, False)
+        return
+    fn.restype = restype
+    fn.argtypes = argtypes
+    setattr(lib, flag, True)
 
 
 def _as_i32p(a: np.ndarray):
@@ -251,30 +273,52 @@ def available(stem: str) -> bool:
     return _AVAILABLE[stem]
 
 
+def _exports(flag: str) -> bool:
+    """The chunk-combiner library loads AND sets ``flag`` (it exports the
+    symbols of one codec)."""
+    return available("chunk_combiner") and getattr(
+        _load_combiner(), flag, False
+    )
+
+
 def sparse_codecs_available() -> bool:
-    """The chunk-combiner library loads AND exports the sparse codecs."""
-    return available("chunk_combiner") and _load_combiner()._has_sparse_codecs
+    """The combiner exports the sparse CC codec."""
+    return _exports("_has_sparse_codecs")
 
 
 def sparse_idx_available() -> bool:
     """The combiner exports the root-indexed sparse codec."""
-    return available("chunk_combiner") and getattr(
-        _load_combiner(), "_has_sparse_idx", False
-    )
+    return _exports("_has_sparse_idx")
 
 
 def compact_session_available() -> bool:
     """The combiner exports the persistent compact-id session."""
-    return available("chunk_combiner") and getattr(
-        _load_combiner(), "_has_compact_session", False
-    )
+    return _exports("_has_compact_session")
 
 
 def unit_segments_available() -> bool:
     """The combiner exports the fused unit-level segment codec."""
-    return available("chunk_combiner") and getattr(
-        _load_combiner(), "_has_unit_segments", False
-    )
+    return _exports("_has_unit_segments")
+
+
+def parity_combine_available() -> bool:
+    """The combiner exports the dense parity codec."""
+    return _exports("_has_parity_combine")
+
+
+def degree_deltas_available() -> bool:
+    """The combiner exports the dense degree-delta codec."""
+    return _exports("_has_degree_deltas")
+
+
+def parity_sparse_available() -> bool:
+    """The combiner exports the sparse parity codec."""
+    return _exports("_has_parity_sparse")
+
+
+def degree_sparse_available() -> bool:
+    """The combiner exports the sparse degree-delta codec."""
+    return _exports("_has_degree_sparse")
 
 
 def _valid_ptr(valid):
@@ -283,6 +327,14 @@ def _valid_ptr(valid):
         return None, None
     valid = np.ascontiguousarray(valid, np.uint8)
     return valid, valid.ctypes.data_as(_u8p)
+
+
+def _event_ptr(event):
+    """(kept-alive int8 array, pointer) of an optional event column."""
+    if event is None:
+        return None, None
+    event = np.ascontiguousarray(event, np.int8)
+    return event, event.ctypes.data_as(_i8p)
 
 
 def cc_chunk_combine(src: np.ndarray, dst: np.ndarray,
@@ -356,6 +408,102 @@ def cc_chunk_combine_sparse_idx(src: np.ndarray, dst: np.ndarray,
     )
     _sparse_rc_check(rc, "cc_chunk_combine_sparse_idx")
     return out_v[:rc], out_r[:rc], out_ri[:rc]
+
+
+def parity_chunk_combine(src: np.ndarray, dst: np.ndarray,
+                         valid: np.ndarray | None, n_v: int):
+    """``(labels i32[n_v], parity u8[n_v], conflict bool)`` of one chunk:
+    its spanning forest, each touched slot's 2-coloring parity relative to
+    its root, and whether the chunk alone holds an odd cycle."""
+    _inject("chunk_combiner")
+    lib = _load_combiner()
+    src = np.ascontiguousarray(src, np.int32)
+    dst = np.ascontiguousarray(dst, np.int32)
+    labels = np.empty((n_v,), np.int32)
+    parity = np.empty((n_v,), np.uint8)
+    conflict = ctypes.c_int32(0)
+    valid, vp = _valid_ptr(valid)
+    rc = lib.parity_chunk_combine(
+        _as_i32p(src), _as_i32p(dst), vp, src.shape[0], n_v,
+        _as_i32p(labels), parity.ctypes.data_as(_u8p), ctypes.byref(conflict),
+    )
+    if rc != 0:
+        raise _stamp(ValueError(
+            f"parity_chunk_combine: vertex slot out of range (rc={rc})"
+        ), "chunk_combiner")
+    return labels, parity, bool(conflict.value)
+
+
+def parity_chunk_combine_sparse(src: np.ndarray, dst: np.ndarray,
+                                valid: np.ndarray | None, n_v: int):
+    """Counted (vertex, root, parity) triples + the chunk's odd-cycle flag.
+    Returns ``(verts i32[t], roots i32[t], parity u8[t], conflict bool)``."""
+    _inject("chunk_combiner")
+    lib = _load_combiner()
+    src = np.ascontiguousarray(src, np.int32)
+    dst = np.ascontiguousarray(dst, np.int32)
+    cap = 2 * max(1, src.shape[0])
+    out_v = np.empty((cap,), np.int32)
+    out_r = np.empty((cap,), np.int32)
+    out_p = np.empty((cap,), np.uint8)
+    conflict = ctypes.c_int32(0)
+    valid, vp = _valid_ptr(valid)
+    rc = lib.parity_chunk_combine_sparse(
+        _as_i32p(src), _as_i32p(dst), vp, src.shape[0], n_v,
+        _as_i32p(out_v), _as_i32p(out_r), out_p.ctypes.data_as(_u8p),
+        ctypes.byref(conflict), cap,
+    )
+    _sparse_rc_check(rc, "parity_chunk_combine_sparse")
+    return out_v[:rc], out_r[:rc], out_p[:rc], bool(conflict.value)
+
+
+def degree_chunk_deltas(src: np.ndarray, dst: np.ndarray,
+                        event: np.ndarray | None, valid: np.ndarray | None,
+                        n_v: int, count_out: bool = True,
+                        count_in: bool = True) -> np.ndarray:
+    """Dense ±1 endpoint-degree delta vector i32[n_v] of one chunk.
+    ``event`` (i8, 1 = deletion) and ``valid`` may be None (all additions /
+    all valid)."""
+    _inject("chunk_combiner")
+    lib = _load_combiner()
+    src = np.ascontiguousarray(src, np.int32)
+    dst = np.ascontiguousarray(dst, np.int32)
+    out = np.empty((n_v,), np.int32)
+    event, ep = _event_ptr(event)
+    valid, vp = _valid_ptr(valid)
+    rc = lib.degree_chunk_deltas(
+        _as_i32p(src), _as_i32p(dst), ep, vp, src.shape[0], n_v,
+        int(count_out), int(count_in), _as_i32p(out),
+    )
+    if rc != 0:
+        raise _stamp(ValueError(
+            f"degree_chunk_deltas: vertex slot out of range (rc={rc})"
+        ), "chunk_combiner")
+    return out
+
+
+def degree_chunk_deltas_sparse(src: np.ndarray, dst: np.ndarray,
+                               event: np.ndarray | None,
+                               valid: np.ndarray | None, n_v: int,
+                               count_out: bool = True,
+                               count_in: bool = True):
+    """Counted (vertex, net-delta) pairs of one chunk, zero nets omitted.
+    Returns ``(verts i32[t], deltas i32[t])``."""
+    _inject("chunk_combiner")
+    lib = _load_combiner()
+    src = np.ascontiguousarray(src, np.int32)
+    dst = np.ascontiguousarray(dst, np.int32)
+    cap = 2 * max(1, src.shape[0])
+    out_v = np.empty((cap,), np.int32)
+    out_d = np.empty((cap,), np.int32)
+    event, ep = _event_ptr(event)
+    valid, vp = _valid_ptr(valid)
+    rc = lib.degree_chunk_deltas_sparse(
+        _as_i32p(src), _as_i32p(dst), ep, vp, src.shape[0], n_v,
+        int(count_out), int(count_in), _as_i32p(out_v), _as_i32p(out_d), cap,
+    )
+    _sparse_rc_check(rc, "degree_chunk_deltas_sparse")
+    return out_v[:rc], out_d[:rc]
 
 
 def cc_unit_forest_segments(src: np.ndarray, dst: np.ndarray,

@@ -1,6 +1,8 @@
-"""gelly_torch on the card: each CUDA kernel vs its plain version, the CC
-(raw, compact and sparse plans) and window-triangle paths on CUDA vs the
-same paths on the CPU, and the engine's pinned H2D ring.
+"""gelly_torch on the card: each CUDA kernel vs its plain version; the CC
+(raw, compact and sparse plans), window-triangle, degree and
+bipartiteness (raw, dense and sparse plans) paths and the stream API on
+CUDA vs the same paths on the CPU; the engine's pinned H2D ring; resumes
+that come back on the card.
 
 Marked ``cuda``; every test takes the ``cuda_device`` fixture, which skips
 when the machine has no card (decided at run time, never at import time,
@@ -375,3 +377,129 @@ def test_resilient_kernel_fold_on_card_survives_a_step_fault(cuda_device,
     labels = tcc.unionfind.component_labels(final.parent, final.seen)
     assert np.array_equal(labels.cpu().numpy(),
                           tcc.cc_labels_numpy(src, dst, None, n))
+
+
+def _zipf_events(n, e, seed, deletions=True):
+    rng = np.random.default_rng(seed)
+    src = (rng.zipf(1.3, e) % n).astype(np.int32)
+    dst = (rng.zipf(1.3, e) % n).astype(np.int32)
+    ev = ((rng.random(e) < 0.2) if deletions
+          else np.zeros(e, bool)).astype(np.int8)
+    return src, dst, ev
+
+
+def _event_stream(src, dst, ev, n, device, chunk=1024):
+    return edge_stream_from_source(
+        EdgeChunkSource(src, dst, events=ev, chunk_size=chunk,
+                        table=IdentityVertexTable(n)), n, device=device)
+
+
+_PLANS = {"raw": dict(ingest_combine=False), "dense": dict(codec="dense"),
+          "sparse": dict(codec="sparse")}
+
+
+@pytest.mark.parametrize("plan", sorted(_PLANS))
+def test_degree_plans_on_card_equal_cpu(cuda_device, plan):
+    from gelly_torch.library import degrees as tdeg
+
+    n = 1 << 12
+    src, dst, ev = _zipf_events(n, 20000, 37)
+
+    def run(device):
+        res = _event_stream(src, dst, ev, n, device).aggregate(
+            tdeg.degree_aggregate(n, **_PLANS[plan]), merge_every=4,
+            fold_batch=2, ingest_workers=2)
+        out = [x for x in res]
+        assert all(x.device.type == device and x.dtype == torch.int64
+                   for x in out)
+        return [x.cpu() for x in out]
+
+    on_card, on_cpu = run("cuda"), run("cpu")
+    assert len(on_card) == len(on_cpu) == 5
+    for a, b in zip(on_card, on_cpu):
+        assert torch.equal(a, b)
+    want = np.zeros(n, np.int64)
+    sign = np.where(ev == 1, -1, 1)
+    np.add.at(want, src, sign)
+    np.add.at(want, dst, sign)
+    assert np.array_equal(on_card[-1].numpy(), want)
+
+
+@pytest.mark.parametrize("plan", sorted(_PLANS))
+@pytest.mark.parametrize("kind", ["bipartite", "odd"])
+def test_bipartiteness_plans_on_card_equal_cpu(cuda_device, plan, kind):
+    from gelly_torch.library import bipartiteness as tbp
+
+    n = 1 << 12
+    src, dst, _ = _zipf_events(n, 20000, 41, deletions=False)
+    if kind == "bipartite":
+        src, dst = src & ~1, dst | 1
+
+    def run(device):
+        res = _event_stream(src, dst, None, n, device).aggregate(
+            tbp.bipartiteness_check(n, **_PLANS[plan]), merge_every=4,
+            fold_batch=2, ingest_workers=2)
+        out = list(res)
+        assert all(r.labels.device.type == device for r in out)
+        return [tuple(x.cpu() for x in r) for r in out]
+
+    on_card, on_cpu = run("cuda"), run("cpu")
+    assert len(on_card) == len(on_cpu) == 5
+    for a, b in zip(on_card, on_cpu):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    assert bool(on_card[-1][0]) is (kind == "bipartite")
+    if kind == "bipartite":
+        col = on_card[-1][2].numpy()
+        assert bool((col[src] != col[dst]).all())
+
+
+def test_stream_api_on_card_equals_cpu(cuda_device):
+    from gelly_torch.library import degrees as tdeg
+
+    n = 1 << 12
+    src, dst, ev = _zipf_events(n, 20000, 43)
+    out = {}
+    for device in ("cuda", "cpu"):
+        s = _event_stream(src, dst, ev, n, device)
+        updates = [tuple(x.cpu() for x in u) for u in s.get_degrees()]
+        vertices = [tuple(x.cpu() for x in u) for u in s.get_vertices()]
+        hists = [h.cpu() for h in tdeg.degree_distribution(s, 1 << 14)]
+        out[device] = (updates, vertices, hists, list(s.number_of_edges()),
+                       list(s.number_of_vertices()))
+    card, cpu = out["cuda"], out["cpu"]
+    for a, b in zip(card[:3], cpu[:3]):
+        assert len(a) == len(b) == 20
+        for x, y in zip(a, b):
+            for p, q in zip(x if isinstance(x, tuple) else (x,),
+                            y if isinstance(y, tuple) else (y,)):
+                assert torch.equal(p, q)
+    assert card[3:] == cpu[3:]
+    assert card[3][-1] == int((ev == 0).sum()) - int((ev == 1).sum())
+
+
+def test_degree_checkpoint_resumes_on_card(cuda_device, tmp_path):
+    from gelly_torch.library import degrees as tdeg
+
+    n = 1 << 12
+    src, dst, ev = _zipf_events(n, 20000, 47)
+    p = str(tmp_path / "ck.npz")
+
+    def run(stop_after=None, **kw):
+        res = _event_stream(src, dst, ev, n, "cuda").aggregate(
+            tdeg.degree_aggregate(n, codec="sparse"), merge_every=4,
+            fold_batch=2, checkpoint_path=p, **kw)
+        out = []
+        for x in res:
+            assert x.device.type == "cuda"
+            out.append(x.cpu())
+            if len(out) == stop_after:
+                break
+        return out, res
+
+    full, _ = run()
+    run(stop_after=3)
+    got, res = run(resume=True)
+    assert res.stats["resumed_at"] == 8 and len(got) == 3
+    for a, b in zip(got, full[2:]):
+        assert torch.equal(a, b)
