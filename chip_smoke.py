@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive gelly_torch's streaming connected-components, window-triangle,
-degree and bipartiteness paths on one CUDA card.
+degree, bipartiteness, k-spanner and weighted-matching paths, and the
+per-window Merger plan, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -57,7 +58,9 @@ Phases (any failure exits nonzero and prints no result line):
    edges, the pairs wire and the sparse plan (``connected_components(2^24)``,
    which folds with ``union_pairs_compact``) equal the first emission.
    The path launches neither hand-written kernel (counted);
-8. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
+8. a ``{"kernels": [...]}`` line (the two Pallas counterparts and the
+   three gate and matching kernels, each with the JAX function it
+   replaces), then ``{"ok": true, "device": ...}`` last.
 
 The durable phases (checkpoints, exactly-once resume, the resilient
 runner), each checking that the native codec was never disabled:
@@ -121,6 +124,50 @@ E. bipartiteness. E1 (``bench.py:bench_bipartiteness``' call): 16M Zipf
    dense codec's and the raw fold's; then the stop and resume of D2. E3:
    phase 4's stream without its self-loops, ``ok`` at every boundary equal
    to the double-cover oracle and never back once ``False``.
+
+The per-window Merger plan and the spanner (phase F) and the matching
+(phase G), after phase E (F1 right after phase 4); every timed run prints
+its wall, edges a second, stage busy seconds, kernel launches and peak
+device memory, and each gate call its kernel (or plain) milliseconds:
+
+F. F1: a user-written transient aggregation with no ``fold_accumulates``
+   (each window's signed degree vector: ``index_add_`` fold, in-place
+   ``+`` combine) over phase 4's stream, ``merge_every=4``: every emission
+   equals the window's ``bincount``, and the same plan with
+   ``transient=False`` the prefix's; then phase 4's raw CC plan with
+   ``host_precombine=cc_host_precombine`` on its first 8 chunks (a depth
+   cut), whose labels equal phase 4's first two emissions. F2
+   (``bench.py:bench_spanner``, no cut): ``2^21`` Zipf-1.6 edges over
+   ``2^20`` slots (seed 31) in ``2^19``-edge chunks through
+   ``sparse_spanner(2^20, 2, 16, max_edges=2^21, gate_batch=2^14)``,
+   ``merge_every=1``: the combine's kernel (entry 2 of
+   ``csrc/spanner_gate.cu``) at every close, every emission equal to the
+   same run with the combine's plain version, every accepted edge an
+   input edge, the bench's 500-edge stretch sample, and a stop after the
+   3rd emission with a fresh plan resuming from the window-2 checkpoint.
+   F3: phase 4's stream through ``sparse_spanner(2^24, 2, 16,
+   gate_batch=2^14)`` in ``2^22``-edge chunks, ``merge_every=4``: the
+   plain combine equal on the first two windows (a depth cut), every
+   accepted edge an input edge, and 10^4 sampled input edges within 2
+   hops or, past that, within ``k`` a gate level (the window's fold and
+   each close that re-gated the summary holding its edges; the
+   reference's merges degrade the same way). F4: (i) the exact sequential
+   gate, entry 1, ``sparse_spanner(2^12, 3, 16)`` over two random
+   Hamiltonian cycles (degree at most 4, so no frontier truncation and no
+   row overflow), equal to its plain version, to the native host spanner
+   edge for edge, and to the dense plan's plain per-edge fold; (ii) the
+   ingest codec, ``spanner(2^20, 3, max_degree=16, ingest_combine=True,
+   payload_cap=2^15)`` over F2's stream with 2 codec workers, each
+   chunk-local spanner re-gated through entry 1: the first chunk equal to
+   the plain re-gate, every accepted edge an input edge, 2000 sampled
+   input edges within ``k^2 = 9`` hops;
+G. ``bench.py:bench_matching`` (BASELINE #5, no cut): the ratings fixture
+   tiled with a fresh permutation of its 4096 ids a repetition (4M edges)
+   in one ``2^23``-edge chunk: the host native path's matching equals the
+   bench's Python oracle, ``events()`` replays to it, ``device=True`` (the
+   ``csrc/matching_step.cu`` kernel) equals it (integer weights: no f32
+   threshold window), and the kernel equals its plain version on a
+   ``2^16``-edge prefix.
 
 After the checks of each path, one more run of it under ``torch.profiler``
 prints the device's busy time, idle share and the five device ops that
@@ -209,6 +256,61 @@ E1_N = 1 << 17
 E1_SEED = 7
 E1_CHUNK = 1 << 23
 
+# Phase F (the per-window Merger plan and the k-spanner). F1: a user
+# transient aggregation over phase 4's stream, then phase 4's raw CC plan
+# with cc_host_precombine on its first 8 chunks (a depth cut: the numpy
+# pre-combiner takes about 1.7 s a 2^22-edge chunk). F2:
+# bench.py:bench_spanner's stream and plan (no cut) through the engine.
+# F3: the spanner on phase 4's stream; its plain combine on the first two
+# windows only (a depth cut). F4: the sequential gate, exact on a stream
+# of bounded degree (i), and through the ingest codec on F2's stream (ii).
+F1_PRECOMBINE_CHUNKS = 8
+F1_PRECOMBINE_WORKERS = 8
+SPANNER_D = 16
+SPANNER_SUB = 1 << 14
+F2_N = 1 << 20
+F2_EDGES = 1 << 21
+F2_CHUNK = 1 << 19
+F2_SEED = 31
+F2_ZIPF = 1.6
+F2_SAMPLE = 500
+F3_SAMPLE = 10_000
+F3_PLAIN_DONOR = 1 << 16
+F4_N = 1 << 10
+F4_SEED = 5
+F4_CODEC_CAP = 1 << 15
+F4_CODEC_WORKERS = 2  # each holds 2^20 x 128 i32 of chunk-local rows
+F4_SAMPLE = 2000
+
+# Phase G (matching, bench.py:bench_matching's call, no cut): the ratings
+# fixture tiled with a fresh permutation of its 4096 ids a repetition, to
+# 4M edges, in one 2^23-edge chunk; the kernel against its plain version
+# on a 2^16-edge prefix.
+G_EDGES = 4_000_000
+G_N = 4096
+G_CHUNK = 1 << 23
+G_SEED = 11
+G_PREFIX = 1 << 16
+G_TIMED = 1 << 12
+
+
+# The hand kernels' wrappers, each counting its launches in ``.launches``.
+HAND_KERNELS = ("sorted_window_gather", "wedge_count_matrix",
+                "sparse_insert_edges", "sparse_insert_edges_batched",
+                "matching_step")
+NO_LAUNCHES = (0,) * len(HAND_KERNELS)
+
+
+def reset_launches(kernels) -> None:
+    """Every hand kernel's launch count to 0 (just before a driven run)."""
+    for name in HAND_KERNELS:
+        getattr(kernels, name).launches = 0
+
+
+def launch_counts(kernels) -> tuple:
+    """The hand kernels' launch counts, in :data:`HAND_KERNELS` order."""
+    return tuple(getattr(kernels, name).launches for name in HAND_KERNELS)
+
 
 def check(cond, msg: str) -> None:
     if not cond:
@@ -285,18 +387,22 @@ def triangle_oracle(torch, a, b, device) -> int:
     return int(six) // 6
 
 
-def profiled(torch, fn):
+def profiled(torch, fn, cpu: bool = True):
     """(wall_s, device_busy_s, spans, top) of one run of ``fn`` under
     ``torch.profiler``: busy is the union of the device's kernel and copy
     intervals (``None`` when the profiler recorded no device activity),
     ``top`` the five device ops with the most summed time, as
-    ``(name, seconds, count)``. The profiler's own cost is in the wall."""
+    ``(name, seconds, count)``. The profiler's own cost is in the wall.
+    ``cpu=False`` records the device only (a run of ~10^5 launches costs
+    minutes to read back with the host's events)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -443,7 +549,7 @@ def durable_compact_phase(torch, compact_plan, run, report, plain_labels,
             got, st = run(agg, CC_EDGES, **knobs)
             report(f"phase A durable compact run {i + 1}", st, CC_EDGES, agg)
             check_durable_wire(agg, folds, st["units"], "phase A")
-            check(st["launches"] == (0, 0),
+            check(st["launches"] == NO_LAUNCHES,
                   "phase A: the compact path launched a kernel")
             n_ck = st["stats"]["checkpoints"]
             ck_bytes = st["stats"]["checkpoint_bytes"]
@@ -757,7 +863,7 @@ def resilient_raw_phase(torch, device, src, dst, plain_last,
         plan = faults.FaultPlan([faults.Fault("step", at=5),
                                  faults.Fault("checkpoint_write", at=1)])
         torch.cuda.synchronize()
-        kernels.sorted_window_gather.launches = 0
+        reset_launches(kernels)
         t = time.perf_counter()
         with faults.install(plan):
             runner = ResilientRunner(
@@ -836,8 +942,7 @@ def compact_cc_phase(torch, device) -> None:
                                          device=device)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
-        kernels.sorted_window_gather.launches = 0
-        kernels.wedge_count_matrix.launches = 0
+        reset_launches(kernels)
         unionfind.host_sync.count = 0
         t = time.perf_counter()
         res = stream.aggregate(agg, merge_every=merge_every,
@@ -859,8 +964,7 @@ def compact_cc_phase(torch, device) -> None:
             "host_syncs": unionfind.host_sync.count,
             "peak_mem_bytes": torch.cuda.max_memory_allocated(device),
             "wire_bytes": res.stats["h2d_bytes"],
-            "launches": (kernels.sorted_window_gather.launches,
-                         kernels.wedge_count_matrix.launches),
+            "launches": launch_counts(kernels),
         }
         return [x.cpu().numpy() for x in out] if pull else out, stats
 
@@ -873,7 +977,7 @@ def compact_cc_phase(torch, device) -> None:
               f"host_syncs/unit={st['host_syncs'] / max(st['units'], 1):.3f} "
               f"peak_mem={st['peak_mem_bytes']} B "
               f"wire_bytes/edge={st['wire_bytes'] / n_edges:.4f} "
-              f"gather/wedge launches={st['launches']}{extra}")
+              f"kernel launches={st['launches']}{extra}")
         print(f"  stage busy s: {busy}")
 
     agg = compact_plan()
@@ -893,7 +997,8 @@ def compact_cc_phase(torch, device) -> None:
     for i in range(2):
         labels, st = run(agg, CC_EDGES)
         report(f"compact path run {i + 1}", st, CC_EDGES, agg)
-        check(st["launches"] == (0, 0), "the compact path launched a kernel")
+        check(st["launches"] == NO_LAUNCHES,
+              "the compact path launched a kernel")
         runs.append((labels, st, agg.session.assigned))
     labels, st, assigned = runs[0]
 
@@ -995,8 +1100,7 @@ def drive(torch, device, agg, source, n, n_events, merge_every, fold_batch,
     stream = edge_stream_from_source(source, n, device=device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
-    kernels.sorted_window_gather.launches = 0
-    kernels.wedge_count_matrix.launches = 0
+    reset_launches(kernels)
     unionfind.host_sync.count = 0
     t = time.perf_counter()
     res = stream.aggregate(agg, merge_every=merge_every,
@@ -1017,21 +1121,28 @@ def drive(torch, device, agg, source, n, n_events, merge_every, fold_batch,
         "host_syncs": unionfind.host_sync.count,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(device),
         "h2d_bytes": res.stats["h2d_bytes"],
-        "launches": (kernels.sorted_window_gather.launches,
-                     kernels.wedge_count_matrix.launches),
+        "launches": launch_counts(kernels),
     }
     return ([pull(x) for x in out] if pull else out), stats
 
 
-def report_run(name: str, st: dict, rate: str = "edges") -> None:
+def report_run(name: str, st: dict, rate: str = "edges",
+               expect: dict | None = None) -> None:
+    """A timed run's line, and the launch check: each kernel named in
+    ``expect`` launched exactly that many times, every other hand kernel
+    never."""
     busy = " ".join(f"{k}={v:.4f}" for k, v in sorted(st["busy"].items()))
+    counts = dict(zip(HAND_KERNELS, st["launches"]))
     print(f"{name}: {st['events_per_s']:.1f} {rate}/s "
           f"wall={st['wall_s']:.4f} s units={st['units']} "
           f"host_syncs/unit={st['host_syncs'] / max(st['units'], 1):.3f} "
           f"peak_mem={st['peak_mem_bytes']} B h2d_bytes={st['h2d_bytes']} "
-          f"gather/wedge launches={st['launches']}")
+          f"kernel launches={ {k: v for k, v in counts.items() if v} }")
     print(f"  stage busy s: {busy}")
-    check(st["launches"] == (0, 0), f"{name}: launched a hand kernel")
+    expect = expect or {}
+    for k, v in counts.items():
+        check(v == expect.get(k, 0), f"{name}: {k} launched {v} times, "
+                                     f"expected {expect.get(k, 0)}")
 
 
 def check_native_codecs(what: str) -> None:
@@ -1464,6 +1575,738 @@ def bipartiteness_phase(torch, device, src, dst) -> None:
     check_native_codecs("phase E")
 
 
+# ---------------------------------------------------------------------- #
+# Phases F and G: the per-window Merger plan, the k-spanner, the matching
+
+
+class GateTimer:
+    """Stand-in for one kernel wrapper of ``gelly_torch.ops.kernels``
+    while it is installed there: calls ``impl`` (the kernel's wrapper or
+    its plain version), times each call with CUDA events, and keeps the
+    ``launches`` count of what it wraps (its own count, reset like the
+    others). A spanner gate's call also records the work its data needed
+    (lanes, live lanes or the donor's count, accepted edges), read with a
+    sync around the call."""
+
+    def __init__(self, torch, kernels, name: str, impl, capture=None):
+        self.torch, self.kernels, self.name, self.impl = \
+            torch, kernels, name, impl
+        self.launches = 0
+        self.calls = []
+        self.capture = capture  # the index of a call whose inputs to keep
+        self.captured = None
+
+    def __call__(self, *args, **kw):
+        torch = self.torch
+        if len(self.calls) == self.capture:
+            self.captured = [x.clone() if isinstance(x, torch.Tensor) else x
+                             for x in args]
+        before = getattr(self.impl, "launches", 0)
+        gate = self.name.startswith("sparse_insert_edges")
+        info = {}
+        if gate:
+            info["n_before"] = int(args[5])  # the summary's count
+        if self.name == "sparse_insert_edges_batched":
+            info["n_valid"] = min(int(args[9]), args[7].shape[0])
+        elif gate:
+            info["lanes"] = args[7].shape[0]
+            info["live"] = int((args[9] & (args[7] != args[8])).sum())
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.impl(*args, **kw)
+        end.record()
+        if gate:
+            info["accepted"] = int(args[5]) - info["n_before"]
+        self.calls.append((start, end, info))
+        self.launches += getattr(self.impl, "launches", 0) - before
+        return out
+
+    def __enter__(self):
+        self.saved = getattr(self.kernels, self.name)
+        setattr(self.kernels, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.kernels, self.name, self.saved)
+        return False
+
+    def timings(self) -> list:
+        """``(ms, info)`` of each call."""
+        self.torch.cuda.synchronize()
+        return [(start.elapsed_time(end), info)
+                for start, end, info in self.calls]
+
+
+def gate_bound_ms(info: dict, max_degree: int) -> tuple[float, int]:
+    """(ms, bytes): the least time the card could take for one gate call,
+    from the bytes its data needs: each lane read once (8 B of ids, plus
+    the valid byte for the per-edge entry), each live lane's own row
+    (``4 D`` B, read in the BFS's first round), and each accepted edge's
+    writes (two row slots, two fill counts, two list entries: 24 B)."""
+    if "n_valid" in info:
+        lanes = live = info["n_valid"]
+        lane_bytes = 8
+    else:
+        lanes, live = info["lanes"], info["live"]
+        lane_bytes = 9
+    nbytes = lane_bytes * lanes + 4 * max_degree * live + 24 * info["accepted"]
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def spanner_pull(summary):
+    return tuple(x.cpu().numpy() for x in summary)
+
+
+def input_keys(torch, src, dst, n: int, device):
+    """Sorted ``int64`` keys ``min * n + max`` of an edge stream, on the
+    card (the subset check's index)."""
+    s = torch.from_numpy(src).to(device).long()
+    d = torch.from_numpy(dst).to(device).long()
+    keys = torch.minimum(s, d) * n + torch.maximum(s, d)
+    del s, d
+    return torch.sort(keys)[0]
+
+
+def check_subset(torch, keys, esrc, edst, n: int, what: str) -> None:
+    """Every accepted edge ``(esrc[i], edst[i])`` is an input edge."""
+    a = torch.as_tensor(esrc).to(keys.device).long()
+    b = torch.as_tensor(edst).to(keys.device).long()
+    q = torch.minimum(a, b) * n + torch.maximum(a, b)
+    pos = torch.searchsorted(keys, q).clamp(max=keys.numel() - 1)
+    check(bool((keys[pos] == q).all()),
+          f"{what}: an accepted edge is not an input edge")
+
+
+def hops_within_2(esrc, edst, n: int, pairs):
+    """Hop distances of ``pairs`` in the graph of the accepted edges, 0, 1,
+    2, or 3 for farther: a sorted adjacency, then per pair a membership and
+    a sorted-list intersection (the smaller list searched in the larger)."""
+    a = np.concatenate([esrc, edst]).astype(np.int64)
+    b = np.concatenate([edst, esrc]).astype(np.int64)
+    order = np.lexsort((b, a))
+    a, b = a[order], b[order]
+    starts = np.searchsorted(a, np.arange(n + 1))
+    hops = np.full(pairs.shape[0], 3, np.int64)
+    for i, (u, v) in enumerate(pairs.tolist()):
+        if u == v:
+            hops[i] = 0
+            continue
+        nu = b[starts[u]:starts[u + 1]]
+        nv = b[starts[v]:starts[v + 1]]
+        small, large = (nu, nv) if nu.shape[0] <= nv.shape[0] else (nv, nu)
+        if large.shape[0] == 0:
+            continue
+        if nu.shape[0] and nu[min(np.searchsorted(nu, v),
+                                  nu.shape[0] - 1)] == v:
+            hops[i] = 1
+            continue
+        pos = np.searchsorted(large, small).clip(max=large.shape[0] - 1)
+        if bool((large[pos] == small).any()):
+            hops[i] = 2
+    return hops
+
+
+def hops_on_card(torch, esrc, edst, n: int, pairs, limit: int, device):
+    """Exact hop distances (``limit + 1`` for farther) of a few ``pairs``
+    in the graph of the accepted edges, one BFS a pair on the card over a
+    sorted adjacency (frontiers through hubs stay cheap there)."""
+    a = torch.from_numpy(np.concatenate([esrc, edst])).to(device).long()
+    b = torch.from_numpy(np.concatenate([edst, esrc])).to(device).long()
+    a, order = torch.sort(a, stable=True)
+    b = b[order]
+    starts = torch.searchsorted(a, torch.arange(n + 1, device=device))
+    out = []
+    for u, v in pairs.tolist():
+        seen = torch.zeros(n, dtype=torch.bool, device=device)
+        seen[u] = True
+        front = torch.tensor([u], device=device)
+        hops = limit + 1
+        for d in range(1, limit + 1):
+            lo, cnt = starts[front], starts[front + 1] - starts[front]
+            total = int(cnt.sum())
+            if total == 0:
+                break
+            base = torch.repeat_interleave(lo - (torch.cumsum(cnt, 0) - cnt),
+                                           cnt)
+            nb = b[base + torch.arange(total, device=device)]
+            nb = torch.unique(nb[~seen[nb]])
+            if bool((nb == v).any()):
+                hops = d
+                break
+            seen[nb] = True
+            front = nb
+        out.append(hops)
+    return np.array(out, np.int64)
+
+
+def merge_levels(closes, emitted_n, n_windows: int) -> list[int]:
+    """Gate levels each window's input edges went through, from the
+    combine's calls at each close (``n_before``: the kept summary's count,
+    ``n_valid``: the donor's) and the emitted counts: one for the window's
+    own fold, one more at every close where the summary holding them was
+    the donor (re-gated). The close of window ``c`` merges its locals with
+    the global (``emitted_n[c - 1]``, 0 first); ``combine`` keeps the
+    locals when they hold at least as many edges, so the global was the
+    donor iff the donor's count is the global's."""
+    glob_donor = []
+    for c, (_, info) in enumerate(closes):
+        before = emitted_n[c - 1] if c else 0
+        glob_donor.append(info["n_valid"] == before)
+    levels = []
+    for t in range(n_windows):
+        lv = 1 + (not glob_donor[t])
+        lv += sum(glob_donor[c] for c in range(t + 1, n_windows))
+        levels.append(lv)
+    return levels
+
+
+def sampled_hops(torch, esrc, edst, n: int, pairs, limit: int, device):
+    """Hop distances of ``pairs`` in the graph of the accepted edges
+    (``limit + 1`` past ``limit``): within 2 on the host, past that by a
+    BFS on the card for each of the (few) farther pairs."""
+    hops = hops_within_2(esrc, edst, n, pairs)
+    far = np.nonzero(hops > 2)[0]
+    if far.shape[0]:
+        hops[far] = hops_on_card(torch, esrc, edst, n, pairs[far], limit,
+                                 device)
+    return hops
+
+
+def merger_phase(torch, device, src, dst, cc_labels) -> None:
+    """Phase F1: a user-written transient aggregation (the signed degree
+    vector of each window: an ``index_add_`` fold, an in-place ``+``
+    combine) and its non-transient twin over phase 4's stream, then
+    phase 4's raw CC plan with ``cc_host_precombine``."""
+    from gelly_torch.core.io import EdgeChunkSource
+    from gelly_torch.core.vertices import IdentityVertexTable
+    from gelly_torch.engine.aggregation import SummaryAggregation
+    from gelly_torch.library import connected_components as cc
+
+    n = N_VERTICES
+    pull = lambda x: x.cpu().numpy()  # noqa: E731
+
+    def plan(transient):
+        def fold(s, c):
+            sign = torch.where(c.event == 1, -1, 1).to(torch.int64)
+            sign = torch.where(c.valid, sign, 0)
+            s.index_add_(0, c.src.long(), sign)
+            s.index_add_(0, c.dst.long(), sign)
+            return s
+
+        return SummaryAggregation(
+            init=lambda d: torch.zeros(n, dtype=torch.int64, device=d),
+            fold=fold, combine=lambda a, b: a.add_(b), transient=transient,
+            device_fields=("src", "dst", "event", "valid"),
+            name=f"signed-degrees-transient={transient}")
+
+    def source(edges=N_EDGES):
+        return EdgeChunkSource(src[:edges], dst[:edges], chunk_size=CHUNK,
+                               table=IdentityVertexTable(n))
+
+    window = MERGE_EVERY * CHUNK
+    for transient in (True, False):
+        out, st = drive(torch, device, plan(transient), source(), n,
+                        N_EDGES, MERGE_EVERY, 1, pull)
+        report_run(f"phase F1 Merger plan transient={transient}", st)
+        check(len(out) == N_EDGES // window, f"F1: {len(out)} emissions")
+        for i, got in enumerate(out):
+            lo = i * window if transient else 0
+            hi = (i + 1) * window
+            check(same(got, signed_degrees(src[lo:hi], dst[lo:hi], 1, n)),
+                  f"F1 transient={transient}: emission {i} != the "
+                  f"{'window' if transient else 'prefix'} bincount")
+        print(f"phase F1 transient={transient}: {len(out)} emissions of "
+              f"int64[{n}] equal each {'window' if transient else 'prefix'}"
+              f"'s bincount")
+        del out
+    print_profiled("phase F1 transient Merger plan", *profiled(
+        torch, lambda: drive(torch, device, plan(True), source(), n,
+                             N_EDGES, MERGE_EVERY, 1, None)))
+    edges = F1_PRECOMBINE_CHUNKS * CHUNK
+    got, st = drive(torch, device, cc.connected_components(
+        n, merge="gather", ingest_combine=False, fold_backend="plain"),
+        source(edges), n, edges, MERGE_EVERY, 1, pull,
+        host_precombine=cc.cc_host_precombine,
+        codec_workers=F1_PRECOMBINE_WORKERS)
+    report_run("phase F1 raw CC plan with cc_host_precombine "
+                f"({F1_PRECOMBINE_CHUNKS} chunks, "
+                f"{F1_PRECOMBINE_WORKERS} staging workers)", st)
+    check(len(got) == len(cc_labels)
+          and all(same(a, b) for a, b in zip(got, cc_labels)),
+          "F1: the pre-combined CC labels != phase 4's")
+    print(f"phase F1: cc_host_precombine labels equal phase 4's first "
+          f"{len(got)} emissions")
+
+
+def spanner_bench_phase(torch, device, stream_out: dict) -> dict:
+    """Phase F2: ``bench.py:bench_spanner``'s stream and plan through the
+    engine, 4 windows of one 2^19-edge chunk; leaves the stream in
+    ``stream_out`` for F4 and returns the combine's kernel and plain times
+    at the second close (the same inputs in both runs)."""
+    from gelly_torch.core.io import EdgeChunkSource
+    from gelly_torch.core.vertices import IdentityVertexTable
+    from gelly_torch.ops import kernels
+
+    sp = __import__("gelly_torch.library.spanner", fromlist=["spanner"])
+    n, e = F2_N, F2_EDGES
+    rng = np.random.default_rng(F2_SEED)
+    src = (rng.zipf(F2_ZIPF, e) % n).astype(np.int32)
+    dst = (rng.zipf(F2_ZIPF, e) % n).astype(np.int32)
+    sample = rng.choice(e, F2_SAMPLE, replace=False)  # the bench's draw
+    stream_out.update(src=src, dst=dst)
+
+    def run(pull=spanner_pull, **knobs):
+        agg = sp.sparse_spanner(n, 2, SPANNER_D, max_edges=e,
+                                gate_batch=SPANNER_SUB)
+        return drive(torch, device, agg, EdgeChunkSource(
+            src, dst, chunk_size=F2_CHUNK, table=IdentityVertexTable(n)),
+            n, e, 1, 1, pull, **knobs)
+
+    n_windows = e // F2_CHUNK
+    with GateTimer(torch, kernels, "sparse_insert_edges_batched",
+                   kernels.sparse_insert_edges_batched) as gate:
+        out, st = run()
+    report_run("phase F2 spanner (bench_spanner)", st,
+               expect={"sparse_insert_edges_batched": n_windows})
+    with GateTimer(torch, kernels, "sparse_insert_edges_batched",
+                   kernels.sparse_insert_edges_batched_plain) as plain:
+        plain_out, pst = run()
+    report_run("phase F2 spanner, plain combine", pst)
+    check(len(out) == len(plain_out) == n_windows,
+          f"F2: {len(out)} / {len(plain_out)} emissions")
+    for i, (a, b) in enumerate(zip(out, plain_out)):
+        check(same(a, b), f"F2 emission {i}: kernel combine != plain")
+    timings = list(zip(gate.timings(), plain.timings()))
+    for (ms, info), (pms, _) in timings:
+        print(f"  F2 combine: donor {info['n_valid']} edges, "
+              f"{info['accepted']} accepted, kernel {ms:.4f} ms, "
+              f"plain {pms:.4f} ms")
+    last = out[-1]
+    m = int(last[4])
+    es, ed = last[2][:m], last[3][:m]
+    check(not bool(last[5]), "F2: the edge list overflowed")
+    keys = input_keys(torch, src, dst, n, device)
+    check_subset(torch, keys, es, ed, n, "F2")
+    del keys
+    adj: dict = {}
+    for a, b in zip(es.tolist(), ed.tolist()):
+        adj.setdefault(a, set()).add(b)
+        adj.setdefault(b, set()).add(a)
+    bad = 0
+    for i in sample.tolist():
+        a, b = int(src[i]), int(dst[i])
+        if a == b or b in adj.get(a, ()):
+            continue
+        if adj.get(a, set()) & adj.get(b, set()):
+            continue
+        bad += 1
+    check(bad == 0, f"F2: stretch sample FAIL ({bad}/{F2_SAMPLE})")
+    print(f"phase F2: {n_windows} emissions equal the plain combine's; "
+          f"accepted {[int(x[4]) for x in out]} per window close, "
+          f"deg_overflow {int(last[6])}; every accepted edge an input "
+          f"edge; the bench's {F2_SAMPLE}-edge stretch sample passes")
+    print_profiled("phase F2 spanner", *profiled(
+        torch, lambda: run(pull=None)))
+    stop_and_resume(run, out, n_windows, 1, "phase F2")
+    (ms, info), (pms, _) = timings[1]
+    bound, nbytes = gate_bound_ms(info, SPANNER_D)
+    print(f"  F2 close 2: entry 2 {ms:.4f} ms, plain {pms:.4f} ms, bound "
+          f"{bound:.6f} ms ({nbytes} B)")
+    return {"ms": ms, "plain_ms": pms, "bound_ms": bound,
+            "bound_bytes": nbytes}
+
+
+def spanner_twitter_phase(torch, device, src, dst) -> dict:
+    """Phase F3: the spanner on phase 4's stream (``2^26`` edges, ``2^24``
+    slots) in ``2^22``-edge chunks, 4 windows. The plain combine is held
+    to the kernel at the second close (the first with a donor), on that
+    close's own summaries cut to the donor's first
+    :data:`F3_PLAIN_DONOR` edges: the whole donor (~1.4M edges, 22k
+    batches of ~60 launches) would take the plain version a minute.
+    Returns the kernel's launch count in the run."""
+    from gelly_torch.core.io import EdgeChunkSource
+    from gelly_torch.core.vertices import IdentityVertexTable
+    from gelly_torch.ops import kernels
+
+    sp = __import__("gelly_torch.library.spanner", fromlist=["spanner"])
+    n = N_VERTICES
+
+    def run(pull=None, **knobs):
+        agg = sp.sparse_spanner(n, 2, SPANNER_D, gate_batch=SPANNER_SUB)
+        return drive(torch, device, agg, EdgeChunkSource(
+            src, dst, chunk_size=CHUNK, table=IdentityVertexTable(n)),
+            n, N_EDGES, MERGE_EVERY, 1, pull, **knobs)
+
+    n_windows = N_EDGES // (MERGE_EVERY * CHUNK)
+    with GateTimer(torch, kernels, "sparse_insert_edges_batched",
+                   kernels.sparse_insert_edges_batched, capture=1) as gate:
+        out, st = run()
+    report_run("phase F3 spanner at Twitter scale", st,
+               expect={"sparse_insert_edges_batched": n_windows})
+    timings = gate.timings()
+    check(len(out) == n_windows, f"F3: {len(out)} emissions")
+    for i, (ms, info) in enumerate(timings):
+        bound, nbytes = gate_bound_ms(info, SPANNER_D)
+        print(f"  F3 close {i + 1}: combine donor {info['n_valid']} edges, "
+              f"{info['accepted']} accepted, kernel {ms:.4f} ms, bound "
+              f"{bound:.6f} ms ({nbytes} B)")
+    # The plain combine on close 2's summaries, the donor cut short.
+    args = gate.captured
+    gate.captured = None
+    cut = torch.tensor(min(F3_PLAIN_DONOR, timings[1][1]["n_valid"]),
+                       dtype=torch.int32, device=device)
+    results = []
+    for impl in (kernels.sparse_insert_edges_batched,
+                 kernels.sparse_insert_edges_batched_plain):
+        state = [x.clone() for x in args[:7]]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        impl(*state, args[7], args[8], cut, *args[10:])
+        torch.cuda.synchronize()
+        results.append((state, (time.perf_counter() - t) * 1e3))
+    (got, ms), (want, pms) = results
+    check(all(torch.equal(x, y) for x, y in zip(got, want)),
+          "F3: close 2's combine, donor cut, kernel != plain")
+    print(f"  F3 close 2, donor cut to {int(cut)} edges: kernel "
+          f"{ms:.4f} ms, plain {pms:.4f} ms (host clock), summaries equal")
+    del args, results, got, want
+    last = out[-1]
+    m = int(last.n)
+    check(not bool(last.overflow), "F3: the edge list overflowed")
+    keys = input_keys(torch, src, dst, n, device)
+    check_subset(torch, keys, last.esrc[:m], last.edst[:m], n, "F3")
+    del keys
+    es = last.esrc[:m].cpu().numpy()
+    ed = last.edst[:m].cpu().numpy()
+    rng = np.random.default_rng(SEED)
+    pick = rng.choice(N_EDGES, F3_SAMPLE, replace=False)
+    t0 = time.perf_counter()
+    pairs = np.stack([src[pick], dst[pick]], 1)
+    # Past 2 hops the bound is k per gate level: the window's fold, and
+    # each close that re-gated the summary holding the window's edges.
+    emitted = [int(x.n) for x in out]
+    levels = merge_levels(timings, emitted, n_windows)
+    bound = np.array([2 ** levels[i // (MERGE_EVERY * CHUNK)]
+                      for i in pick.tolist()])
+    hops = sampled_hops(torch, es, ed, n, pairs, int(bound.max()), device)
+    hist = np.bincount(np.minimum(hops, 9), minlength=10)
+    check(bool((hops <= bound).all()),
+          f"F3: {int((hops > bound).sum())} of {F3_SAMPLE} sampled edges "
+          f"beyond k^levels")
+    print(f"phase F3: accepted {emitted} per window close, deg_overflow "
+          f"{int(last.deg_overflow)}; close 2's combine equal to the plain "
+          f"one on its first {int(cut)} donor edges; every accepted "
+          f"edge an input edge; "
+          f"{F3_SAMPLE} sampled input edges at hops 0,1,2,... = "
+          f"{hist.tolist()} ({int((hops <= 2).sum())} within 2; gate levels "
+          f"a window {levels}, every edge within k^levels), "
+          f"{time.perf_counter() - t0:.2f} s")
+    del out, last
+    torch.cuda.empty_cache()
+    # Device activity only, over the first two windows (a depth cut: the
+    # whole run's ~10^6 launches take minutes to read back).
+    print_profiled("phase F3 spanner, first 2 windows (device only)",
+                   *profiled(torch, lambda: run(stop_after=2), cpu=False))
+    return {"launches": st["launches"][HAND_KERNELS.index(
+        "sparse_insert_edges_batched")]}
+
+
+def bounded_degree_stream(n: int, seed: int):
+    """Two random Hamiltonian cycles over ``n`` slots, edges shuffled: every
+    vertex has degree at most 4, so any ball of radius 3 holds at most
+    ``1 + 4 + 12 + 36 = 53`` vertices."""
+    rng = np.random.default_rng(seed)
+    edges = []
+    for _ in range(2):
+        p = rng.permutation(n)
+        edges.append(np.stack([p, np.roll(p, -1)], 1))
+    e = np.concatenate(edges)[rng.permutation(2 * n)]
+    return e[:, 0].astype(np.int32), e[:, 1].astype(np.int32)
+
+
+def spanner_gate_phase(torch, device, f2_stream: dict) -> dict:
+    """Phase F4: (i) the exact sequential gate, entry 1, on a stream of
+    bounded degree (no frontier truncation, no row overflow possible), held
+    to its plain version on the card, to the native host spanner edge for
+    edge, and the dense plan's per-edge fold to the same list; (ii) the
+    ingest codec on F2's stream, each chunk-local spanner re-gated through
+    entry 1. Returns entry 1's numbers for the kernel line."""
+    from gelly_torch.core.io import EdgeChunkSource
+    from gelly_torch.core.stream import edge_stream_from_source
+    from gelly_torch.core.vertices import IdentityVertexTable
+    from gelly_torch.ops import kernels
+    from gelly_torch.utils import native
+
+    sp = __import__("gelly_torch.library.spanner", fromlist=["spanner"])
+    check(native.available("spanner"), "the native spanner did not build")
+    n = F4_N
+    src, dst = bounded_degree_stream(n, F4_SEED)
+    e = src.shape[0]
+    deg = np.bincount(src, minlength=n) + np.bincount(dst, minlength=n)
+    check(int(deg.max()) <= 4, f"F4: input degree {int(deg.max())} > 4")
+    F = max(32, 4 * SPANNER_D)
+    check(1 + 4 + 12 + 36 <= F, "F4: a radius-3 ball may exceed the frontier")
+
+    def source():
+        return EdgeChunkSource(src, dst, chunk_size=e,
+                               table=IdentityVertexTable(n))
+
+    def run(plan, pull=spanner_pull, **knobs):
+        return drive(torch, device, plan, source(), n, e, 1, 1, pull,
+                     **knobs)
+
+    with GateTimer(torch, kernels, "sparse_insert_edges",
+                   kernels.sparse_insert_edges) as gate:
+        (got,), st = run(sp.sparse_spanner(n, 3, SPANNER_D))
+    report_run("phase F4(i) sequential gate, k=3", st,
+               expect={"sparse_insert_edges": 1,
+                       "sparse_insert_edges_batched": 1})
+    with GateTimer(torch, kernels, "sparse_insert_edges",
+                   kernels.sparse_insert_edges_plain) as plain:
+        (want,), pst = run(sp.sparse_spanner(n, 3, SPANNER_D))
+    report_run("phase F4(i) plain gate", pst,
+               expect={"sparse_insert_edges_batched": 1})
+    (ms, info), = gate.timings()
+    (pms, _), = plain.timings()
+    check(same(got, want), "F4(i): entry 1 != its plain version")
+    check(int(got[6]) == 0, f"F4(i): deg_overflow {int(got[6])}")
+    ctx_stream = edge_stream_from_source(source(), n, device=device)
+    host = sp.host_spanner(ctx_stream, 3, max_degree=SPANNER_D)
+    m = int(got[4])
+    dev_edges = list(zip(got[2][:m].tolist(), got[3][:m].tolist()))
+    check(host.final_edges() == dev_edges and host.deg_overflow == 0,
+          "F4(i): the gate != the native host spanner")
+    (dense,), dst_ = run(sp.spanner(n, 3))
+    report_run("phase F4(i) dense plan (plain per-edge fold)", dst_)
+    check(int(dense[3]) == m and np.array_equal(dense[1][:m], got[2][:m])
+          and np.array_equal(dense[2][:m], got[3][:m]),
+          "F4(i): the dense plan != the sparse gate")
+    bound, nbytes = gate_bound_ms(info, SPANNER_D)
+    print(f"phase F4(i): {e} edges of max degree {int(deg.max())} over {n} "
+          f"slots, k=3: {m} accepted, equal to the plain gate, the native "
+          f"host spanner and the dense plan, edge for edge; entry 1 "
+          f"{ms:.4f} ms (plain {pms:.4f} ms, bound {bound:.6f} ms for "
+          f"{nbytes} B)")
+    result = {"ms": ms, "plain_ms": pms, "bound_ms": bound,
+              "bound_bytes": nbytes}
+
+    # (ii) the codec on F2's stream.
+    s2, d2 = f2_stream["src"], f2_stream["dst"]
+    n2, e2 = F2_N, F2_EDGES
+
+    def codec_plan():
+        agg = sp.spanner(n2, 3, max_degree=SPANNER_D, ingest_combine=True,
+                         payload_cap=F4_CODEC_CAP)
+        check(agg.host_compress is not None, "F4(ii): no codec")
+        return agg
+
+    def codec_source(edges):
+        return EdgeChunkSource(s2[:edges], d2[:edges], chunk_size=F2_CHUNK,
+                               table=IdentityVertexTable(n2))
+
+    def codec_run(edges, merge_every, pull=spanner_pull):
+        return drive(torch, device, codec_plan(), codec_source(edges), n2,
+                     edges, merge_every, 1, pull,
+                     codec_workers=F4_CODEC_WORKERS)
+
+    chunks = e2 // F2_CHUNK
+    with GateTimer(torch, kernels, "sparse_insert_edges",
+                   kernels.sparse_insert_edges) as gate:
+        (full,), st = codec_run(e2, chunks)
+    report_run("phase F4(ii) spanner codec, k=3", st,
+               expect={"sparse_insert_edges": chunks,
+                       "sparse_insert_edges_batched": 1})
+    result["launches"] = st["launches"][HAND_KERNELS.index(
+        "sparse_insert_edges")]
+    for i, (ms, info) in enumerate(gate.timings()):
+        print(f"  F4(ii) payload {i + 1}: {info['lanes']} lanes, "
+              f"{info['live']} live, {info['accepted']} accepted, entry 1 "
+              f"{ms:.4f} ms")
+    (first,), _ = codec_run(F2_CHUNK, 1)
+    # The plain re-gate of the first chunk runs on CPU tensors (the same
+    # host codec and payload): on the card its per-edge launches cost about
+    # 2 ms an edge, almost all of it host-side dispatch.
+    t = time.perf_counter()
+    res = edge_stream_from_source(codec_source(F2_CHUNK), n2,
+                                  device="cpu").aggregate(
+        codec_plan(), merge_every=1, codec_workers=F4_CODEC_WORKERS)
+    first_plain, = [spanner_pull(x) for x in res]
+    print(f"phase F4(ii) plain re-gate of chunk 1 on CPU tensors: "
+          f"{time.perf_counter() - t:.4f} s")
+    check(same(first, first_plain), "F4(ii): entry 1 != plain, chunk 1")
+    m = int(full[4])
+    check(not bool(full[5]), "F4(ii): the edge list overflowed")
+    keys = input_keys(torch, s2, d2, n2, device)
+    check_subset(torch, keys, full[2][:m], full[3][:m], n2, "F4(ii)")
+    del keys
+    rng = np.random.default_rng(F4_SEED)
+    pick = rng.choice(e2, F4_SAMPLE, replace=False)
+    hops = sampled_hops(torch, full[2][:m], full[3][:m], n2,
+                        np.stack([s2[pick], d2[pick]], 1), 9, device)
+    check(int(hops.max()) <= 9,
+          f"F4(ii): stretch > k^2 = 9 on {int((hops > 9).sum())} sampled "
+          "edges")
+    print(f"phase F4(ii): {m} accepted over {chunks} payloads "
+          f"(deg_overflow {int(full[6])}); chunk 1 equal to the plain "
+          f"re-gate; every accepted edge an input edge; {F4_SAMPLE} sampled "
+          f"input edges within k^2 = 9 hops (max {int(hops.max())})")
+    print_profiled("phase F4(ii) spanner codec", *profiled(
+        torch, lambda: codec_run(e2, chunks, pull=None)))
+    return result
+
+
+def matching_phase(torch, device) -> dict:
+    """Phase G: BASELINE #5, ``bench.py:bench_matching``'s call. Returns
+    the matching kernel's numbers for the kernel line."""
+    from gelly_torch.core.io import EdgeChunkSource, read_edge_list
+    from gelly_torch.core.stream import edge_stream_from_source
+    from gelly_torch.core.vertices import IdentityVertexTable
+    from gelly_torch.library import matching as wm
+    from gelly_torch.ops import kernels
+    from gelly_torch.utils import native
+
+    check(native.available("matching"), "the native matching did not build")
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    fsrc, fdst, fval = read_edge_list(
+        os.path.join(here, "data", "ratings_like.txt"), num_value_cols=1)
+    reps = max(1, G_EDGES // fsrc.shape[0])
+    rng = np.random.default_rng(G_SEED)
+    perms = [rng.permutation(G_N).astype(np.int32) for _ in range(reps)]
+    src = np.concatenate([p[fsrc] for p in perms])
+    dst = np.concatenate([p[fdst] for p in perms])
+    w = np.concatenate([fval] * reps)
+    e = src.shape[0]
+    check(bool(np.all(w == np.round(w))) and float(w.max()) < 2 ** 23,
+          "G: the weights are not small integers")
+    print(f"phase G stream: {fsrc.shape[0]} fixture edges x {reps} = {e} "
+          f"edges over {G_N} slots in {time.perf_counter() - t0:.2f} s")
+
+    def stream():
+        return edge_stream_from_source(EdgeChunkSource(
+            src, dst, val=w, chunk_size=G_CHUNK,
+            table=IdentityVertexTable(G_N)), G_N, device=device)
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_launches(kernels)
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = dict(zip(HAND_KERNELS, launch_counts(kernels)))
+        print(f"phase G {name}: wall={wall:.4f} s ({e / wall:.1f} edges/s) "
+              f"peak_mem={torch.cuda.max_memory_allocated(device)} B "
+              f"launches={ {k: v for k, v in counts.items() if v} }")
+        return out, counts
+
+    wm.weighted_matching(stream()).final()  # warm-up
+    for i in range(2):
+        host, counts = timed(f"host native run {i + 1}",
+                             lambda: wm.weighted_matching(
+                                 stream()).final_matching())
+        check(counts == dict(zip(HAND_KERNELS, NO_LAUNCHES)),
+              "G: the host path launched a kernel")
+    t0 = time.perf_counter()
+    matching: dict = {}
+    for u, v, wt in zip(src.tolist(), dst.tolist(), w.tolist()):
+        if u == v:
+            continue
+        coll = {id(x): x for y in (u, v) if y in matching
+                for x in [matching[y]]}
+        if wt > 2 * sum(x[2] for x in coll.values()):
+            for x in coll.values():
+                matching.pop(x[0], None)
+                matching.pop(x[1], None)
+            matching[u] = matching[v] = (u, v, wt)
+    base = {(min(a, b), max(a, b)): wt for a, b, wt in set(matching.values())}
+    ours = {(a, b): wt for a, b, wt in host}
+    check(ours == base, f"G: host matching ({len(ours)} edges) != the "
+                        f"bench's oracle ({len(base)})")
+    print(f"phase G: the host path's {len(ours)} matched edges (weight "
+          f"{sum(ours.values())}) equal the bench's oracle "
+          f"({time.perf_counter() - t0:.2f} s)")
+    replay: dict = {}
+    t0 = time.perf_counter()
+    for ev in wm.weighted_matching(stream()).events():
+        key = (min(ev.src, ev.dst), max(ev.src, ev.dst))
+        if ev.type == "ADD":
+            replay[key] = ev.weight
+        else:
+            check(replay.pop(key, None) == ev.weight,
+                  f"G: REMOVE of an unmatched {key}")
+    check(replay == ours, "G: events() replay != final_matching()")
+    print(f"phase G: events() replays to the same matching "
+          f"({time.perf_counter() - t0:.2f} s)")
+    with GateTimer(torch, kernels, "matching_step",
+                   kernels.matching_step) as gate:
+        t = time.perf_counter()
+        dev, counts = timed("device=True (kernel)", lambda:
+                            wm.weighted_matching(stream(), device=True
+                                                 ).final_matching())
+        wall = time.perf_counter() - t
+    spans = gate.timings()
+    busy = sum(ms for ms, _ in spans) * 1e-3
+    print(f"phase G device=True: the kernel's {len(spans)} launch(es) take "
+          f"{busy:.4f} s of the {wall:.4f} s run (CUDA events; idle share "
+          f"{1 - busy / wall:.4f} outside them)")
+    n_chunks = -(-e // G_CHUNK)
+    check(counts["matching_step"] == n_chunks,
+          f"G: {counts['matching_step']} kernel launches, not {n_chunks}")
+    launches = counts["matching_step"]
+    diff = set(dev) ^ set(host)
+    check(not diff, f"G: device != host on {len(diff)} pairs (integer "
+                    f"weights: f32 and f64 decide alike)")
+    print(f"phase G: device=True equals the host path ({len(diff)} pairs "
+          f"differ; integer weights below 2^23 leave no f32/f64 threshold "
+          f"window)")
+    print_profiled("phase G device=True", *profiled(
+        torch, lambda: wm.weighted_matching(stream(), device=True).final()))
+
+    # The kernel against its plain version: exact on a 2^16-edge prefix
+    # (the plain version on CPU tensors of the same inputs: on the card its
+    # ~25 launches an edge cost about 1 ms an edge of host-side dispatch),
+    # and both timed on the card on a 2^12-edge prefix.
+    def prefix(L, dev):
+        return [torch.full((G_N,), -1, dtype=torch.int32, device=dev),
+                torch.zeros(G_N, dtype=torch.float32, device=dev)] + [
+            torch.from_numpy(x).to(dev) for x in (
+                src[:L], dst[:L], w[:L].astype(np.float32),
+                np.ones(L, bool))]
+
+    got = kernels.matching_step(*prefix(G_PREFIX, device))
+    t = time.perf_counter()
+    want = kernels.matching_step(*prefix(G_PREFIX, "cpu"))
+    cpu_s = time.perf_counter() - t
+    err = float((got[1].cpu() - want[1]).abs().max())
+    check(torch.equal(got[0].cpu(), want[0])
+          and torch.equal(got[1].cpu(), want[1]),
+          f"G: kernel != plain on the {G_PREFIX}-edge prefix (max abs err "
+          f"{err})")
+    args = prefix(G_TIMED, device)
+    got = kernels.matching_step(*args)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = kernels.matching_step_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"G: kernel != plain on the card, {G_TIMED}-edge prefix")
+    ms = time_ms(torch, lambda: kernels.matching_step(*args), device,
+                 reps=5, warmup=1)
+    nbytes = 13 * G_TIMED + 2 * 8 * G_N
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"kernel matching_step: equal to its plain version on a "
+          f"{G_PREFIX}-edge prefix (plain on CPU tensors, {cpu_s:.2f} s); "
+          f"{G_TIMED}-edge prefix on the card: kernel_ms={ms:.6f} "
+          f"plain_ms={plain_ms:.6f} (host clock) bound_ms={bound:.6f} "
+          f"({nbytes} B)")
+    return {"launches": launches, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "max_abs_err": err}
+
+
 def main() -> int:
     import torch
 
@@ -1574,8 +2417,7 @@ def main() -> int:
             fold_backend=backend)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
-        kernels.sorted_window_gather.launches = 0
-        kernels.wedge_count_matrix.launches = 0
+        reset_launches(kernels)
         unionfind.host_sync.count = 0
         t = time.perf_counter()
         out = list(stream.aggregate(agg, merge_every=MERGE_EVERY))
@@ -1631,6 +2473,10 @@ def main() -> int:
     print_profiled("CC path fold_backend=kernel",
                    *profiled(torch, lambda: run_path("kernel")))
 
+    # F1. the per-window Merger plan, and host_precombine, on this stream
+    merger_phase(torch, device, src, dst,
+                 labels[:F1_PRECOMBINE_CHUNKS // MERGE_EVERY])
+
     # C. the resilient raw fold with the kernel, under two faults
     resilient_raw_phase(torch, device, src, dst, labels[-1], st["wall_s"])
     # B. kill -9 of a child checkpointing the compact plan, then resume
@@ -1643,7 +2489,19 @@ def main() -> int:
     degrees_phase(torch, device, src, dst)
     torch.cuda.empty_cache()
     bipartiteness_phase(torch, device, src, dst)
+    torch.cuda.empty_cache()
+
+    # F2-F4. the k-spanner; G. weighted matching
+    f2_stream: dict = {}
+    f2 = spanner_bench_phase(torch, device, f2_stream)
+    torch.cuda.empty_cache()
+    f3 = spanner_twitter_phase(torch, device, src, dst)
     del src, dst
+    torch.cuda.empty_cache()
+    f4 = spanner_gate_phase(torch, device, f2_stream)
+    del f2_stream
+    torch.cuda.empty_cache()
+    g = matching_phase(torch, device)
     torch.cuda.empty_cache()
 
     # The triangle stream (set-up, not timed).
@@ -1747,8 +2605,7 @@ def main() -> int:
     # 6. triangle path at full width
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
-    kernels.sorted_window_gather.launches = 0
-    kernels.wedge_count_matrix.launches = 0
+    reset_launches(kernels)
     unionfind.host_sync.count = 0
     t = time.perf_counter()
     wins, counts = zip(*tri.window_triangle_counts_batched(
@@ -1829,6 +2686,47 @@ def main() -> int:
         "live_block_triples": triples,
         "prepass_ms": prepass_ms,
         "prepass_share": prepass_ms / wedge_ms,
+    }, {
+        "name": "sparse_insert_edges",
+        "route": "cuda",
+        "source": "gelly_torch/csrc/spanner_gate.cu",
+        "replaces": "gelly_tpu/library/spanner.py:178",
+        "launches": f4["launches"],
+        "max_abs_err": 0,
+        "ms": f4["ms"],
+        "plain_ms": f4["plain_ms"],
+        "bound_ms": f4["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "bound_bytes": f4["bound_bytes"],
+        "timed_on": "F4(i), one launch",
+    }, {
+        "name": "sparse_insert_edges_batched",
+        "route": "cuda",
+        "source": "gelly_torch/csrc/spanner_gate.cu",
+        "replaces": "gelly_tpu/library/spanner.py:309",
+        "launches": f3["launches"],
+        "max_abs_err": 0,
+        "ms": f2["ms"],
+        "plain_ms": f2["plain_ms"],
+        "bound_ms": f2["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "bound_bytes": f2["bound_bytes"],
+        "timed_on": "F2 window close 2",
+    }, {
+        "name": "matching_step",
+        "route": "cuda",
+        "source": "gelly_torch/csrc/matching_step.cu",
+        "replaces": "gelly_tpu/library/matching.py:48",
+        "launches": g["launches"],
+        "max_abs_err": g["max_abs_err"],
+        "ms": g["ms"],
+        "plain_ms": g["plain_ms"],
+        "bound_ms": g["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "timed_on": f"G {G_TIMED}-edge prefix",
     }]}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

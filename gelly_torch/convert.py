@@ -8,7 +8,13 @@ from the same mid-stream state:
   (``croot`` i32, ``vertex_of`` i32);
 - ``ParityForest`` (``parent`` i32, ``rel`` i32, ``failed`` 0-d bool) and
   ``BipartiteSummary`` (its forest, ``seen`` bool);
-- the degree vector (``int64[n]``).
+- the degree vector (``int64[n]``);
+- ``SpannerSummary`` (``adj`` bool[N, N], ``esrc``/``edst`` i32, ``n``
+  0-d i32, ``overflow`` 0-d bool) and ``SparseSpannerSummary`` (``nbr``
+  i32[N, D], ``deg`` i32, ``esrc``/``edst`` i32, ``n``, ``overflow``,
+  ``deg_overflow`` 0-d i32);
+- the device matching state ``MatchingState`` (``partner`` i32,
+  ``weight`` f32).
 
 Dtypes and shapes are checked, never widened or narrowed silently.
 """
@@ -21,15 +27,22 @@ import torch
 from .core.device import DEFAULT_DEVICE, resolve_device, to_numpy
 from .library.bipartiteness import BipartiteSummary
 from .library.connected_components import CCCompactSummary, CCSummary
+from .library.matching import MatchingState
+from .library.spanner import SparseSpannerSummary, SpannerSummary
 from .ops.parity_unionfind import ParityForest
 
 
-_I32, _BOOL, _I64 = np.int32, np.bool_, np.int64
+_I32, _BOOL, _I64, _F32 = np.int32, np.bool_, np.int64, np.float32
+
+
+# 1-D fields whose length is not the slot count (checked apart).
+_OWN_LENGTH = ("esrc", "edst")
 
 
 def _tensors(device, spec: dict, **arrays) -> list[torch.Tensor]:
     """Each array checked against its ``(dtype, ndim)`` in ``spec`` (the
-    1D ones of one length) and copied to a tensor on ``device``."""
+    1D ones of one length, the edge lists apart) and copied to a tensor on
+    ``device``."""
     checked, lengths = [], {}
     for name, a in arrays.items():
         a = np.asarray(a)
@@ -39,7 +52,7 @@ def _tensors(device, spec: dict, **arrays) -> list[torch.Tensor]:
                 f"{name} must be {np.dtype(dtype)}, got {a.dtype}")
         if a.ndim != ndim:
             raise ValueError(f"{name} {a.shape} must be {ndim}-d")
-        if ndim == 1:
+        if ndim == 1 and name not in _OWN_LENGTH:
             lengths[name] = a.shape[0]
         checked.append(a)
     if len(set(lengths.values())) > 1:
@@ -110,3 +123,60 @@ def degrees_from_numpy(deg, device: torch.device | str = DEFAULT_DEVICE
 
 def degrees_to_numpy(deg: torch.Tensor) -> np.ndarray:
     return to_numpy(deg)
+
+
+def _edge_list(esrc, edst) -> None:
+    if np.shape(esrc) != np.shape(edst):
+        raise ValueError(f"esrc {np.shape(esrc)} and edst {np.shape(edst)} "
+                         "must be of one length")
+
+
+_LIST = {"esrc": (_I32, 1), "edst": (_I32, 1), "n": (_I32, 0),
+         "overflow": (_BOOL, 0)}
+
+
+def spanner_summary_from_numpy(adj, esrc, edst, n, overflow,
+                               device: torch.device | str = DEFAULT_DEVICE
+                               ) -> SpannerSummary:
+    _edge_list(esrc, edst)
+    return SpannerSummary(*_tensors(
+        device, {"adj": (_BOOL, 2), **_LIST}, adj=adj, esrc=esrc, edst=edst,
+        n=n, overflow=overflow))
+
+
+def spanner_summary_to_numpy(summary: SpannerSummary
+                             ) -> tuple[np.ndarray, ...]:
+    return tuple(to_numpy(x) for x in summary)
+
+
+def sparse_spanner_summary_from_numpy(
+        nbr, deg, esrc, edst, n, overflow, deg_overflow,
+        device: torch.device | str = DEFAULT_DEVICE) -> SparseSpannerSummary:
+    _edge_list(esrc, edst)
+    if np.shape(nbr)[:1] != np.shape(deg):
+        raise ValueError(f"nbr {np.shape(nbr)} and deg {np.shape(deg)} "
+                         "must have one row count")
+    return SparseSpannerSummary(*_tensors(
+        device, {"nbr": (_I32, 2), "deg": (_I32, 1), **_LIST,
+                 "deg_overflow": (_I32, 0)},
+        nbr=nbr, deg=deg, esrc=esrc, edst=edst, n=n, overflow=overflow,
+        deg_overflow=deg_overflow))
+
+
+def sparse_spanner_summary_to_numpy(summary: SparseSpannerSummary
+                                    ) -> tuple[np.ndarray, ...]:
+    return tuple(to_numpy(x) for x in summary)
+
+
+def matching_state_from_numpy(partner, weight,
+                              device: torch.device | str = DEFAULT_DEVICE
+                              ) -> MatchingState:
+    """The device path's state (``weight`` f32, as JAX's device path)."""
+    return MatchingState(*_tensors(
+        device, {"partner": (_I32, 1), "weight": (_F32, 1)},
+        partner=partner, weight=weight))
+
+
+def matching_state_to_numpy(state: MatchingState
+                            ) -> tuple[np.ndarray, np.ndarray]:
+    return to_numpy(state.partner), to_numpy(state.weight)

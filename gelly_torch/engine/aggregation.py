@@ -3,10 +3,18 @@
 Counterpart of ``gelly_tpu/engine/aggregation.py``. An algorithm supplies
 the reference's plugin contract (``init``, ``fold``, ``combine``,
 ``transform``, ``transient``, optionally an ingest codec) and the engine
-runs it. This slice runs the plan ``gelly_tpu`` picks on a one-device
-mesh: **one device, ``merge_every`` windows, the accumulate plan**
-(``fold_accumulates`` and not ``transient``), with raw chunks or codec
-payloads, through the pipelined executor::
+runs it. This slice runs the plans ``gelly_tpu`` picks on a one-device
+mesh, on ``merge_every`` windows:
+
+- **the accumulate plan** (``fold_accumulates`` and not ``transient``):
+  one running summary, folded across windows, emitted at each close;
+- **the per-window Merger plan** (any other plan): fresh locals each
+  window, and at each close ``global = combine(locals, global)``
+  (``M/SummaryAggregation.java:107-119``); a ``transient`` plan emits the
+  merged summary and resets ``global`` to ``init()``.
+
+Either runs on raw chunks (optionally reduced on the host by a
+``host_precombine``) or codec payloads, through the pipelined executor::
 
     produce -> [K codec workers: host compress + stack] -> [H2D thread]
             -> [consumer: folds, one sync per window at merge_emit]
@@ -26,7 +34,8 @@ follow ``gelly_tpu``'s file format and rules, so a run either package
 checkpointed resumes in the other. Meshes, event-time windows, pane
 rings, pre-compressed streams and source providers come with later
 slices; asking for any of them raises ``NotImplementedError`` naming its
-ROADMAP.md item.
+ROADMAP.md item. :func:`edges_fold_adapter` runs a per-edge user fold
+(the reference's ``EdgesFold``).
 """
 
 from __future__ import annotations
@@ -230,6 +239,26 @@ def sparse_payload_id_check(vertex_capacity: int, *keys: str):
     return check
 
 
+def edges_fold_adapter(fold_edges: Callable, *, with_value: bool = True):
+    """Wrap a per-edge user fold ``foldEdges(acc, src, dst[, val])`` into a
+    chunk fold (the reference's EdgesFold contract, M/EdgesFold.java:33-48).
+
+    The fold calls ``fold_edges`` once for each valid edge of the chunk, in
+    stream order, with 0-d tensors on the chunk's device (one host read of
+    the valid mask a chunk). It is there so that any user fold runs; the
+    library's folds are vectorised."""
+
+    def fold(summary, chunk: EdgeChunk):
+        for i in chunk.valid.cpu().nonzero().flatten().tolist():
+            args = (chunk.src[i], chunk.dst[i])
+            if with_value:
+                args += (chunk.val[i],)
+            summary = fold_edges(summary, *args)
+        return summary
+
+    return fold
+
+
 class SummaryStream:
     """Lazy stream of per-window emissions from a running aggregation.
 
@@ -260,7 +289,6 @@ _NOT_YET = {
     "allowed_lateness": (0, "queue 1 item 10 (stream API and windows)"),
     "windowed": (None, "queue 1 item 10 (stream API and windows)"),
     "ttl_panes": (None, "queue 1 item 10 (stream API and windows)"),
-    "host_precombine": (None, "queue 1 item 4 (pipelined executor)"),
     "source_provider": (None, "queue 1 item 12 (host planes: ingest)"),
     "precompressed": (False, "queue 1 item 12 (host planes: ingest)"),
     "queries": (None, "queue 1 item 11 (batched engines)"),
@@ -285,7 +313,10 @@ def _fresh(emission):
     if isinstance(emission, torch.Tensor):
         return emission.clone()
     if isinstance(emission, tuple):
-        return type(emission)(*(_fresh(e) for e in emission))
+        items = (_fresh(e) for e in emission)
+        if hasattr(emission, "_fields"):  # a NamedTuple
+            return type(emission)(*items)
+        return tuple(items)
     return emission
 
 
@@ -398,12 +429,22 @@ def run_aggregation(agg: SummaryAggregation, stream,
                     codec_workers: int | None = None,
                     h2d_depth: int | None = None,
                     device_fields: tuple[str, ...] | None = None,
+                    host_precombine: Callable | None = None,
                     timer=None, checkpoint_path: str | None = None,
                     checkpoint_every: int = 1, resume: bool = False,
                     **knobs) -> SummaryStream:
     """Execute ``agg`` over ``stream`` on ``stream.ctx.device``.
 
-    ``merge_every`` (chunks, default 1) sets the emit cadence.
+    ``merge_every`` (chunks, default 1) sets the emit cadence. A plan with
+    ``fold_accumulates`` that is not ``transient`` runs the accumulate
+    plan (one running summary, emitted at each window close); any other
+    runs the per-window Merger plan: each window folds into fresh locals
+    (``init``), and its close computes ``combine(locals, global)``, which
+    becomes the new global (``transient``: is emitted, and the global
+    resets to ``init``). The emission is ``transform`` of the summary, or
+    a clone of it, never the live state. ``host_precombine(chunk) ->
+    chunk`` reduces each raw chunk on the staging thread before it is
+    stacked or copied (codec plans ignore it).
     ``fold_batch`` groups up to that many chunks into one unit (clamped
     to a divisor of ``merge_every``): codec plans stack the unit's
     payloads (a short last unit is padded with identity payloads), raw
@@ -420,7 +461,8 @@ def run_aggregation(agg: SummaryAggregation, stream,
     ``stream.timer``) collects busy seconds of ``ingest_compress``,
     ``codec_wait``, ``h2d``, ``fold_dispatch`` and ``merge_emit``.
 
-    ``checkpoint_path`` writes the summary and the stream position every
+    ``checkpoint_path`` writes the summary (the running one, or the
+    Merger plan's global) and the stream position every
     ``checkpoint_every`` closed windows and after a final partial window
     (``engine/checkpoint.py``'s format; the plan's ``flatten`` runs first
     and its result replaces the live summary). The position is the number
@@ -428,9 +470,10 @@ def run_aggregation(agg: SummaryAggregation, stream,
     windows close on unit boundaries, so it is exact. A window's
     checkpoint is written when the consumer asks for the next emission, so
     a consumer that stops right after emission k leaves checkpoint k-1.
-    ``resume=True`` loads the summary onto ``stream.ctx.device``, fires
-    ``on_resume``, restores the window count and drops the folded chunks
-    before any staging. The timer adds ``checkpoint``, ``resume_load``,
+    ``resume=True`` loads the summary onto ``stream.ctx.device`` (the
+    Merger plan's global, with fresh locals), fires ``on_resume``,
+    restores the window count and drops the folded chunks before any
+    staging. The timer adds ``checkpoint``, ``resume_load``,
     ``on_resume`` and ``resume_skip`` busy seconds; ``stats`` adds
     ``checkpoints``, ``checkpoint_bytes`` and ``resumed_at``.
 
@@ -458,12 +501,9 @@ def run_aggregation(agg: SummaryAggregation, stream,
                 "the same knob; codec_workers is the executor-facing name)"
             )
         ingest_workers = codec_workers
-    if not agg.fold_accumulates or agg.transient:
-        raise NotImplementedError(
-            f"aggregation {agg.name!r} needs the per-window Merger plan "
-            "(transient or non-accumulating folds), which is not ported "
-            "yet: ROADMAP.md queue 1 item 4"
-        )
+    # The accumulate plan carries one running summary; any other plan is
+    # the per-window Merger (fresh locals, combine into global at close).
+    accum = agg.fold_accumulates and not agg.transient
     use_codec = (agg.host_compress is not None
                  and agg.fold_compressed is not None)
     # Raw units stage nothing and copy a few bytes an edge, while their
@@ -533,40 +573,69 @@ def run_aggregation(agg: SummaryAggregation, stream,
             else 0.0
         stats.update(units=0, chunks=0, h2d_bytes=0, checkpoints=0,
                      checkpoint_bytes=0, resumed_at=None)
+        # ``summary`` is what the folds update: the running summary of the
+        # accumulate plan, or the Merger plan's locals of the open window.
         summary = agg.init(device)
+        glob = None if accum else agg.init(device)
         skip_until = 0
         windows = last_ckpt_windows = 0
         current_window = None  # event-time windows: not ported yet
         if resume:
             with timer("resume_load"):
-                summary, skip_until, meta_in = load_checkpoint(
+                loaded, skip_until, meta_in = load_checkpoint(
                     checkpoint_path, like=summary)
+            if accum:
+                summary = loaded
+            else:
+                glob = loaded
             if agg.on_resume is not None:
                 with timer("on_resume"):
-                    agg.on_resume(summary)
+                    agg.on_resume(loaded)
             current_window = meta_in.get("current_window")
             windows = last_ckpt_windows = meta_in.get("windows", 0)
             stats["resumed_at"] = skip_until
         chunks_consumed = skip_until
         stats["chunks"] = chunks_consumed
 
-        def maybe_checkpoint(summary, force=False):
-            nonlocal last_ckpt_windows
+        def maybe_checkpoint(force=False):
+            nonlocal last_ckpt_windows, summary, glob
             if not checkpoint_path or (
                     not force
                     and windows - last_ckpt_windows < checkpoint_every):
-                return summary
+                return
             last_ckpt_windows = windows
             with timer("checkpoint"):
+                # A checkpoint is written right after a window close, so
+                # the Merger plan's locals hold no edge and the global is
+                # the whole snapshot (gelly_tpu's rule for a clean window).
                 if agg.flatten is not None:
-                    summary = agg.flatten(summary)
+                    if accum:
+                        summary = agg.flatten(summary)
+                    else:
+                        glob = agg.flatten(glob)
                 save_checkpoint(
-                    checkpoint_path, summary, position=chunks_consumed,
+                    checkpoint_path, summary if accum else glob,
+                    position=chunks_consumed,
                     meta={"name": agg.name, "windows": windows,
                           "current_window": current_window})
             stats["checkpoints"] += 1
             stats["checkpoint_bytes"] += os.path.getsize(checkpoint_path)
-            return summary
+
+        def close_window():
+            nonlocal summary, glob
+            if accum:
+                return emit(summary)
+            # The parallelism-1 Merger (M/SummaryAggregation.java:107-119).
+            merged = agg.combine(summary, glob)
+            if agg.transient:
+                # Emit combine(window, global), then reset the global to
+                # the combine identity; after a resume the restored
+                # global is folded into the first emission.
+                glob = agg.init(device)
+            else:
+                glob = merged
+            summary = agg.init(device)  # fresh locals for the next window
+            return emit(merged)
 
         consumer = (torch.cuda.current_stream(device)
                     if device.type == "cuda" else None)
@@ -620,6 +689,8 @@ def run_aggregation(agg: SummaryAggregation, stream,
                 if agg.stack_ordered:
                     return agg.stack_payloads(payloads, 1, seq=seq)
                 return agg.stack_payloads(payloads, 1)
+            if host_precombine is not None:
+                group = [host_precombine(c) for c in group]
             if batch == 1:
                 return group[0]
             rows = [c.to_numpy() for c in group]
@@ -665,16 +736,16 @@ def run_aggregation(agg: SummaryAggregation, stream,
                 if in_window >= merge_every:
                     in_window = 0
                     with timer("merge_emit"):
-                        out = emit(summary)
+                        out = close_window()
                     windows += 1
                     yield out
-                summary = maybe_checkpoint(summary)
+                maybe_checkpoint()
             if in_window:
                 with timer("merge_emit"):
-                    out = emit(summary)
+                    out = close_window()
                 windows += 1
                 yield out
-                maybe_checkpoint(summary, force=True)
+                maybe_checkpoint(force=True)
         finally:
             # Tear down outermost-first on any exit. The event goes first:
             # the H2D thread may be parked inside ``staged`` on a stalled

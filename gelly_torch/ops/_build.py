@@ -47,6 +47,26 @@ SIGNATURES = {
             [_P, _P, _P, ctypes.c_int, _P], ctypes.c_int),
         "wedge_count_matrix_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
+    "spanner_gate": {
+        "spanner_sparse_insert_edges": (
+            [_P] * 10 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                         ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
+            ctypes.c_int),
+        "spanner_sparse_insert_edges_batched": (
+            [_P] * 10 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                         ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                         ctypes.c_int, ctypes.c_int, _P],
+            ctypes.c_int),
+        "spanner_gate_smem_bytes": (
+            [ctypes.c_int] * 5, ctypes.c_int),
+        "spanner_gate_smem_limit": ([], ctypes.c_int),
+        "spanner_gate_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
+    "matching_step": {
+        "matching_step_launch": (
+            [_P] * 6 + [ctypes.c_longlong, ctypes.c_int, _P], ctypes.c_int),
+        "matching_step_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
 }
 
 

@@ -1,6 +1,8 @@
 """Hand-written Hopper kernels and their plain PyTorch versions.
 
-Counterpart of ``gelly_tpu/ops/pallas_kernels.py``, both of its kernels:
+Counterpart of ``gelly_tpu/ops/pallas_kernels.py``, both of its kernels,
+and of three XLA device loops that eager PyTorch cannot run as written
+(the spanner's sequential gates and the matching fold, below):
 
 - :func:`wedge_count_matrix` — the wrapper of the CUDA kernels
   ``csrc/wedge_count_matrix.cu`` (replacing the Pallas ``_wedge_kernel``):
@@ -19,8 +21,20 @@ Counterpart of ``gelly_tpu/ops/pallas_kernels.py``, both of its kernels:
 - :func:`blocked_gather` — exact ``table[idx]`` for any index order, built
   on the kernel (sort, gather, unsort, repair misses).
 
-Both keep the reference's contract bit for bit, including which lanes come
-back ``-1``, and :func:`gatherable` is the reference's, so both packages
+- :func:`sparse_insert_edges` and :func:`sparse_insert_edges_batched` —
+  the wrappers of the two entries of ``csrc/spanner_gate.cu``, replacing
+  ``gelly_tpu/library/spanner.py``'s ``_sparse_insert_edges`` (a
+  per-edge ``lax.scan``) and ``_sparse_insert_edges_batched`` (the
+  combine's ``lax.while_loop`` of 64-candidate batches); they update the
+  sparse spanner summary's tensors in place;
+- :func:`matching_step` — the wrapper of ``csrc/matching_step.cu``,
+  replacing ``gelly_tpu/library/matching.py``'s ``_matching_step``.
+
+Each of these runs its ``*_plain`` version on CPU tensors and its kernel
+on CUDA tensors (or raises), and counts launches in ``.launches``.
+
+All keep the reference's contract bit for bit (the gather's ``-1`` lanes
+included), and :func:`gatherable` is the reference's, so both packages
 accept the same tables. The 2^24 value bound exists only because the TPU
 kernel routes values through an f32 matmul; it is kept so the two packages
 agree on what they accept.
@@ -29,6 +43,8 @@ agree on what they accept.
 from __future__ import annotations
 
 import torch
+
+from .rowtable import put_where_, row_append_batch, row_insert
 
 # Output tile edge of the wedge kernel; the mask's side must be a multiple.
 TILE = 128
@@ -331,3 +347,386 @@ def blocked_gather(table: torch.Tensor, idx: torch.Tensor, *,
     if bool(miss.any()):
         vals = torch.where(miss, table[idx], vals)
     return vals
+
+
+# ------------------------------------------------------------------ #
+# The sparse spanner's gates (csrc/spanner_gate.cu)
+
+# Candidates a batch of the combine's insert gates at once (gelly_tpu's
+# default for _sparse_insert_edges_batched).
+GATE_BATCH = 64
+# Warps of one entry-2 launch, at most (one block).
+GATE_MAX_WARPS = 32
+
+
+def unique_fill(x: torch.Tensor, size: int, fill: int) -> torch.Tensor:
+    """Row-wise ``jnp.unique(row, size=size, fill_value=fill)`` of a 2-D
+    ``x``: each row's distinct values ascending, cut to the ``size``
+    smallest or padded with ``fill``."""
+    rows = x.shape[0]
+    s, _ = torch.sort(x, dim=1)
+    first = torch.ones_like(s, dtype=torch.bool)
+    first[:, 1:] = s[:, 1:] != s[:, :-1]
+    pos = torch.cumsum(first, dim=1) - 1
+    keep = first & (pos < size)
+    out = torch.full((rows, size + 1), fill, dtype=x.dtype, device=x.device)
+    out.scatter_(1, torch.where(keep, pos, size), s)
+    return out[:, :size]
+
+
+def within_k_sparse_plain(nbr: torch.Tensor, u: torch.Tensor,
+                          v: torch.Tensor, k: int,
+                          frontier_cap: int) -> torch.Tensor:
+    """``dist(u[i], v[i]) <= k`` for each candidate ``i`` (``bool[B]``)
+    over the capped-degree rows ``nbr`` with a ``frontier_cap``-id
+    frontier: ``gelly_tpu``'s ``_within_k_sparse``, vmapped. Each round
+    gathers the rows of the frontier's live ids and keeps the
+    ``frontier_cap`` smallest distinct ids of frontier and rows (the
+    sentinel ``n`` pads)."""
+    n = nbr.shape[0]
+    B = u.shape[0]
+    f = torch.full((B, frontier_cap), n, dtype=torch.int32, device=nbr.device)
+    f[:, 0] = u.to(torch.int32)
+    for _ in range(k):
+        live = f < n
+        rows = nbr[torch.where(live, f, 0).long()]  # [B, F, D]
+        cand = torch.where(live[:, :, None] & (rows >= 0), rows, n)
+        merged = torch.cat([f, cand.reshape(B, -1)], dim=1)
+        f = unique_fill(merged, frontier_cap, n)
+    return (f == v.to(torch.int32)[:, None]).any(dim=1)
+
+
+def _check_spanner_state(nbr, deg, dover, esrc, edst, n, overflow,
+                         max_degree: int) -> None:
+    for name, t, dtype, shape in (
+            ("nbr", nbr, torch.int32, (nbr.shape[0], max_degree)),
+            ("deg", deg, torch.int32, (nbr.shape[0],)),
+            ("deg_overflow", dover, torch.int32, ()),
+            ("esrc", esrc, torch.int32, (esrc.shape[0],)),
+            ("edst", edst, torch.int32, (esrc.shape[0],)),
+            ("n", n, torch.int32, ()),
+            ("overflow", overflow, torch.bool, ())):
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"spanner state {name}: want {dtype} "
+                             f"{shape}, got {t.dtype} {tuple(t.shape)}")
+        if t.device != nbr.device:
+            raise ValueError(f"spanner state {name} on {t.device}, "
+                             f"nbr on {nbr.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"spanner state {name} is not contiguous")
+    if esrc.shape[0] == 0:
+        raise ValueError("spanner edge list has no lanes")
+
+
+def _check_lanes(device, **lanes) -> None:
+    """Edge lanes: 1-D, one length, on ``device``, contiguous, of their
+    dtype (``int32`` ids, ``bool`` masks)."""
+    length = None
+    for name, t in lanes.items():
+        want = torch.bool if name == "valid" else torch.int32
+        if t.dtype != want or t.ndim != 1:
+            raise ValueError(f"{name}: want 1-D {want}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if length is not None and t.shape[0] != length:
+            raise ValueError(f"{name} has {t.shape[0]} lanes, not {length}")
+        length = t.shape[0]
+        if t.device != device:
+            raise ValueError(f"{name} on {t.device}, state on {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+
+
+def append_edges_plain(esrc, edst, n, overflow, u, v, take) -> None:
+    """The spanner's edge-list append of the lanes where ``take`` is set,
+    in lane order, in place: stored while the list has room, the sticky
+    ``overflow`` set for the rest, and ``n`` counting every taken lane
+    (``gelly_tpu``'s per-edge and batched appends alike)."""
+    pos = n + torch.cumsum(take.to(torch.int32), 0) - 1
+    store = take & (pos < esrc.shape[0])
+    put_where_(esrc, pos, u, store)
+    put_where_(edst, pos, v, store)
+    overflow.logical_or_((take & ~store).any())
+    n.add_(take.sum().to(n.dtype))
+
+
+def batches_plain(csrc, cdst, n_valid, batch: int):
+    """``(u, v, ok)`` of each ``batch``-lane batch of the first
+    ``min(n_valid, len(csrc))`` lanes of a donor list (one host read of
+    ``n_valid``; the list is zero-padded to whole batches)."""
+    ccap = csrc.shape[0]
+    nv = min(int(n_valid), ccap)
+    pad = (-ccap) % batch
+    zeros = torch.zeros(pad, dtype=csrc.dtype, device=csrc.device)
+    u_all = torch.cat([csrc, zeros])
+    v_all = torch.cat([cdst, zeros])
+    lanes = torch.arange(batch, device=csrc.device)
+    for start in range(0, nv, batch):
+        yield (u_all[start:start + batch], v_all[start:start + batch],
+               (start + lanes) < nv)
+
+
+def sparse_insert_edges_plain(nbr, deg, dover, esrc, edst, n, overflow,
+                              src, dst, valid, k: int, max_degree: int,
+                              frontier_cap: int) -> None:
+    """Plain PyTorch version of :func:`sparse_insert_edges`: the lanes
+    gated and inserted one at a time, in order, through
+    :func:`within_k_sparse_plain` and ``row_insert(dedupe=False)`` both
+    ways (one host read of the lanes, then no sync)."""
+    src_h, dst_h, ok_h = src.cpu(), dst.cpu(), valid.cpu()
+    live = (ok_h & (src_h != dst_h)).nonzero().flatten().tolist()
+    over = dover.clone()
+    for i in live:
+        # One-element views: they index without a device sync.
+        u, v = src[i:i + 1], dst[i:i + 1]
+        take = ~within_k_sparse_plain(nbr, u, v, k, frontier_cap)
+        for a, b in ((u, v), (v, u)):
+            nbr, deg, over = row_insert(nbr, deg, over, a, b, take,
+                                        max_degree, dedupe=False)
+        append_edges_plain(esrc, edst, n, overflow, u, v, take)
+    dover.copy_(over)
+
+
+def sparse_insert_edges(nbr, deg, dover, esrc, edst, n, overflow, src, dst,
+                        valid, k: int, max_degree: int,
+                        frontier_cap: int) -> None:
+    """Gate and insert the lanes ``(src, dst, valid)`` one at a time, in
+    order, into a sparse spanner summary given field by field (``nbr``
+    ``i32[N, D]``, ``deg`` ``i32[N]``, ``dover`` 0-d ``i32``, ``esrc`` /
+    ``edst`` ``i32[E]``, ``n`` 0-d ``i32``, ``overflow`` 0-d ``bool``),
+    updating every field in place: ``gelly_tpu``'s
+    ``_sparse_insert_edges``. A live lane is taken when no path of at
+    most ``k`` edges joins its endpoints (the ``frontier_cap``-id BFS).
+
+    On CPU tensors it runs :func:`sparse_insert_edges_plain`; on CUDA
+    tensors it launches entry 1 of ``csrc/spanner_gate.cu`` (one block,
+    the whole lane list; counted in ``sparse_insert_edges.launches``) or
+    raises."""
+    _check_spanner_state(nbr, deg, dover, esrc, edst, n, overflow,
+                         max_degree)
+    _check_lanes(nbr.device, src=src, dst=dst, valid=valid)
+    if nbr.device.type == "cpu":
+        return sparse_insert_edges_plain(
+            nbr, deg, dover, esrc, edst, n, overflow, src, dst, valid, k,
+            max_degree, frontier_cap)
+    lib = _gate_library(nbr, max_degree, frontier_cap, k, 0, 0)
+    if src.shape[0] == 0:
+        return None
+    with torch.cuda.device(nbr.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.spanner_sparse_insert_edges(
+            nbr.data_ptr(), deg.data_ptr(), dover.data_ptr(),
+            esrc.data_ptr(), edst.data_ptr(), n.data_ptr(),
+            overflow.data_ptr(), src.data_ptr(), dst.data_ptr(),
+            valid.data_ptr(), src.shape[0], nbr.shape[0], esrc.shape[0], k,
+            max_degree, frontier_cap, stream)
+    if rc:
+        msg = lib.spanner_gate_error_string(rc).decode()
+        raise RuntimeError(f"spanner_sparse_insert_edges failed: {msg}")
+    sparse_insert_edges.launches += 1
+    return None
+
+
+sparse_insert_edges.launches = 0
+
+
+def _gate_library(nbr, max_degree: int, frontier_cap: int, k: int,
+                  batch: int, warps: int):
+    """The loaded gate library, after checking the device and that one
+    launch's shared memory fits the card (entry 1 when ``batch`` is 0)."""
+    if nbr.device.type != "cuda":
+        raise ValueError(f"the spanner gates run on CPU or CUDA, got "
+                         f"{nbr.device}")
+    if max_degree < 1 or frontier_cap < 1:
+        raise ValueError(f"max_degree {max_degree} and frontier_cap "
+                         f"{frontier_cap} must be positive")
+    from . import _build
+
+    lib = _build.load("spanner_gate")
+    need = lib.spanner_gate_smem_bytes(max_degree, frontier_cap, k, batch,
+                                       warps)
+    if need > lib.spanner_gate_smem_limit():
+        raise ValueError(
+            f"the spanner gate needs {need} B of shared memory for "
+            f"max_degree={max_degree}, frontier_cap={frontier_cap}, k={k}, "
+            f"more than the card's {lib.spanner_gate_smem_limit()} B")
+    return lib
+
+
+def gate_warps(lib, max_degree: int, frontier_cap: int, k: int,
+               batch: int = GATE_BATCH) -> int:
+    """Warps of one entry-2 launch: as many as its shared memory holds,
+    at most one per candidate and :data:`GATE_MAX_WARPS` (0 when not one
+    fits)."""
+    limit = lib.spanner_gate_smem_limit()
+    for w in range(min(GATE_MAX_WARPS, batch), 0, -1):
+        if lib.spanner_gate_smem_bytes(max_degree, frontier_cap, k, batch,
+                                       w) <= limit:
+            return w
+    return 0
+
+
+def sparse_insert_edges_batched_plain(nbr, deg, dover, esrc, edst, n,
+                                      overflow, csrc, cdst, n_valid, k: int,
+                                      max_degree: int, frontier_cap: int,
+                                      batch: int = GATE_BATCH) -> None:
+    """Plain PyTorch version of :func:`sparse_insert_edges_batched`: one
+    host read of ``n_valid``, then per batch a vmapped gate
+    (:func:`within_k_sparse_plain`), two ``row_append_batch`` passes and
+    the edge-list append, with no further sync."""
+    over = dover.clone()
+    for u, v, ok in batches_plain(csrc, cdst, n_valid, batch):
+        reach = within_k_sparse_plain(nbr, u, v, k, frontier_cap)
+        take = ok & (u != v) & ~reach
+        for a, b in ((u, v), (v, u)):
+            nbr, deg, over = row_append_batch(nbr, deg, over, a, b, take,
+                                              max_degree)
+        append_edges_plain(esrc, edst, n, overflow, u, v, take)
+    dover.copy_(over)
+
+
+def sparse_insert_edges_batched(nbr, deg, dover, esrc, edst, n, overflow,
+                                csrc, cdst, n_valid, k: int,
+                                max_degree: int, frontier_cap: int,
+                                batch: int = GATE_BATCH) -> None:
+    """Insert the first ``min(n_valid, len(csrc))`` edges of a donor list
+    ``(csrc, cdst)`` into a sparse spanner summary (fields as in
+    :func:`sparse_insert_edges`, updated in place), ``batch`` candidates
+    at a time: each batch is gated against the adjacency as it stood at
+    the batch's start, then every candidate that passed is appended in
+    candidate order — ``gelly_tpu``'s ``_sparse_insert_edges_batched``.
+    ``n_valid`` is a 0-d ``int32`` tensor (the donor's count).
+
+    On CPU tensors it runs :func:`sparse_insert_edges_batched_plain`; on
+    CUDA tensors it launches entry 2 of ``csrc/spanner_gate.cu`` (one
+    block, the whole loop, ``n_valid`` read on the device; counted in
+    ``sparse_insert_edges_batched.launches``) or raises."""
+    _check_spanner_state(nbr, deg, dover, esrc, edst, n, overflow,
+                         max_degree)
+    _check_lanes(nbr.device, csrc=csrc, cdst=cdst)
+    if n_valid.dtype != torch.int32 or n_valid.ndim != 0 \
+            or n_valid.device != nbr.device:
+        raise ValueError(f"n_valid: want a 0-d int32 tensor on "
+                         f"{nbr.device}, got {n_valid.dtype} "
+                         f"{tuple(n_valid.shape)} on {n_valid.device}")
+    if batch < 1:
+        raise ValueError(f"batch must be positive, got {batch}")
+    if nbr.device.type == "cpu":
+        return sparse_insert_edges_batched_plain(
+            nbr, deg, dover, esrc, edst, n, overflow, csrc, cdst, n_valid,
+            k, max_degree, frontier_cap, batch)
+    lib = _gate_library(nbr, max_degree, frontier_cap, k, batch, 1)
+    warps = gate_warps(lib, max_degree, frontier_cap, k, batch)
+    if csrc.shape[0] == 0:
+        return None
+    with torch.cuda.device(nbr.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.spanner_sparse_insert_edges_batched(
+            nbr.data_ptr(), deg.data_ptr(), dover.data_ptr(),
+            esrc.data_ptr(), edst.data_ptr(), n.data_ptr(),
+            overflow.data_ptr(), csrc.data_ptr(), cdst.data_ptr(),
+            n_valid.data_ptr(), csrc.shape[0], nbr.shape[0], esrc.shape[0],
+            k, max_degree, frontier_cap, batch, warps, stream)
+    if rc:
+        msg = lib.spanner_gate_error_string(rc).decode()
+        raise RuntimeError(
+            f"spanner_sparse_insert_edges_batched failed: {msg}")
+    sparse_insert_edges_batched.launches += 1
+    return None
+
+
+sparse_insert_edges_batched.launches = 0
+
+
+# ------------------------------------------------------------------ #
+# The matching fold (csrc/matching_step.cu)
+
+
+def _check_matching(partner, weight, src, dst, w, valid) -> None:
+    if partner.dtype != torch.int32 or weight.dtype != torch.float32 \
+            or partner.ndim != 1 or weight.shape != partner.shape:
+        raise ValueError(
+            f"matching state: want i32[n] partner and f32[n] weight, got "
+            f"{partner.dtype} {tuple(partner.shape)} and {weight.dtype} "
+            f"{tuple(weight.shape)}")
+    if w.dtype != torch.float32 or w.shape != src.shape:
+        raise ValueError(f"w: want f32 of {tuple(src.shape)}, got {w.dtype} "
+                         f"{tuple(w.shape)}")
+    if weight.device != partner.device or w.device != partner.device:
+        raise ValueError("matching state and weights on different devices")
+    _check_lanes(partner.device, src=src, dst=dst, valid=valid)
+
+
+def matching_step_plain(partner, weight, src, dst, w, valid):
+    """Plain PyTorch version of :func:`matching_step`: new ``(partner,
+    weight)`` after the live lanes, one at a time, in f32 (one host read of
+    the lanes, then no sync)."""
+    partner = partner.clone()
+    weight = weight.clone()
+    src_h, dst_h, ok_h = src.cpu(), dst.cpu(), valid.cpu()
+    live = (ok_h & (src_h != dst_h)).nonzero().flatten().tolist()
+    minus = torch.full((), -1, dtype=partner.dtype, device=partner.device)
+    zero = torch.zeros((), dtype=weight.dtype, device=weight.device)
+    for i in live:
+        # One-element views: they index without a device sync.
+        u, v, we = src[i:i + 1], dst[i:i + 1], w[i:i + 1]
+        pu, pv = partner[u], partner[v]
+        wu = torch.where(pu >= 0, weight[u], zero)
+        wv = torch.where(pv >= 0, weight[v], zero)
+        same = (pu == v) & (pv == u) & (pu >= 0)
+        coll = torch.where(same, wu, wu + wv)
+        take = we > 2.0 * coll
+        for x, px in ((u, pu), (v, pv)):
+            do = take & (px >= 0)
+            pxc = px.clamp(min=0)
+            partner[pxc] = torch.where(do, minus, partner[pxc])
+            weight[pxc] = torch.where(do, zero, weight[pxc])
+            partner[x] = torch.where(do, minus, partner[x])
+            weight[x] = torch.where(do, zero, weight[x])
+        partner[u] = torch.where(take, v, partner[u])
+        partner[v] = torch.where(take, u, partner[v])
+        weight[u] = torch.where(take, we, weight[u])
+        weight[v] = torch.where(take, we, weight[v])
+    return partner, weight
+
+
+def matching_step(partner, weight, src, dst, w, valid):
+    """One chunk of the greedy ½-approximate weighted matching, in stream
+    order and in f32 (``gelly_tpu``'s ``_matching_step``): a live edge
+    ``(u, v, w)`` is taken when ``w > 2 *`` the weight of the matches it
+    collides with, which it then evicts. ``partner`` ``i32[n]`` (-1
+    unmatched) and ``weight`` ``f32[n]`` are the state, ``src`` / ``dst``
+    ``i32``, ``w`` ``f32`` and ``valid`` ``bool`` the chunk. Returns the
+    new ``(partner, weight)``; the inputs are not changed.
+
+    On CPU tensors it runs :func:`matching_step_plain`; on CUDA tensors it
+    launches ``csrc/matching_step.cu`` on copies of the state (counted in
+    ``matching_step.launches``) or raises."""
+    _check_matching(partner, weight, src, dst, w, valid)
+    if partner.device.type == "cpu":
+        return matching_step_plain(partner, weight, src, dst, w, valid)
+    if partner.device.type != "cuda":
+        raise ValueError(f"matching_step runs on CPU or CUDA, got "
+                         f"{partner.device}")
+    if not (partner.is_contiguous() and weight.is_contiguous()):
+        raise ValueError("matching_step needs a contiguous state")
+    partner = partner.clone()
+    weight = weight.clone()
+    if src.shape[0] == 0 or partner.shape[0] == 0:
+        return partner, weight
+    from . import _build
+
+    lib = _build.load("matching_step")
+    with torch.cuda.device(partner.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.matching_step_launch(
+            partner.data_ptr(), weight.data_ptr(), src.data_ptr(),
+            dst.data_ptr(), w.data_ptr(), valid.data_ptr(), src.shape[0],
+            partner.shape[0], stream)
+    if rc:
+        msg = lib.matching_step_error_string(rc).decode()
+        raise RuntimeError(f"matching_step launch failed: {msg}")
+    matching_step.launches += 1
+    return partner, weight
+
+
+matching_step.launches = 0

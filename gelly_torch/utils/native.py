@@ -6,10 +6,12 @@ the fused unit segment codec (:func:`cc_unit_forest_segments`,
 :class:`UnitForestBuilder`), the persistent compact-id table
 (:class:`NativeCompactSession`), the parity combiners of the
 bipartiteness plan and the degree-delta codecs, all from
-``native/chunk_combiner.cc``.
+``native/chunk_combiner.cc``; the host spanner fold
+(:func:`spanner_chunk_fold`, ``native/spanner.cc``) and the greedy
+matching fold (:func:`matching_chunk_fold`, ``native/matching.cc``).
 
-The port builds that source itself, at first use, with ``g++ -O3 -shared
--fPIC`` into ``gelly_torch/_build/libchunk_combiner.so``: the build is
+The port builds each source itself, at first use, with ``g++ -O3 -shared
+-fPIC`` into ``gelly_torch/_build/lib<stem>.so``: the build is
 rebuilt when the source is newer, runs under a thread lock and a file lock
 (concurrent processes build once), writes to a temporary name that
 ``os.replace`` moves into place, and never writes into ``native/``. Every
@@ -47,6 +49,7 @@ _i32p = ctypes.POINTER(ctypes.c_int32)
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 _i8p = ctypes.POINTER(ctypes.c_int8)
 _i64p = ctypes.POINTER(ctypes.c_int64)
+_f64p = ctypes.POINTER(ctypes.c_double)
 
 
 # Fault-injection hook: ``engine/faults.install`` points this at the active
@@ -264,7 +267,11 @@ def available(stem: str) -> bool:
     stem; failures are negative-cached so a missing toolchain does not
     re-run g++ per chunk."""
     if stem not in _AVAILABLE:
-        loader = {"chunk_combiner": _load_combiner}[stem]
+        loader = {
+            "chunk_combiner": _load_combiner,
+            "matching": _load_matching,
+            "spanner": _load_spanner,
+        }[stem]
         try:
             loader()
             _AVAILABLE[stem] = True
@@ -682,3 +689,125 @@ class NativeCompactSession:
                 MemoryError("compact_session_rebuild: allocation failed"),
                 "chunk_combiner",
             )
+
+
+def _load_spanner() -> ctypes.CDLL:
+    lib = _load_lib("spanner")
+    if not getattr(lib, "_sigs_set", False):
+        lib.spanner_chunk_fold.restype = ctypes.c_int
+        lib.spanner_chunk_fold.argtypes = [
+            _i32p, _i32p, _u8p, ctypes.c_int64, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int32,
+            _i32p, _i32p, _i32p, _i64p,
+            _i32p, _i32p, ctypes.c_int64,
+        ]
+        lib._sigs_set = True
+    return lib
+
+
+def spanner_chunk_fold(src: np.ndarray, dst: np.ndarray,
+                       valid: np.ndarray | None, n_v: int, k: int,
+                       max_degree: int, nbr: np.ndarray, deg: np.ndarray,
+                       stamp: np.ndarray, meta: np.ndarray,
+                       out_src: np.ndarray, out_dst: np.ndarray) -> None:
+    """Fold one chunk into the host spanner state, in stream order.
+
+    ``nbr`` (i32[n_v, max_degree]), ``deg``/``stamp`` (i32[n_v]) and
+    ``meta`` (i64[3]: stamp counter, accepted count, degree overflows) are
+    mutated in place; accepted edges append to ``out_src``/``out_dst`` at
+    ``meta[1]``. Raises on slot range errors or output-list overflow.
+    ctypes releases the GIL during the call.
+    """
+    _inject("spanner")
+    lib = _load_spanner()
+    src = np.ascontiguousarray(src, np.int32)
+    dst = np.ascontiguousarray(dst, np.int32)
+    valid, vp = _valid_ptr(valid)
+    for a, dt in ((nbr, np.int32), (deg, np.int32), (stamp, np.int32),
+                  (meta, np.int64), (out_src, np.int32),
+                  (out_dst, np.int32)):
+        assert a.dtype == dt and a.flags.c_contiguous
+    rc = lib.spanner_chunk_fold(
+        _as_i32p(src), _as_i32p(dst), vp, src.shape[0], n_v, k, max_degree,
+        _as_i32p(nbr), _as_i32p(deg), _as_i32p(stamp),
+        meta.ctypes.data_as(_i64p),
+        _as_i32p(out_src), _as_i32p(out_dst), out_src.shape[0],
+    )
+    if rc == 3:
+        raise _stamp(ValueError(
+            "spanner edge list overflowed; raise max_edges"
+        ), "spanner")
+    if rc != 0:
+        raise _stamp(
+            ValueError(f"spanner_chunk_fold: bad vertex slot (rc={rc})"),
+            "spanner",
+        )
+
+
+def _load_matching() -> ctypes.CDLL:
+    lib = _load_lib("matching")
+    if not getattr(lib, "_sigs_set", False):
+        lib.matching_chunk_fold.restype = ctypes.c_int
+        lib.matching_chunk_fold.argtypes = [
+            _i32p, _i32p, _f64p, _u8p, ctypes.c_int64, ctypes.c_int32,
+            _i32p, _f64p,
+            _u8p, _i32p, _i32p, _f64p, ctypes.c_int64, _i64p,
+        ]
+        lib._sigs_set = True
+    return lib
+
+
+def matching_chunk_fold(src: np.ndarray, dst: np.ndarray, w: np.ndarray,
+                        valid: np.ndarray | None, n_v: int,
+                        partner: np.ndarray, weight: np.ndarray,
+                        want_events: bool = False):
+    """Fold one chunk into the greedy-matching state, in stream order.
+
+    ``partner`` (i32[n_v], C-contiguous) and ``weight`` (f64[n_v]) are
+    mutated in place. With ``want_events`` returns the chunk's ordered
+    event records ``(types u8[k], a i32[k], b i32[k], w f64[k])`` where
+    type 0 = ADD, 1 = REMOVE; otherwise returns None. ctypes releases the
+    GIL during the call.
+    """
+    _inject("matching")
+    lib = _load_matching()
+    src = np.ascontiguousarray(src, np.int32)
+    dst = np.ascontiguousarray(dst, np.int32)
+    w = np.ascontiguousarray(w, np.float64)
+    assert partner.dtype == np.int32 and partner.flags.c_contiguous
+    assert weight.dtype == np.float64 and weight.flags.c_contiguous
+    valid, vp = _valid_ptr(valid)
+    n = src.shape[0]
+    if want_events:
+        cap = 3 * n
+        ev_type = np.empty((cap,), np.uint8)
+        ev_a = np.empty((cap,), np.int32)
+        ev_b = np.empty((cap,), np.int32)
+        ev_w = np.empty((cap,), np.float64)
+        ev_args = (
+            ev_type.ctypes.data_as(_u8p), _as_i32p(ev_a), _as_i32p(ev_b),
+            ev_w.ctypes.data_as(_f64p),
+        )
+    else:
+        ev_args = (None, None, None, None)
+        cap = 0
+    count = ctypes.c_int64(0)
+    rc = lib.matching_chunk_fold(
+        _as_i32p(src), _as_i32p(dst), w.ctypes.data_as(_f64p), vp, n,
+        n_v, _as_i32p(partner), weight.ctypes.data_as(_f64p),
+        *ev_args, cap, ctypes.byref(count),
+    )
+    if rc == 3:
+        raise _stamp(
+            ValueError("matching_chunk_fold: event buffer overflow"),
+            "matching",
+        )
+    if rc != 0:
+        raise _stamp(
+            ValueError(f"matching_chunk_fold: bad vertex slot (rc={rc})"),
+            "matching",
+        )
+    if want_events:
+        k = count.value
+        return ev_type[:k], ev_a[:k], ev_b[:k], ev_w[:k]
+    return None

@@ -1,8 +1,10 @@
-"""gelly_torch on the card: each CUDA kernel vs its plain version; the CC
-(raw, compact and sparse plans), window-triangle, degree and
-bipartiteness (raw, dense and sparse plans) paths and the stream API on
-CUDA vs the same paths on the CPU; the engine's pinned H2D ring; resumes
-that come back on the card.
+"""gelly_torch on the card: each CUDA kernel vs its plain version (the
+gather, the wedge kernel, both entries of the spanner gate and the
+matching fold, on random states and on their edge cases); the CC (raw,
+compact and sparse plans), window-triangle, degree and bipartiteness
+(raw, dense and sparse plans) paths, the spanner plans, the matching and
+the stream API on CUDA vs the same paths on the CPU; the engine's pinned
+H2D ring; resumes that come back on the card.
 
 Marked ``cuda``; every test takes the ``cuda_device`` fixture, which skips
 when the machine has no card (decided at run time, never at import time,
@@ -503,3 +505,207 @@ def test_degree_checkpoint_resumes_on_card(cuda_device, tmp_path):
     assert res.stats["resumed_at"] == 8 and len(got) == 3
     for a, b in zip(got, full[2:]):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------------------------------ #
+# The spanner gates and the matching fold
+
+
+def _gate_state(rng, n, D, E, fill=0.0, preload=0):
+    """A sparse spanner summary as numpy fields: rows filled to a random
+    degree (``fill`` of them), ``preload`` accepted edges already listed."""
+    nbr = np.full((n, D), -1, np.int32)
+    deg = np.zeros(n, np.int32)
+    if fill:
+        deg = (rng.integers(0, D + 1, n) * (rng.random(n) < fill)).astype(
+            np.int32)
+        for i in range(n):
+            nbr[i, :deg[i]] = rng.integers(0, n, deg[i])
+    esrc = np.zeros(E, np.int32)
+    edst = np.zeros(E, np.int32)
+    esrc[:preload] = rng.integers(0, n, preload)
+    edst[:preload] = rng.integers(0, n, preload)
+    return [nbr, deg, np.array(int(deg.sum()) % 7, np.int32), esrc, edst,
+            np.array(preload, np.int32), np.array(False)]
+
+
+def _on(fields, device):
+    return [torch.from_numpy(np.array(f)).to(device) for f in fields]
+
+
+def _equal(a, b):
+    return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+
+
+# (n, D, F, k, E, lanes, fill, valid share): random states, then the edge
+# cases — empty lane list, all lanes invalid, full rows, an edge list that
+# overflows, a frontier truncated to 2 ids, k = 0, the card's shapes.
+_GATE_CASES = {
+    "random": (200, 4, 16, 3, 400, 300, 0.3, 0.9),
+    "empty": (64, 4, 16, 2, 64, 0, 0.3, 1.0),
+    "all-invalid": (64, 4, 16, 2, 64, 100, 0.3, 0.0),
+    "full-rows": (50, 2, 8, 2, 400, 300, 1.0, 1.0),
+    "list-overflow": (100, 4, 16, 2, 8, 300, 0.0, 1.0),
+    "truncated": (80, 6, 2, 3, 400, 300, 0.5, 1.0),
+    "k0": (80, 4, 16, 0, 400, 100, 0.2, 1.0),
+    "card-shape": (4096, 16, 64, 2, 8192, 2000, 0.5, 1.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_GATE_CASES))
+def test_sparse_insert_edges_equals_plain(cuda_device, case):
+    n, D, F, k, E, L, fill, share = _GATE_CASES[case]
+    rng = np.random.default_rng(len(case) * 31 + L)
+    st = _gate_state(rng, n, D, E, fill, preload=min(E, 5))
+    src = (rng.zipf(1.4, L) % n).astype(np.int32)
+    dst = rng.integers(0, n, L).astype(np.int32)
+    valid = rng.random(L) < share
+    lanes = [torch.from_numpy(x) for x in (src, dst, valid)]
+    want = _on(st, "cpu")
+    kernels.sparse_insert_edges(*want, *lanes, k, D, F)
+    got = _on(st, cuda_device)
+    before = kernels.sparse_insert_edges.launches
+    kernels.sparse_insert_edges(*got, *(x.to(cuda_device) for x in lanes),
+                                k, D, F)
+    torch.cuda.synchronize()
+    assert kernels.sparse_insert_edges.launches == before + (L > 0)
+    assert _equal(got, want)
+
+
+@pytest.mark.parametrize("case", sorted(_GATE_CASES))
+@pytest.mark.parametrize("batch", [64, 7])
+def test_sparse_insert_edges_batched_equals_plain(cuda_device, case, batch):
+    n, D, F, k, E, L, fill, share = _GATE_CASES[case]
+    rng = np.random.default_rng(len(case) * 17 + L + batch)
+    st = _gate_state(rng, n, D, E, fill, preload=min(E, 5))
+    C = max(L, 1)
+    csrc = (rng.zipf(1.4, C) % n).astype(np.int32)
+    cdst = rng.integers(0, n, C).astype(np.int32)
+    # The donor's count: all lanes, none (the empty and all-invalid
+    # cases), or more than its list holds (an overflowed donor).
+    n_valid = {"empty": 0, "all-invalid": 0, "list-overflow": C + 9}.get(
+        case, C)
+    donor = [torch.from_numpy(x) for x in (csrc, cdst)]
+    nv = torch.tensor(n_valid, dtype=torch.int32)
+    want = _on(st, "cpu")
+    kernels.sparse_insert_edges_batched(*want, *donor, nv, k, D, F, batch)
+    got = _on(st, cuda_device)
+    before = kernels.sparse_insert_edges_batched.launches
+    kernels.sparse_insert_edges_batched(
+        *got, *(x.to(cuda_device) for x in donor), nv.to(cuda_device), k, D,
+        F, batch)
+    torch.cuda.synchronize()
+    assert kernels.sparse_insert_edges_batched.launches == before + 1
+    assert _equal(got, want)
+
+
+def test_spanner_gate_refuses_what_it_cannot_take(cuda_device):
+    st = _on(_gate_state(np.random.default_rng(0), 16, 4, 8), cuda_device)
+    lanes = [torch.zeros(4, dtype=torch.int32, device=cuda_device)] * 2 + [
+        torch.ones(4, dtype=torch.bool, device=cuda_device)]
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.sparse_insert_edges(*st, *lanes, 2, 4, 1 << 16)
+    with pytest.raises(ValueError, match="src"):
+        kernels.sparse_insert_edges(*st, lanes[0].long(), *lanes[1:], 2, 4,
+                                    16)
+    with pytest.raises(ValueError, match="nbr"):
+        kernels.sparse_insert_edges(*st, *lanes, 2, 5, 16)
+
+
+@pytest.mark.parametrize("n,L,seed", [(64, 3000, 1), (4096, 1 << 16, 2),
+                                      (1 << 16, 5000, 3), (8, 0, 4)])
+def test_matching_step_equals_plain(cuda_device, n, L, seed):
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n, L).astype(np.int32)
+    dst = rng.integers(0, n, L).astype(np.int32)
+    w = (rng.integers(1, 9, L) * rng.choice([1.0, 0.1, 0.3], L)).astype(
+        np.float32)
+    valid = rng.random(L) < 0.9
+    partner = np.full(n, -1, np.int32)
+    weight = np.zeros(n, np.float32)
+    args = [torch.from_numpy(x) for x in (partner, weight, src, dst, w,
+                                          valid)]
+    # Only the first 2000 lanes through the (slow) plain version.
+    cut = min(L, 2000)
+    want = kernels.matching_step(*args[:2], *(x[:cut] for x in args[2:]))
+    before = kernels.matching_step.launches
+    got = kernels.matching_step(*(x.to(cuda_device) for x in args[:2]),
+                                *(x[:cut].to(cuda_device) for x in args[2:]))
+    torch.cuda.synchronize()
+    assert kernels.matching_step.launches == before + (cut > 0)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+def _spanner_stream(device, n=512, e=6000, seed=23, chunk=1000):
+    rng = np.random.default_rng(seed)
+    src = (rng.zipf(1.5, e) % n).astype(np.int64)
+    dst = (rng.zipf(1.5, e) % n).astype(np.int64)
+    return edge_stream_from_source(EdgeChunkSource(
+        src, dst, chunk_size=chunk, table=IdentityVertexTable(n)), n,
+        device=device)
+
+
+@pytest.mark.parametrize("plan", ["sparse-k3", "gate-batch", "codec",
+                                  "dense"])
+def test_spanner_plans_on_card_equal_cpu(cuda_device, plan):
+    import importlib
+
+    tsp = importlib.import_module("gelly_torch.library.spanner")
+    n = 512
+    kw = {"sparse-k3": dict(k=3, max_degree=8),
+          "gate-batch": dict(k=2, max_degree=8, gate_batch=256),
+          "codec": dict(k=2, max_degree=8, ingest_combine=True,
+                        payload_cap=1024),
+          "dense": dict(k=2)}[plan]
+    out = {}
+    for device in ("cuda", "cpu"):
+        res = _spanner_stream(device).aggregate(
+            tsp.spanner(n, **kw), merge_every=2)
+        out[device] = [tuple(x.cpu() for x in s) for s in res]
+    assert len(out["cuda"]) == len(out["cpu"]) == 3
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert _equal(a, b)
+
+
+def test_weighted_matching_device_on_card_equals_cpu(cuda_device):
+    from gelly_torch.library.matching import weighted_matching
+
+    n = 256
+    rng = np.random.default_rng(5)
+    src = rng.integers(0, n, 3000).astype(np.int64)
+    dst = rng.integers(0, n, 3000).astype(np.int64)
+    w = rng.integers(1, 50, 3000).astype(np.float64)
+    out = {}
+    for device in ("cuda", "cpu"):
+        s = edge_stream_from_source(EdgeChunkSource(
+            src, dst, val=w, chunk_size=500, table=IdentityVertexTable(n)),
+            n, device=device)
+        out[device] = weighted_matching(s, device=True).final_matching()
+    assert out["cuda"] == out["cpu"]
+
+
+def test_spanner_checkpoint_resumes_on_card(cuda_device, tmp_path):
+    import importlib
+
+    tsp = importlib.import_module("gelly_torch.library.spanner")
+    p = str(tmp_path / "ck.npz")
+
+    def run(stop_after=None, **kw):
+        res = _spanner_stream("cuda").aggregate(
+            tsp.spanner(512, 3, max_degree=8), merge_every=2,
+            checkpoint_path=p, **kw)
+        out = []
+        for s in res:
+            assert s.nbr.device.type == "cuda"
+            out.append(tuple(x.cpu() for x in s))
+            if len(out) == stop_after:
+                break
+        return out, res
+
+    full, _ = run()
+    run(stop_after=2)
+    got, res = run(resume=True)
+    assert res.stats["resumed_at"] == 2 and len(got) == 2
+    for a, b in zip(got, full[1:]):
+        assert _equal(a, b)
