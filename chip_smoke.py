@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive gelly_torch's streaming connected-components, window-triangle,
-degree, bipartiteness, k-spanner and weighted-matching paths, and the
-per-window Merger plan, on one CUDA card.
+degree, bipartiteness, k-spanner and weighted-matching paths, the
+per-window Merger plan, windows (event-time, lateness, pane rings, TTL)
+and the stream API, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -49,8 +50,8 @@ Phases (any failure exits nonzero and prints no result line):
    warm-up on the first 16 chunks, then two timed runs, each with its
    wall, edges/s, stage busy seconds, host syncs per unit, peak device
    memory, wire bytes per edge and ``session.assigned``; the host codec
-   alone (unit builder, id session and stacker, no device) with 1 worker
-   and with the pipeline's worker count. Checks: the segments wire and
+   alone (unit builder, id session and stacker, no device) with the
+   pipeline's worker count. Checks: the segments wire and
    its fold were taken; 4 emissions of ``int32[2^24]``, each equal to the
    raw plan's (``2^22``-edge chunks, ``merge_every=16``) at the same
    boundary; the final labels equal the scipy oracle;
@@ -58,9 +59,10 @@ Phases (any failure exits nonzero and prints no result line):
    edges, the pairs wire and the sparse plan (``connected_components(2^24)``,
    which folds with ``union_pairs_compact``) equal the first emission.
    The path launches neither hand-written kernel (counted);
-8. a ``{"kernels": [...]}`` line (the two Pallas counterparts and the
-   three gate and matching kernels, each with the JAX function it
-   replaces), then ``{"ok": true, "device": ...}`` last.
+8. a ``{"kernels": [...]}`` line (the two Pallas counterparts, the
+   three gate and matching kernels, the two hash-set entries and the row
+   insert, each with the JAX function it replaces), then ``{"ok": true,
+   "device": ...}`` last.
 
 The durable phases (checkpoints, exactly-once resume, the resilient
 runner), each checking that the native codec was never disabled:
@@ -168,6 +170,48 @@ G. ``bench.py:bench_matching`` (BASELINE #5, no cut): the ratings fixture
    ``csrc/matching_step.cu`` kernel) equals it (integer weights: no f32
    threshold window), and the kernel equals its plain version on a
    ``2^16``-edge prefix.
+
+Windows (phase H) and the stream API (phase I), after phase G (I5 after
+phase 6); each timed run prints its wall, edges a second, stage busy
+seconds, kernel launches and peak device memory:
+
+H. H1: phase 4's stream in ``2^18``-edge chunks through
+   ``connected_components(2^24, merge="gather", codec="dense",
+   windowed=W)``, ``merge_every=2`` (128 panes), W = 4 and 64: three
+   emissions each (the W-th, one mid-stream, the last) equal the labels
+   of exactly their window's edges (scipy, or phase 4's emission for a
+   prefix), the snapshot handle tracks every close; prints the pane
+   close ms, combines a close, a full replay of W panes and
+   bench_windows' two ratios (not gated). H2: a drifting stream (chunk
+   i from the ``2^20``-slot block at ``(i * 2^16) mod 2^24``, seed 19,
+   128 chunks, more distinct slots than the capacity) through the
+   compact plan with ``compact_capacity=2^23``, ``windowed=8``,
+   ``ttl_panes=8``, quiesced: ``session.assigned`` plateaus (bench's
+   test, 1% of room), three emissions equal scipy, and a resume from the
+   pane-56 ring checkpoint is bit-identical. H3: ``window_ms=2^24``
+   through the sparse codec, the raw fold and the raw kernel fold: every
+   window equals phase 4's emission at that boundary, the gather
+   launched 3 times a dedup chunk. H4: timestamps permuted in ``2^20``
+   blocks with ``allowed_lateness=2^20``: H3's windows, no late edge,
+   the buffer's peaks, and a stop after emission 2 with a resume through
+   the sidecar. H5: ``degree_aggregate(2^24, windowed=8)``,
+   ``merge_every=4``: three emissions equal ``np.bincount``.
+I. I1: ``distinct(device=True)`` on the first ``2^23`` edges: masks
+   equal the host path and a numpy first-occurrence oracle,
+   ``hashset_contains`` true on every key and false on ``2^20`` absent
+   ones (equal to its plain version at that shape); the insert kernel
+   against its plain version on a random prefilled table. I2: the
+   transforms on a ``2^22``-edge prefix equal numpy. I3:
+   ``IterativeCCStream`` over phase 4's stream: every label in its slot's
+   scipy component (the reference leaves some roots stale; counted). I4:
+   four random Hamiltonian cycles over ``2^24`` slots through
+   ``build_neighborhood(max_degree=16)`` (the row kernel) equal an
+   oracle, the kernel equals the plain row step on the first ``2^12``
+   edges, a degree-17 vertex raises the reference's message, and the
+   dense path at ``N = 2^14``. I5: phase 6's windows through
+   ``slice(2^22, "all")``: ``reduce_on_edges`` (int32 add) and
+   ``apply_on_neighbors`` (max neighbour) equal numpy; ``fold_neighbors``
+   on I4's first ``2^22`` edges in 4 windows.
 
 After the checks of each path, one more run of it under ``torch.profiler``
 prints the device's busy time, idle share and the five device ops that
@@ -297,7 +341,8 @@ G_TIMED = 1 << 12
 # The hand kernels' wrappers, each counting its launches in ``.launches``.
 HAND_KERNELS = ("sorted_window_gather", "wedge_count_matrix",
                 "sparse_insert_edges", "sparse_insert_edges_batched",
-                "matching_step")
+                "matching_step", "hashset_insert", "hashset_contains",
+                "row_insert_chunk")
 NO_LAUNCHES = (0,) * len(HAND_KERNELS)
 
 
@@ -1076,7 +1121,9 @@ def compact_cc_phase(torch, device) -> None:
                                 workers=n_workers))
         return time.perf_counter() - t, wire
 
-    for n_workers in sorted({1, workers}):
+    # The pipeline's worker count only (the 1-worker run, ~16 s, was cut
+    # to fit phases H and I in the time limit; PERF.md keeps its values).
+    for n_workers in (workers,):
         dt, wire = codec_alone(n_workers)
         print(f"host codec alone, {n_workers} worker(s): "
               f"{CC_EDGES / dt:.1f} edges/s wall={dt:.4f} s "
@@ -1586,7 +1633,8 @@ class GateTimer:
     ``launches`` count of what it wraps (its own count, reset like the
     others). A spanner gate's call also records the work its data needed
     (lanes, live lanes or the donor's count, accepted edges), read with a
-    sync around the call."""
+    sync around the call; any other kernel's records its tensor arguments'
+    shapes."""
 
     def __init__(self, torch, kernels, name: str, impl, capture=None):
         self.torch, self.kernels, self.name, self.impl = \
@@ -1611,6 +1659,9 @@ class GateTimer:
         elif gate:
             info["lanes"] = args[7].shape[0]
             info["live"] = int((args[9] & (args[7] != args[8])).sum())
+        else:
+            info["shapes"] = [tuple(x.shape) for x in args
+                              if isinstance(x, torch.Tensor)]
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -2004,10 +2055,8 @@ def spanner_twitter_phase(torch, device, src, dst) -> dict:
           f"{time.perf_counter() - t0:.2f} s")
     del out, last
     torch.cuda.empty_cache()
-    # Device activity only, over the first two windows (a depth cut: the
-    # whole run's ~10^6 launches take minutes to read back).
-    print_profiled("phase F3 spanner, first 2 windows (device only)",
-                   *profiled(torch, lambda: run(stop_after=2), cpu=False))
+    # No profiled rerun here (cut to fit phases H and I in the time limit;
+    # PR 7's idle share over the first two windows is in PERF.md).
     return {"launches": st["launches"][HAND_KERNELS.index(
         "sparse_insert_edges_batched")]}
 
@@ -2307,6 +2356,850 @@ def matching_phase(torch, device) -> dict:
             "bound_ms": bound, "max_abs_err": err}
 
 
+# ---------------------------------------------------------------------- #
+# H. windows and I. the stream API (PR 8)
+
+H_CHUNK = 1 << 18  # pane chunks: phase 4's stream re-chunked
+H1_MERGE_EVERY = 2  # 128 panes
+H1_WINDOWS = (4, 64)
+H2_BLOCK = 1 << 20
+H2_DRIFT = 1 << 16
+H2_CHUNKS = 128  # a depth cut of 256: still 9.4M slots > the capacity
+H2_SEED = 19
+H2_COMPACT = 1 << 23
+H2_W = 8
+H2_TTL = 8
+H2_CKPT_EVERY = 56  # one ring checkpoint, at pane 56
+H3_WINDOW_MS = 1 << 24
+H4_BLOCK = 1 << 20
+H4_SEED = 23
+H5_W = 8
+H5_MERGE_EVERY = 4  # 64 panes
+I1_EDGES = 1 << 23  # a depth cut of 2^26: one thread walks the keys
+I1_ABSENT = 1 << 20
+I2_PREFIX = 1 << 22
+I2_CHUNK = 1 << 20
+I4_SEED = 41
+I4_CYCLES = 4
+I4_MAX_DEGREE = 16
+I4_PLAIN_EDGES = 1 << 12
+I4_DENSE_N = 1 << 14
+I5_FOLD_WINDOW = 1 << 20  # a depth cut: fold depth = longest neighbourhood
+I5_FOLD_WINDOWS = 4
+HASH_PLAIN_KEYS = 1 << 16
+HASH_PLAIN_CAP = 1 << 17
+HASH_PLAIN_FILL = 1 << 15
+
+
+def ring_run(torch, device, agg, source, n, n_events, merge_every, picks,
+             keep_from=None, **knobs):
+    """One windowed run on the card with the launch and sync counts set to
+    0 just before it; the emissions at ``picks`` (and from ``keep_from``
+    on) are kept on the card, the others dropped. Checks that the
+    snapshot handle tracks every close. Returns ``(kept, stats)``."""
+    from gelly_torch.core.stream import edge_stream_from_source
+    from gelly_torch.ops import kernels, unionfind
+
+    stream = edge_stream_from_source(source, n, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches(kernels)
+    unionfind.host_sync.count = 0
+    t = time.perf_counter()
+    res = stream.aggregate(agg, merge_every=merge_every, **knobs)
+    kept, assigned, i = {}, [], -1
+    for i, x in enumerate(res):
+        snap = res.snapshot()
+        check(snap["window"] == i + 1, f"snapshot window {snap['window']} "
+                                       f"after close {i + 1}")
+        if i in picks or (keep_from is not None and i >= keep_from):
+            kept[i] = x.clone()
+        if hasattr(agg, "session"):
+            assigned.append(int(agg.session.assigned))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    stats = {
+        "wall_s": wall, "events_per_s": n_events / wall,
+        "stats": dict(res.stats), "busy": res.timer.busy(),
+        "units": res.stats["units"], "host_syncs": unionfind.host_sync.count,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(device),
+        "h2d_bytes": res.stats["h2d_bytes"],
+        "launches": launch_counts(kernels), "closes": i + 1,
+        "assigned": assigned,
+    }
+    return kept, stats
+
+
+def window_of(i: int, w: int, pane_edges: int, n_edges: int):
+    """Edge range of the emission at pane ``i`` of a ``w``-pane ring."""
+    return max(0, (i + 1 - w) * pane_edges), min((i + 1) * pane_edges,
+                                                 n_edges)
+
+
+def pane_ring_phase(torch, device, src, dst, labels4) -> None:
+    """H1: the pane ring at bench_windows' W values, full size. A window
+    that is one of phase 4's prefixes is held to phase 4's emission
+    (equal to the plain backend's, the last to scipy), the others to
+    scipy."""
+    import importlib
+
+    from gelly_torch.core.io import EdgeChunkSource
+    from gelly_torch.core.vertices import IdentityVertexTable
+
+    cc = importlib.import_module("gelly_torch.library.connected_components")
+    n = N_VERTICES
+    pane_edges = H_CHUNK * H1_MERGE_EVERY
+    panes = N_EDGES // pane_edges
+
+    def source(lo=0, hi=N_EDGES):
+        return EdgeChunkSource(src[lo:hi], dst[lo:hi], chunk_size=H_CHUNK,
+                               table=IdentityVertexTable(n))
+
+    rows = {}
+    for w in H1_WINDOWS:
+        picks = {w - 1, (w - 1 + panes - 1) // 2, panes - 1}
+        kept, st = ring_run(
+            torch, device,
+            cc.connected_components(n, merge="gather", codec="dense",
+                                    windowed=w),
+            source(), n, N_EDGES, H1_MERGE_EVERY, picks)
+        report_run(f"phase H1 ring W={w}", st)
+        check_native_codecs(f"phase H1 W={w}")
+        check(st["closes"] == panes == st["stats"]["windows.panes_closed"],
+              f"H1 W={w}: {st['closes']} closes, want {panes}")
+        close_ms = st["busy"]["merge_emit"] / panes * 1e3
+        wall_ms = st["wall_s"] / panes * 1e3
+        combines = st["stats"]["windows.combine_dispatches"] / panes
+        t0 = time.perf_counter()
+        for i in sorted(picks):
+            lo, hi = window_of(i, w, pane_edges, N_EDGES)
+            got = kept[i].cpu().numpy()
+            check(got.dtype == np.int32 and got.shape == (n,),
+                  f"H1 W={w} emission {i}: {got.dtype} {got.shape}")
+            prefix = lo == 0 and hi % (CHUNK * MERGE_EVERY) == 0
+            want = (labels4[hi // (CHUNK * MERGE_EVERY) - 1] if prefix
+                    else scipy_oracle(src[lo:hi], dst[lo:hi], n))
+            check(np.array_equal(got, want),
+                  f"H1 W={w}: emission {i} != the labels of edges "
+                  f"[{lo}, {hi})")
+        oracle_s = time.perf_counter() - t0
+        del kept
+        # bench_windows' yardstick: one close by a full replay of the
+        # window's W panes (the plan without the ring, one emission).
+        hi = min(w * pane_edges, N_EDGES)
+        _, rst = drive(torch, device,
+                       cc.connected_components(n, merge="gather",
+                                               codec="dense"),
+                       source(0, hi), n, hi, hi // H_CHUNK, 1, None)
+        rows[w] = (wall_ms, close_ms, rst["wall_s"] * 1e3, combines)
+        print(f"phase H1 W={w}: pane_close_ms={close_ms:.4f} (merge_emit "
+              f"busy a close) wall_per_close_ms={wall_ms:.4f} "
+              f"combines_per_close={combines:.4f} "
+              f"replay_close_ms={rst['wall_s'] * 1e3:.4f} "
+              f"(the {w} panes refolded, one emission) "
+              f"ring_vs_replay={rst['wall_s'] * 1e3 / wall_ms:.2f}x; "
+              f"emissions {sorted(picks)} equal scipy ({oracle_s:.2f} s)")
+        torch.cuda.empty_cache()
+    w_lo, w_hi = H1_WINDOWS
+    print(f"phase H1 claims (printed, not gated): W={w_hi} wall a close "
+          f"{rows[w_hi][0]:.4f} ms vs W={w_lo} {rows[w_lo][0]:.4f} ms "
+          f"(within 2x: {rows[w_hi][0] <= 2 * rows[w_lo][0]}); replay / "
+          f"ring at W={w_hi} {rows[w_hi][2] / rows[w_hi][0]:.2f}x "
+          f"(>= 8x: {rows[w_hi][2] >= 8 * rows[w_hi][0]})")
+
+
+def drift_stream(n: int):
+    """H2's drifting stream: chunk i draws both endpoints from the
+    ``H2_BLOCK``-slot block starting at ``(i * H2_DRIFT) mod n``."""
+    rng = np.random.default_rng(H2_SEED)
+    lo = (np.arange(H2_CHUNKS, dtype=np.int64) * H2_DRIFT) % n
+    out = []
+    for _ in range(2):
+        x = rng.integers(0, H2_BLOCK, (H2_CHUNKS, H_CHUNK)) + lo[:, None]
+        out.append((x % n).astype(np.int32).reshape(-1))
+    return out
+
+
+def ttl_phase(torch, device) -> None:
+    """H2: compact CC with TTL on a stream that touches more slots than
+    the compact capacity holds."""
+    import importlib
+
+    from gelly_torch.core.io import EdgeChunkSource
+    from gelly_torch.core.vertices import IdentityVertexTable
+
+    cc = importlib.import_module("gelly_torch.library.connected_components")
+    n = N_VERTICES
+    t0 = time.perf_counter()
+    src, dst = drift_stream(n)
+    n_edges = src.shape[0]
+    seen = np.zeros(n, bool)
+    seen[src] = True
+    seen[dst] = True
+    cumulative = int(seen.sum())
+    print(f"phase H2 stream: {H2_CHUNKS} chunks of {H_CHUNK} edges, block "
+          f"{H2_BLOCK} drifting {H2_DRIFT} a chunk, {cumulative} distinct "
+          f"slots (capacity {H2_COMPACT}), in {time.perf_counter() - t0:.2f} s")
+    check(cumulative > H2_COMPACT, "H2: the stream fits the capacity")
+    pane_edges = 2 * H_CHUNK
+    panes = n_edges // pane_edges
+
+    def plan():
+        return cc.connected_components(n, codec="compact",
+                                       compact_capacity=H2_COMPACT,
+                                       windowed=H2_W, ttl_panes=H2_TTL)
+
+    def source():
+        return EdgeChunkSource(src, dst, chunk_size=H_CHUNK,
+                               table=IdentityVertexTable(n))
+
+    tmp = tempfile.mkdtemp(prefix="gelly-h2-")
+    try:
+        path = os.path.join(tmp, "ring.npz")
+        picks = {H2_W - 1, panes // 2, panes - 1}
+        kept, st = ring_run(
+            torch, device, plan(), source(), n, n_edges, 2, picks,
+            keep_from=H2_CKPT_EVERY, prefetch_depth=0, h2d_depth=0,
+            checkpoint_path=path, checkpoint_every=H2_CKPT_EVERY)
+        report_run("phase H2 compact TTL", st)
+        check_native_codecs("phase H2")
+        assigned = st["assigned"]
+        # bench_windows' capacity_bounded (bench.py:3695-3698), with 1%
+        # of room: at this size the steady state is a random count (the
+        # slots last touched near the block's trailing edge) that moves
+        # by a few hundred slots from pane to pane.
+        fill = H2_TTL + H2_W
+        plateau = max(assigned[fill:])
+        bounded = (plateau <= 1.01 * max(assigned[:fill])
+                   and plateau * 3 <= cumulative)
+        print(f"phase H2: closes={st['closes']} evicted_slots="
+              f"{st['stats']['windows.evicted_slots']} assigned head "
+              f"{assigned[:fill]} tail {assigned[-4:]} plateau={plateau} "
+              f"max_head={max(assigned[:fill])} cumulative={cumulative} "
+              f"checkpoint {os.path.getsize(path)} B "
+              f"(busy {st['busy'].get('checkpoint', 0.0):.4f} s)")
+        check(bounded, "H2: session.assigned does not plateau "
+                       "(bench_windows' capacity_bounded)")
+        for i in sorted(picks):
+            lo, hi = window_of(i, H2_W, pane_edges, n_edges)
+            check(np.array_equal(kept[i].cpu().numpy(),
+                                 scipy_oracle(src[lo:hi], dst[lo:hi], n)),
+                  f"H2: emission {i} != scipy labels of [{lo}, {hi})")
+        _, rst = resume_run(torch, device, plan, source, n, path)
+        tail = [kept[i] for i in range(H2_CKPT_EVERY, panes)]
+        got = rst.pop("emissions")
+        check(len(got) == len(tail)
+              and all(torch.equal(a, b) for a, b in zip(got, tail)),
+              "H2: the resumed ring's emissions differ")
+        busy = " ".join(f"{k}={v:.4f}" for k, v in
+                        sorted(rst["busy"].items()))
+        print(f"phase H2 resume at pane {H2_CKPT_EVERY} (position "
+              f"{2 * H2_CKPT_EVERY}): {len(got)} emissions bit-identical; "
+              f"wall={rst['wall_s']:.4f} s first emission "
+              f"{rst['first_s']:.4f} s; stage busy s: {busy}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def resume_run(torch, device, plan, source, n, path):
+    from gelly_torch.core.stream import edge_stream_from_source
+
+    stream = edge_stream_from_source(source(), n, device=device)
+    t = time.perf_counter()
+    res = stream.aggregate(plan(), merge_every=2, prefetch_depth=0,
+                           h2d_depth=0, checkpoint_path=path, resume=True,
+                           checkpoint_every=H2_CKPT_EVERY)
+    out, first = [], None
+    for x in res:
+        first = first or time.perf_counter() - t
+        out.append(x)
+    torch.cuda.synchronize()
+    return None, {"wall_s": time.perf_counter() - t, "emissions": out,
+                  "busy": res.timer.busy(), "first_s": first}
+
+
+def event_time_phase(torch, device, src, dst, labels4,
+                     dedup_chunks: int) -> None:
+    """H3 (bench_cc's event-time pair) and H4 (allowed lateness)."""
+    import importlib
+
+    from gelly_torch.core.io import EdgeChunkSource, TimeCharacteristic
+    from gelly_torch.core.stream import edge_stream_from_source
+    from gelly_torch.core.vertices import IdentityVertexTable
+    from gelly_torch.ops import kernels
+
+    cc = importlib.import_module("gelly_torch.library.connected_components")
+    n = N_VERTICES
+    ts = np.arange(N_EDGES, dtype=np.int64)
+
+    def source(stamps):
+        return EdgeChunkSource(src, dst, timestamps=stamps, chunk_size=CHUNK,
+                               table=IdentityVertexTable(n),
+                               time=TimeCharacteristic.EVENT)
+
+    pull = lambda x: x.cpu().numpy()  # noqa: E731
+    for name, kw, expect in (
+            ("codec (sparse)", {}, {}),
+            ("raw plain", dict(ingest_combine=False), {}),
+            ("raw kernel", dict(ingest_combine=False, fold_backend="kernel"),
+             {"sorted_window_gather": 3 * dedup_chunks})):
+        out, st = drive(torch, device, cc.connected_components(n, **kw),
+                        source(ts), n, N_EDGES, None, 1, pull,
+                        window_ms=H3_WINDOW_MS)
+        report_run(f"phase H3 window_ms {name}", st, expect=expect)
+        check(len(out) == len(labels4),
+              f"H3 {name}: {len(out)} windows != {len(labels4)}")
+        for i, (a, b) in enumerate(zip(out, labels4)):
+            check(same(a, b), f"H3 {name}: window {i} != phase 4's "
+                              "emission at the same boundary")
+        check(st["stats"]["late_edges"] == 0, f"H3 {name}: late edges")
+    # H4: timestamps permuted inside each block, within the lateness.
+    rng = np.random.default_rng(H4_SEED)
+    ts4 = rng.permuted(ts.reshape(-1, H4_BLOCK), axis=1).reshape(-1)
+    peak = {"buffered_edges": 0, "open_windows": 0}
+
+    class Sampled:
+        """The source, sampling the reorder buffer's stats a chunk."""
+
+        def __init__(self, inner):
+            self.inner, self.table, self.stats = inner, inner.table, None
+
+        def __iter__(self):
+            for c in self.inner:
+                if self.stats is not None:
+                    for k in peak:
+                        peak[k] = max(peak[k], self.stats.get(k, 0))
+                yield c
+
+    sampled = Sampled(source(ts4))
+    stream = edge_stream_from_source(sampled, n, device=device)
+    plan = lambda: cc.connected_components(n, ingest_combine=False)  # noqa
+    torch.cuda.synchronize()
+    reset_launches(kernels)
+    t = time.perf_counter()
+    res = stream.aggregate(plan(), window_ms=H3_WINDOW_MS,
+                           allowed_lateness=H4_BLOCK)
+    sampled.stats = res.stats
+    out = [pull(x) for x in res]
+    wall = time.perf_counter() - t
+    check(len(out) == len(labels4)
+          and all(same(a, b) for a, b in zip(out, labels4)),
+          "H4: the reordered stream's windows differ from H3's")
+    check(res.stats["late_edges"] == 0, f"H4: {res.stats['late_edges']} "
+                                        "late edges")
+    check(launch_counts(kernels) == NO_LAUNCHES, "H4 launched a kernel")
+    print(f"phase H4 allowed_lateness={H4_BLOCK}: wall={wall:.4f} s "
+          f"{N_EDGES / wall:.1f} edges/s late_edges=0 peak buffered_edges="
+          f"{peak['buffered_edges']} peak open_windows="
+          f"{peak['open_windows']}; 4 windows equal H3's")
+    tmp = tempfile.mkdtemp(prefix="gelly-h4-")
+    try:
+        path = os.path.join(tmp, "lat.npz")
+        kw = dict(window_ms=H3_WINDOW_MS, allowed_lateness=H4_BLOCK,
+                  checkpoint_path=path, checkpoint_every=1)
+        it = iter(edge_stream_from_source(source(ts4), n, device=device)
+                  .aggregate(plan(), **kw))
+        next(it), next(it)
+        it.close()
+        sides = [f for f in os.listdir(tmp) if ".lateness." in f]
+        res = edge_stream_from_source(source(ts4), n, device=device) \
+            .aggregate(plan(), resume=True, **kw)
+        t = time.perf_counter()
+        got = [pull(x) for x in res]
+        check(len(sides) == 1 and 0 < len(got) < len(out)
+              and all(same(a, b) for a, b in zip(got, out[-len(got):])),
+              f"H4: the resumed run ({len(got)} emissions, sidecars "
+              f"{sides}) differs from the uninterrupted one")
+        print(f"phase H4 stop after emission 2 and resume at position "
+              f"{res.stats['resumed_at']}: {len(got)} emissions equal, "
+              f"sidecar {sides[0]}, wall={time.perf_counter() - t:.4f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def windowed_degrees_phase(torch, device, src, dst) -> None:
+    """H5: degree_aggregate(windowed=8), 64 panes."""
+    from gelly_torch.core.io import EdgeChunkSource
+    from gelly_torch.core.vertices import IdentityVertexTable
+    from gelly_torch.library import degrees
+
+    n = N_VERTICES
+    pane_edges = H_CHUNK * H5_MERGE_EVERY
+    panes = N_EDGES // pane_edges
+    picks = {H5_W - 1, panes // 2, panes - 1}
+    kept, st = ring_run(
+        torch, device, degrees.degree_aggregate(n, windowed=H5_W),
+        EdgeChunkSource(src, dst, chunk_size=H_CHUNK,
+                        table=IdentityVertexTable(n)),
+        n, N_EDGES, H5_MERGE_EVERY, picks)
+    report_run("phase H5 windowed degrees", st)
+    for i in sorted(picks):
+        lo, hi = window_of(i, H5_W, pane_edges, N_EDGES)
+        want = (np.bincount(src[lo:hi], minlength=n)
+                + np.bincount(dst[lo:hi], minlength=n))
+        got = kept[i].cpu().numpy()
+        check(got.dtype == np.int64 and np.array_equal(got, want),
+              f"H5: emission {i} != bincount of [{lo}, {hi})")
+    print(f"phase H5: {st['closes']} closes, combines "
+          f"{st['stats']['windows.combine_dispatches']}, emissions "
+          f"{sorted(picks)} equal np.bincount")
+    torch.cuda.empty_cache()
+
+
+def hash_bound(n_keys: int, n_new: int) -> tuple[float, int]:
+    """Least bytes of an insert: keys and mask read once, the mask out
+    written once, each new key's slot written once."""
+    b = n_keys * (8 + 1 + 1) + 8 * n_new
+    return b / HBM_BYTES_PER_S * 1e3, b
+
+
+def distinct_phase(torch, device, src, dst) -> dict:
+    """I1: distinct(device=True) through the hash-set kernel."""
+    from gelly_torch.core.io import EdgeChunkSource
+    from gelly_torch.core.stream import edge_stream_from_source
+    from gelly_torch.core.vertices import IdentityVertexTable
+    from gelly_torch.ops import hashset, kernels
+
+    n = N_VERTICES
+    s, d = src[:I1_EDGES], dst[:I1_EDGES]
+
+    def stream():
+        return edge_stream_from_source(EdgeChunkSource(
+            s, d, chunk_size=CHUNK, table=IdentityVertexTable(n)), n,
+            device=device)
+
+    keys = s.astype(np.int64) * n + d
+    _, first = np.unique(keys, return_index=True)
+    oracle = np.zeros(I1_EDGES, bool)
+    oracle[first] = True
+    torch.cuda.synchronize()
+    reset_launches(kernels)
+    with GateTimer(torch, kernels, "hashset_insert",
+                   kernels.hashset_insert) as gt:
+        t = time.perf_counter()
+        dev = stream().distinct(device=True)
+        masks = [c.valid for c in dev]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        hset = dev.hashset
+        absent = torch.arange(I1_ABSENT, dtype=torch.int64,
+                              device=device) + n * n  # above every key
+        present = torch.from_numpy(keys).to(device)
+        found = hashset.contains_chunk(hset.state, present)
+        missing = hashset.contains_chunk(hset.state, absent)
+        launches = launch_counts(kernels)
+    ms, sizes = zip(*((m, info["shapes"][2][0])
+                      for m, info in gt.timings()))
+    t = time.perf_counter()
+    host = [c.valid.numpy() for c in stream().distinct()]
+    host_wall = time.perf_counter() - t
+    got = np.concatenate([m.cpu().numpy() for m in masks])
+    check(np.array_equal(got, oracle), "I1: device masks != numpy "
+                                       "first-occurrence oracle")
+    check(np.array_equal(np.concatenate(host), oracle),
+          "I1: host masks != oracle")
+    check(bool(found.all()) and not bool(missing.any()),
+          "I1: hashset_contains wrong on the inserted or absent keys")
+    check(int(hset.state.count) == int(oracle.sum()), "I1: count")
+    counts = dict(zip(HAND_KERNELS, launches))
+    n_chunks = I1_EDGES // CHUNK
+    check(counts["hashset_insert"] == n_chunks + hset.rehashes
+          and counts["hashset_contains"] == 2
+          and sum(launches) == n_chunks + hset.rehashes + 2,
+          f"I1 launches {counts}")
+    print(f"phase I1 distinct(device=True): {I1_EDGES} edges, "
+          f"{int(oracle.sum())} distinct, wall={wall:.4f} s "
+          f"{I1_EDGES / wall:.1f} edges/s; host path wall={host_wall:.4f} s "
+          f"{I1_EDGES / host_wall:.1f} edges/s; insert launches (keys, ms): "
+          f"{list(zip(sizes, [round(x, 4) for x in ms]))}; rehashes="
+          f"{hset.rehashes} ({hset.rehash_s:.4f} s) table "
+          f"{hset.state.keys.shape[0]} slots; contains all true on "
+          f"{I1_EDGES}, all false on {I1_ABSENT} absent keys")
+    chunk_ms = [m for m, k in zip(ms, sizes) if k == CHUNK]
+    # The contains kernel at the path's shape, against its plain version.
+    q = torch.cat([present, absent])
+    c_ms = time_ms(torch, lambda: kernels.hashset_contains(
+        hset.state.keys, q), device, reps=5, warmup=1)
+    t = time.perf_counter()
+    c_plain = kernels.hashset_contains_plain(hset.state.keys, q)
+    c_plain_ms = (time.perf_counter() - t) * 1e3
+    check(torch.equal(c_plain.to(device),
+                      kernels.hashset_contains(hset.state.keys, q)),
+          "hashset_contains != its plain version at I1's shape")
+    cb = q.shape[0] * (8 + 1 + 8)
+    return {"insert_launches": counts["hashset_insert"],
+            "contains_launches": counts["hashset_contains"],
+            "chunk_ms": chunk_ms, "contains_ms": c_ms,
+            "contains_plain_ms": c_plain_ms,
+            "contains_bound_ms": cb / HBM_BYTES_PER_S * 1e3,
+            "contains_keys": int(q.shape[0])}
+
+
+def hash_kernel_phase(torch, device) -> dict:
+    """The insert kernel against its plain version on a random state:
+    a prefilled table (long probe runs, wrap-around), duplicate keys."""
+    from gelly_torch.ops import kernels
+
+    g = np.random.default_rng(SEED)
+    table = torch.full((HASH_PLAIN_CAP,), kernels.HASH_EMPTY,
+                       dtype=torch.int64)
+    count = torch.zeros((), dtype=torch.int32)
+    pre = torch.from_numpy(g.choice(1 << 40, HASH_PLAIN_FILL,
+                                    replace=False).astype(np.int64))
+    table, count, _ = kernels.hashset_insert_plain(
+        table, count, pre, torch.ones(HASH_PLAIN_FILL, dtype=torch.bool))
+    keys = g.integers(0, 1 << 40, HASH_PLAIN_KEYS).astype(np.int64)
+    keys[g.random(HASH_PLAIN_KEYS) < 0.3] = keys[0]
+    keys = torch.from_numpy(keys)
+    valid = torch.from_numpy(g.random(HASH_PLAIN_KEYS) < 0.95)
+    t = time.perf_counter()
+    want = kernels.hashset_insert_plain(table, count, keys, valid)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    args = [x.to(device) for x in (table, count, keys, valid)]
+    got = kernels.hashset_insert(*args)
+    torch.cuda.synchronize()
+    err = 0
+    for a, b in zip(got, want):
+        check(torch.equal(a.cpu(), b), "hashset_insert != its plain version")
+    ms = time_ms(torch, lambda: kernels.hashset_insert(*args), device,
+                 reps=5, warmup=1)
+    n_new = int(want[2].sum())
+    bound_ms, bound_b = hash_bound(HASH_PLAIN_KEYS, n_new)
+    print(f"kernel hashset_insert: {HASH_PLAIN_KEYS} keys into "
+          f"{HASH_PLAIN_CAP} slots ({HASH_PLAIN_FILL} prefilled), "
+          f"{n_new} new, exact=True kernel_ms={ms:.6f} plain_ms="
+          f"{plain_ms:.6f} (host clock) bound_ms={bound_ms:.6f} ({bound_b} "
+          f"B) chain floor: {int(valid.sum())} dependent probes")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "max_abs_err": err}
+
+
+def transforms_phase(torch, device, src, dst) -> None:
+    """I2: the EdgeStream transforms on a prefix, against numpy."""
+    from gelly_torch.core.io import EdgeChunkSource
+    from gelly_torch.core.stream import EdgeStream, edge_stream_from_source
+    from gelly_torch.core.vertices import IdentityVertexTable
+
+    n = N_VERTICES
+    s = src[:I2_PREFIX].astype(np.int64)
+    d = dst[:I2_PREFIX].astype(np.int64)
+    ones = np.ones(I2_PREFIX, np.float32)
+    table = IdentityVertexTable(n)
+    base = edge_stream_from_source(EdgeChunkSource(
+        s, d, chunk_size=I2_CHUNK, table=table), n, device=device)
+
+    def tuples(a, b, v):
+        return list(zip(a.tolist(), b.tolist(), v.tolist()))
+
+    keep_e = (s + d) % 3 == 0
+    keep_v = (s % 2 == 0) & (d % 2 == 0)
+    cases = [
+        ("map_edges", base.map_edges(lambda a, b, v: v * 2 + (a % 3).to(
+            v.dtype)), tuples(s, d, 2 * ones + (s % 3))),
+        ("filter_edges", base.filter_edges(lambda a, b, v: (a + b) % 3 == 0),
+         tuples(s[keep_e], d[keep_e], ones[keep_e])),
+        ("filter_vertices", base.filter_vertices(lambda v: v % 2 == 0),
+         tuples(s[keep_v], d[keep_v], ones[keep_v])),
+        ("reverse", base.reverse(), tuples(d, s, ones)),
+    ]
+    und = []
+    for lo in range(0, I2_PREFIX, I2_CHUNK):
+        sl = slice(lo, lo + I2_CHUNK)
+        und += tuples(s[sl], d[sl], ones[sl]) + tuples(d[sl], s[sl], ones[sl])
+    cases.append(("undirected", base.undirected(), und))
+    s2 = src[I2_PREFIX:2 * I2_PREFIX].astype(np.int64)
+    d2 = dst[I2_PREFIX:2 * I2_PREFIX].astype(np.int64)
+    other_src = EdgeChunkSource(s2, d2, chunk_size=I2_CHUNK, table=table)
+    other = EdgeStream(lambda: iter(other_src), base.ctx)
+    uni = []
+    for lo in range(0, I2_PREFIX, I2_CHUNK):
+        sl = slice(lo, lo + I2_CHUNK)
+        uni += tuples(s[sl], d[sl], ones[sl]) + tuples(s2[sl], d2[sl],
+                                                       ones[sl])
+    cases.append(("union", base.union(other), uni))
+    for name, stream, want in cases:
+        t = time.perf_counter()
+        got = stream.collect_edges()
+        wall = time.perf_counter() - t
+        check(got == want, f"I2 {name}: collect_edges != numpy")
+        print(f"phase I2 {name}: {len(got)} edges equal numpy, collect "
+              f"{wall:.4f} s")
+
+
+def iterative_cc_phase(torch, device, src, dst, oracle) -> None:
+    """I3: IterativeCCStream over phase 4's stream."""
+    from gelly_torch.core.io import EdgeChunkSource
+    from gelly_torch.core.stream import edge_stream_from_source
+    from gelly_torch.core.vertices import IdentityVertexTable
+    from gelly_torch.library import IterativeCCStream
+    from gelly_torch.ops import kernels, unionfind
+
+    n = N_VERTICES
+    stream = edge_stream_from_source(EdgeChunkSource(
+        src, dst, chunk_size=CHUNK, table=IdentityVertexTable(n)), n,
+        device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches(kernels)
+    unionfind.host_sync.count = 0
+    t = time.perf_counter()
+    lab = IterativeCCStream(stream).final_labels()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    rounds = unionfind.host_sync.count / (N_EDGES // CHUNK)
+    check(launch_counts(kernels) == NO_LAUNCHES, "I3 launched a kernel")
+    lab = lab.cpu().numpy()
+    seen = lab >= 0
+    check(np.array_equal(seen, oracle >= 0), "I3: seen slots != scipy's")
+    check(np.array_equal(oracle[lab[seen]], oracle[seen])
+          and bool((lab[seen] >= oracle[seen]).all()),
+          "I3: a label outside its slot's scipy component")
+    stale = int((lab != oracle).sum())
+    roots = int(np.unique(lab[seen & (lab != oracle)]).size)
+    print(f"phase I3 IterativeCCStream.final_labels: wall={wall:.4f} s "
+          f"{N_EDGES / wall:.1f} edges/s rounds (host syncs) a chunk="
+          f"{rounds:.2f} peak_mem={torch.cuda.max_memory_allocated(device)} B;"
+          f" every label in its scipy component; {stale} slots keep a "
+          f"stale root label ({roots} roots; gelly_tpu's semantics) and "
+          f"{int(seen.sum()) - stale} equal scipy's minimum")
+
+
+def hamiltonian_cycles(n: int, cycles: int, seed: int):
+    rng = np.random.default_rng(seed)
+    s, d = [], []
+    for _ in range(cycles):
+        p = rng.permutation(n).astype(np.int32)
+        s.append(p)
+        d.append(np.roll(p, -1))
+    return np.concatenate(s), np.concatenate(d)
+
+
+def rows_oracle(torch, s, d, n: int, max_degree: int, device):
+    """The undirected row table a stream must give, with torch sorts on
+    the card: each row's distinct neighbours in first-seen order."""
+    s = torch.from_numpy(s).to(device).to(torch.int64)
+    d = torch.from_numpy(d).to(device).to(torch.int64)
+    a = torch.stack([s, d], 1).reshape(-1)
+    b = torch.stack([d, s], 1).reshape(-1)
+    pos = torch.arange(a.shape[0], device=a.device)
+    key = a * n + b
+    uk, inv = torch.unique(key, return_inverse=True)
+    first = torch.full((uk.shape[0],), a.shape[0], dtype=torch.int64,
+                       device=a.device)
+    first = first.scatter_reduce(0, inv, pos, "amin")
+    keep = first[inv] == pos
+    a, b, pos = a[keep], b[keep], pos[keep]
+    order = torch.sort(a * a.shape[0] + pos).indices  # row, then stream
+    a, b = a[order], b[order]
+    deg = torch.bincount(a, minlength=n).to(torch.int32)
+    start = torch.cumsum(deg.long(), 0) - deg.long()
+    rank = torch.arange(a.shape[0], device=a.device) - start[a]
+    fits = rank < max_degree
+    nbr = torch.full((n, max_degree), -1, dtype=torch.int32, device=a.device)
+    nbr[a[fits], rank[fits]] = b[fits].to(torch.int32)
+    over = int((~fits).sum())
+    return nbr, deg.clamp(max=max_degree), over
+
+
+def neighborhood_phase(torch, device) -> dict:
+    """I4: build_neighborhood(max_degree=16) through the row kernel."""
+    from gelly_torch.core.io import EdgeChunkSource, TimeCharacteristic
+    from gelly_torch.core.stream import edge_stream_from_source
+    from gelly_torch.core.vertices import IdentityVertexTable
+    from gelly_torch.ops import kernels
+
+    n = N_VERTICES
+    t0 = time.perf_counter()
+    s, d = hamiltonian_cycles(n, I4_CYCLES, I4_SEED)
+    n_e = s.shape[0]
+    print(f"phase I4 stream: {I4_CYCLES} random Hamiltonian cycles over {n} "
+          f"slots ({n_e} edges) in {time.perf_counter() - t0:.2f} s")
+
+    def stream(a, b, nn):
+        return edge_stream_from_source(EdgeChunkSource(
+            a, b, timestamps=np.arange(a.shape[0], dtype=np.int64),
+            chunk_size=CHUNK, table=IdentityVertexTable(nn),
+            time=TimeCharacteristic.EVENT), nn, device=device)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches(kernels)
+    with GateTimer(torch, kernels, "row_insert_chunk",
+                   kernels.row_insert_chunk) as gt:
+        t = time.perf_counter()
+        ns = stream(s, d, n).build_neighborhood(max_degree=I4_MAX_DEGREE)
+        nbr, deg = ns.final_adjacency()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = launch_counts(kernels)
+    ms = [m for m, _ in gt.timings()]
+    counts = dict(zip(HAND_KERNELS, launches))
+    n_chunks = n_e // CHUNK
+    check(counts["row_insert_chunk"] == n_chunks
+          and sum(launches) == n_chunks, f"I4 launches {counts}")
+    peak = torch.cuda.max_memory_allocated(device)
+    want_nbr, want_deg, want_over = rows_oracle(torch, s, d, n,
+                                                I4_MAX_DEGREE, device)
+    check(want_over == 0, "I4: the oracle overflows")
+    check(torch.equal(nbr.cpu(), want_nbr.cpu())
+          and torch.equal(deg.cpu(), want_deg.cpu()),
+          "I4: the row table != the oracle")
+    print(f"phase I4 build_neighborhood(max_degree={I4_MAX_DEGREE}): "
+          f"wall={wall:.4f} s {n_e / wall:.1f} edges/s peak_mem={peak} B "
+          f"row_insert_chunk launches={counts['row_insert_chunk']} ms a "
+          f"chunk {[round(x, 4) for x in ms]}; nbr, deg, over=0 equal the "
+          f"oracle; max degree {int(deg.max())}")
+    # The kernel against the plain row step on the first edges.
+    st0 = (torch.full((n, I4_MAX_DEGREE), -1, dtype=torch.int32,
+                      device=device),
+           torch.zeros(n, dtype=torch.int32, device=device),
+           torch.zeros((), dtype=torch.int32, device=device))
+    ps = torch.from_numpy(s[:I4_PLAIN_EDGES]).to(device)
+    pd = torch.from_numpy(d[:I4_PLAIN_EDGES]).to(device)
+    pv = torch.ones(I4_PLAIN_EDGES, dtype=torch.bool, device=device)
+    got = kernels.row_insert_chunk(*st0, ps, pd, pv, False, I4_MAX_DEGREE)
+    t = time.perf_counter()
+    want = kernels.row_insert_chunk_plain(*st0, ps, pd, pv, False,
+                                          I4_MAX_DEGREE)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "row_insert_chunk != the plain row step")
+    k_ms = time_ms(torch, lambda: kernels.row_insert_chunk(
+        *st0, ps, pd, pv, False, I4_MAX_DEGREE), device, reps=5, warmup=1)
+    rows = int(torch.unique(torch.cat([ps, pd])).numel())
+    bound_b = I4_PLAIN_EDGES * 9 + rows * (I4_MAX_DEGREE * 4 + 8) \
+        + 2 * I4_PLAIN_EDGES * 4
+    bound_ms = bound_b / HBM_BYTES_PER_S * 1e3
+    print(f"kernel row_insert_chunk: first {I4_PLAIN_EDGES} edges, exact="
+          f"True kernel_ms={k_ms:.6f} plain_ms={plain_ms:.6f} (host clock) "
+          f"bound_ms={bound_ms:.6f} ({bound_b} B) chain floor: the longest "
+          f"row run")
+    # A degree-17 vertex raises gelly_tpu's overflow message.
+    star = np.zeros(I4_MAX_DEGREE + 1, np.int32)
+    leaves = np.arange(1, I4_MAX_DEGREE + 2, dtype=np.int32)
+    try:
+        stream(star, leaves, 64).build_neighborhood(
+            max_degree=I4_MAX_DEGREE).final_adjacency()
+        raise RuntimeError("chip_smoke: I4 degree 17 did not raise")
+    except ValueError as e:
+        check(str(e) == f"1 neighbor inserts exceeded max_degree "
+                        f"{I4_MAX_DEGREE}; raise max_degree or use the "
+                        "dense path", f"I4 overflow message: {e}")
+    # The dense path at N = 2^14 against the row table of the same edges.
+    sd, dd = hamiltonian_cycles(I4_DENSE_N, I4_CYCLES, I4_SEED + 1)
+    adj = stream(sd, dd, I4_DENSE_N).build_neighborhood().final_adjacency()
+    want = torch.zeros_like(adj)
+    a = torch.from_numpy(sd).to(device).long()
+    b = torch.from_numpy(dd).to(device).long()
+    want[a, b] = True
+    want[b, a] = True
+    rn, rd = stream(sd, dd, I4_DENSE_N).build_neighborhood(
+        max_degree=I4_MAX_DEGREE).final_adjacency()
+    from_rows = torch.zeros_like(adj)
+    r = torch.arange(I4_DENSE_N, device=device)[:, None].expand_as(rn)
+    ok = rn >= 0
+    from_rows[r[ok], rn[ok].long()] = True
+    check(torch.equal(adj, want) and torch.equal(adj, from_rows),
+          "I4 dense path != the oracle / the row table")
+    print(f"phase I4 dense path N={I4_DENSE_N}: adjacency equals the "
+          f"oracle and the row table; degree 17 raises the reference's "
+          f"message")
+    return {"launches": counts["row_insert_chunk"], "ms": k_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "chunk_ms": ms, "s": s, "d": d}
+
+
+def snapshot_phase(torch, device, tsrc, tdst, i4) -> None:
+    """I5: SnapshotStream over phase 6's windows (and fold_neighbors on
+    I4's stream)."""
+    from gelly_torch.core.io import EdgeChunkSource, TimeCharacteristic
+    from gelly_torch.core.stream import edge_stream_from_source
+    from gelly_torch.core.vertices import IdentityVertexTable
+    from gelly_torch.ops import segments
+
+    n = TRI_N
+
+    def tri():
+        return edge_stream_from_source(EdgeChunkSource(
+            tsrc, tdst, timestamps=np.arange(TRI_EDGES, dtype=np.int64),
+            chunk_size=TRI_CHUNK, table=IdentityVertexTable(n),
+            time=TimeCharacteristic.EVENT), n, device=device).map_edges(
+            lambda a, b, v: ((a + b) % 7).to(torch.int32))
+
+    def window_np(w, lo_edges, src_, dst_):
+        lo, hi = w * lo_edges, (w + 1) * lo_edges
+        a = np.concatenate([src_[lo:hi], dst_[lo:hi]]).astype(np.int64)
+        b = np.concatenate([dst_[lo:hi], src_[lo:hi]]).astype(np.int64)
+        return a, b
+
+    t = time.perf_counter()
+    reds = list(tri().slice(TRI_WINDOW_MS, "all",
+                            window_capacity=TRI_WINDOW_CAPACITY)
+                .reduce_on_edges(torch.add))
+    torch.cuda.synchronize()
+    red_wall = time.perf_counter() - t
+    t = time.perf_counter()
+    maxes = list(tri().slice(TRI_WINDOW_MS, "all",
+                             window_capacity=TRI_WINDOW_CAPACITY)
+                 .apply_on_neighbors(lambda v: segments.masked_scatter_max(
+                     torch.full((n,), -1, dtype=torch.int32, device=device),
+                     v.key, v.nbr, v.valid)))
+    torch.cuda.synchronize()
+    app_wall = time.perf_counter() - t
+    check(len(reds) == len(maxes) == TRI_EDGES // TRI_WINDOW_MS,
+          "I5: window count")
+    for w, (upd, (w2, mx)) in enumerate(zip(reds, maxes)):
+        a, b = window_np(w, TRI_WINDOW_MS, tsrc, tdst)
+        v = (a + b) % 7
+        sums = np.bincount(a, weights=v, minlength=n).astype(np.int64)
+        m = upd.valid.cpu().numpy()
+        slots = upd.slots.cpu().numpy()[m]
+        vals = upd.values.cpu().numpy()[m]
+        check(upd.window == w2 == w and np.array_equal(
+            np.sort(slots), np.unique(a))
+            and np.array_equal(vals.astype(np.int64), sums[slots]),
+            f"I5: reduce_on_edges window {w} != numpy")
+        want = np.full(n, -1, np.int64)
+        np.maximum.at(want, a, b)
+        check(np.array_equal(mx.cpu().numpy().astype(np.int64), want),
+              f"I5: apply_on_neighbors window {w} != numpy")
+    print(f"phase I5 reduce_on_edges (int32 add, 'all'): 4 windows equal "
+          f"numpy, wall={red_wall:.4f} s; apply_on_neighbors (max "
+          f"neighbour): equal, wall={app_wall:.4f} s")
+    s, d = i4["s"], i4["d"]
+    n4 = N_VERTICES
+    hi = I5_FOLD_WINDOW * I5_FOLD_WINDOWS
+    st = edge_stream_from_source(EdgeChunkSource(
+        s[:hi], d[:hi], timestamps=np.arange(hi, dtype=np.int64),
+        chunk_size=I5_FOLD_WINDOW, table=IdentityVertexTable(n4),
+        time=TimeCharacteristic.EVENT), n4, device=device)
+    init = (torch.zeros((), dtype=torch.int64),
+            torch.zeros((), dtype=torch.int64))
+    t = time.perf_counter()
+    folds = list(st.slice(I5_FOLD_WINDOW, "all",
+                          window_capacity=2 * I5_FOLD_WINDOW).fold_neighbors(
+        init, lambda acc, v, nb, val: (acc[0] + 1, acc[1] + nb)))
+    torch.cuda.synchronize()
+    fold_wall = time.perf_counter() - t
+    check(len(folds) == I5_FOLD_WINDOWS, "I5: fold windows")
+    for w, upd in enumerate(folds):
+        a, b = window_np(w, I5_FOLD_WINDOW, s, d)
+        m = upd.valid.cpu().numpy()
+        slots = upd.slots.cpu().numpy()[m]
+        cnt = upd.values[0].cpu().numpy()[m]
+        tot = upd.values[1].cpu().numpy()[m]
+        check(np.array_equal(cnt, np.bincount(a, minlength=n4)[slots])
+              and np.array_equal(tot, np.bincount(
+                  a, weights=b, minlength=n4).astype(np.int64)[slots]),
+              f"I5: fold_neighbors window {w} != numpy")
+    print(f"phase I5 fold_neighbors (count, neighbour sum) on I4's first "
+          f"{hi} edges in {I5_FOLD_WINDOWS} windows: equal numpy, "
+          f"wall={fold_wall:.4f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2481,7 +3374,7 @@ def main() -> int:
     resilient_raw_phase(torch, device, src, dst, labels[-1], st["wall_s"])
     # B. kill -9 of a child checkpointing the compact plan, then resume
     kill9_phase(torch, device, src, dst, oracle)
-    del labels, labels_plain, oracle
+    del labels_plain
     torch.cuda.empty_cache()
 
     # D. degrees; E. bipartiteness (both on phase 4's stream at Twitter
@@ -2496,12 +3389,24 @@ def main() -> int:
     f2 = spanner_bench_phase(torch, device, f2_stream)
     torch.cuda.empty_cache()
     f3 = spanner_twitter_phase(torch, device, src, dst)
-    del src, dst
     torch.cuda.empty_cache()
     f4 = spanner_gate_phase(torch, device, f2_stream)
     del f2_stream
     torch.cuda.empty_cache()
     g = matching_phase(torch, device)
+    torch.cuda.empty_cache()
+
+    # H. windows; I. the stream API (H1-I4 on phase 4's stream)
+    pane_ring_phase(torch, device, src, dst, labels)
+    ttl_phase(torch, device)
+    event_time_phase(torch, device, src, dst, labels, dedup_chunks)
+    windowed_degrees_phase(torch, device, src, dst)
+    i1 = distinct_phase(torch, device, src, dst)
+    hk = hash_kernel_phase(torch, device)
+    transforms_phase(torch, device, src, dst)
+    iterative_cc_phase(torch, device, src, dst, oracle)
+    del src, dst, labels, oracle
+    i4 = neighborhood_phase(torch, device)
     torch.cuda.empty_cache()
 
     # The triangle stream (set-up, not timed).
@@ -2651,7 +3556,10 @@ def main() -> int:
             window_capacity=TRI_WINDOW_CAPACITY, method="auto",
             batch=TRI_BATCH)]).cpu()))
 
+    # I5. SnapshotStream over this stream's windows
+    snapshot_phase(torch, device, tsrc, tdst, i4)
     del tsrc, tdst, tts, counts
+    i4.pop("s"), i4.pop("d")
     torch.cuda.empty_cache()
 
     # 7. the compact CC path
@@ -2727,6 +3635,48 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,
         "timed_on": f"G {G_TIMED}-edge prefix",
+    }, {
+        "name": "hashset_insert",
+        "route": "cuda",
+        "source": "gelly_torch/csrc/hashset.cu",
+        "replaces": "gelly_tpu/ops/hashset.py:52",
+        "launches": i1["insert_launches"],
+        "max_abs_err": hk["max_abs_err"],
+        "ms": hk["ms"],
+        "plain_ms": hk["plain_ms"],
+        "bound_ms": hk["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "path_chunk_ms": i1["chunk_ms"],
+        "timed_on": f"{HASH_PLAIN_KEYS} keys into a {HASH_PLAIN_CAP}-slot "
+                    f"table",
+    }, {
+        "name": "hashset_contains",
+        "route": "cuda",
+        "source": "gelly_torch/csrc/hashset.cu",
+        "replaces": "gelly_tpu/ops/hashset.py:88",
+        "launches": i1["contains_launches"],
+        "max_abs_err": 0,
+        "ms": i1["contains_ms"],
+        "plain_ms": i1["contains_plain_ms"],
+        "bound_ms": i1["contains_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "timed_on": f"I1's table, {i1['contains_keys']} keys",
+    }, {
+        "name": "row_insert_chunk",
+        "route": "cuda",
+        "source": "gelly_torch/csrc/row_insert.cu",
+        "replaces": "gelly_tpu/core/neighborhood.py:41",
+        "launches": i4["launches"],
+        "max_abs_err": 0,
+        "ms": i4["ms"],
+        "plain_ms": i4["plain_ms"],
+        "bound_ms": i4["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "path_chunk_ms": i4["chunk_ms"],
+        "timed_on": f"I4's first {I4_PLAIN_EDGES} edges",
     }]}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -71,7 +71,7 @@ class EdgeChunk(NamedTuple):
         Doubles the chunk capacity: the result holds ``e`` followed by
         ``e.reverse()``.
         """
-        return EdgeChunk(*(torch.cat([x, y]) for x, y in zip(self, self.reverse())))
+        return concat_chunks(self, self.reverse())
 
     def mask(self, keep) -> "EdgeChunk":
         """Return the chunk with ``valid &= keep`` (filter without moving data)."""
@@ -218,3 +218,12 @@ def empty_chunk(capacity: int, val_dtype=torch.float32, val_shape=(),
         event=z(torch.int8),
         valid=z(torch.bool),
     )
+
+
+def concat_chunks(a: EdgeChunk, b: EdgeChunk) -> EdgeChunk:
+    """Concatenate along the edge axis (capacity = a.capacity +
+    b.capacity). Both stay where they are when they share a device; a host
+    chunk joins a device one on that device."""
+    dev = a.src.device if not a.is_host() else b.src.device
+    return EdgeChunk(*(torch.cat([x.to(dev), y.to(dev)])
+                       for x, y in zip(a, b)))

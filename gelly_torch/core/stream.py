@@ -1,10 +1,13 @@
 """EdgeStream — the ``GraphStream`` / ``SimpleEdgeStream`` surface of the port.
 
-Counterpart of ``gelly_tpu/core/stream.py``, the parts the ported paths
-run: the stream context (with its device), chunk iteration, resume seeks,
-the ``aggregate`` plugin boundary, ``slice`` (tumbling windows), and the
-vertex, degree and count streams. The transforms of ``gelly_tpu`` come
-with a later slice.
+Counterpart of ``gelly_tpu/core/stream.py``: the stream context (with
+its device), chunk iteration, resume seeks, the transforms (map / filter /
+distinct / reverse / undirected / union), the ``aggregate`` plugin
+boundary, ``slice`` (tumbling windows), ``build_neighborhood``,
+``global_aggregate``, and the vertex, degree and count streams.
+Transforms run on the chunks where they are (the sources' are host
+chunks); ``distinct(device=True)`` moves them to ``ctx.device``, where its
+hash set lives.
 
 Emission contract, as in ``gelly_tpu``: a property stream emits one
 :class:`Update` per chunk, holding the latest value of every key the
@@ -150,6 +153,170 @@ class EdgeStream:
             return self.source.iter_from(position)
         return itertools.islice(self._chunks_fn(), position, None)
 
+    def _mapped(self, fn: Callable[[EdgeChunk], EdgeChunk]) -> "EdgeStream":
+        src = self._chunks_fn
+        return EdgeStream(lambda: (fn(c) for c in src()), self.ctx)
+
+    def collect_edges(self, raw: bool = True) -> list[tuple]:
+        """Drain the stream into a host list of (src, dst, val) tuples."""
+        out: list[tuple] = []
+        for c in self:
+            s, d, v = c.compact_edges(raw=raw)
+            out.extend(zip(s.tolist(), d.tolist(), v.tolist()))
+        return out
+
+    def map_edges(self, fn) -> "EdgeStream":
+        """Vectorized edge-value map: ``fn(raw_src, raw_dst, val) ->
+        new_val`` on the chunk's tensors (GraphStream.mapEdges)."""
+        return self._mapped(
+            lambda c: c._replace(val=fn(c.raw_src, c.raw_dst, c.val)))
+
+    def filter_edges(self, pred) -> "EdgeStream":
+        """Keep edges where ``pred(raw_src, raw_dst, val)`` holds; only the
+        valid mask changes."""
+        return self._mapped(
+            lambda c: c.mask(pred(c.raw_src, c.raw_dst, c.val)))
+
+    def filter_vertices(self, pred) -> "EdgeStream":
+        """Keep an edge iff both endpoints pass ``pred(raw_id)`` (the
+        reference's ApplyVertexFilterToEdges)."""
+        return self._mapped(
+            lambda c: c.mask(pred(c.raw_src) & pred(c.raw_dst)))
+
+    def reverse(self) -> "EdgeStream":
+        return self._mapped(lambda c: c.reverse())
+
+    def undirected(self) -> "EdgeStream":
+        return self._mapped(lambda c: c.undirected())
+
+    def union(self, other: "EdgeStream") -> "EdgeStream":
+        """Merge two streams over the same context; chunks interleave
+        round-robin."""
+        if other.ctx is not self.ctx:
+            raise ValueError("union requires streams sharing a StreamContext")
+        a_fn, b_fn = self._chunks_fn, other._chunks_fn
+
+        def gen():
+            a, b = a_fn(), b_fn()
+            while True:
+                stop_a = stop_b = False
+                try:
+                    yield next(a)
+                except StopIteration:
+                    stop_a = True
+                try:
+                    yield next(b)
+                except StopIteration:
+                    stop_b = True
+                if stop_a and stop_b:
+                    return
+
+        return EdgeStream(gen, self.ctx)
+
+    def distinct(self, device: bool | None = None) -> "EdgeStream":
+        """Drop duplicate (src, dst) pairs, exact first-wins semantics
+        (DistinctEdgeMapper).
+
+        The strategy follows the first chunk's residency (``device=None``):
+        host chunks (what the sources yield) get the host dedup — the
+        first in-chunk occurrence by ``np.unique``, keys of earlier chunks
+        dropped against geometrically merged sorted runs. Device chunks,
+        or ``device=True``, keep the state in a
+        :class:`~gelly_torch.ops.hashset.DeviceHashSet` on ``ctx.device``
+        (the hand kernel ``csrc/hashset.cu`` on CUDA); those chunks come
+        out on ``ctx.device``. ``self.hashset`` is the last device run's
+        set."""
+        from ..ops.hashset import DeviceHashSet
+
+        src_fn = self._chunks_fn
+        cap = self.ctx.vertex_capacity
+        dev = self.ctx.device
+        out = EdgeStream(None, self.ctx)
+
+        def dedup_device(chunks):
+            hset = out.hashset = DeviceHashSet(device=dev)
+            for c in chunks:
+                c = c.to(dev)
+                keys = c.src.to(torch.int64) * cap + c.dst.to(torch.int64)
+                yield c.mask(hset.insert(keys, c.valid))
+
+        def dedup_host(chunks):
+            runs: list[np.ndarray] = []  # disjoint sorted key runs
+            for c in chunks:
+                src, dst = to_numpy(c.src), to_numpy(c.dst)
+                keys = src.astype(np.int64) * np.int64(cap) + dst
+                v_idx = np.nonzero(to_numpy(c.valid))[0]
+                k = keys[v_idx]
+                _, first = np.unique(k, return_index=True)
+                new_sub = np.zeros(k.shape, bool)
+                new_sub[first] = True
+                for run in runs:  # probe only still-new candidates
+                    cand = np.nonzero(new_sub)[0]
+                    if not cand.size:
+                        break
+                    q = k[cand]
+                    pos = np.minimum(np.searchsorted(run, q), run.size - 1)
+                    new_sub[cand[run[pos] == q]] = False
+                fresh = np.sort(k[new_sub])
+                if fresh.size:
+                    runs.append(fresh)
+                    # Geometric merging bounds the run count at
+                    # O(log |seen|).
+                    while (len(runs) >= 2
+                           and runs[-2].size <= 2 * runs[-1].size):
+                        b, a = runs.pop(), runs.pop()
+                        runs.append(np.sort(np.concatenate([a, b])))
+                is_new = np.zeros(keys.shape, bool)
+                is_new[v_idx[new_sub]] = True
+                yield c.mask(torch.from_numpy(is_new).to(c.valid.device))
+
+        def gen():
+            it = iter(src_fn())
+            c0 = next(it, None)
+            if c0 is None:
+                return
+            chunks = itertools.chain([c0], it)
+            use_device = device if device is not None else not c0.is_host()
+            yield from (
+                dedup_device(chunks) if use_device else dedup_host(chunks))
+
+        out._chunks_fn = gen
+        return out
+
+    def global_aggregate(self, update_fn, initial_state,
+                         emit_on_change: bool = True):
+        """Generic centralized aggregate: ``update_fn(state, chunk) ->
+        (state, emission)`` per chunk on ``ctx.device``; each emission is
+        yielded as numpy (deduplicated while unchanged)."""
+        from ..engine.checkpoint import tree_map
+
+        dev = self.ctx.device
+
+        def gen():
+            state = initial_state
+            last = object()
+            for c in self._chunks_fn():
+                state, em = update_fn(state, c.to(dev))
+                host = tree_map(to_numpy, em)
+                if emit_on_change:
+                    key = tree_map(lambda a: a.tobytes(), host)
+                    if key == last:
+                        continue
+                    last = key
+                yield host
+
+        return gen()
+
+    def build_neighborhood(self, directed: bool = False,
+                           capacity: int | None = None,
+                           max_degree: int | None = None):
+        """Stream of growing adjacency snapshots (BuildNeighborhoods):
+        dense ``bool[N, N]``, or the capped-degree row table with
+        ``max_degree``; see :mod:`gelly_torch.core.neighborhood`."""
+        from .neighborhood import NeighborhoodStream
+
+        return NeighborhoodStream(self, directed, capacity, max_degree)
+
     def device_chunks(self, fields) -> Iterator[EdgeChunk]:
         """The chunks with the named ``fields`` moved to ``ctx.device``
         (the others stay on the host): what a step that reads only those
@@ -226,9 +393,9 @@ class EdgeStream:
               window_capacity: int | None = None,
               allowed_lateness: int = 0):
         """Discretize into per-vertex tumbling-window neighborhoods
-        (SimpleEdgeStream.slice). direction ∈ {out, in, all}. A nonzero
-        ``allowed_lateness`` raises ``NotImplementedError`` when the
-        windows are drained (not ported yet)."""
+        (SimpleEdgeStream.slice). direction ∈ {out, in, all}.
+        ``allowed_lateness`` (ms) buffers out-of-order edges up to that
+        bound (``core/windows.py`` watermark semantics)."""
         from .snapshot import SnapshotStream
 
         return SnapshotStream(self, window_ms, direction, window_capacity,

@@ -29,18 +29,24 @@ inline by default. Where ``gelly_tpu`` donates the fold state to XLA, the
 port rebinds it: the fold returns new tensors. An emission is a transform
 output or a clone, never a view of live state.
 
+Two more cadences: event-time tumbling windows (``window_ms``, with an
+``allowed_lateness`` reorder buffer) and sliding pane rings
+(``windowed=W``, with per-vertex TTL decay ``ttl_panes`` on compact-id
+plans), whose stream is a :class:`WindowedStream`.
+
 Checkpoints (``checkpoint_path``) and exactly-once resume (``resume``)
 follow ``gelly_tpu``'s file format and rules, so a run either package
-checkpointed resumes in the other. Meshes, event-time windows, pane
-rings, pre-compressed streams and source providers come with later
-slices; asking for any of them raises ``NotImplementedError`` naming its
-ROADMAP.md item. :func:`edges_fold_adapter` runs a per-edge user fold
-(the reference's ``EdgesFold``).
+checkpointed resumes in the other. Meshes, pre-compressed streams and
+source providers come with later slices; asking for any of them raises
+``NotImplementedError`` naming its ROADMAP.md item.
+:func:`edges_fold_adapter` runs a per-edge user fold (the reference's
+``EdgesFold``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob as _glob
 import itertools
 import os
 import threading
@@ -51,8 +57,15 @@ import numpy as np
 import torch
 
 from ..core.chunk import EdgeChunk
+from ..core.device import to_numpy
 from . import faults
-from .checkpoint import load_checkpoint, save_checkpoint
+from .checkpoint import (
+    load_checkpoint,
+    save_checkpoint,
+    tree_flatten,
+    tree_map,
+    tree_unflatten,
+)
 
 Summary = Any
 
@@ -281,14 +294,28 @@ class SummaryStream:
         return last
 
 
+class WindowedStream(SummaryStream):
+    """A :class:`SummaryStream` over a pane ring (``windowed=W``), plus the
+    queryable epoch handle: :meth:`snapshot` returns the latest ``{"window",
+    "labels"}`` emission under a lock, readable from any thread while the
+    stream advances. It is at most one pane stale (the value published at
+    the newest pane close), and ``None`` before the first close."""
+
+    def __init__(self, gen_fn: Callable[[], Iterator], holder: dict):
+        super().__init__(gen_fn)
+        self._holder = holder
+
+    def snapshot(self):
+        with self._holder["lock"]:
+            val = self._holder["val"]
+            self.stats["windows.snapshot_reads"] += 1
+        return val
+
+
 # Knobs of gelly_tpu's run_aggregation this slice does not run, with the
 # value that means "off" and the ROADMAP.md item that brings each.
 _NOT_YET = {
     "mesh": (None, "queue 1 item 8 (multi-GPU merge)"),
-    "window_ms": (None, "queue 1 item 10 (stream API and windows)"),
-    "allowed_lateness": (0, "queue 1 item 10 (stream API and windows)"),
-    "windowed": (None, "queue 1 item 10 (stream API and windows)"),
-    "ttl_panes": (None, "queue 1 item 10 (stream API and windows)"),
     "source_provider": (None, "queue 1 item 12 (host planes: ingest)"),
     "precompressed": (False, "queue 1 item 12 (host planes: ingest)"),
     "queries": (None, "queue 1 item 11 (batched engines)"),
@@ -318,6 +345,17 @@ def _fresh(emission):
             return type(emission)(*items)
         return tuple(items)
     return emission
+
+
+def _clone_tree(tree):
+    return tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor)
+                    else x, tree)
+
+
+def _copying(combine):
+    """``combine`` on copies of both arguments: pane rings and checkpoint
+    snapshots read both again, and a plan may combine in place."""
+    return lambda a, b: combine(_clone_tree(a), _clone_tree(b))
 
 
 def _flatten(payload):
@@ -421,6 +459,100 @@ class PinnedRing:
         return rebuild(out), event
 
 
+def _stack_panes(panes: list):
+    """Stack pane summaries on a new leading axis (``[W, ...]`` leaves)."""
+    flat = [tree_flatten(p) for p in panes]
+    return tree_unflatten(flat[0][1], [
+        torch.stack([leaves[i] for leaves, _ in flat])
+        for i in range(len(flat[0][0]))])
+
+
+def _load_lateness(checkpoint_path: str, position: int) -> dict | None:
+    """The reorder buffer saved beside a checkpoint at ``position``
+    (``<path>.lateness.<position>``, or the unstamped legacy name), or
+    None when there is none."""
+    side = f"{checkpoint_path}.lateness.{position}"
+    if not os.path.exists(side):
+        side = checkpoint_path + ".lateness"
+    if not os.path.exists(side):
+        return None
+    flat, side_pos, side_meta = load_checkpoint(side)
+    if side_pos != position:
+        raise ValueError(
+            f"lateness sidecar position {side_pos} does not match "
+            f"checkpoint position {position} (crash between the paired "
+            "writes?) — the reorder buffer cannot be restored "
+            "consistently"
+        )
+    nf = len(EdgeChunk._fields)
+    return {
+        "wins": side_meta["wins"],
+        "chunks": [EdgeChunk(*flat[i * nf:(i + 1) * nf])
+                   for i in range(len(side_meta["wins"]))],
+        "closed_upto": side_meta["closed_upto"],
+        "max_ts": side_meta["max_ts"],
+    }
+
+
+def _check_window_knobs(agg, window_ms, allowed_lateness, windowed,
+                        ttl_panes, prefetch_depth, h2d_depth) -> None:
+    """The cadence knobs' refusals, with ``gelly_tpu``'s messages."""
+    if allowed_lateness and window_ms is None:
+        raise ValueError(
+            "allowed_lateness requires window_ms (merge_every mode is "
+            "count-based and does not reorder by timestamp)"
+        )
+    if windowed is not None:
+        if windowed < 1:
+            raise ValueError(f"windowed must be >= 1 pane, got {windowed}")
+        if window_ms is not None:
+            raise ValueError(
+                "windowed panes ride the merge_every cadence (one pane "
+                "per merge window, merge_every chunks each); event-time "
+                "window_ms is a different cadence axis — size the pane "
+                "with merge_every instead"
+            )
+        if agg.transient:
+            raise ValueError(
+                f"aggregation '{agg.name}' is transient (emit-and-reset "
+                "Merger): its windows are already independent, so a "
+                "pane ring over them has nothing to combine — drop "
+                "windowed= or use a non-transient plan"
+            )
+    if ttl_panes is None:
+        return
+    if windowed is None:
+        raise ValueError(
+            "ttl_panes requires windowed=W: TTL stamps are "
+            "last-seen PANE indices, and eviction runs at pane "
+            "boundaries — there is no pane clock without a ring"
+        )
+    if ttl_panes < windowed:
+        raise ValueError(
+            f"ttl_panes={ttl_panes} < windowed={windowed}: a slot "
+            "must outlive the ring (T >= W) so an evicted id is "
+            "guaranteed untouched in every live pane — otherwise "
+            "eviction would rewrite panes that still reference it"
+        )
+    if (getattr(agg, "windowed_evict", None) is None
+            or getattr(agg, "windowed_touched", None) is None):
+        raise ValueError(
+            f"aggregation '{agg.name}' has no TTL eviction hooks "
+            "(windowed_evict + windowed_touched): per-vertex decay "
+            "needs a compact-id plan that can renumber its session "
+            "— build one with connected_components(compact=..., "
+            "windowed=W, ttl_panes=T)"
+        )
+    if prefetch_depth != 0 or h2d_depth != 0:
+        raise ValueError(
+            "ttl_panes needs a quiesced pipeline: pass "
+            "prefetch_depth=0 and h2d_depth=0 so no compact-id "
+            "assignment is staged but unfolded when the session "
+            "renumbers at a pane boundary (in-flight payloads "
+            "would still carry the OLD ids)"
+        )
+
+
 def run_aggregation(agg: SummaryAggregation, stream,
                     merge_every: int | None = None,
                     prefetch_depth: int | None = None,
@@ -432,6 +564,9 @@ def run_aggregation(agg: SummaryAggregation, stream,
                     host_precombine: Callable | None = None,
                     timer=None, checkpoint_path: str | None = None,
                     checkpoint_every: int = 1, resume: bool = False,
+                    window_ms: int | None = None, allowed_lateness: int = 0,
+                    windowed: int | None = None,
+                    ttl_panes: int | None = None,
                     **knobs) -> SummaryStream:
     """Execute ``agg`` over ``stream`` on ``stream.ctx.device``.
 
@@ -461,26 +596,51 @@ def run_aggregation(agg: SummaryAggregation, stream,
     ``stream.timer``) collects busy seconds of ``ingest_compress``,
     ``codec_wait``, ``h2d``, ``fold_dispatch`` and ``merge_emit``.
 
+    ``window_ms`` (instead of ``merge_every``) folds tumbling event-time
+    windows (``core/windows.py``): one chunk a unit, each chunk masked to
+    one window (and compressed after the masking when the plan has a
+    codec); windows without data never fire, late edges are dropped and
+    counted in ``stats["late_edges"]``. ``allowed_lateness`` (ms) turns on
+    the watermark reorder buffer (``stats["buffered_edges"]`` /
+    ``["open_windows"]``); its checkpoint sidecar
+    ``<checkpoint_path>.lateness.<position>`` holds the buffered edges.
+
+    ``windowed=W`` (default: the plan's ``windowed_panes``) emits over the
+    last W panes only, one pane a merge window: each pane folds from fresh
+    locals, is pushed into a :class:`~gelly_torch.core.windows.PaneRing`
+    and the window is its suffix combine. ``ttl_panes=T`` (T >= W,
+    compact-id plans, ``prefetch_depth=0`` and ``h2d_depth=0``) evicts
+    compact ids untouched for T panes through the plan's
+    ``windowed_evict``. The stream is a :class:`WindowedStream`; its
+    ``stats`` count ``windows.panes_closed``,
+    ``windows.combine_dispatches``, ``windows.evicted_slots`` and
+    ``windows.snapshot_reads`` (``gelly_tpu``'s bus counters), and
+    checkpoints (pane boundaries only) hold the ring's panes stacked on a
+    ``[W, ...]`` template, the persistent id map and the TTL stamps.
+
     ``checkpoint_path`` writes the summary (the running one, or the
     Merger plan's global) and the stream position every
     ``checkpoint_every`` closed windows and after a final partial window
     (``engine/checkpoint.py``'s format; the plan's ``flatten`` runs first
     and its result replaces the live summary). The position is the number
     of chunks whose fold the snapshot holds (the last-retired-chunk rule);
-    windows close on unit boundaries, so it is exact. A window's
-    checkpoint is written when the consumer asks for the next emission, so
-    a consumer that stops right after emission k leaves checkpoint k-1.
-    ``resume=True`` loads the summary onto ``stream.ctx.device`` (the
-    Merger plan's global, with fresh locals), fires ``on_resume``,
-    restores the window count and drops the folded chunks before any
-    staging. The timer adds ``checkpoint``, ``resume_load``,
-    ``on_resume`` and ``resume_skip`` busy seconds; ``stats`` adds
-    ``checkpoints``, ``checkpoint_bytes`` and ``resumed_at``.
+    windows close on unit boundaries, so it is exact (``window_ms``:
+    checkpoints at chunk boundaries, holding a partial window). A
+    window's checkpoint is written when the consumer asks for the next
+    emission, so a consumer that stops right after emission k leaves
+    checkpoint k-1. ``resume=True`` loads the summary onto
+    ``stream.ctx.device`` (the Merger plan's global, with fresh locals),
+    fires ``on_resume``, restores the window count and drops the folded
+    chunks before any staging. The timer adds ``checkpoint``,
+    ``resume_load``, ``on_resume`` and ``resume_skip`` busy seconds;
+    ``stats`` adds ``checkpoints``, ``checkpoint_bytes`` and
+    ``resumed_at``.
 
     Every other knob of ``gelly_tpu``'s ``run_aggregation`` is accepted
     by name and raises ``NotImplementedError`` (naming its ROADMAP.md
     item) unless it is left at its "off" value.
     """
+    from ..core.windows import PaneRing, tumbling_window_events
     from ..utils.metrics import StageTimer
     from ..utils.prefetch import prefetch, prefetch_map
 
@@ -490,6 +650,8 @@ def run_aggregation(agg: SummaryAggregation, stream,
     if checkpoint_every < 1:
         raise ValueError(
             f"checkpoint_every must be >= 1, got {checkpoint_every}")
+    if merge_every is not None and window_ms is not None:
+        raise ValueError("pass at most one of merge_every / window_ms")
     if merge_every is None:
         merge_every = 1
     if merge_every < 1:
@@ -503,7 +665,6 @@ def run_aggregation(agg: SummaryAggregation, stream,
         ingest_workers = codec_workers
     # The accumulate plan carries one running summary; any other plan is
     # the per-window Merger (fresh locals, combine into global at close).
-    accum = agg.fold_accumulates and not agg.transient
     use_codec = (agg.host_compress is not None
                  and agg.fold_compressed is not None)
     # Raw units stage nothing and copy a few bytes an edge, while their
@@ -521,15 +682,29 @@ def run_aggregation(agg: SummaryAggregation, stream,
         ingest_workers = min(available_cores(), 8) if use_codec else 0
     if prefetch_depth is None:
         prefetch_depth = max(2, ingest_workers)
+    if windowed is None:
+        windowed = getattr(agg, "windowed_panes", None)
+    if ttl_panes is None:
+        ttl_panes = getattr(agg, "windowed_ttl_panes", None)
+    windowed = None if windowed is None else int(windowed)
+    ttl_panes = None if ttl_panes is None else int(ttl_panes)
+    _check_window_knobs(agg, window_ms, allowed_lateness, windowed,
+                        ttl_panes, prefetch_depth, h2d_depth)
     if agg.requires_codec and not use_codec:
         raise ValueError(
             f"aggregation '{agg.name}' folds only through its ingest codec, "
             "but it supplies no host_compress/fold_compressed pair"
         )
-    # A divisor of merge_every, so window boundaries are unit boundaries.
-    batch = max(1, min(fold_batch, merge_every))
-    while merge_every % batch:
-        batch -= 1
+    # A pane ring folds every pane from FRESH locals (the ring supplies
+    # the accumulation), so it never runs the accumulate plan.
+    accum = agg.fold_accumulates and not agg.transient and windowed is None
+    # A divisor of merge_every, so window boundaries are unit boundaries;
+    # event-time windows fold one masked chunk at a time.
+    batch = 1
+    if window_ms is None:
+        batch = max(1, min(fold_batch, merge_every))
+        while merge_every % batch:
+            batch -= 1
     device = stream.ctx.device
     if device_fields is None:
         device_fields = agg.device_fields
@@ -542,7 +717,24 @@ def run_aggregation(agg: SummaryAggregation, stream,
     if timer is None:
         timer = StageTimer()
     stats = {"units": 0, "chunks": 0, "h2d_bytes": 0, "checkpoints": 0,
-             "checkpoint_bytes": 0, "resumed_at": None}
+             "checkpoint_bytes": 0, "resumed_at": None, "late_edges": 0,
+             "windows_closed": 0}
+    win_holder = None
+    if windowed is not None:
+        win_holder = {"lock": threading.Lock(), "val": None}
+        # gelly_tpu's bus counters of the ring, kept in stats: like the
+        # bus's, they count across the stream's runs.
+        stats.update({"windows.panes_closed": 0,
+                      "windows.combine_dispatches": 0,
+                      "windows.evicted_slots": 0,
+                      "windows.snapshot_reads": 0})
+    win_touched = getattr(agg, "windowed_touched", None)
+    win_persist_init = getattr(agg, "windowed_persist_init", None)
+    win_persist_update = getattr(agg, "windowed_persist_update", None)
+    win_query_fixup = getattr(agg, "windowed_query_fixup", None)
+    win_on_resume = getattr(agg, "on_resume_windowed", None)
+    windowed_evict = getattr(agg, "windowed_evict", None)
+    copying_combine = _copying(agg.combine)
 
     def emit(summary):
         out = agg.transform(summary) if agg.transform is not None \
@@ -572,28 +764,75 @@ def run_aggregation(agg: SummaryAggregation, stream,
         wait0 = agg.ordered_wait_s() if agg.ordered_wait_s is not None \
             else 0.0
         stats.update(units=0, chunks=0, h2d_bytes=0, checkpoints=0,
-                     checkpoint_bytes=0, resumed_at=None)
+                     checkpoint_bytes=0, resumed_at=None, late_edges=0,
+                     windows_closed=0)
         # ``summary`` is what the folds update: the running summary of the
-        # accumulate plan, or the Merger plan's locals of the open window.
+        # accumulate plan, or the locals of the open window (the Merger
+        # plan's, or the open pane's).
         summary = agg.init(device)
-        glob = None if accum else agg.init(device)
+        glob = None if accum or windowed is not None else agg.init(device)
+        dirty = False  # the locals hold edges no window emitted yet
         skip_until = 0
         windows = last_ckpt_windows = 0
-        current_window = None  # event-time windows: not ported yet
+        current_window = None  # the open event-time window
+        ring = persist = last_seen = None
+        if windowed is not None:
+            ring = PaneRing(windowed, copying_combine,
+                            on_combine=lambda k: stats.__setitem__(
+                                "windows.combine_dispatches",
+                                stats["windows.combine_dispatches"] + k))
+            if win_persist_init is not None:
+                persist = win_persist_init(device)
+            if ttl_panes is not None:
+                last_seen = np.zeros(int(persist.shape[0]), np.int64)
+
+        def win_like():
+            # The static [W, ...] template of a ring checkpoint.
+            like = {"panes": tree_map(
+                lambda l: l.new_zeros((windowed,) + tuple(l.shape)),
+                agg.init(device))}
+            if persist is not None:
+                like["persist"] = torch.zeros_like(persist)
+            if last_seen is not None:
+                like["last_seen"] = torch.zeros(last_seen.shape,
+                                                dtype=torch.int64)
+            return like
+
+        lat_handle: dict = {}
+        lat_state = None
         if resume:
             with timer("resume_load"):
                 loaded, skip_until, meta_in = load_checkpoint(
-                    checkpoint_path, like=summary)
-            if accum:
-                summary = loaded
+                    checkpoint_path,
+                    like=win_like() if windowed is not None else summary)
+            if windowed is not None:
+                live_n = int(meta_in.get("ring_live", 0))
+                ring.reload([tree_map(lambda l, i=i: l[i], loaded["panes"])
+                             for i in range(live_n)],
+                            meta_in.get("windows", 0))
+                if persist is not None:
+                    persist = loaded["persist"]
+                if last_seen is not None:
+                    last_seen = to_numpy(loaded["last_seen"]).copy()
+                if win_on_resume is not None:
+                    # The persistent map: a superset of every live pane's
+                    # assignments (a pane records FIRST-seen rows only).
+                    with timer("on_resume"):
+                        win_on_resume(to_numpy(persist))
             else:
-                glob = loaded
-            if agg.on_resume is not None:
-                with timer("on_resume"):
-                    agg.on_resume(loaded)
+                if accum:
+                    summary = loaded
+                else:
+                    glob = loaded
+                if agg.on_resume is not None:
+                    with timer("on_resume"):
+                        agg.on_resume(loaded)
             current_window = meta_in.get("current_window")
             windows = last_ckpt_windows = meta_in.get("windows", 0)
+            stats["windows_closed"] = windows
             stats["resumed_at"] = skip_until
+            if allowed_lateness:
+                lat_state = _load_lateness(checkpoint_path, skip_until)
         chunks_consumed = skip_until
         stats["chunks"] = chunks_consumed
 
@@ -605,24 +844,63 @@ def run_aggregation(agg: SummaryAggregation, stream,
                 return
             last_ckpt_windows = windows
             with timer("checkpoint"):
-                # A checkpoint is written right after a window close, so
-                # the Merger plan's locals hold no edge and the global is
-                # the whole snapshot (gelly_tpu's rule for a clean window).
-                if agg.flatten is not None:
+                if agg.flatten is not None and windowed is None:
                     if accum:
                         summary = agg.flatten(summary)
                     else:
                         glob = agg.flatten(glob)
-                save_checkpoint(
-                    checkpoint_path, summary if accum else glob,
-                    position=chunks_consumed,
-                    meta={"name": agg.name, "windows": windows,
-                          "current_window": current_window})
+                meta = {"name": agg.name, "windows": windows,
+                        "current_window": current_window}
+                if windowed is not None:
+                    # Live panes stacked on the static [W, ...] template,
+                    # padded with init panes; pane boundaries only.
+                    panes = ring.export_panes()
+                    panes += [agg.init(device)
+                              for _ in range(windowed - len(panes))]
+                    snap = {"panes": _stack_panes(panes)}
+                    if persist is not None:
+                        snap["persist"] = persist
+                    if last_seen is not None:
+                        snap["last_seen"] = last_seen
+                    meta.update(ring_live=ring.live, windowed=windowed)
+                elif accum:
+                    snap = summary
+                elif dirty:
+                    # Event-time windows checkpoint mid-window: the open
+                    # window's locals merged into a copy of the global.
+                    snap = copying_combine(summary, glob)
+                else:
+                    # Right after a close the locals hold no edge.
+                    snap = glob
+                if allowed_lateness and "export" in lat_handle:
+                    # The sidecar first: the pair is matched by position.
+                    st = lat_handle["export"]()
+                    save_checkpoint(
+                        f"{checkpoint_path}.lateness.{chunks_consumed}",
+                        st["chunks"], position=chunks_consumed,
+                        meta={"wins": [int(w) for w in st["wins"]],
+                              "closed_upto": st["closed_upto"],
+                              "max_ts": st["max_ts"]})
+                save_checkpoint(checkpoint_path, snap,
+                                position=chunks_consumed, meta=meta)
+                if allowed_lateness:
+                    # Older sidecars are no resume's pair any more.
+                    keep = f"{checkpoint_path}.lateness.{chunks_consumed}"
+                    for old in _glob.glob(
+                            _glob.escape(checkpoint_path) + ".lateness*"):
+                        if old != keep:
+                            try:
+                                os.unlink(old)
+                            except OSError:
+                                pass
             stats["checkpoints"] += 1
             stats["checkpoint_bytes"] += os.path.getsize(checkpoint_path)
 
         def close_window():
-            nonlocal summary, glob
+            nonlocal summary, glob, dirty, windows
+            dirty = False
+            windows += 1
+            stats["windows_closed"] = windows
             if accum:
                 return emit(summary)
             # The parallelism-1 Merger (M/SummaryAggregation.java:107-119).
@@ -637,9 +915,122 @@ def run_aggregation(agg: SummaryAggregation, stream,
             summary = agg.init(device)  # fresh locals for the next window
             return emit(merged)
 
+        def close_pane():
+            # Push this merge window's pane (fresh locals from here on, so
+            # no later fold writes it), decay TTL slots, and answer the
+            # W-pane window by suffix combines.
+            nonlocal summary, dirty, windows, persist, last_seen
+            pane = summary
+            summary = agg.init(device)
+            dirty = False
+            if win_persist_update is not None:
+                persist = win_persist_update(persist, pane)
+            ring.push(pane)
+            windows += 1
+            stats["windows_closed"] = windows
+            stats["windows.panes_closed"] += 1
+            if last_seen is not None:
+                last_seen[to_numpy(win_touched(pane))] = windows
+                assigned = int(agg.session.assigned)
+                stale = np.zeros(last_seen.shape[0], dtype=bool)
+                if assigned:
+                    stale[:assigned] = (
+                        windows - last_seen[:assigned]) >= ttl_panes
+                if stale.any():
+                    # T >= W: a stale id is untouched in every live pane,
+                    # so the hook renumbers the survivors to a dense
+                    # prefix and remaps each pane.
+                    n_evict = int(stale.sum())
+                    panes2, persist, surv = windowed_evict(
+                        ring.export_panes(), persist, stale)
+                    ls2 = np.zeros_like(last_seen)
+                    ls2[:len(surv)] = last_seen[surv]
+                    last_seen = ls2
+                    ring.reload(panes2, ring.panes_closed)
+                    stats["windows.evicted_slots"] += n_evict
+                stats["windows.live_slots"] = int(agg.session.assigned)
+            q = ring.query()
+            if win_query_fixup is not None:
+                q = win_query_fixup(q, persist)
+            out = emit(q)
+            stats["windows.ring_live"] = ring.live
+            with win_holder["lock"]:
+                win_holder["val"] = {"window": windows, "labels": out}
+            return out
+
+        close_fn = close_pane if windowed is not None else close_window
         consumer = (torch.cuda.current_stream(device)
                     if device.type == "cuda" else None)
-        ring = PinnedRing(device, h2d_depth + 1, consumer)
+        ring_h2d = PinnedRing(device, h2d_depth + 1, consumer)
+
+        def to_device(payload, fields_skip):
+            with timer("h2d"):
+                dev, event = ring_h2d.put(payload, fields_skip)
+            stats["h2d_bytes"] = ring_h2d.bytes
+            if event is not None:
+                consumer.wait_event(event)  # on the device
+            return dev
+
+        if window_ms is not None:
+            # Event-time windows: the shared tumbling iterator masks each
+            # chunk to one window; one chunk a unit, folded inline.
+            # Counted from the stream's first chunk: the resumed prefix is
+            # read and dropped here.
+            chunks_consumed = 0
+
+            def counted_chunks():
+                nonlocal chunks_consumed
+                for chunk in prefetch(iter(stream), prefetch_depth,
+                                      name="gelly-window"):
+                    # Checkpoints fire here, at chunk boundaries: every
+                    # edge of the chunks counted so far is in the locals,
+                    # the global or the reorder buffer.
+                    if chunks_consumed > skip_until:
+                        maybe_checkpoint()
+                    chunks_consumed += 1
+                    stats["chunks"] = chunks_consumed
+                    if chunks_consumed <= skip_until:
+                        continue
+                    yield chunk
+
+            win_seq = 0
+            for kind, w, chunk, _ in tumbling_window_events(
+                    counted_chunks(), window_ms, stats,
+                    initial_window=current_window,
+                    allowed_lateness=allowed_lateness,
+                    state_handle=lat_handle, initial_state=lat_state):
+                if kind == "close":
+                    with timer("merge_emit"):
+                        out = close_window()
+                    yield out
+                    continue
+                current_window = w
+                if use_codec:
+                    with timer("ingest_compress"):
+                        payloads = [agg.host_compress(chunk)]
+                        if agg.stack_payloads is None:
+                            stacked = _stack_tree(payloads)
+                        elif agg.stack_ordered:
+                            stacked = agg.stack_payloads(payloads, 1,
+                                                         seq=win_seq)
+                            win_seq += 1
+                        else:
+                            stacked = agg.stack_payloads(payloads, 1)
+                    unit = to_device(stacked, frozenset())
+                    with timer("fold_dispatch"):
+                        summary = agg.fold_compressed(summary, unit)
+                else:
+                    unit = to_device(chunk, skip)
+                    with timer("fold_dispatch"):
+                        summary = agg.fold(summary, unit)
+                del unit
+                stats["units"] += 1
+                dirty = True
+            # The iterator closed the final window; make it durable.
+            if checkpoint_path and windows:
+                maybe_checkpoint(force=True)
+            return
+
         identity_payload = None
         if use_codec:
             from ..core.chunk import make_chunk
@@ -702,8 +1093,8 @@ def run_aggregation(agg: SummaryAggregation, stream,
             payload, k, seq = staged
             faults.inject("h2d")
             with timer("h2d"):
-                dev, event = ring.put(payload, skip)
-            stats["h2d_bytes"] = ring.bytes
+                dev, event = ring_h2d.put(payload, skip)
+            stats["h2d_bytes"] = ring_h2d.bytes
             return dev, event, k, seq
 
         def release(unit):  # a unit cancelled before it ran
@@ -727,6 +1118,7 @@ def run_aggregation(agg: SummaryAggregation, stream,
                         consumer.wait_event(event)  # on the device
                     summary = fold_unit(summary, unit)
                 del unit
+                dirty = True
                 # Last-retired-chunk rule: a chunk counts toward the
                 # checkpoint position once its fold is dispatched.
                 chunks_consumed += k
@@ -736,14 +1128,12 @@ def run_aggregation(agg: SummaryAggregation, stream,
                 if in_window >= merge_every:
                     in_window = 0
                     with timer("merge_emit"):
-                        out = close_window()
-                    windows += 1
+                        out = close_fn()
                     yield out
                 maybe_checkpoint()
             if in_window:
                 with timer("merge_emit"):
-                    out = close_window()
-                windows += 1
+                    out = close_fn()
                 yield out
                 maybe_checkpoint(force=True)
         finally:
@@ -767,7 +1157,8 @@ def run_aggregation(agg: SummaryAggregation, stream,
                 timer.reattribute("ingest_compress", "codec_wait",
                                   agg.ordered_wait_s() - wait0)
 
-    out_stream = SummaryStream(gen)
+    out_stream = (WindowedStream(gen, win_holder) if windowed is not None
+                  else SummaryStream(gen))
     out_stream.timer = timer
     out_stream.stats = stats
     return out_stream

@@ -1,4 +1,10 @@
-"""One-pass graph algorithms."""
+"""One-pass graph algorithms.
+
+The ``connected_components`` function is not exported here (``gelly_tpu``
+exports it): the name would shadow the ``connected_components`` module,
+which callers import as ``from gelly_torch.library import
+connected_components``; call it as ``connected_components.
+connected_components(...)``."""
 
 from .bipartiteness import (
     BipartitenessResult,
@@ -6,19 +12,26 @@ from .bipartiteness import (
     bipartiteness_query,
     to_candidates,
 )
-from .connected_components import cc_host_precombine
+from .connected_components import (
+    CCSummary,
+    cc_host_precombine,
+    labels_to_components,
+)
 from .degrees import (
     degree_aggregate,
     degree_distribution,
     degrees_query,
     sharded_degrees,
 )
+from .iterative_cc import IterativeCCStream
 from .matching import weighted_matching
 from .spanner import host_spanner, spanner, spanner_edges, spanner_query
 from .triangles import window_triangles
 
 __all__ = [
     "BipartitenessResult",
+    "CCSummary",
+    "IterativeCCStream",
     "bipartiteness_check",
     "bipartiteness_query",
     "cc_host_precombine",
@@ -26,6 +39,7 @@ __all__ = [
     "degree_distribution",
     "degrees_query",
     "host_spanner",
+    "labels_to_components",
     "sharded_degrees",
     "spanner",
     "spanner_edges",

@@ -20,8 +20,10 @@ component, ``-1`` for slots never seen):
 :func:`cc_host_precombine` is the engine's ``host_precombine`` for the
 raw plan: it reduces a chunk on the host to its spanning forest.
 
-The pane ring (``windowed=`` / ``ttl_panes=``) and the multi-device delta
-merge raise ``NotImplementedError`` naming their ROADMAP.md item.
+``windowed=W`` marks a plan for the engine's sliding pane ring; the
+compact plan's pane-ring variant (:class:`CCWindowPane`) adds the TTL
+decay hooks (``ttl_panes``). The multi-device delta merge raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -57,12 +59,23 @@ class CCCompactSummary(NamedTuple):
     vertex_of: torch.Tensor  # i32[M] global vertex slot per cid (-1 unassigned)
 
 
+class CCWindowPane(NamedTuple):
+    """One pane of the windowed compact plan (``windowed=W``): the pane's
+    own forest and first-seen decode rows, plus the exact touched-cid mask
+    (the window-membership predicate, recorded from the wire payload's
+    member lanes: a self-loop-only vertex never moves ``croot`` off the
+    identity) and the TTL last-seen source."""
+
+    croot: torch.Tensor  # i32[M] union-find forest over compact ids
+    vertex_of: torch.Tensor  # i32[M] global vertex slot per cid (-1 unassigned)
+    touched: torch.Tensor  # bool[M] cids referenced by this pane's payloads
+
+
 # Raw folds switch from the generic union_edges fixpoint to the sort-dedup
 # fold at this chunk size: below it the dedup sorts cost more than the
 # rounds they save. Read at fold time, so it can be patched per run.
 RAW_DEDUP_MIN_CHUNK = 1 << 22
 
-_WINDOWS_ITEM = "ROADMAP.md queue 1 item 10 (stream API and windows)"
 _MESH_ITEM = "ROADMAP.md queue 1 item 8 (multi-GPU merge)"
 
 
@@ -190,17 +203,13 @@ def connected_components_compact(
       ``(v, root-row index)`` rows (8 bytes a member);
     - ``"auto"`` — segments when the native unit codec loads.
 
-    The plan folds compressed payloads only. ``windowed=`` / ``ttl_panes=``
-    (the pane ring) and ``delta_auto_rows`` (the multi-device delta
-    merge) raise ``NotImplementedError``.
+    The plan folds compressed payloads only. ``windowed=W`` builds the
+    pane-ring variant (:func:`_windowed_compact_variant`); ``ttl_panes=T``
+    (T >= W) arms its per-vertex decay. ``delta_auto_rows`` (the
+    multi-device delta merge) raises ``NotImplementedError``.
     """
     from ..ops.compact_space import CompactIdSession
 
-    if windowed is not None or ttl_panes is not None:
-        raise NotImplementedError(
-            "connected_components_compact(windowed=/ttl_panes=) is not "
-            f"ported yet: {_WINDOWS_ITEM}"
-        )
     if delta_auto_rows is not None:
         raise NotImplementedError(
             "connected_components_compact(delta_auto_rows=) is not ported "
@@ -418,6 +427,24 @@ def connected_components_compact(
         # The pair folds skip the global flatten; this bounds chase depth.
         return CCCompactSummary(unionfind.pointer_jump(s.croot), s.vertex_of)
 
+    if windowed is not None:
+        return _windowed_compact_variant(
+            windowed, ttl_panes, m, n, session,
+            init=init, fold=fold, combine=combine,
+            merge_stacked=merge_stacked if merge == "gather" else None,
+            host_compress=(
+                host_compress_raw if use_segments else host_compress),
+            fold_compressed=(
+                fold_segments if use_segments else fold_compressed),
+            stack_payloads=(
+                stack_segments if use_segments else stack_compact),
+            member_key="m" if use_segments else "v",
+        )
+    if ttl_panes is not None:
+        raise ValueError(
+            "ttl_panes requires windowed=W (TTL stamps are last-seen "
+            "PANE indices; there is no pane clock without a ring)"
+        )
     agg = SummaryAggregation(
         init=init,
         fold=fold,
@@ -443,6 +470,146 @@ def connected_components_compact(
     agg.session = session
     agg.compact_capacity = m
     agg.wire = "segments" if use_segments else "pairs"
+    return agg
+
+
+def _windowed_compact_variant(
+    windowed: int, ttl_panes: int | None, m: int, n: int, session,
+    *, init, fold, combine, merge_stacked, host_compress, fold_compressed,
+    stack_payloads, member_key: str,
+) -> SummaryAggregation:
+    """The pane-ring compact plan: the base fold / combine wrapped in
+    :class:`CCWindowPane` (an exact touched-cid mask rides every pane),
+    plus the engine's windowed hooks.
+
+    ``windowed_evict(panes, persist, stale)`` (the TTL hook; the panes
+    and the map are tensors on the summary's device, ``stale`` a host
+    mask) renumbers the survivors
+    order-preserving onto a dense cid prefix, gathers every live pane's
+    leaves through the renumbering and rebuilds the session from the
+    compacted persistent map, so ``session.assigned`` drops back to the
+    live-slot count. Sound because T >= W (the engine checks it): an
+    evicted cid is untouched in every live pane, so its rows are
+    identity / -1 / False everywhere.
+    """
+    if windowed < 1:
+        raise ValueError(f"windowed must be >= 1 pane, got {windowed}")
+    if ttl_panes is not None and ttl_panes < windowed:
+        raise ValueError(
+            f"ttl_panes={ttl_panes} < windowed={windowed}: a slot must "
+            "outlive the ring (T >= W) so eviction never rewrites a "
+            "pane that still references it"
+        )
+
+    def init_pane(device=DEFAULT_DEVICE) -> CCWindowPane:
+        s = init(device)
+        return CCWindowPane(s.croot, s.vertex_of,
+                            torch.zeros_like(s.croot, dtype=torch.bool))
+
+    def fold_pane(s: CCWindowPane, payload) -> CCWindowPane:
+        base = fold_compressed(CCCompactSummary(s.croot, s.vertex_of),
+                               payload)
+        mem = payload[member_key].reshape(-1)
+        touched = segments.mark_seen(s.touched, mem, mem >= 0)
+        return CCWindowPane(base.croot, base.vertex_of, touched)
+
+    def combine_pane(a: CCWindowPane, b: CCWindowPane) -> CCWindowPane:
+        # The combine's union_edges hooks the parents it reads, so the
+        # forest it merges into must be flat; a pane's star-fold forest
+        # is not. gelly_tpu merges it unflattened and loses links on
+        # sparse streams (ROADMAP.md queue 3); a flat forest is unchanged.
+        c = combine(CCCompactSummary(unionfind.pointer_jump(a.croot),
+                                     a.vertex_of),
+                    CCCompactSummary(b.croot, b.vertex_of))
+        return CCWindowPane(c.croot, c.vertex_of, a.touched | b.touched)
+
+    def merge_stacked_pane(st: CCWindowPane) -> CCWindowPane:
+        c = merge_stacked(CCCompactSummary(st.croot, st.vertex_of))
+        return CCWindowPane(c.croot, c.vertex_of, st.touched.any(dim=0))
+
+    def transform_pane(s: CCWindowPane) -> torch.Tensor:
+        # The base transform with the window-membership predicate: labels
+        # cover touched cids only (the engine substitutes the persistent
+        # vertex_of first, so every touched cid decodes).
+        root = unionfind.pointer_jump(s.croot)
+        ok = s.touched & (s.vertex_of >= 0)
+        canon = torch.full((m + 1,), segments.INT_MAX, dtype=torch.int32,
+                           device=root.device)
+        canon = canon.scatter_reduce(
+            0, torch.where(ok, root, m).long(),
+            torch.where(ok, s.vertex_of, segments.INT_MAX), "amin",
+            include_self=True,
+        )
+        lab_c = canon[root]
+        out = torch.full((n + 1,), -1, dtype=torch.int32, device=root.device)
+        out = out.scatter(0, torch.where(ok, s.vertex_of, n).long(),
+                          torch.where(ok, lab_c, -1))
+        return out[:n]
+
+    def flatten_pane(s: CCWindowPane) -> CCWindowPane:
+        return CCWindowPane(unionfind.pointer_jump(s.croot), s.vertex_of,
+                            s.touched)
+
+    def windowed_evict(panes, persist, stale):
+        # At a pane boundary, with the pipeline quiesced (no staged
+        # payload carries the old cids). The panes and the map stay on
+        # their device; the session rebuilds from the host copy.
+        assigned = session.assigned
+        surv = np.flatnonzero(~np.asarray(stale)[:assigned])
+        k = surv.shape[0]
+        dev = persist.device
+        si = torch.from_numpy(surv).to(dev)
+        perm = torch.full((m,), -1, dtype=torch.int32, device=dev)
+        perm[si] = torch.arange(k, dtype=torch.int32, device=dev)
+        out = []
+        for p in panes:
+            croot = torch.arange(m, dtype=torch.int32, device=dev)
+            croot[:k] = perm[p.croot[si].long()]
+            vof = torch.full((m,), -1, dtype=torch.int32, device=dev)
+            vof[:k] = p.vertex_of[si]
+            tch = torch.zeros(m, dtype=torch.bool, device=dev)
+            tch[:k] = p.touched[si]
+            out.append(CCWindowPane(croot, vof, tch))
+        p2 = torch.full((m,), -1, dtype=torch.int32, device=dev)
+        p2[:k] = persist[si]
+        session.rebuild_from_vertex_of(to_numpy(p2))
+        return out, p2, surv
+
+    agg = SummaryAggregation(
+        init=init_pane,
+        fold=fold,
+        combine=combine_pane,
+        transform=transform_pane,
+        merge_stacked=(
+            merge_stacked_pane if merge_stacked is not None else None),
+        transient=False,
+        host_compress=host_compress,
+        fold_compressed=fold_pane,
+        stack_payloads=stack_payloads,
+        fold_accumulates=True,
+        flatten=flatten_pane,
+        requires_codec=True,
+        stack_ordered=True,
+        on_stage_error=session.complete_turn,
+        on_run_start=session.reset,
+        ordered_wait_s=lambda: session.wait_s,
+        name="connected-components-compact-windowed",
+    )
+    agg.session = session
+    agg.compact_capacity = m
+    agg.windowed_panes = int(windowed)
+    if ttl_panes is not None:
+        agg.windowed_ttl_panes = int(ttl_panes)
+    agg.windowed_persist_init = lambda device=DEFAULT_DEVICE: torch.full(
+        (m,), -1, dtype=torch.int32, device=device)
+    agg.windowed_persist_update = lambda p, pane: torch.maximum(
+        p, pane.vertex_of)
+    agg.windowed_query_fixup = lambda q, persist: q._replace(
+        vertex_of=persist)
+    agg.windowed_touched = lambda pane: pane.touched
+    agg.windowed_evict = windowed_evict
+    agg.on_resume_windowed = lambda persist: session.rebuild_from_vertex_of(
+        np.asarray(persist))
     return agg
 
 
@@ -502,8 +669,10 @@ def connected_components(
     ``ingest_combine=False`` builds the raw plan; ``fold_backend``
     (:func:`resolve_fold_backend`) picks its sort-dedup gather:
     ``"kernel"`` for the hand-written CUDA ``sorted_window_gather``,
-    ``"plain"``/``"auto"`` for plain PyTorch gathers. The windowed, TTL
-    and delta knobs raise ``NotImplementedError``.
+    ``"plain"``/``"auto"`` for plain PyTorch gathers. ``windowed=W``
+    marks the plan for the engine's sliding pane ring (emissions cover the
+    last W merge windows); ``ttl_panes`` needs ``codec="compact"``. The
+    delta knob raises ``NotImplementedError``.
     """
     if codec == "compact":
         if not ingest_combine:
@@ -513,11 +682,14 @@ def connected_components(
             merge_mode=merge_mode, delta_auto_rows=delta_auto_rows,
             windowed=windowed, ttl_panes=ttl_panes,
         )
-    if windowed is not None or ttl_panes is not None:
-        raise NotImplementedError(
-            "connected_components(windowed=/ttl_panes=) is not ported yet: "
-            f"{_WINDOWS_ITEM}"
+    if ttl_panes is not None:
+        raise ValueError(
+            "ttl_panes needs the compact-id plan (codec='compact'): "
+            "per-vertex decay evicts through the CompactIdSession "
+            "rebuild hook, which dense/sparse plans have no analog of"
         )
+    if windowed is not None and int(windowed) < 1:
+        raise ValueError(f"windowed must be >= 1 pane, got {windowed}")
     if delta_auto_rows is not None:
         raise NotImplementedError(
             "connected_components(delta_auto_rows=) is not ported yet: "
@@ -636,7 +808,7 @@ def connected_components(
         return CCSummary(unionfind.pointer_jump(s.parent), s.seen)
 
     codec_on = ingest_combine
-    return SummaryAggregation(
+    agg = SummaryAggregation(
         init=init,
         fold=fold,
         combine=combine,
@@ -665,6 +837,9 @@ def connected_components(
         device_fields=("src", "dst", "valid"),  # what the raw fold reads
         name=f"connected-components-{merge}",
     )
+    if windowed is not None:
+        agg.windowed_panes = int(windowed)
+    return agg
 
 
 def cc_host_precombine(chunk):

@@ -13,9 +13,10 @@ edges:
   chunks by vertex in ``int64`` before the device scatter-add.
 
 :class:`DegreeDistributionStream` (``DegreeDistribution.java``) yields the
-degree histogram after every chunk. The windowed form
-(``degree_aggregate(windowed=)``), ``degrees_query`` and the sharded
-degrees raise ``NotImplementedError`` naming their ROADMAP.md item.
+degree histogram after every chunk. ``degree_aggregate(windowed=W)``
+marks the plan for the engine's sliding pane ring (degrees over the last
+W merge windows). ``degrees_query`` and the sharded degrees raise
+``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -38,7 +39,6 @@ from ..ops import segments
 from ..ops.unionfind import host_sync
 from ..utils import native
 
-_WINDOWS_ITEM = "ROADMAP.md queue 1 item 10 (stream API and windows)"
 _BATCHED_ITEM = "ROADMAP.md queue 1 item 11 (batched engines)"
 _MESH_ITEM = "ROADMAP.md queue 1 item 8 (multi-GPU merge)"
 
@@ -52,13 +52,13 @@ def degree_aggregate(vertex_capacity: int, count_out: bool = True,
     Same signature and plan choice as ``gelly_tpu``'s: ``ingest_combine``
     (default on) attaches the delta codec, ``codec`` picks ``"dense"``,
     ``"sparse"`` or ``"auto"`` (sparse iff ``vertex_capacity >= 2^20``);
-    ``ingest_combine=False`` builds the raw plan. ``windowed=`` (the pane
-    ring) raises ``NotImplementedError``.
+    ``ingest_combine=False`` builds the raw plan. ``windowed=W`` marks the
+    plan for the engine's sliding pane ring: degree vectors add
+    elementwise, so panes fold from fresh zeros and the ring sums the
+    live suffix.
     """
-    if windowed is not None:
-        raise NotImplementedError(
-            f"degree_aggregate(windowed=) is not ported yet: {_WINDOWS_ITEM}"
-        )
+    if windowed is not None and int(windowed) < 1:
+        raise ValueError(f"windowed must be >= 1 pane, got {windowed}")
     n = vertex_capacity
     sparse = resolve_sparse_codec(codec, n)
 
@@ -136,7 +136,7 @@ def degree_aggregate(vertex_capacity: int, count_out: bool = True,
             deg, torch.where(ok, v, 0), payload["d"].reshape(-1), ok)
 
     codec_on = ingest_combine
-    return SummaryAggregation(
+    agg = SummaryAggregation(
         init=init,
         fold=fold,
         combine=lambda a, b: a + b,
@@ -158,6 +158,9 @@ def degree_aggregate(vertex_capacity: int, count_out: bool = True,
         device_fields=DEGREE_FIELDS,
         name="degree-aggregate",
     )
+    if windowed is not None:
+        agg.windowed_panes = int(windowed)
+    return agg
 
 
 def degrees_query(vertex_capacity: int, *, name: str = "degrees",

@@ -62,6 +62,19 @@ SIGNATURES = {
         "spanner_gate_smem_limit": ([], ctypes.c_int),
         "spanner_gate_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
+    "hashset": {
+        "hashset_insert_launch": (
+            [_P] * 5 + [ctypes.c_longlong, ctypes.c_int, _P, _P],
+            ctypes.c_int),
+        "hashset_contains_launch": (
+            [_P] * 3 + [ctypes.c_longlong, ctypes.c_int, _P], ctypes.c_int),
+        "hashset_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
+    "row_insert": {
+        "row_insert_launch": (
+            [_P] * 6 + [ctypes.c_int] * 3 + [_P], ctypes.c_int),
+        "row_insert_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
     "matching_step": {
         "matching_step_launch": (
             [_P] * 6 + [ctypes.c_longlong, ctypes.c_int, _P], ctypes.c_int),

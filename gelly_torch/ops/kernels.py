@@ -30,6 +30,12 @@ and of three XLA device loops that eager PyTorch cannot run as written
 - :func:`matching_step` — the wrapper of ``csrc/matching_step.cu``,
   replacing ``gelly_tpu/library/matching.py``'s ``_matching_step``.
 
+- :func:`hashset_insert` and :func:`hashset_contains` — the wrappers of
+  ``csrc/hashset.cu``, replacing ``gelly_tpu/ops/hashset.py``'s
+  ``insert_chunk`` and ``contains_chunk``;
+- :func:`row_insert_chunk` — the wrapper of ``csrc/row_insert.cu``,
+  replacing ``gelly_tpu/core/neighborhood.py``'s ``_row_step``.
+
 Each of these runs its ``*_plain`` version on CPU tensors and its kernel
 on CUDA tensors (or raises), and counts launches in ``.launches``.
 
@@ -42,6 +48,7 @@ agree on what they accept.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .rowtable import put_where_, row_append_batch, row_insert
@@ -730,3 +737,276 @@ def matching_step(partner, weight, src, dst, w, valid):
 
 
 matching_step.launches = 0
+
+
+# ---------------------------------------------------------------------- #
+# The hash set of EdgeStream.distinct (csrc/hashset.cu)
+
+HASH_EMPTY = -(1 << 63)  # int64 min: a free slot
+HASH_MUL = -7046029254386353131  # the Fibonacci multiplier (wraps)
+
+
+def _hash_np(keys: np.ndarray, mask: int) -> np.ndarray:
+    """``gelly_tpu``'s Fibonacci hash of int64 keys (the product wraps)."""
+    with np.errstate(over="ignore"):
+        h = (keys.astype(np.int64) * np.int64(HASH_MUL)) >> np.int64(32)
+    return (h & np.int64(mask)).astype(np.int32)
+
+
+def _check_hash_table(table, count) -> int:
+    cap = table.shape[0]
+    if table.dtype != torch.int64 or table.ndim != 1 or cap & (cap - 1) \
+            or cap == 0:
+        raise ValueError(f"hash table: want int64[2^k], got {table.dtype} "
+                         f"{tuple(table.shape)}")
+    if count is not None and (count.dtype != torch.int32
+                              or count.shape != ()):
+        raise ValueError(f"hash count: want a 0-d int32, got {count.dtype} "
+                         f"{tuple(count.shape)}")
+    return cap
+
+
+def _full_table() -> RuntimeError:
+    return RuntimeError("hash set full: a probe visited every slot (grow "
+                        "the table before it fills)")
+
+
+def hashset_insert_plain(table, count, keys, valid):
+    """Plain version of :func:`hashset_insert`: the reference's scan, one
+    key at a time on the host. Returns ``(table, count, is_new)`` on the
+    inputs' device; the inputs are not changed."""
+    cap = _check_hash_table(table, count)
+    t = table.cpu().numpy().copy()
+    k = keys.cpu().numpy().astype(np.int64)
+    ok = valid.cpu().numpy().astype(bool)
+    h0 = _hash_np(k, cap - 1).tolist()
+    cnt = int(count)
+    is_new = np.zeros(k.shape[0], bool)
+    for i in np.flatnonzero(ok).tolist():
+        key = int(k[i])
+        h = h0[i]
+        for _ in range(cap):
+            slot = int(t[h])
+            if slot == HASH_EMPTY or slot == key:
+                break
+            h = (h + 1) & (cap - 1)
+        else:
+            raise _full_table()
+        if slot == HASH_EMPTY:
+            t[h] = key
+            cnt += 1
+            is_new[i] = True
+    dev = table.device
+    return (torch.from_numpy(t).to(dev),
+            torch.tensor(cnt, dtype=torch.int32, device=dev),
+            torch.from_numpy(is_new).to(dev))
+
+
+def hashset_insert(table, count, keys, valid):
+    """Insert the live ``keys`` (``int64``) into the open-addressing table
+    ``table`` (``int64[2^k]``, :data:`HASH_EMPTY` free) in chunk order
+    (``gelly_tpu``'s ``insert_chunk``): returns ``(table, count, is_new)``,
+    ``is_new[i]`` set iff ``keys[i]`` was absent before position ``i``.
+    The layout, ``count`` and ``is_new`` are bit for bit the reference's.
+
+    On CPU tensors it runs :func:`hashset_insert_plain`; on CUDA tensors it
+    launches entry 1 of ``csrc/hashset.cu`` on a copy of the table
+    (counted in ``hashset_insert.launches``) or raises."""
+    cap = _check_hash_table(table, count)
+    _check_keys(table.device, keys, valid)
+    if table.device.type == "cpu":
+        return hashset_insert_plain(table, count, keys, valid)
+    if table.device.type != "cuda":
+        raise ValueError(f"hashset_insert runs on CPU or CUDA, got "
+                         f"{table.device}")
+    table = table.clone()
+    count = count.clone()
+    is_new = torch.zeros(keys.shape[0], dtype=torch.bool,
+                         device=table.device)
+    if keys.shape[0] == 0:
+        return table, count, is_new
+    status = torch.zeros((), dtype=torch.int32, device=table.device)
+    from . import _build
+
+    lib = _build.load("hashset")
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.hashset_insert_launch(
+            table.data_ptr(), count.data_ptr(), keys.data_ptr(),
+            valid.data_ptr(), is_new.data_ptr(), keys.shape[0], cap,
+            status.data_ptr(), stream)
+    if rc:
+        msg = lib.hashset_error_string(rc).decode()
+        raise RuntimeError(f"hashset_insert launch failed: {msg}")
+    hashset_insert.launches += 1
+    if int(status):  # a probe found no free slot
+        raise _full_table()
+    return table, count, is_new
+
+
+hashset_insert.launches = 0
+
+
+def hashset_contains_plain(table, keys):
+    """Plain version of :func:`hashset_contains` (vectorised probes)."""
+    cap = _check_hash_table(table, None)
+    t = table.cpu().numpy()
+    k = keys.cpu().numpy().astype(np.int64)
+    h = _hash_np(k, cap - 1).astype(np.int64)
+    found = np.zeros(k.shape[0], bool)
+    live = np.ones(k.shape[0], bool)
+    for _ in range(cap):
+        if not live.any():
+            break
+        slot = t[h]
+        hit = live & (slot == k)
+        found |= hit
+        live &= ~hit & (slot != HASH_EMPTY)
+        h = (h + 1) & (cap - 1)
+    return torch.from_numpy(found).to(table.device)
+
+
+def hashset_contains(table, keys):
+    """``bool`` membership of ``keys`` in ``table`` (``gelly_tpu``'s
+    ``contains_chunk``), nothing inserted. On CPU tensors it runs
+    :func:`hashset_contains_plain`; on CUDA tensors it launches entry 2 of
+    ``csrc/hashset.cu`` (one thread a key; counted in
+    ``hashset_contains.launches``) or raises."""
+    cap = _check_hash_table(table, None)
+    _check_keys(table.device, keys, None)
+    if table.device.type == "cpu":
+        return hashset_contains_plain(table, keys)
+    if table.device.type != "cuda":
+        raise ValueError(f"hashset_contains runs on CPU or CUDA, got "
+                         f"{table.device}")
+    found = torch.zeros(keys.shape[0], dtype=torch.bool, device=table.device)
+    if keys.shape[0] == 0:
+        return found
+    from . import _build
+
+    lib = _build.load("hashset")
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.hashset_contains_launch(
+            table.data_ptr(), keys.data_ptr(), found.data_ptr(),
+            keys.shape[0], cap, stream)
+    if rc:
+        msg = lib.hashset_error_string(rc).decode()
+        raise RuntimeError(f"hashset_contains launch failed: {msg}")
+    hashset_contains.launches += 1
+    return found
+
+
+hashset_contains.launches = 0
+
+
+def _check_keys(device, keys, valid) -> None:
+    if keys.dtype != torch.int64 or keys.ndim != 1:
+        raise ValueError(f"keys: want 1-D int64, got {keys.dtype} "
+                         f"{tuple(keys.shape)}")
+    for name, t in (("keys", keys), ("valid", valid)):
+        if t is None:
+            continue
+        if t.device != device:
+            raise ValueError(f"{name} on {t.device}, table on {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    if valid is not None and (valid.dtype != torch.bool
+                              or valid.shape != keys.shape):
+        raise ValueError(f"valid: want bool {tuple(keys.shape)}, got "
+                         f"{valid.dtype} {tuple(valid.shape)}")
+
+
+# ---------------------------------------------------------------------- #
+# The capped-degree row insert of a chunk (csrc/row_insert.cu)
+
+
+def _row_inserts(src, dst, valid, directed: bool):
+    """A chunk's inserts in stream order: ``(a, b, ok)``; undirected, edge
+    ``i`` inserts ``(u, v)`` then ``(v, u)``."""
+    if directed:
+        return src, dst, valid
+    return (torch.stack([src, dst], 1).reshape(-1),
+            torch.stack([dst, src], 1).reshape(-1),
+            torch.stack([valid, valid], 1).reshape(-1))
+
+
+def _check_rows(nbr, deg, over, src, dst, valid, max_degree: int) -> None:
+    if nbr.dtype != torch.int32 or nbr.ndim != 2 \
+            or nbr.shape[1] != max_degree:
+        raise ValueError(f"nbr: want int32[N, {max_degree}], got "
+                         f"{nbr.dtype} {tuple(nbr.shape)}")
+    for name, t, shape in (("deg", deg, (nbr.shape[0],)), ("over", over, ())):
+        if t.dtype != torch.int32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: want int32 {shape}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if t.device != nbr.device:
+            raise ValueError(f"{name} on {t.device}, nbr on {nbr.device}")
+    _check_lanes(nbr.device, src=src, dst=dst, valid=valid)
+
+
+def row_insert_chunk_plain(nbr, deg, over, src, dst, valid,
+                           directed: bool, max_degree: int):
+    """Plain version of :func:`row_insert_chunk`: the reference's scan of
+    ``row_insert``, one insert at a time (one host read of the lanes).
+    Returns new ``(nbr, deg, over)``; the inputs are not changed."""
+    _check_rows(nbr, deg, over, src, dst, valid, max_degree)
+    nbr, deg = nbr.clone(), deg.clone()
+    a, b, ok = _row_inserts(src, dst, valid, directed)
+    for i in ok.cpu().nonzero().flatten().tolist():
+        nbr, deg, over = row_insert(nbr, deg, over, a[i:i + 1], b[i:i + 1],
+                                    ok[i:i + 1], max_degree)
+    return nbr, deg, over.reshape(())
+
+
+def row_insert_chunk(nbr, deg, over, src, dst, valid, directed: bool,
+                     max_degree: int):
+    """Insert a chunk's edges into the capped-degree row table with set
+    semantics (``gelly_tpu``'s ``_row_step``): ``nbr`` ``int32[N, D]``
+    (-1 empty), ``deg`` ``int32[N]``, ``over`` 0-d ``int32`` (inserts past
+    the cap). Returns new ``(nbr, deg, over)``, bit for bit the
+    reference's; the inputs are not changed.
+
+    On CPU tensors it runs :func:`row_insert_chunk_plain`; on CUDA tensors
+    it groups the live inserts by row with a stable sort and launches
+    ``csrc/row_insert.cu``, one thread a row (counted in
+    ``row_insert_chunk.launches``), or raises."""
+    _check_rows(nbr, deg, over, src, dst, valid, max_degree)
+    if nbr.device.type == "cpu":
+        return row_insert_chunk_plain(nbr, deg, over, src, dst, valid,
+                                      directed, max_degree)
+    if nbr.device.type != "cuda":
+        raise ValueError(f"row_insert_chunk runs on CPU or CUDA, got "
+                         f"{nbr.device}")
+    nbr, deg, over = nbr.clone(), deg.clone(), over.clone()
+    a, b, ok = _row_inserts(src, dst, valid, directed)
+    n = nbr.shape[0]
+    key = torch.where(ok, a.to(torch.int64), n)
+    key_s, order = torch.sort(key, stable=True)
+    live = int((key_s < n).sum())  # one host read: the live inserts
+    if live == 0:
+        return nbr, deg, over
+    rows = key_s[:live].to(torch.int32).contiguous()
+    vals = b[order[:live]].contiguous()
+    first = torch.ones(live, dtype=torch.bool, device=nbr.device)
+    first[1:] = rows[1:] != rows[:-1]
+    starts = torch.cat([first.nonzero().flatten(),
+                        torch.tensor([live], device=nbr.device)]
+                       ).to(torch.int32)
+    from . import _build
+
+    lib = _build.load("row_insert")
+    with torch.cuda.device(nbr.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.row_insert_launch(
+            nbr.data_ptr(), deg.data_ptr(), over.data_ptr(), rows.data_ptr(),
+            vals.data_ptr(), starts.data_ptr(), starts.shape[0] - 1, n,
+            max_degree, stream)
+    if rc:
+        msg = lib.row_insert_error_string(rc).decode()
+        raise RuntimeError(f"row_insert_chunk launch failed: {msg}")
+    row_insert_chunk.launches += 1
+    return nbr, deg, over
+
+
+row_insert_chunk.launches = 0

@@ -70,3 +70,21 @@ def first_occurrence_mask(keys: torch.Tensor, valid: torch.Tensor,
                         device=keys.device)
     firsts = masked_scatter_min(firsts, keys, pos, valid)
     return valid & (firsts[keys.long()] == pos)
+
+
+def sort_by_key(keys: torch.Tensor, valid: torch.Tensor, *values):
+    """Stable-sort chunk entries by key, padding last (its keys become
+    ``INT_MAX``). Returns ``(sorted_keys, sorted_valid, *sorted_values)``."""
+    sk = torch.where(valid, keys, torch.full_like(keys, INT_MAX))
+    order = torch.sort(sk, stable=True).indices
+    return (sk[order], valid[order], *(v[order] for v in values))
+
+
+def segment_starts(sorted_keys: torch.Tensor,
+                   valid: torch.Tensor) -> torch.Tensor:
+    """Mask of the positions that start a new key run in a sorted, masked
+    array."""
+    prev = torch.cat([torch.full((1,), -1, dtype=sorted_keys.dtype,
+                                 device=sorted_keys.device),
+                      sorted_keys[:-1]])
+    return valid & (sorted_keys != prev)

@@ -133,14 +133,17 @@ def test_plan_knobs_match_and_refuse():
     assert tcc.connected_components(N).host_compress is not None
     with pytest.raises(ValueError, match="ingest_combine"):
         tcc.connected_components(N, ingest_combine=False, codec="compact")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tcc.connected_components(N, windowed=2)
+    # The pane ring and event-time windows are ported: the knobs build and
+    # run; TTL decay off the compact plan refuses as JAX does.
+    assert tcc.connected_components(N, windowed=2).windowed_panes == 2
+    with pytest.raises(ValueError, match="compact"):
+        tcc.connected_components(N, windowed=2, ttl_panes=2)
     src, dst = _zipf_stream()
     stream = t_stream(TSource(src, dst, chunk_size=256, table=TIdentity(N)),
                       N, device="cpu")
     agg = tcc.connected_components(N, ingest_combine=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        next(iter(stream.aggregate(agg, window_ms=10)))
+    first = next(iter(stream.aggregate(agg, window_ms=10)))
+    assert first.dtype == torch.int32 and first.shape == (N,)
     with pytest.raises(TypeError):
         stream.aggregate(agg, bogus_knob=1)
 

@@ -466,8 +466,14 @@ def test_checkpoint_knob_validation(tmp_path):
     with pytest.raises(FileNotFoundError):
         stream.aggregate(agg, checkpoint_path=str(tmp_path / "none.npz"),
                          resume=True).result()
-    for knob, value in (("windowed", 2), ("ttl_panes", 3),
-                        ("allowed_lateness", 5)):
-        with pytest.raises(NotImplementedError, match="item 10"):
+    # The window knobs are ported: a pane ring checkpoints; TTL without
+    # a ring and lateness without window_ms refuse as JAX does.
+    windowed = stream.aggregate(agg, checkpoint_path=str(tmp_path / "w.npz"),
+                                windowed=2, merge_every=MERGE_EVERY)
+    windowed.result()
+    assert windowed.stats["checkpoints"] > 0
+    for knob, value, match in (("ttl_panes", 3, "requires windowed"),
+                               ("allowed_lateness", 5, "window_ms")):
+        with pytest.raises(ValueError, match=match):
             stream.aggregate(agg, checkpoint_path=str(tmp_path / "c.npz"),
                              **{knob: value})

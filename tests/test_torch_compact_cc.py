@@ -770,11 +770,15 @@ def test_engine_knob_validation():
         stream.aggregate(agg, codec_workers=2, ingest_workers=2)
     with pytest.raises(ValueError, match="h2d_depth"):
         stream.aggregate(agg, h2d_depth=-1)
-    for knob, value in (("mesh", object()), ("window_ms", 10),
-                        ("precompressed", True), ("source_provider", True),
-                        ("allowed_lateness", 5), ("windowed", 2)):
+    for knob, value in (("mesh", object()), ("precompressed", True),
+                        ("source_provider", True)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             stream.aggregate(agg, **{knob: value})
+    # The window knobs are ported (they run, or refuse as JAX does).
+    assert len(list(stream.aggregate(agg, window_ms=10))) > 0
+    assert len(list(stream.aggregate(agg, windowed=2, merge_every=4))) > 0
+    with pytest.raises(ValueError, match="window_ms"):
+        stream.aggregate(agg, allowed_lateness=5)
     with pytest.raises(TypeError):
         stream.aggregate(agg, bogus_knob=1)
     with pytest.raises(ValueError, match="no chunk field"):
@@ -800,8 +804,10 @@ def test_compact_plan_refusals():
         tcc.connected_components(N, codec="compact", ingest_combine=False)
     with pytest.raises(ValueError, match="wire"):
         tcc.connected_components_compact(N, wire="bogus")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tcc.connected_components(N, codec="compact", windowed=2)
+    # The pane-ring variant is ported.
+    windowed = tcc.connected_components(N, codec="compact", windowed=2)
+    assert windowed.windowed_panes == 2
+    assert windowed.name == "connected-components-compact-windowed"
     with pytest.raises(NotImplementedError, match="item 8"):
         tcc.connected_components_compact(N, delta_auto_rows=8)
     with pytest.raises(ValueError, match="codec"):

@@ -709,3 +709,196 @@ def test_spanner_checkpoint_resumes_on_card(cuda_device, tmp_path):
     assert res.stats["resumed_at"] == 2 and len(got) == 2
     for a, b in zip(got, full[1:]):
         assert _equal(a, b)
+
+
+# ---------------------------------------------------------------------- #
+# the hash set (csrc/hashset.cu) and the row insert (csrc/row_insert.cu)
+
+
+def _hash_case(cap, n, seed, hi, fill=0):
+    g = np.random.default_rng(seed)
+    table = np.full(cap, kernels.HASH_EMPTY, np.int64)
+    count = 0
+    if fill:  # a prefilled table: long probe runs, wrap-around
+        pre = g.choice(4 * cap, fill, replace=False).astype(np.int64)
+        t, c, _ = kernels.hashset_insert_plain(
+            torch.from_numpy(table), torch.zeros((), dtype=torch.int32),
+            torch.from_numpy(pre), torch.ones(fill, dtype=torch.bool))
+        table, count = t.numpy(), int(c)
+    keys = g.integers(0, hi, n).astype(np.int64)
+    keys[g.random(n) < 0.25] = keys[0]  # in-chunk duplicates
+    valid = g.random(n) < 0.9
+    return (torch.from_numpy(table), torch.tensor(count, dtype=torch.int32),
+            torch.from_numpy(keys), torch.from_numpy(valid))
+
+
+@pytest.mark.parametrize("cap,n,seed,hi,fill", [
+    (16, 10, 0, 40, 0), (1 << 10, 600, 1, 5000, 0),
+    (1 << 12, 2000, 2, 1 << 40, 2000), (64, 40, 3, 200, 20),
+    (1 << 16, 1 << 14, 4, 1 << 20, 1 << 15), (1 << 8, 1 << 10, 5, 120, 0),
+])
+def test_hashset_insert_equals_plain(cuda_device, cap, n, seed, hi, fill):
+    table, count, keys, valid = _hash_case(cap, n, seed, hi, fill)
+    before = kernels.hashset_insert.launches
+    got = kernels.hashset_insert(table.to(cuda_device),
+                                 count.to(cuda_device),
+                                 keys.to(cuda_device), valid.to(cuda_device))
+    assert kernels.hashset_insert.launches == before + 1
+    want = kernels.hashset_insert_plain(table, count, keys, valid)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    absent = max(hi, 4 * cap)  # above every inserted and prefilled key
+    q = torch.cat([keys, torch.arange(absent, absent + 300,
+                                      dtype=torch.int64)])
+    t_dev = got[0]
+    found = kernels.hashset_contains(t_dev, q.to(cuda_device))
+    assert torch.equal(found.cpu(), kernels.hashset_contains_plain(want[0],
+                                                                   q))
+    assert found[:n][valid.to(cuda_device)].all()
+    assert not found[n:].any()
+
+
+def test_hashset_full_table_raises_on_card(cuda_device):
+    table = torch.full((4,), kernels.HASH_EMPTY, dtype=torch.int64,
+                       device=cuda_device)
+    count = torch.zeros((), dtype=torch.int32, device=cuda_device)
+    keys = torch.arange(5, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(RuntimeError, match="hash set full"):
+        kernels.hashset_insert(table, count, keys,
+                               torch.ones(5, dtype=torch.bool,
+                                          device=cuda_device))
+
+
+def test_device_hashset_and_distinct_on_card(cuda_device):
+    from gelly_torch.ops.hashset import DeviceHashSet
+
+    g = np.random.default_rng(9)
+    sets = {d: DeviceHashSet(capacity=16, device=d)
+            for d in ("cpu", cuda_device)}
+    for c in range(8):
+        keys = torch.from_numpy(g.integers(0, 20000, 700).astype(np.int64))
+        valid = torch.from_numpy(g.random(700) < 0.9)
+        masks = [s.insert(keys.to(d), valid.to(d)).cpu()
+                 for d, s in sets.items()]
+        assert torch.equal(masks[0], masks[1])
+    a, b = sets.values()
+    assert torch.equal(a.state.keys, b.state.keys.cpu())
+    # Growth past the first (empty) table re-inserts through the kernel.
+    assert a.rehashes == b.rehashes >= 2
+    src = g.integers(0, 50, 4000)
+    dst = g.integers(0, 50, 4000)
+    out = {}
+    for d in ("cpu", "cuda"):
+        s = edge_stream_from_source(EdgeChunkSource(
+            src, dst, chunk_size=512, table=IdentityVertexTable(64)), 64,
+            device=d)
+        out[d] = [c.valid.cpu() for c in s.distinct(device=True)]
+        host = [c.valid.cpu() for c in s.distinct()]
+        assert all(torch.equal(x, y) for x, y in zip(out[d], host))
+    assert all(torch.equal(x, y) for x, y in zip(out["cpu"], out["cuda"]))
+
+
+def _row_case(n, max_degree, n_e, seed, fill_rows=0, loops=True):
+    g = np.random.default_rng(seed)
+    nbr = np.full((n, max_degree), -1, np.int32)
+    deg = np.zeros(n, np.int32)
+    for r in range(fill_rows):  # full rows: every insert there overflows
+        nbr[r] = np.arange(max_degree) + 1000
+        deg[r] = max_degree
+    src = g.integers(0, n, n_e).astype(np.int32)
+    dst = g.integers(0, n, n_e).astype(np.int32)
+    if loops:
+        dst[::13] = src[::13]  # self-loops
+        src[1::17] = src[0::17][:len(src[1::17])]  # duplicates
+        dst[1::17] = dst[0::17][:len(dst[1::17])]
+    valid = g.random(n_e) < 0.9
+    return (torch.from_numpy(nbr), torch.from_numpy(deg),
+            torch.zeros((), dtype=torch.int32), torch.from_numpy(src),
+            torch.from_numpy(dst), torch.from_numpy(valid))
+
+
+@pytest.mark.parametrize("directed", [False, True])
+@pytest.mark.parametrize("n,max_degree,n_e,seed,fill_rows", [
+    (64, 4, 300, 0, 0), (32, 16, 500, 1, 4), (1 << 12, 8, 1 << 12, 2, 10),
+    (8, 3, 200, 3, 2),
+])
+def test_row_insert_chunk_equals_plain(cuda_device, directed, n, max_degree,
+                                       n_e, seed, fill_rows):
+    state = _row_case(n, max_degree, n_e, seed, fill_rows)
+    before = kernels.row_insert_chunk.launches
+    got = kernels.row_insert_chunk(*(t.to(cuda_device) for t in state),
+                                   directed, max_degree)
+    assert kernels.row_insert_chunk.launches == before + 1
+    want = kernels.row_insert_chunk_plain(*state, directed, max_degree)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    if fill_rows:
+        assert int(got[2]) > 0
+
+
+def test_row_insert_chunk_no_live_lane_launches_nothing(cuda_device):
+    state = [t.to(cuda_device) for t in _row_case(16, 4, 10, 0)]
+    state[5] = torch.zeros_like(state[5])
+    before = kernels.row_insert_chunk.launches
+    nbr, deg, over = kernels.row_insert_chunk(*state, False, 4)
+    assert kernels.row_insert_chunk.launches == before
+    assert torch.equal(nbr, state[0]) and int(over) == 0
+
+
+def test_windowed_and_event_time_paths_on_card(cuda_device):
+    g = np.random.default_rng(3)
+    n = 256
+    src = (g.zipf(1.4, 64 * 20) % n).astype(np.int64)
+    dst = (g.zipf(1.4, 64 * 20) % n).astype(np.int64)
+    ts = np.arange(src.size, dtype=np.int64)
+    g.shuffle(ts[:640])
+
+    def stream(d):
+        return edge_stream_from_source(EdgeChunkSource(
+            src, dst, timestamps=ts, chunk_size=64,
+            table=IdentityVertexTable(n), time=TimeCharacteristic.EVENT),
+            n, device=d)
+
+    for plan, kw in (
+            (lambda: tcc.connected_components(n, codec="compact",
+                                              compact_capacity=n,
+                                              windowed=3, ttl_panes=4),
+             dict(merge_every=2, prefetch_depth=0, h2d_depth=0)),
+            (lambda: tcc.connected_components(n, codec="dense", windowed=4),
+             dict(merge_every=2)),
+            (lambda: tcc.connected_components(n, ingest_combine=False),
+             dict(window_ms=256, allowed_lateness=700))):
+        out = {d: [o.cpu() for o in stream(d).aggregate(plan(), **kw)]
+               for d in ("cpu", "cuda")}
+        assert len(out["cpu"]) == len(out["cuda"]) > 1
+        assert all(torch.equal(a, b) for a, b in zip(out["cpu"],
+                                                      out["cuda"]))
+
+
+def test_neighborhood_and_snapshot_on_card(cuda_device):
+    g = np.random.default_rng(4)
+    n = 128
+    src = g.integers(0, n, 2000)
+    dst = g.integers(0, n, 2000)
+    ts = np.arange(2000, dtype=np.int64)
+
+    def stream(d):
+        return edge_stream_from_source(EdgeChunkSource(
+            src, dst, timestamps=ts, chunk_size=256,
+            table=IdentityVertexTable(n), time=TimeCharacteristic.EVENT),
+            n, device=d)
+
+    res = {}
+    for d in ("cpu", "cuda"):
+        nb = stream(d).build_neighborhood(max_degree=64)
+        nbr, deg = nb.final_adjacency()
+        red = [u.values.cpu()[u.valid.cpu()] for u in
+               stream(d).slice(500, "all").reduce_on_edges(torch.add)]
+        fold = [u.values.cpu() for u in stream(d).slice(500, "out")
+                .fold_neighbors(torch.zeros((), dtype=torch.int64),
+                                lambda a, v, nb_, val: a * 2 + nb_)]
+        res[d] = (nbr.cpu(), deg.cpu(), red, fold)
+    a, b = res["cpu"], res["cuda"]
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    for x, y in zip(a[2] + a[3], b[2] + b[3]):
+        assert torch.equal(x, y)

@@ -303,8 +303,8 @@ def test_degree_distribution_overflow_message_equals_gelly_tpu():
 
 
 def test_unported_knobs_name_their_item():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tdeg.degree_aggregate(16, windowed=2)
+    # windowed= (item 10) is ported: the plan is marked for the ring.
+    assert tdeg.degree_aggregate(16, windowed=2).windowed_panes == 2
     with pytest.raises(NotImplementedError, match="item 11"):
         tdeg.degrees_query(16)
     with pytest.raises(NotImplementedError, match="item 8"):
