@@ -14,7 +14,14 @@ from the same mid-stream state:
   i32[N, D], ``deg`` i32, ``esrc``/``edst`` i32, ``n``, ``overflow``,
   ``deg_overflow`` 0-d i32);
 - the device matching state ``MatchingState`` (``partner`` i32,
-  ``weight`` f32).
+  ``weight`` f32);
+- the device hash set ``HashSetState`` (``keys`` i64[2^k], ``count`` 0-d
+  i32);
+- the windowed compact plan's pane ``CCWindowPane`` (``croot`` i32,
+  ``vertex_of`` i32, ``touched`` bool);
+- the capped-degree row table of ``NeighborhoodStream`` as the tuple
+  ``(nbr, deg, over)`` (``nbr`` i32[N, D], ``deg`` i32[N], ``over`` 0-d
+  i32).
 
 Dtypes and shapes are checked, never widened or narrowed silently.
 """
@@ -26,9 +33,14 @@ import torch
 
 from .core.device import DEFAULT_DEVICE, resolve_device, to_numpy
 from .library.bipartiteness import BipartiteSummary
-from .library.connected_components import CCCompactSummary, CCSummary
+from .library.connected_components import (
+    CCCompactSummary,
+    CCSummary,
+    CCWindowPane,
+)
 from .library.matching import MatchingState
 from .library.spanner import SparseSpannerSummary, SpannerSummary
+from .ops.hashset import HashSetState
 from .ops.parity_unionfind import ParityForest
 
 
@@ -149,13 +161,17 @@ def spanner_summary_to_numpy(summary: SpannerSummary
     return tuple(to_numpy(x) for x in summary)
 
 
+def _row_count(nbr, deg) -> None:
+    if np.shape(nbr)[:1] != np.shape(deg):
+        raise ValueError(f"nbr {np.shape(nbr)} and deg {np.shape(deg)} "
+                         "must have one row count")
+
+
 def sparse_spanner_summary_from_numpy(
         nbr, deg, esrc, edst, n, overflow, deg_overflow,
         device: torch.device | str = DEFAULT_DEVICE) -> SparseSpannerSummary:
     _edge_list(esrc, edst)
-    if np.shape(nbr)[:1] != np.shape(deg):
-        raise ValueError(f"nbr {np.shape(nbr)} and deg {np.shape(deg)} "
-                         "must have one row count")
+    _row_count(nbr, deg)
     return SparseSpannerSummary(*_tensors(
         device, {"nbr": (_I32, 2), "deg": (_I32, 1), **_LIST,
                  "deg_overflow": (_I32, 0)},
@@ -180,3 +196,51 @@ def matching_state_from_numpy(partner, weight,
 def matching_state_to_numpy(state: MatchingState
                             ) -> tuple[np.ndarray, np.ndarray]:
     return to_numpy(state.partner), to_numpy(state.weight)
+
+
+def hashset_state_from_numpy(keys, count,
+                             device: torch.device | str = DEFAULT_DEVICE
+                             ) -> HashSetState:
+    """``keys`` keeps its slot layout, so probes continue where the other
+    package left them; its length must be a power of two."""
+    cap = np.shape(keys)[0] if np.ndim(keys) == 1 else 0
+    if cap < 1 or cap & (cap - 1):
+        raise ValueError(f"keys {np.shape(keys)} must be 1-d of a power-of-"
+                         "two length")
+    return HashSetState(*_tensors(
+        device, {"keys": (_I64, 1), "count": (_I32, 0)},
+        keys=keys, count=count))
+
+
+def hashset_state_to_numpy(state: HashSetState
+                           ) -> tuple[np.ndarray, np.ndarray]:
+    return to_numpy(state.keys), to_numpy(state.count)
+
+
+def cc_window_pane_from_numpy(croot, vertex_of, touched,
+                              device: torch.device | str = DEFAULT_DEVICE
+                              ) -> CCWindowPane:
+    return CCWindowPane(*_tensors(
+        device, {"croot": (_I32, 1), "vertex_of": (_I32, 1),
+                 "touched": (_BOOL, 1)},
+        croot=croot, vertex_of=vertex_of, touched=touched))
+
+
+def cc_window_pane_to_numpy(pane: CCWindowPane) -> tuple[np.ndarray, ...]:
+    return tuple(to_numpy(x) for x in pane)
+
+
+def row_table_from_numpy(nbr, deg, over,
+                         device: torch.device | str = DEFAULT_DEVICE
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``NeighborhoodStream``'s capped-degree rows (``-1`` free) with the
+    degrees and the overflow count."""
+    _row_count(nbr, deg)
+    return tuple(_tensors(
+        device, {"nbr": (_I32, 2), "deg": (_I32, 1), "over": (_I32, 0)},
+        nbr=nbr, deg=deg, over=over))
+
+
+def row_table_to_numpy(nbr: torch.Tensor, deg: torch.Tensor,
+                       over: torch.Tensor) -> tuple[np.ndarray, ...]:
+    return to_numpy(nbr), to_numpy(deg), to_numpy(over)

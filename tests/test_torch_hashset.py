@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from gelly_torch import convert
 from gelly_torch.core.io import EdgeChunkSource as TSource
 from gelly_torch.core.stream import edge_stream_from_source as t_stream
 from gelly_torch.core.vertices import IdentityVertexTable as TIdentity
@@ -121,6 +122,44 @@ def test_device_hashset_growth_equals_jax():
                               np.asarray(jset.state.keys))
         assert int(tset.state.count) == int(jset.state.count)
     assert tset.rehashes >= 2  # 16 -> ... grew by rehash
+
+
+def test_hashset_state_convert_round_trip():
+    """A JAX table continues in the port and the port's in JAX: the slot
+    layout, ``count`` and ``is_new`` stay JAX's."""
+    cap = 256
+    chunks = [_keys(60, 70 + c, hi=600) for c in range(4)]
+    js = jhs.make_hashset(cap)
+    for k, v in chunks[:2]:
+        js, _ = _j_insert(js, jax.numpy.asarray(k), jax.numpy.asarray(v))
+    ts = convert.hashset_state_from_numpy(np.asarray(js.keys),
+                                          np.asarray(js.count), device="cpu")
+    keys, count = convert.hashset_state_to_numpy(ts)
+    assert keys.dtype == np.int64 and count.dtype == np.int32
+    assert np.array_equal(keys, np.asarray(js.keys))
+    assert int(count) == int(js.count)
+    k, v = chunks[2]
+    js, jnew = _j_insert(js, jax.numpy.asarray(k), jax.numpy.asarray(v))
+    ts, tnew = ths.insert_chunk(ts, torch.from_numpy(k), torch.from_numpy(v))
+    assert np.array_equal(tnew.numpy(), np.asarray(jnew))
+    assert np.array_equal(ts.keys.numpy(), np.asarray(js.keys))
+    # The other way: the port's table continues in gelly_tpu.
+    keys, count = convert.hashset_state_to_numpy(ts)
+    back = jhs.HashSetState(jax.numpy.asarray(keys),
+                            jax.numpy.asarray(count))
+    k, v = chunks[3]
+    jb, jbnew = _j_insert(back, jax.numpy.asarray(k), jax.numpy.asarray(v))
+    js, jnew = _j_insert(js, jax.numpy.asarray(k), jax.numpy.asarray(v))
+    assert np.array_equal(np.asarray(jbnew), np.asarray(jnew))
+    assert np.array_equal(np.asarray(jb.keys), np.asarray(js.keys))
+    with pytest.raises(TypeError, match="keys must be int64"):
+        convert.hashset_state_from_numpy(keys.astype(np.int32), count,
+                                         device="cpu")
+    with pytest.raises(TypeError, match="count must be int32"):
+        convert.hashset_state_from_numpy(keys, count.astype(np.int64),
+                                         device="cpu")
+    with pytest.raises(ValueError, match="power-of-two"):
+        convert.hashset_state_from_numpy(keys[:100], count, device="cpu")
 
 
 def test_make_hashset_refuses_non_power_of_two():

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from gelly_torch import TimeCharacteristic as TTime
+from gelly_torch import convert
 from gelly_torch import edge_stream_from_edges as t_edges
 from gelly_torch.core.io import EdgeChunkSource as TSource
 from gelly_torch.core.neighborhood import NeighborhoodStream as TNbr
@@ -315,6 +316,51 @@ def test_row_table_every_chunk_equal_jax(directed, seed, max_degree):
     if t_err is None:
         for v in range(24):
             assert tn.neighbors_of(v) == jn.neighbors_of(v)
+
+
+@pytest.mark.parametrize("directed", [False, True])
+def test_row_table_convert_round_trip(directed):
+    """JAX's row table after two chunks continues through the port's row
+    step, and the port's through JAX's: ``nbr``, ``deg`` and ``over`` stay
+    JAX's at every chunk."""
+    import jax
+
+    from gelly_torch.ops import kernels
+    from gelly_tpu.core.neighborhood import _row_step
+
+    rng = np.random.default_rng(11)
+    src = rng.integers(0, 24, 160).astype(np.int32)
+    dst = rng.integers(0, 24, 160).astype(np.int32)
+    src[:3], dst[:3] = 5, 5  # self-loops and duplicates
+    n, d = 32, 8
+    step = jax.jit(_row_step, static_argnums=(4, 5))
+    chunks = list(JSource(src, dst, chunk_size=40, table=JIdentity(n)))
+    jt = (jnp.full((n, d), -1, jnp.int32), jnp.zeros((n,), jnp.int32),
+          jnp.zeros((), jnp.int32))
+    for c in chunks[:2]:
+        jt = step(*jt, c, directed, d)
+    tt = convert.row_table_from_numpy(*(np.asarray(x) for x in jt),
+                                      device="cpu")
+    for c in chunks[2:]:
+        jt = step(*jt, c, directed, d)
+        tt = kernels.row_insert_chunk(
+            *tt, *(torch.from_numpy(np.array(x))
+                   for x in (c.src, c.dst, c.valid)), directed, d)
+        for a, b in zip(convert.row_table_to_numpy(*tt), jt):
+            assert a.dtype == np.int32 and np.array_equal(a, np.asarray(b))
+    assert int(jt[2]) > 0  # some row passed the cap
+    # The other way: the port's rows continue in gelly_tpu.
+    back = tuple(jnp.asarray(x) for x in convert.row_table_to_numpy(*tt))
+    again = step(*back, chunks[0], directed, d)
+    want = step(*jt, chunks[0], directed, d)
+    for a, b in zip(again, want):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
+    nbr, deg, over = convert.row_table_to_numpy(*tt)
+    with pytest.raises(ValueError, match="one row count"):
+        convert.row_table_from_numpy(nbr, deg[:-1], over, device="cpu")
+    with pytest.raises(TypeError, match="over must be int32"):
+        convert.row_table_from_numpy(nbr, deg, over.astype(np.int64),
+                                     device="cpu")
 
 
 def test_row_table_overflow_raises_jax_message():

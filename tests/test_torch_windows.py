@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from gelly_torch import convert
 from gelly_torch.core.io import EdgeChunkSource as TSource
 from gelly_torch.core.stream import edge_stream_from_source as t_stream
 from gelly_torch.core.vertices import IdentityVertexTable as TIdentity
@@ -287,6 +288,59 @@ def test_pane_combine_flattens_where_the_reference_loses_links():
     oracle = tcc.cc_labels_numpy(src, dst, None, n)
     assert not np.array_equal(want[-1], oracle)  # the reference's fault
     assert np.array_equal(got[-1], oracle)
+
+
+@pytest.mark.parametrize("wire", ["segments", "pairs"])
+def test_window_pane_convert_round_trip(wire):
+    """A JAX pane of the windowed compact plan, folded over two units,
+    continues in the port's pane fold, and the port's pane in JAX's:
+    ``croot``, ``vertex_of``, ``touched`` and the labels stay JAX's."""
+    import jax
+    import jax.numpy as jnp
+
+    from gelly_tpu.core.io import EdgeChunkSource
+    from gelly_tpu.core.vertices import IdentityVertexTable
+    from gelly_tpu.library.connected_components import (
+        CCWindowPane,
+        connected_components_compact,
+    )
+
+    src, dst = _zipf_stream(n_chunks=12, seed=13)
+    kw = dict(compact_capacity=N_V, wire=wire, windowed=3)
+    jplan = connected_components_compact(N_V, **kw)
+    tplan = tcc.connected_components_compact(N_V, **kw)
+    chunks = list(EdgeChunkSource(src, dst, chunk_size=CH,
+                                  table=IdentityVertexTable(N_V)))
+    jplan.on_run_start()
+    units = [jplan.stack_payloads([jplan.host_compress(c)
+                                   for c in chunks[lo:lo + 3]], 1, seq=seq)
+             for seq, lo in enumerate(range(0, len(chunks), 3))]
+    jfold = jax.jit(jplan.fold_compressed)
+    jp = jplan.init()
+    for payload in units[:2]:
+        jp = jfold(jp, payload)
+    tp = convert.cc_window_pane_from_numpy(
+        *(np.asarray(x) for x in jp), device="cpu")
+    for payload in units[2:]:
+        jp = jfold(jp, payload)
+        tp = tplan.fold_compressed(
+            tp, {k: torch.from_numpy(np.array(v)) for k, v in payload.items()})
+    for a, b in zip(convert.cc_window_pane_to_numpy(tp), jp):
+        assert a.dtype == np.asarray(b).dtype
+        assert np.array_equal(a, np.asarray(b))
+    assert np.array_equal(tplan.transform(tp).numpy(),
+                          np.asarray(jplan.transform(jp)))
+    # The other way: the port's pane is read by gelly_tpu's transform.
+    back = CCWindowPane(*(jnp.asarray(x)
+                          for x in convert.cc_window_pane_to_numpy(tp)))
+    assert np.array_equal(np.asarray(jplan.transform(back)),
+                          tplan.transform(tp).numpy())
+    croot, vof, touched = convert.cc_window_pane_to_numpy(tp)
+    with pytest.raises(TypeError, match="touched must be bool"):
+        convert.cc_window_pane_from_numpy(croot, vof, vof, device="cpu")
+    with pytest.raises(ValueError, match="one length"):
+        convert.cc_window_pane_from_numpy(croot, vof[:-1], touched,
+                                          device="cpu")
 
 
 @pytest.mark.parametrize("codec", ["dense", "sparse", "raw"])
