@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive gelly_torch's streaming connected-components, window-triangle,
 degree, bipartiteness, k-spanner and weighted-matching paths, the
-per-window Merger plan, windows (event-time, lateness, pane rings, TTL)
-and the stream API, on one CUDA card.
+per-window Merger plan, windows (event-time, lateness, pane rings, TTL),
+the stream API and the rest of the triangle library (bucketed, capped-
+degree and unpacked dense windows, exact and sampled counts), on one CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -41,10 +43,11 @@ Phases (any failure exits nonzero and prints no result line):
    the card (``((A @ A) * A).sum() / 6`` of the window's simple undirected
    adjacency), and the kernel's launch count must equal the number of
    windows whose group picked the kernel (counted independently);
-7. compact CC path (``bench.py:bench_cc_large``'s call): ``2^28`` Zipf edges
+7. compact CC path (``bench.py:bench_cc_large``'s call, cut in depth to
+   half): ``2^27`` Zipf edges
    (seed 17) over ``2^24`` slots in ``2^20``-edge chunks through
    ``connected_components(2^24, merge="gather", codec="compact",
-   compact_capacity=2^23)`` with ``merge_every=64`` and ``fold_batch=16``
+   compact_capacity=2^23)`` with ``merge_every=32`` and ``fold_batch=16``
    (the native unit codec built from ``native/chunk_combiner.cc`` with
    ``g++``; default codec workers, ``prefetch_depth`` and ``h2d_depth``): a
    warm-up on the first 16 chunks, then two timed runs, each with its
@@ -53,16 +56,16 @@ Phases (any failure exits nonzero and prints no result line):
    alone (unit builder, id session and stacker, no device) with the
    pipeline's worker count. Checks: the segments wire and
    its fold were taken; 4 emissions of ``int32[2^24]``, each equal to the
-   raw plan's (``2^22``-edge chunks, ``merge_every=16``) at the same
+   raw plan's (``2^22``-edge chunks, ``merge_every=8``) at the same
    boundary; the final labels equal the scipy oracle;
-   ``session.assigned`` equals the seen slots; on the first ``2^26``
+   ``session.assigned`` equals the seen slots; on the first ``2^25``
    edges, the pairs wire and the sparse plan (``connected_components(2^24)``,
    which folds with ``union_pairs_compact``) equal the first emission.
    The path launches neither hand-written kernel (counted);
 8. a ``{"kernels": [...]}`` line (the two Pallas counterparts, the
-   three gate and matching kernels, the two hash-set entries and the row
-   insert, each with the JAX function it replaces), then ``{"ok": true,
-   "device": ...}`` last.
+   three gate and matching kernels, the two hash-set entries, the row
+   insert and the sampler step, each with the JAX function it replaces),
+   then ``{"ok": true, "device": ...}`` last.
 
 The durable phases (checkpoints, exactly-once resume, the resilient
 runner), each checking that the native codec was never disabled:
@@ -169,7 +172,7 @@ G. ``bench.py:bench_matching`` (BASELINE #5, no cut): the ratings fixture
    bench's Python oracle, ``events()`` replays to it, ``device=True`` (the
    ``csrc/matching_step.cu`` kernel) equals it (integer weights: no f32
    threshold window), and the kernel equals its plain version on a
-   ``2^16``-edge prefix.
+   ``2^12``-edge prefix.
 
 Windows (phase H) and the stream API (phase I), after phase G (I5 after
 phase 6); each timed run prints its wall, edges a second, stage busy
@@ -212,6 +215,38 @@ I. I1: ``distinct(device=True)`` on the first ``2^23`` edges: masks
    ``slice(2^22, "all")``: ``reduce_on_edges`` (int32 add) and
    ``apply_on_neighbors`` (max neighbour) equal numpy; ``fold_neighbors``
    on I4's first ``2^22`` edges in 4 windows.
+
+The rest of the triangle library (phase J, after I5; each driven run
+prints its wall, edges a second, kernel launches and peak device memory;
+the oracle is the triangle count of each window's simple undirected graph
+with scipy, every edge oriented toward the endpoint of higher ``(degree,
+id)``, and ``diag(A³) / 2`` of the final graph for the exact paths):
+
+J. J1 (``bench.py``'s degree-bucketed cell, no cut): 10,000,000 edges,
+   ``src`` then ``dst`` = ``default_rng(31).zipf(1.6) % 2^20``, ``ts =
+   arange``, 10 windows of 1,000,000, ``window_capacity=4,000,000``,
+   ``batch=10``, through ``window_triangles_bucketed``: every window
+   equals the oracle; the host prep alone and the device count alone.
+   J2: phase 6's stream over ``2^16`` slots (``n*n >= 2^31``: the
+   unpacked dense path), 4 windows of ``2^22``, ``method="auto"``: every
+   window equals the oracle, the wedge kernel launched once a window, and
+   on window 0 ``2^16`` sampled ``W`` entries equal their column
+   products; the kernel's time and bound at ``N = 2^16``. J3: the square
+   of a random Hamiltonian cycle over ``2^24`` slots (seed 23, ``2^25``
+   edges), 4 windows, ``max_degree=8``, ``batch=4``: every window equals
+   the oracle and ``window_triangles_bucketed``; with a degree-9 vertex
+   added to window 2, the default run raises naming ``max_degree`` and
+   ``yield_overflow=True`` flags exactly window 2. J4: exact dense counts,
+   ``synth_edges(2^19, 2^12)`` in ``2^17``-edge chunks (a depth cut of
+   ``bench_triangles``' 2M edges), equal to the oracle's total and
+   per-vertex counts, again with an ``arrival_budget`` forcing rebases.
+   J5: exact capped-degree counts on J3's stream in ``2^22``-edge chunks,
+   ``max_degree=8``: the oracle's total and per-vertex counts; the hub
+   variant raises. J6: ``sampled_triangle_count`` (``S = 2^16``, seed
+   ``0xDEADBEEF``) on J4's stream: the ``csrc/sampler_step.cu`` kernel
+   equals ``sampler_step_plain`` in every field on the first ``2^12``
+   lanes from a fresh state, launches once a chunk, and its estimate is
+   printed beside J4's exact total.
 
 After the checks of each path, one more run of it under ``torch.profiler``
 prints the device's busy time, idle share and the five device ops that
@@ -256,15 +291,16 @@ TRI_BATCH = 4
 WEDGE_REPS = 5
 DENSE_N = 4096  # the dense random wedge check
 
-# The compact CC path: bench.py:bench_cc_large (streaming_cc_large) at its
-# full size, 2^28 edges in 2^20-edge chunks, 4 windows of 2^26 edges.
-CC_EDGES = 1 << 28
+# The compact CC path: bench.py:bench_cc_large (streaming_cc_large) cut in
+# depth to half (2^27 edges: the 2^28-edge stream took 102-118 s to make),
+# 2^20-edge chunks, 4 windows of 2^25 edges.
+CC_EDGES = 1 << 27
 CC_CHUNK = 1 << 20
-CC_MERGE_EVERY = 64
+CC_MERGE_EVERY = 32
 CC_FOLD_BATCH = 16
 CC_COMPACT = 1 << 23
-CC_RAW_MERGE_EVERY = 16  # 2^22-edge raw chunks: the same 2^26 boundaries
-CC_PREFIX = 1 << 26  # one window: the pairs wire and the sparse plan
+CC_RAW_MERGE_EVERY = 8  # 2^22-edge raw chunks: the same 2^25 boundaries
+CC_PREFIX = 1 << 25  # one window: the pairs wire and the sparse plan
 
 # Phase B (kill -9): phase 4's 2^26-edge stream through the compact plan in
 # 2^20-edge chunks, 4 windows of one 16-chunk unit each (a depth cut of
@@ -329,12 +365,12 @@ F4_SAMPLE = 2000
 # Phase G (matching, bench.py:bench_matching's call, no cut): the ratings
 # fixture tiled with a fresh permutation of its 4096 ids a repetition, to
 # 4M edges, in one 2^23-edge chunk; the kernel against its plain version
-# on a 2^16-edge prefix.
+# on a 2^12-edge prefix.
 G_EDGES = 4_000_000
 G_N = 4096
 G_CHUNK = 1 << 23
 G_SEED = 11
-G_PREFIX = 1 << 16
+G_PREFIX = 1 << 12  # a depth cut of 2^16: the plain check on the CPU
 G_TIMED = 1 << 12
 
 
@@ -342,7 +378,7 @@ G_TIMED = 1 << 12
 HAND_KERNELS = ("sorted_window_gather", "wedge_count_matrix",
                 "sparse_insert_edges", "sparse_insert_edges_batched",
                 "matching_step", "hashset_insert", "hashset_contains",
-                "row_insert_chunk")
+                "row_insert_chunk", "sampler_step")
 NO_LAUNCHES = (0,) * len(HAND_KERNELS)
 
 
@@ -355,6 +391,12 @@ def reset_launches(kernels) -> None:
 def launch_counts(kernels) -> tuple:
     """The hand kernels' launch counts, in :data:`HAND_KERNELS` order."""
     return tuple(getattr(kernels, name).launches for name in HAND_KERNELS)
+
+
+def mark(phase: str, t_start: float) -> None:
+    """A line at the start of each phase group: seconds since the start."""
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase {phase}",
+          flush=True)
 
 
 def check(cond, msg: str) -> None:
@@ -2317,10 +2359,11 @@ def matching_phase(torch, device) -> dict:
     print_profiled("phase G device=True", *profiled(
         torch, lambda: wm.weighted_matching(stream(), device=True).final()))
 
-    # The kernel against its plain version: exact on a 2^16-edge prefix
+    # The kernel against its plain version: exact on a 2^12-edge prefix
     # (the plain version on CPU tensors of the same inputs: on the card its
-    # ~25 launches an edge cost about 1 ms an edge of host-side dispatch),
-    # and both timed on the card on a 2^12-edge prefix.
+    # ~25 launches an edge cost about 1 ms an edge of host-side dispatch;
+    # a depth cut of 2^16 edges), and both timed on the card on the same
+    # prefix.
     def prefix(L, dev):
         return [torch.full((G_N,), -1, dtype=torch.int32, device=dev),
                 torch.zeros(G_N, dtype=torch.float32, device=dev)] + [
@@ -3227,6 +3270,584 @@ def snapshot_phase(torch, device, tsrc, tdst, i4) -> None:
           f"wall={fold_wall:.4f} s")
 
 
+# ---------------------------------------------------------------------- #
+# J. the rest of the triangle library
+
+J1_N = 1 << 20
+J1_EDGES = 10_000_000
+J1_SEED = 31
+J1_ZIPF = 1.6
+J1_WINDOW = J1_EDGES // 10
+J1_CAPACITY = 4 * J1_WINDOW
+J1_BATCH = 10
+J1_CHUNK = 1 << 20
+J2_N = 1 << 16
+J2_EDGES = 1 << 24
+J2_WINDOW = 1 << 22
+J2_CAPACITY = 1 << 23
+J2_CHUNK = 1 << 20
+J2_SAMPLE = 1 << 16
+J3_N = 1 << 24
+J3_SEED = 23
+J3_WINDOW = 1 << 23
+J3_CAPACITY = (1 << 24) + 64  # room for the degree-9 vertex's 9 edges
+J3_MAX_DEGREE = 8
+J3_BATCH = 4
+J3_CHUNK = 1 << 22
+J3_HUB_WINDOW = 2
+J4_N = 1 << 12
+J4_EDGES = 1 << 19
+J4_CHUNK = 1 << 17
+J5_CHUNK = 1 << 22
+J6_SAMPLES = 1 << 16
+J6_SEED = 0xDEADBEEF
+J6_PLAIN_LANES = 1 << 12
+# INT32 peak of an H100 SXM: 64 INT32 lanes a SM (half the 128 FP32
+# lanes behind the data sheet's 67 TFLOP/s f32 FMA figure), 132 SMs,
+# 1.98 GHz.
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# Integer operations of one Threefry-2x32 hash: 20 rounds of add, rotate
+# and xor, 5 key injections of 3 adds, the key schedule's 2 xors.
+HASH_OPS = 20 * 3 + 5 * 3 + 2
+
+
+def simple_edges(src, dst, n: int):
+    """``(a, b)``, ``a < b``: the simple undirected graph of an edge list
+    (self-loops and repeats dropped), ``int64``."""
+    a = np.minimum(src, dst).astype(np.int64)
+    b = np.maximum(src, dst).astype(np.int64)
+    keep = a != b
+    key = np.sort(a[keep] * n + b[keep])  # np.unique hashes: slower
+    key = key[np.append(True, key[1:] != key[:-1])]
+    return key // n, key % n
+
+
+def oriented(a, b, n: int):
+    """The simple graph ``(a, b)`` as a scipy CSR matrix ``D`` with each
+    edge oriented toward the endpoint of higher ``(degree, id)``, so that
+    no hub row is squared in a product of ``D``: acyclic, with each
+    triangle ``u -> v -> w, u -> w`` once."""
+    from scipy.sparse import csr_matrix
+
+    deg = np.bincount(a, minlength=n) + np.bincount(b, minlength=n)
+    fwd = (deg[a] < deg[b]) | ((deg[a] == deg[b]) & (a < b))
+    u = np.where(fwd, a, b)
+    v = np.where(fwd, b, a)
+    return csr_matrix((np.ones(u.shape[0], np.int64), (u, v)), shape=(n, n))
+
+
+def triangles_scipy(a, b, n: int) -> int:
+    """Triangles of the simple graph ``(a, b)``: ``sum((D @ D) ∘ D)``."""
+    d = oriented(a, b, n)
+    return int((d @ d).multiply(d).sum())
+
+
+def vertex_triangles_scipy(a, b, n: int, part: str):
+    """One part of ``diag(A³) / 2``, each triangle counted at its three
+    vertices: ``"ends"`` its source (row sums of ``(D @ D) ∘ D``) and sink
+    (column sums), with the total; ``"middle"`` its middle vertex (row
+    sums of ``(Dᵀ D) ∘ D``)."""
+    d = oriented(a, b, n)
+    if part == "ends":
+        t = (d @ d).multiply(d).tocsr()
+        return (np.asarray(t.sum(axis=1)).ravel()
+                + np.asarray(t.sum(axis=0)).ravel()), int(t.sum())
+    return np.asarray((d.T @ d).multiply(d).sum(axis=1)).ravel()
+
+
+def per_vertex_triangles(ends, middle):
+    """``(total, per-vertex int64)`` from the two parts."""
+    (per, total) = ends
+    per = (per + middle).astype(np.int64)
+    check(int(per.sum()) == 3 * total, "oracle: per-vertex sum != 3 x total")
+    return total, per
+
+
+def _oracle_job(job):
+    """One oracle in a worker process: a window's count, or a part of the
+    whole stream's per-vertex counts."""
+    part, src, dst, n = job
+    ab = simple_edges(src, dst, n)
+    if part == "window":
+        return triangles_scipy(*ab, n)
+    return vertex_triangles_scipy(*ab, n, part)
+
+
+def window_oracles(src, dst, n: int, window: int, n_windows: int,
+                   whole: bool = False):
+    """Each window's oracle count (ts = arange: window ``w`` is one
+    contiguous range) and, with ``whole``, the whole stream's ``(total,
+    per-vertex)`` last, in up to 8 spawned worker processes (scipy holds
+    the interpreter lock); ``(results, seconds)``."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    t0 = time.perf_counter()
+    jobs = [(p, src, dst, n) for p in ("ends", "middle")] if whole else []
+    jobs += [("window", src[w * window:(w + 1) * window],
+              dst[w * window:(w + 1) * window], n) for w in range(n_windows)]
+    with ProcessPoolExecutor(
+            max_workers=min(8, len(jobs), os.cpu_count() or 1),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        out = list(pool.map(_oracle_job, jobs))  # the longest jobs first
+    if whole:
+        out = out[2:] + [per_vertex_triangles(*out[:2])]
+    return out, time.perf_counter() - t0
+
+
+def event_stream(src, dst, n: int, chunk: int, device, ts=None):
+    from gelly_torch.core.io import EdgeChunkSource, TimeCharacteristic
+    from gelly_torch.core.stream import edge_stream_from_source
+    from gelly_torch.core.vertices import IdentityVertexTable
+
+    ts = np.arange(src.shape[0], dtype=np.int64) if ts is None else ts
+    return edge_stream_from_source(EdgeChunkSource(
+        src, dst, timestamps=ts, chunk_size=chunk,
+        table=IdentityVertexTable(n), time=TimeCharacteristic.EVENT),
+        n, device=device)
+
+
+def timed_run(torch, device, fn):
+    """``(result, wall_s, peak_bytes, launches)`` of one driven run, every
+    hand kernel's count set to 0 just before it."""
+    from gelly_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches(kernels)
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return (out, wall, torch.cuda.max_memory_allocated(device),
+            launch_counts(kernels))
+
+
+def report_j(name, n_events, wall, peak, launches, extra=""):
+    print(f"phase {name}: {n_events / wall:.1f} edges/s wall={wall:.4f} s "
+          f"peak_mem={peak} B kernel launches={launches}{extra}")
+
+
+def bucketed_phase(torch, device) -> None:
+    """J1: bench.py's degree-bucketed cell (bench_triangles' secondary
+    figure), no cut."""
+    from gelly_torch.library import triangles as tri
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(J1_SEED)
+    src = (rng.zipf(J1_ZIPF, J1_EDGES) % J1_N).astype(np.int32)
+    dst = (rng.zipf(J1_ZIPF, J1_EDGES) % J1_N).astype(np.int32)
+    print(f"phase J1 stream: {J1_EDGES} Zipf-{J1_ZIPF} edges over {J1_N} "
+          f"slots (seed {J1_SEED}), {J1_EDGES // J1_WINDOW} windows of "
+          f"{J1_WINDOW}, in {time.perf_counter() - t0:.2f} s")
+
+    def run():
+        out = list(tri.window_triangles_bucketed(
+            event_stream(src, dst, J1_N, J1_CHUNK, device), J1_WINDOW,
+            window_capacity=J1_CAPACITY, batch=J1_BATCH))
+        return [w for w, _ in out], torch.stack([c for _, c in out]).cpu()
+
+    (wins, counts), wall, peak, launches = timed_run(torch, device, run)
+    report_j("J1 window_triangles_bucketed", J1_EDGES, wall, peak, launches)
+    check(launches == NO_LAUNCHES, "J1 launched a hand kernel")
+    n_windows = J1_EDGES // J1_WINDOW
+    check(wins == list(range(n_windows)), f"J1 windows {wins}")
+    check(counts.dtype == torch.int64, f"J1 count dtype {counts.dtype}")
+    # Host prep alone (the worker's share) and the device count alone.
+    t0 = time.perf_counter()
+    payloads = [tri._bucketize_window(
+        src[lo:lo + J1_WINDOW], dst[lo:lo + J1_WINDOW],
+        np.ones(J1_WINDOW, bool), J1_N, None)
+        for lo in range(0, J1_EDGES, J1_WINDOW)]
+    payload, *shape = tri._stack_bucketed(payloads)
+    host_s = time.perf_counter() - t0
+    dev = tri._tree_map(lambda x: torch.from_numpy(x).to(device), payload)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = tri._window_triangle_count_bucketed_group(dev, *shape).cpu()
+    count_s = time.perf_counter() - t0
+    check(torch.equal(again, counts), "J1 group count != the path's")
+    t_cap, d, h_cap, ladder = shape
+    hot = [p["n_hot"] for p in payloads]
+    classes = {k: sum(p[k][0].shape[0] for p in payloads)
+               for k in ("hh", "hs")}
+    ss = sum(b[0].shape[0] for p in payloads for b in p["buckets"])
+    print(f"  host prep alone {host_s:.4f} s; device count alone "
+          f"{count_s:.4f} s (plain slab loops); t_cap={t_cap} d={d} "
+          f"h_cap={h_cap} ladder={ladder} hot rows {min(hot)}-{max(hot)} "
+          f"a window; edges: sparse-sparse {ss} hot-sparse {classes['hs']} "
+          f"hot-hot {classes['hh']}")
+    del dev, payloads, payload
+    want, oracle_s = window_oracles(src, dst, J1_N, J1_WINDOW, n_windows)
+    for w in range(n_windows):
+        check(int(counts[w]) == want[w],
+              f"J1 window {w}: {int(counts[w])} != oracle {want[w]}")
+    print(f"  oracle: scipy oriented (D @ D) o D equal on {n_windows} "
+          f"windows ({sum(want)} triangles) in {oracle_s:.2f} s")
+    return {"wall_s": wall, "host_s": host_s, "count_s": count_s}
+
+
+def unpacked_dense_phase(torch, device) -> dict:
+    """J2: phase 6's triangle stream over 2^16 slots: n*n >= 2^31, so the
+    unpacked dense path and the wedge kernel at N = 2^16."""
+    from gelly_torch.library import triangles as tri
+    from gelly_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    src, dst = synth_edges(J2_EDGES, J2_N, SEED)
+    n_windows = J2_EDGES // J2_WINDOW
+    print(f"phase J2 stream: {J2_EDGES} Zipf edges over {J2_N} slots (seed "
+          f"{SEED}), {n_windows} windows of {J2_WINDOW}, in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    def stream():
+        return event_stream(src, dst, J2_N, J2_CHUNK, device)
+
+    def run():
+        out = list(tri.window_triangle_counts_batched(
+            stream(), J2_WINDOW, window_capacity=J2_CAPACITY,
+            method="auto", batch=4))
+        return [w for w, _ in out], torch.stack([c for _, c in out]).cpu()
+
+    (wins, counts), wall, peak, launches = timed_run(torch, device, run)
+    wedge_launches = launches[HAND_KERNELS.index("wedge_count_matrix")]
+    report_j("J2 unpacked dense (n*n >= 2^31)", J2_EDGES, wall, peak,
+             launches)
+    check(wins == list(range(n_windows)), f"J2 windows {wins}")
+    check(wedge_launches == n_windows,
+          f"J2: {wedge_launches} wedge launches != {n_windows} windows")
+    want, oracle_s = window_oracles(src, dst, J2_N, J2_WINDOW, n_windows)
+    for w in range(n_windows):
+        check(int(counts[w]) == want[w],
+              f"J2 window {w}: {int(counts[w])} != oracle {want[w]}")
+        print(f"  window {w}: {want[w]} triangles (oracle equal)")
+    print(f"  oracle: scipy in {oracle_s:.2f} s")
+
+    # Window 0's mask: W against sampled column products, the kernel's
+    # time and its bound at N = 2^16.
+    _, view = next(iter(stream().slice(
+        J2_WINDOW, "all", window_capacity=J2_CAPACITY).views()))
+    n = J2_N
+    adj = torch.zeros((n, n), dtype=torch.bool, device=device)
+    ok = view.valid
+    adj.view(-1)[(view.key.long() * n + view.nbr.long())[ok]] = True
+    m = adj.triu_(diagonal=1)
+    del view, adj
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    w_mat = kernels.wedge_count_matrix(m)
+    torch.cuda.synchronize()
+    kernel_peak = torch.cuda.max_memory_allocated(device)
+    g = torch.Generator(device=device).manual_seed(SEED)
+    a = torch.randint(0, n, (J2_SAMPLE,), generator=g, device=device)
+    b = torch.randint(0, n, (J2_SAMPLE,), generator=g, device=device)
+    got = w_mat[a, b]
+    want_w = torch.cat([(m[:, a[i:i + 4096]] & m[:, b[i:i + 4096]]).sum(
+        dim=0) for i in range(0, J2_SAMPLE, 4096)]).float()
+    err = float((got - want_w).abs().max())
+    check(torch.equal(got, want_w),
+          f"J2: W != sampled column products (max abs err {err})")
+    del w_mat
+    flags = kernels.wedge_block_flags_plain(m)
+    ops = kernels.wedge_needed_ops(flags)
+    live = int(flags.sum())
+    del flags
+    torch.cuda.empty_cache()
+    ms = time_ms(torch, lambda: kernels.wedge_count_matrix(m), device,
+                 reps=3, warmup=1)
+    ops_ms = ops / INT8_OPS_PER_S * 1e3
+    bytes_ms = 5 * n * n / HBM_BYTES_PER_S * 1e3
+    bound = max(ops_ms, bytes_ms)
+    by = "operations" if ops_ms >= bytes_ms else "bytes"
+    print(f"kernel wedge_count_matrix at N={n}: {J2_SAMPLE} sampled W "
+          f"entries equal, kernel_ms={ms:.6f} bound_ms={bound:.6f} ({by}: "
+          f"{ops // (2 * kernels.TILE ** 3)} live block triples of {live} "
+          f"live blocks) peak_mem={kernel_peak} B (mask + Mt + W)")
+    del m
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "launches": wedge_launches, "ms": ms,
+            "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+            "peak": peak}
+
+
+def square_cycle(n: int, seed: int):
+    """The square of a random Hamiltonian cycle: edges ``(p[i], p[i+1])``
+    and ``(p[i], p[i+2])`` (mod n) in ``i`` order, ``2n`` edges."""
+    p = np.random.default_rng(seed).permutation(n).astype(np.int32)
+    src = np.repeat(p, 2)
+    dst = np.stack([np.roll(p, -1), np.roll(p, -2)], axis=1).reshape(-1)
+    return src, dst
+
+
+def with_hub(src, dst, at: int, hub: int, nbrs):
+    """The stream with the edges ``(hub, nbrs[i])`` inserted at position
+    ``at``, timestamped ``at`` (ts = arange elsewhere)."""
+    k = len(nbrs)
+    s = np.concatenate([src[:at], np.full(k, hub, np.int32), src[at:]])
+    d = np.concatenate([dst[:at], np.asarray(nbrs, np.int32), dst[at:]])
+    ts = np.concatenate([np.arange(at), np.full(k, at),
+                         np.arange(at, src.shape[0])]).astype(np.int64)
+    return s, d, ts
+
+
+def capped_degree_phase(torch, device, src, dst) -> dict:
+    """J3: the capped-degree sparse windows on the square of a random
+    Hamiltonian cycle over 2^24 slots, then a degree-9 vertex."""
+    from gelly_torch.library import triangles as tri
+
+    n_windows = src.shape[0] // J3_WINDOW
+
+    def capped(stream, **kw):
+        return tri.window_triangle_counts_batched(
+            stream, J3_WINDOW, window_capacity=J3_CAPACITY,
+            batch=J3_BATCH, max_degree=J3_MAX_DEGREE, **kw)
+
+    def run(stream):
+        return list(capped(stream))
+
+    def pulled(out):
+        return [w for w, *_ in out], torch.stack([x[1] for x in out]).cpu()
+
+    (wins, counts), wall, peak, launches = timed_run(
+        torch, device, lambda: pulled(run(event_stream(
+            src, dst, J3_N, J3_CHUNK, device))))
+    report_j("J3 capped-degree windows", src.shape[0], wall, peak, launches)
+    check(launches == NO_LAUNCHES, "J3 launched a hand kernel")
+    check(wins == list(range(n_windows)), f"J3 windows {wins}")
+    _, cols = next(tri._out_windows(event_stream(
+        src, dst, J3_N, J3_CHUNK, device), J3_WINDOW, J3_CAPACITY, J3_N))
+    cols = [torch.from_numpy(x).to(device) for x in cols]
+    body_ms = time_ms(torch, lambda: tri._window_triangle_count_sparse(
+        *cols, J3_N, J3_MAX_DEGREE), device, reps=3, warmup=1)
+    print(f"  the sparse window count alone (plain slab loop, "
+          f"{2 * cols[0].shape[0]} lanes): {body_ms:.6f} ms a window")
+    del cols
+    (bw, bcounts), bwall, bpeak, _ = timed_run(
+        torch, device, lambda: pulled(list(tri.window_triangles_bucketed(
+            event_stream(src, dst, J3_N, J3_CHUNK, device), J3_WINDOW,
+            window_capacity=J3_CAPACITY, batch=J3_BATCH))))
+    report_j("J3 window_triangles_bucketed, same stream", src.shape[0],
+             bwall, bpeak, launches)
+    # The windows' oracles and, beside them, J5's (the whole stream).
+    want, oracle_s = window_oracles(src, dst, J3_N, J3_WINDOW, n_windows,
+                                    whole=True)
+    whole = want.pop()
+    for w in range(n_windows):
+        check(int(counts[w]) == want[w] == int(bcounts[w]),
+              f"J3 window {w}: {int(counts[w])} / bucketed "
+              f"{int(bcounts[w])} != oracle {want[w]}")
+        print(f"  window {w}: {want[w]} triangles (capped and bucketed "
+              f"equal the oracle)")
+    print(f"  oracle: scipy in {oracle_s:.2f} s (with J5's whole-stream "
+          f"oracle)")
+
+    # A vertex of degree 9 in window 2.
+    at = J3_HUB_WINDOW * J3_WINDOW
+    hub = int(src[at + 1])
+    hs, hd, hts = with_hub(src, dst, at, hub, src[:2 * 9:2])
+
+    def hub_stream():
+        return event_stream(hs, hd, J3_N, J3_CHUNK, device, hts)
+
+    try:
+        run(hub_stream())
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    check(raised is not None and f"max_degree={J3_MAX_DEGREE}" in raised,
+          f"J3: the degree-9 vertex did not raise naming max_degree "
+          f"({raised})")
+    flagged, tail = [], None
+    try:
+        for w, _c, over in capped(hub_stream(), yield_overflow=True):
+            if int(over):
+                flagged.append(w)
+    except ValueError as e:
+        tail = str(e)
+    check(flagged == [J3_HUB_WINDOW],
+          f"J3: yield_overflow flagged windows {flagged}")
+    print(f"  degree-9 vertex {hub} in window {J3_HUB_WINDOW}: default run "
+          f"raised ({raised}); yield_overflow flagged windows {flagged}, "
+          f"then raised after the group ({tail is not None})")
+    return {"wall_s": wall, "bucketed_wall_s": bwall, "hub": (hs, hd, hts),
+            "whole": whole, "body_ms": body_ms}
+
+
+def exact_dense_phase(torch, device) -> dict:
+    """J4: exact dense counts, bench_triangles' slot count, a depth cut
+    of its edges; a run with rebases."""
+    from gelly_torch.library import triangles as tri
+
+    src, dst = synth_edges(J4_EDGES, J4_N, SEED)
+
+    def stream():
+        return event_stream(src, dst, J4_N, J4_CHUNK, device)
+
+    def run(**kw):
+        s = tri.exact_triangle_count(stream(), **kw)
+        return s, s.final()
+
+    (s, st), wall, peak, launches = timed_run(torch, device, run)
+    report_j("J4 exact dense", J4_EDGES, wall, peak, launches)
+    check(launches == NO_LAUNCHES, "J4 launched a hand kernel")
+    ab = simple_edges(src, dst, J4_N)
+    total, per = per_vertex_triangles(
+        vertex_triangles_scipy(*ab, J4_N, "ends"),
+        vertex_triangles_scipy(*ab, J4_N, "middle"))
+    check(int(st.total) == total, f"J4 total {int(st.total)} != {total}")
+    check(np.array_equal(st.counts.cpu().numpy(), per),
+          "J4 per-vertex counts != diag(A^3) / 2")
+    fc = s.final_counts()
+    check(fc[-1] == total and len(fc) == 1 + int((per > 0).sum()),
+          "J4 final_counts")
+    budget = 3 * J4_CHUNK
+    (rs, rst), rwall, _, _ = timed_run(
+        torch, device, lambda: run(arrival_budget=budget))
+    check(rs.stats["rebases"] >= 2, f"J4 rebases {rs.stats}")
+    check(int(rst.total) == total
+          and np.array_equal(rst.counts.cpu().numpy(), per),
+          "J4 rebased run != oracle")
+    print(f"  {total} triangles, per-vertex counts equal diag(A^3)/2; "
+          f"arrival_budget={budget}: {rs.stats['rebases']} rebases, equal "
+          f"(wall {rwall:.4f} s)")
+    chunk = next(iter(stream())).to_fields(device, ("src", "dst", "valid"))
+    fresh = tri.fresh_triangle_counts(J4_N, device)
+    body_ms = time_ms(torch, lambda: tri._exact_step(fresh, chunk), device,
+                      reps=3, warmup=1)
+    print(f"  _exact_step alone (plain slab loop): {body_ms:.6f} ms a "
+          f"{J4_CHUNK}-edge chunk")
+    return {"wall_s": wall, "total": total, "src": src, "dst": dst,
+            "body_ms": body_ms}
+
+
+def exact_sparse_phase(torch, device, src, dst, hub, oracle) -> dict:
+    """J5: exact capped-degree counts on J3's stream (``oracle``: its
+    total and per-vertex counts), and its hub variant."""
+    from gelly_torch.library import triangles as tri
+
+    def stream(s=src, d=dst, ts=None):
+        return event_stream(s, d, J3_N, J5_CHUNK, device, ts)
+
+    def run():
+        s = tri.exact_triangle_count(stream(), max_degree=J3_MAX_DEGREE)
+        return s.final()
+
+    st, wall, peak, launches = timed_run(torch, device, run)
+    report_j("J5 exact sparse", src.shape[0], wall, peak, launches)
+    check(launches == NO_LAUNCHES, "J5 launched a hand kernel")
+    total, per = oracle
+    check(int(st.total) == total, f"J5 total {int(st.total)} != {total}")
+    check(np.array_equal(st.counts.cpu().numpy(), per),
+          "J5 per-vertex counts != diag(A^3) / 2")
+    check(int(st.overflow) == 0, "J5 overflowed")
+    del st
+    chunk = next(iter(stream())).to_fields(device, ("src", "dst", "valid"))
+    fresh = tri.fresh_sparse_triangle_counts(J3_N, J3_MAX_DEGREE, device)
+    slab = max(8, (1 << 22) // J3_MAX_DEGREE ** 2)
+    body_ms = time_ms(torch, lambda: tri._sparse_exact_step(
+        fresh, chunk, J3_MAX_DEGREE, slab), device, reps=3, warmup=1)
+    print(f"  _sparse_exact_step alone (plain slab loop): {body_ms:.6f} ms "
+          f"a {J5_CHUNK}-edge chunk")
+    del chunk, fresh
+    hs, hd, hts = hub
+    cut = 2 * J3_WINDOW + 9  # the hub's window and what precedes it
+    try:
+        tri.exact_triangle_count(stream(hs[:cut], hd[:cut], hts[:cut]),
+                                 max_degree=J3_MAX_DEGREE).final()
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    check(raised is not None
+          and f"exceeded max_degree {J3_MAX_DEGREE}" in raised,
+          f"J5: the hub variant did not raise ({raised})")
+    print(f"  {total} triangles, per-vertex counts equal diag(A^3)/2; the "
+          f"hub variant raised ({raised})")
+    return {"wall_s": wall, "body_ms": body_ms}
+
+
+def sampler_phase(torch, device, src, dst, exact_total) -> dict:
+    """J6: the sampled estimator on J4's stream; its kernel against the
+    plain version from a fresh state."""
+    from gelly_torch.library import triangles as tri
+    from gelly_torch.ops import kernels
+
+    lanes = [torch.from_numpy(x[:J6_PLAIN_LANES]).to(device) for x in (
+        src, dst, np.ones(J6_PLAIN_LANES, bool))]
+    n_v = int(max(src[:J4_CHUNK].max(), dst[:J4_CHUNK].max())) + 1
+    fresh = tuple(tri._fresh_sampler(J6_SAMPLES, J6_SEED, device))
+    got = kernels.sampler_step(fresh, *lanes, n_v)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = kernels.sampler_step_plain(fresh, *lanes, n_v)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    for name, a, b in zip(tri.SamplerState._fields, got, want):
+        check(torch.equal(a, b), f"J6: kernel != plain, field {name}")
+    ms = time_ms(torch, lambda: kernels.sampler_step(fresh, *lanes, n_v),
+                 device, reps=5, warmup=1)
+    live = J6_PLAIN_LANES - int((src[:J6_PLAIN_LANES]
+                                 == dst[:J6_PLAIN_LANES]).sum())
+    coins = int((want[0] != fresh[0]).sum())  # instances that drew
+    # Every instance: a key split a lane, the coin's key and uniform a
+    # live lane, and 4 hashes a draw.
+    ops = HASH_OPS * (J6_SAMPLES * (J6_PLAIN_LANES + 2 * live) + 4 * coins)
+    nbytes = 2 * 34 * J6_SAMPLES + 9 * J6_PLAIN_LANES
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound = max(ops_ms, bytes_ms)
+    by = "operations" if ops_ms >= bytes_ms else "bytes"
+    print(f"kernel sampler_step: S={J6_SAMPLES}, first {J6_PLAIN_LANES} "
+          f"lanes from a fresh state: every field equal to the plain "
+          f"version; kernel_ms={ms:.6f} plain_ms={plain_ms:.6f} (host "
+          f"clock) bound_ms={bound:.6f} ({by}: {ops} int32 ops / "
+          f"{INT32_OPS_PER_S:.4g}, {nbytes} B)")
+
+    def run():
+        return list(tri.sampled_triangle_count(
+            event_stream(src, dst, J4_N, J4_CHUNK, device), J6_SAMPLES,
+            seed=J6_SEED))
+
+    est, wall, peak, launches = timed_run(torch, device, run)
+    n_launch = launches[HAND_KERNELS.index("sampler_step")]
+    n_chunks = -(-src.shape[0] // J4_CHUNK)
+    report_j("J6 sampled_triangle_count", src.shape[0], wall, peak,
+             launches, f" estimates={['%.1f' % e for e in est]}")
+    check(n_launch == n_chunks,
+          f"J6: {n_launch} sampler launches != {n_chunks} chunks")
+    check(len(est) == n_chunks and all(np.isfinite(est)) and est[-1] > 0,
+          f"J6 estimates {est}")
+    print(f"  estimate {est[-1]:.1f} beside the exact {exact_total} "
+          f"(ratio {est[-1] / exact_total:.4f})")
+    return {"launches": n_launch, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "wall_s": wall}
+
+
+def triangle_library_phases(torch, device) -> dict:
+    """J1-J6 in order, each freeing what it held."""
+    out = {"j1": bucketed_phase(torch, device)}
+    torch.cuda.empty_cache()
+    out["j2"] = unpacked_dense_phase(torch, device)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    src, dst = square_cycle(J3_N, J3_SEED)
+    print(f"phase J3 stream: the square of a random Hamiltonian cycle over "
+          f"{J3_N} slots (seed {J3_SEED}), {src.shape[0]} edges, in "
+          f"{time.perf_counter() - t0:.2f} s")
+    j3 = capped_degree_phase(torch, device, src, dst)
+    torch.cuda.empty_cache()
+    j4 = exact_dense_phase(torch, device)
+    torch.cuda.empty_cache()
+    out["j5"] = exact_sparse_phase(torch, device, src, dst, j3.pop("hub"),
+                                   j3.pop("whole"))
+    del src, dst
+    torch.cuda.empty_cache()
+    out["j6"] = sampler_phase(torch, device, j4.pop("src"), j4.pop("dst"),
+                              j4["total"])
+    torch.cuda.empty_cache()
+    out["j3"], out["j4"] = j3, j4
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3286,6 +3907,7 @@ def main() -> int:
     unique_cap = max(1 << 20, 3 * (CHUNK >> 4))
 
     # 3. kernel phase at the path's shapes
+    mark("3", t_start)
     chunks = iter(EdgeChunkSource(src, dst, chunk_size=CHUNK,
                                   table=IdentityVertexTable(N_VERTICES)))
     c1 = next(chunks).to(device)
@@ -3327,6 +3949,7 @@ def main() -> int:
     del c1, c2, table, uu, live0, sidx, got, want, hit
 
     # 4. path phase at full size
+    mark("4", t_start)
     def run_path(backend: str):
         stream = edge_stream_from_source(
             EdgeChunkSource(src, dst, chunk_size=CHUNK,
@@ -3394,10 +4017,12 @@ def main() -> int:
                    *profiled(torch, lambda: run_path("kernel")))
 
     # F1. the per-window Merger plan, and host_precombine, on this stream
+    mark("F1", t_start)
     merger_phase(torch, device, src, dst,
                  labels[:F1_PRECOMBINE_CHUNKS // MERGE_EVERY])
 
     # C. the resilient raw fold with the kernel, under two faults
+    mark("C, B", t_start)
     resilient_raw_phase(torch, device, src, dst, labels[-1], st["wall_s"])
     # B. kill -9 of a child checkpointing the compact plan, then resume
     kill9_phase(torch, device, src, dst, oracle)
@@ -3405,6 +4030,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # D. degrees; E. bipartiteness (both on phase 4's stream at Twitter
+    mark("D, E", t_start)
     # scale, after their bench-size cells)
     degrees_phase(torch, device, src, dst)
     torch.cuda.empty_cache()
@@ -3412,6 +4038,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # F2-F4. the k-spanner; G. weighted matching
+    mark("F2-F4, G", t_start)
     f2_stream: dict = {}
     f2 = spanner_bench_phase(torch, device, f2_stream)
     torch.cuda.empty_cache()
@@ -3424,6 +4051,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # H. windows; I. the stream API (H1-I4 on phase 4's stream)
+    mark("H, I1-I4", t_start)
     pane_ring_phase(torch, device, src, dst, labels)
     ttl_phase(torch, device)
     event_time_phase(torch, device, src, dst, labels, dedup_chunks)
@@ -3452,6 +4080,7 @@ def main() -> int:
             TRI_N)
 
     # 5. wedge kernel phase: the first window's wedge mask
+    mark("5", t_start)
     torch.backends.cuda.matmul.allow_tf32 = False
     _, col0 = next(tri._packed_out_windows(
         tri_stream(), TRI_WINDOW_MS, TRI_WINDOW_CAPACITY, TRI_N))
@@ -3535,6 +4164,7 @@ def main() -> int:
           f"{host_s:.4f} s")
 
     # 6. triangle path at full width
+    mark("6", t_start)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     reset_launches(kernels)
@@ -3584,15 +4214,22 @@ def main() -> int:
             batch=TRI_BATCH)]).cpu()))
 
     # I5. SnapshotStream over this stream's windows
+    mark("I5", t_start)
     snapshot_phase(torch, device, tsrc, tdst, i4)
     del tsrc, tdst, tts, counts
     i4.pop("s"), i4.pop("d")
     torch.cuda.empty_cache()
 
+    # J. the rest of the triangle library
+    mark("J", t_start)
+    j = triangle_library_phases(torch, device)
+
     # 7. the compact CC path
+    mark("7", t_start)
     compact_cc_phase(torch, device)
 
     # 8. result lines
+    mark("8", t_start)
     print(json.dumps({"kernels": [{
         "name": "sorted_window_gather",
         "route": "cuda",
@@ -3621,6 +4258,11 @@ def main() -> int:
         "live_block_triples": triples,
         "prepass_ms": prepass_ms,
         "prepass_share": prepass_ms / wedge_ms,
+        "unpacked_path": {"launches": j["j2"]["launches"],
+                          "n": J2_N, "ms": j["j2"]["ms"],
+                          "bound_ms": j["j2"]["bound_ms"],
+                          "bound_by": j["j2"]["bound_by"],
+                          "sampled_max_abs_err": j["j2"]["max_abs_err"]},
     }, {
         "name": "sparse_insert_edges",
         "route": "cuda",
@@ -3707,6 +4349,19 @@ def main() -> int:
         "library_ms": None,
         "path_chunk_ms": i4["chunk_ms"],
         "timed_on": f"I4's first {I4_PLAIN_EDGES} edges",
+    }, {
+        "name": "sampler_step",
+        "route": "cuda",
+        "source": "gelly_torch/csrc/sampler_step.cu",
+        "replaces": "gelly_tpu/library/triangles.py:1421",
+        "launches": j["j6"]["launches"],
+        "max_abs_err": 0,
+        "ms": j["j6"]["ms"],
+        "plain_ms": j["j6"]["plain_ms"],
+        "bound_ms": j["j6"]["bound_ms"],
+        "bound_by": j["j6"]["bound_by"],
+        "library_ms": None,
+        "timed_on": f"J6's first {J6_PLAIN_LANES} lanes, S={J6_SAMPLES}",
     }]}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,15 @@ from the same mid-stream state:
   ``vertex_of`` i32, ``touched`` bool);
 - the capped-degree row table of ``NeighborhoodStream`` as the tuple
   ``(nbr, deg, over)`` (``nbr`` i32[N, D], ``deg`` i32[N], ``over`` 0-d
-  i32).
+  i32);
+- the exact triangle counts ``TriangleCounts`` (``adj`` i32[N, N],
+  ``counts`` i64, ``total`` 0-d i64, ``n_seen`` 0-d i32) and
+  ``SparseTriangleCounts`` (``nbr``/``aidx`` i32[N, D], ``deg`` i32,
+  ``counts`` i64, ``total`` 0-d i64, ``n_seen``/``overflow`` 0-d i32);
+- the sampled estimator's ``SamplerState`` (``src``/``trg``/``third``/
+  ``v_at`` i32[S], ``src_found``/``trg_found`` bool[S], ``edge_count``
+  0-d i32, ``keys`` as JAX holds them: u32[S, 2] bit patterns, which the
+  port keeps as ``int64`` values).
 
 Dtypes and shapes are checked, never widened or narrowed silently.
 """
@@ -40,6 +48,11 @@ from .library.connected_components import (
 )
 from .library.matching import MatchingState
 from .library.spanner import SparseSpannerSummary, SpannerSummary
+from .library.triangles import (
+    SamplerState,
+    SparseTriangleCounts,
+    TriangleCounts,
+)
 from .ops.hashset import HashSetState
 from .ops.parity_unionfind import ParityForest
 
@@ -244,3 +257,70 @@ def row_table_from_numpy(nbr, deg, over,
 def row_table_to_numpy(nbr: torch.Tensor, deg: torch.Tensor,
                        over: torch.Tensor) -> tuple[np.ndarray, ...]:
     return to_numpy(nbr), to_numpy(deg), to_numpy(over)
+
+
+def triangle_counts_from_numpy(adj, counts, total, n_seen,
+                               device: torch.device | str = DEFAULT_DEVICE
+                               ) -> TriangleCounts:
+    """The dense exact stream's state (``adj`` holds arrival indices,
+    ``INT_MAX`` where absent)."""
+    if np.ndim(adj) != 2 or np.shape(adj)[0] != np.shape(adj)[1]:
+        raise ValueError(f"adj {np.shape(adj)} must be square")
+    return TriangleCounts(*_tensors(
+        device, {"adj": (_I32, 2), "counts": (_I64, 1), "total": (_I64, 0),
+                 "n_seen": (_I32, 0)},
+        adj=adj, counts=counts, total=total, n_seen=n_seen))
+
+
+def triangle_counts_to_numpy(state: TriangleCounts
+                             ) -> tuple[np.ndarray, ...]:
+    return tuple(to_numpy(x) for x in state)
+
+
+def sparse_triangle_counts_from_numpy(
+        nbr, aidx, deg, counts, total, n_seen, overflow,
+        device: torch.device | str = DEFAULT_DEVICE) -> SparseTriangleCounts:
+    """The capped-degree exact stream's state (``nbr`` -1 and ``aidx``
+    ``INT_MAX`` where a row slot is free)."""
+    if np.shape(nbr) != np.shape(aidx):
+        raise ValueError(f"nbr {np.shape(nbr)} and aidx {np.shape(aidx)} "
+                         "differ")
+    _row_count(nbr, deg)
+    return SparseTriangleCounts(*_tensors(
+        device, {"nbr": (_I32, 2), "aidx": (_I32, 2), "deg": (_I32, 1),
+                 "counts": (_I64, 1), "total": (_I64, 0),
+                 "n_seen": (_I32, 0), "overflow": (_I32, 0)},
+        nbr=nbr, aidx=aidx, deg=deg, counts=counts, total=total,
+        n_seen=n_seen, overflow=overflow))
+
+
+def sparse_triangle_counts_to_numpy(state: SparseTriangleCounts
+                                    ) -> tuple[np.ndarray, ...]:
+    return tuple(to_numpy(x) for x in state)
+
+
+def sampler_state_from_numpy(src, trg, third, src_found, trg_found, v_at,
+                             edge_count, keys,
+                             device: torch.device | str = DEFAULT_DEVICE
+                             ) -> SamplerState:
+    """``keys`` are JAX's ``uint32 [S, 2]`` key data; the port holds them
+    as ``int64`` values."""
+    keys = np.asarray(keys)
+    if keys.dtype != np.uint32 or keys.shape != (np.shape(src)[0], 2):
+        raise TypeError(f"keys must be uint32 [S, 2], got {keys.dtype} "
+                        f"{keys.shape}")
+    fields = _tensors(
+        device, {"src": (_I32, 1), "trg": (_I32, 1), "third": (_I32, 1),
+                 "src_found": (_BOOL, 1), "trg_found": (_BOOL, 1),
+                 "v_at": (_I32, 1), "edge_count": (_I32, 0)},
+        src=src, trg=trg, third=third, src_found=src_found,
+        trg_found=trg_found, v_at=v_at, edge_count=edge_count)
+    return SamplerState(*fields, torch.from_numpy(
+        keys.astype(np.int64)).to(resolve_device(device)))
+
+
+def sampler_state_to_numpy(state: SamplerState) -> tuple[np.ndarray, ...]:
+    """The state's fields, ``keys`` back as ``uint32`` bit patterns."""
+    out = [to_numpy(x) for x in state]
+    out[7] = out[7].astype(np.uint32)
+    return tuple(out)

@@ -26,7 +26,11 @@ from .degrees import (
 from .iterative_cc import IterativeCCStream
 from .matching import weighted_matching
 from .spanner import host_spanner, spanner, spanner_edges, spanner_query
-from .triangles import window_triangles
+from .triangles import (
+    exact_triangle_count,
+    sampled_triangle_count,
+    window_triangles,
+)
 
 __all__ = [
     "BipartitenessResult",
@@ -38,8 +42,10 @@ __all__ = [
     "degree_aggregate",
     "degree_distribution",
     "degrees_query",
+    "exact_triangle_count",
     "host_spanner",
     "labels_to_components",
+    "sampled_triangle_count",
     "sharded_degrees",
     "spanner",
     "spanner_edges",

@@ -75,6 +75,12 @@ SIGNATURES = {
             [_P] * 6 + [ctypes.c_int] * 3 + [_P], ctypes.c_int),
         "row_insert_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
+    "sampler_step": {
+        "sampler_step_launch": (
+            [_P] * 11 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],
+            ctypes.c_int),
+        "sampler_step_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
     "matching_step": {
         "matching_step_launch": (
             [_P] * 6 + [ctypes.c_longlong, ctypes.c_int, _P], ctypes.c_int),

@@ -1,8 +1,8 @@
 """Hand-written Hopper kernels and their plain PyTorch versions.
 
 Counterpart of ``gelly_tpu/ops/pallas_kernels.py``, both of its kernels,
-and of three XLA device loops that eager PyTorch cannot run as written
-(the spanner's sequential gates and the matching fold, below):
+and of the XLA device loops that eager PyTorch cannot run as written
+(below):
 
 - :func:`wedge_count_matrix` — the wrapper of the CUDA kernels
   ``csrc/wedge_count_matrix.cu`` (replacing the Pallas ``_wedge_kernel``):
@@ -34,7 +34,9 @@ and of three XLA device loops that eager PyTorch cannot run as written
   ``csrc/hashset.cu``, replacing ``gelly_tpu/ops/hashset.py``'s
   ``insert_chunk`` and ``contains_chunk``;
 - :func:`row_insert_chunk` — the wrapper of ``csrc/row_insert.cu``,
-  replacing ``gelly_tpu/core/neighborhood.py``'s ``_row_step``.
+  replacing ``gelly_tpu/core/neighborhood.py``'s ``_row_step``;
+- :func:`sampler_step` — the wrapper of ``csrc/sampler_step.cu``,
+  replacing ``gelly_tpu/library/triangles.py``'s ``_sampler_step``.
 
 Each of these runs its ``*_plain`` version on CPU tensors and its kernel
 on CUDA tensors (or raises), and counts launches in ``.launches``.
@@ -1010,3 +1012,112 @@ def row_insert_chunk(nbr, deg, over, src, dst, valid, directed: bool,
 
 
 row_insert_chunk.launches = 0
+
+
+# --------------------------------------------------------------------- #
+# the sampled triangle estimator's reservoir step
+
+def _check_sampler(state, src, dst, valid) -> int:
+    """The instance count ``S`` of a sampler state ``(src, trg, third,
+    src_found, trg_found, v_at, edge_count, keys)``; raises on a field of
+    another type, shape or device."""
+    s = state[0].shape[0]
+    want = (torch.int32, torch.int32, torch.int32, torch.bool, torch.bool,
+            torch.int32, torch.int32, torch.int64)
+    shapes = ((s,),) * 6 + ((), (s, 2))
+    for x, dtype, shape in zip(state, want, shapes):
+        if x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(f"sampler state field {x.dtype} "
+                             f"{tuple(x.shape)}, want {dtype} {shape}")
+    if any(x.device != state[0].device for x in state):
+        raise ValueError("sampler state fields on different devices")
+    _check_lanes(state[0].device, src=src, dst=dst, valid=valid)
+    return s
+
+
+def sampler_step_plain(state, src, dst, valid, num_vertices: int):
+    """Plain PyTorch version of :func:`sampler_step`: the lanes one at a
+    time (one host read of the chunk), each vectorised over the ``S``
+    instances with :mod:`.threefry`. The third-vertex draw is taken only
+    on lanes where some instance's coin lands (it changes nothing where
+    none does)."""
+    from . import threefry
+
+    srcs, trg, third, src_found, trg_found, v_at, edge_count, keys = (
+        x.clone() for x in state)
+    span = torch.full_like(v_at, max(int(num_vertices) - 2, 1))
+    ec = int(edge_count)
+    for u, v, ok in zip(src.tolist(), dst.tolist(), valid.tolist()):
+        ok = ok and u != v  # self-loops: no-op events
+        parts = threefry.split(keys, 3)
+        keys = parts[:, 0].contiguous()
+        if not ok:
+            continue
+        # The f64 coin against the edge index rounded to f32, as JAX's
+        # ``uniform(k1) * i.astype(f32) < 1.0`` compares under x64.
+        fi = float(np.float32(ec + 1))
+        coin = threefry.uniform(parts[:, 1]) * fi < 1.0
+        if bool(coin.any()):
+            a, b = min(u, v), max(u, v)
+            cand = threefry.randint(parts[:, 2], span)
+            cand = cand + (cand >= a).to(torch.int32)
+            cand = cand + (cand >= b).to(torch.int32)
+            srcs = torch.where(coin, u, srcs)
+            trg = torch.where(coin, v, trg)
+            third = torch.where(coin, cand, third)
+            src_found = src_found & ~coin
+            trg_found = trg_found & ~coin
+            v_at = torch.where(coin, int(num_vertices), v_at)
+        src_found |= (((srcs == u) & (third == v))
+                      | ((third == u) & (srcs == v)))
+        trg_found |= (((trg == u) & (third == v))
+                      | ((third == u) & (trg == v)))
+        ec += 1
+    edge_count = torch.full_like(edge_count, ec)
+    return srcs, trg, third, src_found, trg_found, v_at, edge_count, keys
+
+
+def sampler_step(state, src, dst, valid, num_vertices: int):
+    """One chunk of the sampled triangle estimator's reservoir step
+    (``gelly_tpu``'s ``_sampler_step``): every instance walks every lane
+    in stream order. A lane splits each key in three (the next key, the
+    coin's, the draw's); a live lane (``valid`` and not a self-loop) flips
+    the f64 coin ``uniform * f32(i) < 1`` (``i`` the 1-based live edge
+    index), resamples the instance's edge and third vertex (uniform over
+    ``[0, max(V-2, 1))`` shifted past both endpoints) where it lands, and
+    marks the wedge edges it closes. ``state`` is the tuple ``(src, trg,
+    third, src_found, trg_found, v_at, edge_count, keys)`` (``keys``
+    ``int64 [S, 2]`` holding ``u32`` values); returns the new one, the
+    input's tensors unchanged.
+
+    On CPU tensors it runs :func:`sampler_step_plain`; on CUDA tensors it
+    launches ``csrc/sampler_step.cu`` (one thread an instance, counted in
+    ``sampler_step.launches``) on copies of the state, or raises."""
+    s = _check_sampler(state, src, dst, valid)
+    dev = state[0].device
+    if dev.type == "cpu":
+        return sampler_step_plain(state, src, dst, valid, num_vertices)
+    if dev.type != "cuda":
+        raise ValueError(f"sampler_step runs on CPU or CUDA, got {dev}")
+    out = [x.clone() for x in state]
+    n_lanes = src.shape[0]
+    if s == 0 or n_lanes == 0:
+        return tuple(out)
+    from . import _build
+
+    lib = _build.load("sampler_step")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.sampler_step_launch(
+            *(x.data_ptr() for x in out), src.data_ptr(), dst.data_ptr(),
+            valid.data_ptr(), n_lanes, s, int(num_vertices), stream)
+    if rc:
+        msg = lib.sampler_step_error_string(rc).decode()
+        raise RuntimeError(f"sampler_step launch failed: {msg}")
+    sampler_step.launches += 1
+    live = (valid & (src != dst)).sum(dtype=torch.int32)
+    out[6] = state[6] + live
+    return tuple(out)
+
+
+sampler_step.launches = 0

@@ -88,3 +88,17 @@ def segment_starts(sorted_keys: torch.Tensor,
                                  device=sorted_keys.device),
                       sorted_keys[:-1]])
     return valid & (sorted_keys != prev)
+
+
+def unique_pairs_mask(src: torch.Tensor, dst: torch.Tensor,
+                      valid: torch.Tensor, num_slots: int) -> torch.Tensor:
+    """First occurrence of each ``(src, dst)`` pair within the chunk: a
+    stable ``int64`` key sort and :func:`segment_starts`, scattered back
+    to the chunk order."""
+    key = src.long() * num_slots + dst.long()
+    sk = torch.where(valid, key, torch.iinfo(torch.int64).max)
+    order = torch.sort(sk, stable=True).indices
+    starts = segment_starts(sk[order], valid[order])
+    out = torch.zeros_like(valid)
+    out[order] = starts
+    return out

@@ -902,3 +902,104 @@ def test_neighborhood_and_snapshot_on_card(cuda_device):
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     for x, y in zip(a[2] + a[3], b[2] + b[3]):
         assert torch.equal(x, y)
+
+
+# --------------------------------------------------------------------- #
+# the triangle library's rest: the sampler kernel, the wedge kernel at
+# N = 2^16, and the sparse, bucketed and exact paths on the card
+
+
+def _sampler_state(s, seed, device):
+    """A random mid-stream sampler state (found flags, third vertices and
+    draw-time counts set) on ``device``."""
+    g = np.random.default_rng(seed)
+    st = list(ttri._fresh_sampler(s, seed))
+    st[0] = torch.from_numpy(g.integers(-1, 50, s).astype(np.int32))
+    st[1] = torch.from_numpy(g.integers(-1, 50, s).astype(np.int32))
+    st[2] = torch.from_numpy(g.integers(-1, 50, s).astype(np.int32))
+    st[3] = torch.from_numpy(g.random(s) < 0.5)
+    st[4] = torch.from_numpy(g.random(s) < 0.5)
+    st[5] = torch.from_numpy(g.integers(0, 60, s).astype(np.int32))
+    st[6] = torch.tensor(int(g.integers(0, 3000)), dtype=torch.int32)
+    return tuple(x.to(device) for x in st)
+
+
+@pytest.mark.parametrize("s,lanes,n_v,seed", [
+    (1, 50, 10, 1), (100, 777, 50, 2), (4096, 2048, 50, 3),
+    (300, 5000, 3, 4), (129, 64, 2, 5)])
+def test_sampler_step_equals_plain(cuda_device, s, lanes, n_v, seed):
+    g = np.random.default_rng(seed)
+    state = _sampler_state(s, seed, cuda_device)
+    src = torch.from_numpy(g.integers(0, 50, lanes).astype(np.int32))
+    dst = torch.from_numpy(g.integers(0, 50, lanes).astype(np.int32))
+    src[::7] = dst[::7]  # self-loops
+    valid = torch.from_numpy(g.random(lanes) < 0.9)
+    args = [x.to(cuda_device) for x in (src, dst, valid)]
+    before = kernels.sampler_step.launches
+    got = kernels.sampler_step(state, *args, n_v)
+    torch.cuda.synchronize()
+    assert kernels.sampler_step.launches == before + 1
+    want = kernels.sampler_step_plain(state, *args, n_v)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b.cpu())
+    # the input state is unchanged
+    assert torch.equal(state[7].cpu(), _sampler_state(s, seed, "cpu")[7])
+
+
+def test_wedge_count_matrix_at_2_16_equals_column_products(cuda_device):
+    # N^2 = 2^32: the first size whose byte offsets pass 32 bits.
+    n = 1 << 16
+    g = torch.Generator(device=cuda_device).manual_seed(16)
+    m = torch.zeros((n, n), dtype=torch.bool, device=cuda_device)
+    rows = torch.randint(0, n, (1 << 22,), generator=g, device=cuda_device)
+    cols = torch.randint(0, n, (1 << 22,), generator=g, device=cuda_device)
+    m[rows, cols] = True
+    m[-128:, -128:] = True  # the last block: offsets past 2^32
+    m.triu_(diagonal=1)
+    before = kernels.wedge_count_matrix.launches
+    w = kernels.wedge_count_matrix(m)
+    torch.cuda.synchronize()
+    assert kernels.wedge_count_matrix.launches == before + 1
+    a = torch.cat([torch.randint(0, n, (4096,), generator=g,
+                                 device=cuda_device),
+                   torch.arange(n - 128, n, device=cuda_device)])
+    b = torch.cat([torch.randint(0, n, (4096,), generator=g,
+                                 device=cuda_device),
+                   torch.arange(n - 128, n, device=cuda_device).flip(0)])
+    want = (m[:, a] & m[:, b]).sum(dim=0).float()
+    assert torch.equal(w[a, b], want)
+    assert torch.equal(w[b, a], want)
+    last = float(m[:, n - 1].sum())  # column n-1's ones, the block's 127
+    assert last >= 127 and float(w[n - 1, n - 1]) == last
+
+
+def _tri_stream(src, dst, n, chunk, device):
+    ts = np.arange(src.shape[0], dtype=np.int64)
+    return edge_stream_from_source(EdgeChunkSource(
+        src, dst, timestamps=ts, chunk_size=chunk,
+        table=IdentityVertexTable(n), time=TimeCharacteristic.EVENT),
+        n, device=device)
+
+
+def test_triangle_library_on_card_equals_cpu(cuda_device):
+    g = np.random.default_rng(9)
+    n = 512
+    src = (g.zipf(1.3, 6000) % n).astype(np.int32)
+    dst = (g.zipf(1.3, 6000) % n).astype(np.int32)
+    res = {}
+    for d in ("cpu", "cuda"):
+        s = lambda: _tri_stream(src, dst, n, 512, d)  # noqa: E731
+        buck = [int(c) for _, c in ttri.window_triangles_bucketed(
+            s(), 2000, window_capacity=8192, batch=2)]
+        sparse = [int(c) for _, c in ttri.window_triangle_counts_batched(
+            s(), 2000, window_capacity=8192, batch=2, max_degree=n)]
+        dense = ttri.exact_triangle_count(s(), arrival_budget=2500).final()
+        sp = ttri.exact_triangle_count(s(), max_degree=n).final()
+        est = list(ttri.sampled_triangle_count(s(), 256, seed=3))
+        res[d] = (buck, sparse, [x.cpu() for x in dense],
+                  [x.cpu() for x in sp], est)
+    a, b = res["cpu"], res["cuda"]
+    assert a[0] == b[0] == a[1] == b[1] and sum(a[0]) > 0
+    for x, y in zip(a[2] + a[3], b[2] + b[3]):
+        assert torch.equal(x, y)
+    assert a[4] == b[4]

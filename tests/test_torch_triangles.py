@@ -356,11 +356,12 @@ def test_pick_method_keys_on_the_device():
 
 @pytest.mark.parametrize("case", ["max_degree", "n2_over_2^31",
                                   "allowed_lateness", "bucketed"])
-def test_unported_parts_raise(case):
+def test_unported_parts_raise(case, monkeypatch):
+    # Each of these raised NotImplementedError until its slice was ported
+    # (the lateness buffer with the windows slice, the rest with the
+    # triangle library); each now gives gelly_tpu's result.
     j, t = _tri_streams()
     if case == "allowed_lateness":
-        # Ported with the windows slice: the lateness buffer gives
-        # gelly_tpu's window buffers.
         got = list(t.slice(400, allowed_lateness=50).host_buffers())
         want = list(j.slice(400, allowed_lateness=50).host_buffers())
         assert [w for w, _ in got] == [w for w, _ in want]
@@ -368,15 +369,26 @@ def test_unported_parts_raise(case):
             assert all(np.array_equal(x, np.asarray(y))
                        for x, y in zip(a, b))
         return
+    if case == "max_degree":
+        want = dict(jtri.window_triangles(j, 400, max_degree=8))
+        got = dict(t_window_triangles(t, 400, max_degree=8))
+    elif case == "n2_over_2^31":
+        # The unpacked path, counted on the stream's 32 slots (a real
+        # bool[2^16, 2^16] adjacency is 4 GiB).
+        for mod in (jtri, ttri):
+            real = mod._window_triangle_count
+            monkeypatch.setattr(
+                mod, "_window_triangle_count",
+                lambda view, capacity, method="gather", real=real:
+                real(view, 32, method))
+        want = dict(jtri.window_triangles(j, 400, capacity=1 << 16))
+        got = dict(t_window_triangles(t, 400, capacity=1 << 16))
+    else:
+        want = {w: int(c) for w, c in jtri.window_triangles_bucketed(j, 400)}
+        got = {w: int(c) for w, c in ttri.window_triangles_bucketed(t, 400)}
+    assert got == want == GOLDEN
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if case == "max_degree":
-            list(t_window_triangles(t, 400, max_degree=8))
-        elif case == "n2_over_2^31":
-            list(t_window_triangles(t, 400, capacity=1 << 16))
-        elif case == "allowed_lateness":
-            list(t.slice(400, allowed_lateness=50).host_buffers())
-        else:
-            list(ttri.window_triangles_bucketed(t, 400))
+        list(ttri.sharded_window_triangles(t, 400))
 
 
 # --------------------------------------------------------------------- #
