@@ -2,9 +2,9 @@
 """Drive gelly_torch's streaming connected-components, window-triangle,
 degree, bipartiteness, k-spanner and weighted-matching paths, the
 per-window Merger plan, windows (event-time, lateness, pane rings, TTL),
-the stream API and the rest of the triangle library (bucketed, capped-
-degree and unpacked dense windows, exact and sampled counts), on one CUDA
-card.
+the stream API, the rest of the triangle library (bucketed, capped-
+degree and unpacked dense windows, exact and sampled counts) and the
+mesh (four logical shards), on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -64,8 +64,9 @@ Phases (any failure exits nonzero and prints no result line):
    The path launches neither hand-written kernel (counted);
 8. a ``{"kernels": [...]}`` line (the two Pallas counterparts, the
    three gate and matching kernels, the two hash-set entries, the row
-   insert and the sampler step, each with the JAX function it replaces),
-   then ``{"ok": true, "device": ...}`` last.
+   insert and the sampler step, each with the JAX function it replaces,
+   the gather's and the sampler's launches on the mesh as
+   ``mesh_launches``), then ``{"ok": true, "device": ...}`` last.
 
 The durable phases (checkpoints, exactly-once resume, the resilient
 runner), each checking that the native codec was never disabled:
@@ -234,7 +235,11 @@ J. J1 (``bench.py``'s degree-bucketed cell, no cut): 10,000,000 edges,
    products; the kernel's time and bound at ``N = 2^16``. J3: the square
    of a random Hamiltonian cycle over ``2^24`` slots (seed 23, ``2^25``
    edges), 4 windows, ``max_degree=8``, ``batch=4``: every window equals
-   the oracle and ``window_triangles_bucketed``; with a degree-9 vertex
+   the oracle (the square of a cycle has its counts in closed form: a
+   window of W edges ``W/2 - 1``, the stream ``n``, 3 at every vertex;
+   the formula held to scipy on a ``2^16``-slot cycle, a cut of PR 9's
+   scipy oracle at ``2^24`` slots) and ``window_triangles_bucketed``;
+   with a degree-9 vertex
    added to window 2, the default run raises naming ``max_degree`` and
    ``yield_overflow=True`` flags exactly window 2. J4: exact dense counts,
    ``synth_edges(2^19, 2^12)`` in ``2^17``-edge chunks (a depth cut of
@@ -244,9 +249,42 @@ J. J1 (``bench.py``'s degree-bucketed cell, no cut): 10,000,000 edges,
    ``max_degree=8``: the oracle's total and per-vertex counts; the hub
    variant raises. J6: ``sampled_triangle_count`` (``S = 2^16``, seed
    ``0xDEADBEEF``) on J4's stream: the ``csrc/sampler_step.cu`` kernel
-   equals ``sampler_step_plain`` in every field on the first ``2^12``
-   lanes from a fresh state, launches once a chunk, and its estimate is
+   equals ``sampler_step_plain`` in every field on the first ``2^9``
+   lanes from a fresh state (a cut of ``2^12``: the plain version's host
+   loop took 29-37 s), launches once a chunk, and its estimate is
    printed beside J4's exact total.
+
+The mesh (phase K): ``make_mesh(4, devices=[cuda:0] * 4)``, four logical
+shards on the card, each holding its state at full width (K1-K4 after
+phase I, on phase 4's stream; K5-K6 after phase J, on J4's stream); each
+run prints its wall, edges a second, host syncs, kernel launches and peak
+device memory, and its launch counts are set to 0 just before it:
+
+K. K1: phase 4's stream in ``2^24``-edge chunks (a shard folds ``2^22``
+   lanes: the dedup fold) through the raw plan, ``merge_every=2``, with
+   ``fold_backend="kernel"`` under the replicated and the delta merge
+   and ``"plain"`` under the replicated: every emission equals phase 4's
+   (S = 1) at its boundary and the last scipy's, ``merge_modes`` counts
+   each close, the gather launched 3 times a dedup shard-chunk, and
+   ``sorted_window_gather`` equals its plain version at a shard's shapes.
+   K2: the compact cell's call on the same ``2^26`` edges in
+   ``2^20``-edge chunks with the cid-space delta merge, once with
+   ``merge_every=16`` and ``fold_batch=16`` and once in event-time
+   windows of ``2^24`` (each chunk split on the host with
+   ``split_chunk_host``): every emission equals phase 4's. K3:
+   ``ShardedCC`` over the same edges as 4 folds of ``2^24`` pairs, hook
+   rounds and lookup levels printed a fold, ``labels()`` after folds 2
+   and 4 equal to K1's emissions, ``dropped == 0``. K4: ``ShardedDegrees``
+   (``mode="auto"``) on D2's deletion stream: the degrees equal the
+   signed ``bincount``, ``fallback_chunks`` and ``dropped`` printed. K5:
+   ``sampled_triangle_count(mesh=)``, ``S = 2^16`` instances on J4's
+   stream: every instance's state equals the unsharded run's (J6's), the
+   estimates J6's within ``rtol=1e-6``, the kernel launched once a shard
+   a chunk and equal to its plain version at a shard's 2^14 instances.
+   K6: J4's stream as one ``2^20``-ms window through
+   ``sharded_window_triangles`` (equal to ``window_triangles`` and J4's
+   exact total) and through ``ShardedExactTriangles`` (equal to
+   ``exact_triangle_count`` vertex by vertex).
 
 After the checks of each path, one more run of it under ``torch.profiler``
 prints the device's busy time, idle share and the five device ops that
@@ -3301,7 +3339,8 @@ J4_CHUNK = 1 << 17
 J5_CHUNK = 1 << 22
 J6_SAMPLES = 1 << 16
 J6_SEED = 0xDEADBEEF
-J6_PLAIN_LANES = 1 << 12
+J6_PLAIN_LANES = 1 << 9  # a cut of 2^12: the plain version's host loop
+J3_SMALL_N = 1 << 16  # the J3/J5 oracle formula held to scipy here
 # INT32 peak of an H100 SXM: 64 INT32 lanes a SM (half the 128 FP32
 # lanes behind the data sheet's 67 TFLOP/s f32 FMA figure), 132 SMs,
 # 1.98 GHz.
@@ -3628,18 +3667,32 @@ def capped_degree_phase(torch, device, src, dst) -> dict:
             window_capacity=J3_CAPACITY, batch=J3_BATCH))))
     report_j("J3 window_triangles_bucketed, same stream", src.shape[0],
              bwall, bpeak, launches)
-    # The windows' oracles and, beside them, J5's (the whole stream).
-    want, oracle_s = window_oracles(src, dst, J3_N, J3_WINDOW, n_windows,
-                                    whole=True)
-    whole = want.pop()
+    # The square of a Hamiltonian cycle has its triangle counts in closed
+    # form: a window of W edges holds W/2 cycle steps and the triangles
+    # (p_i, p_i+1, p_i+2) of all but its last step (that one's third edge
+    # is the next step's); the whole stream holds n triangles, 3 at every
+    # vertex (n >= 7). The formula is held to scipy on a 2^16-slot cycle
+    # (the oracle of PR 9 ran scipy at 2^24 slots: 51 s).
+    want = [J3_WINDOW // 2 - 1] * n_windows
+    whole = (J3_N, np.full(J3_N, 3, np.int64))
+    ssrc, sdst = square_cycle(J3_SMALL_N, J3_SEED)
+    small_window = ssrc.shape[0] // n_windows
+    small, oracle_s = window_oracles(ssrc, sdst, J3_SMALL_N, small_window,
+                                     n_windows, whole=True)
+    small_total, small_per = small.pop()
+    check(small == [small_window // 2 - 1] * n_windows
+          and small_total == J3_SMALL_N and (small_per == 3).all(),
+          f"the square-cycle formula != scipy at {J3_SMALL_N} slots "
+          f"({small}, total {small_total})")
     for w in range(n_windows):
         check(int(counts[w]) == want[w] == int(bcounts[w]),
               f"J3 window {w}: {int(counts[w])} / bucketed "
               f"{int(bcounts[w])} != oracle {want[w]}")
         print(f"  window {w}: {want[w]} triangles (capped and bucketed "
               f"equal the oracle)")
-    print(f"  oracle: scipy in {oracle_s:.2f} s (with J5's whole-stream "
-          f"oracle)")
+    print(f"  oracle: the square-cycle formula ({want[0]} a window, "
+          f"{J3_N} in all, 3 a vertex), equal to scipy at {J3_SMALL_N} "
+          f"slots in {oracle_s:.2f} s")
 
     # A vertex of degree 9 in window 2.
     at = J3_HUB_WINDOW * J3_WINDOW
@@ -3819,7 +3872,7 @@ def sampler_phase(torch, device, src, dst, exact_total) -> dict:
     print(f"  estimate {est[-1]:.1f} beside the exact {exact_total} "
           f"(ratio {est[-1] / exact_total:.4f})")
     return {"launches": n_launch, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": by, "wall_s": wall}
+            "bound_ms": bound, "bound_by": by, "wall_s": wall, "est": est}
 
 
 def triangle_library_phases(torch, device) -> dict:
@@ -3841,11 +3894,342 @@ def triangle_library_phases(torch, device) -> dict:
                                    j3.pop("whole"))
     del src, dst
     torch.cuda.empty_cache()
-    out["j6"] = sampler_phase(torch, device, j4.pop("src"), j4.pop("dst"),
+    out["j6"] = sampler_phase(torch, device, j4["src"], j4["dst"],
                               j4["total"])
     torch.cuda.empty_cache()
     out["j3"], out["j4"] = j3, j4
     return out
+
+
+# Phase K: the mesh, four logical shards on the one card.
+K_SHARDS = 4
+K1_CHUNK = 1 << 24  # a shard folds 2^22 lanes: the dedup fold and kernel
+K1_MERGE_EVERY = 2
+K2_CHUNK = 1 << 20
+K2_MERGE_EVERY = 16  # a multiple of the shards: 2^24-edge windows
+K2_FOLD_BATCH = 16
+K3_FOLD = 1 << 24  # pairs a ShardedCC fold
+K5_PLAIN_LANES = 1 << 8
+K6_WINDOW = 1 << 20  # J4's 2^19 edges: one window
+
+
+def k_mesh(device):
+    from gelly_torch.parallel.mesh import make_mesh
+
+    return make_mesh(K_SHARDS, devices=[device] * K_SHARDS)
+
+
+def k_run(torch, device, fn):
+    """``(result, stats)`` of one mesh run, every hand kernel's launch
+    count and the host-sync count set to 0 just before it."""
+    from gelly_torch.ops import kernels, unionfind
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches(kernels)
+    unionfind.host_sync.count = 0
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return out, {"wall_s": wall, "host_syncs": unionfind.host_sync.count,
+                 "peak_mem_bytes": torch.cuda.max_memory_allocated(device),
+                 "launches": dict(zip(HAND_KERNELS, launch_counts(kernels)))}
+
+
+def k_report(name: str, n_events: int, st: dict, extra: str = "") -> None:
+    launched = {k: v for k, v in st["launches"].items() if v}
+    print(f"phase {name}: {n_events / st['wall_s']:.1f} edges/s "
+          f"wall={st['wall_s']:.4f} s host_syncs={st['host_syncs']} "
+          f"peak_mem={st['peak_mem_bytes']} B kernel launches={launched}"
+          f"{extra}")
+
+
+def k_expect_launches(name: str, st: dict, expect: dict) -> None:
+    for k, v in st["launches"].items():
+        check(v == expect.get(k, 0), f"{name}: {k} launched {v} times, "
+                                     f"expected {expect.get(k, 0)}")
+
+
+def mesh_cc_phase(torch, device, src, dst, labels, oracle,
+                  dedup_chunks: int) -> dict:
+    """K1-K4 on phase 4's stream over four logical shards of the card:
+    the raw CC plan (kernel and plain folds, replicated and delta
+    merges), the compact plan (merge_every and event-time staging, the
+    cid-space delta merge), ShardedCC and ShardedDegrees."""
+    from gelly_torch.core.io import EdgeChunkSource, TimeCharacteristic
+    from gelly_torch.core.stream import edge_stream_from_source
+    from gelly_torch.core.vertices import IdentityVertexTable
+    from gelly_torch.library import connected_components as cc
+    from gelly_torch.library import degrees as deg
+    from gelly_torch.ops import kernels, unionfind
+    from gelly_torch.parallel.partition import split_chunk
+    from gelly_torch.parallel.sharded_cc import ShardedCC
+
+    n = N_VERTICES
+    mesh = k_mesh(device)
+    print(f"phase K mesh: {mesh}")
+
+    # K1: the raw plan. An emission every 2^25 edges: phase 4's emissions
+    # 1 and 3 (the S = 1 run at the same boundaries), the last scipy's.
+    n_chunks = N_EDGES // K1_CHUNK
+    want = [labels[(k + 1) * K1_MERGE_EVERY * K1_CHUNK // (MERGE_EVERY * CHUNK)
+                   - 1] for k in range(n_chunks // K1_MERGE_EVERY)]
+    check(np.array_equal(want[-1], oracle), "K1: phase 4's last emission")
+
+    def raw(backend: str, mode: str):
+        stream = edge_stream_from_source(EdgeChunkSource(
+            src, dst, chunk_size=K1_CHUNK, table=IdentityVertexTable(n)),
+            n, device=device)
+        agg = cc.connected_components(n, ingest_combine=False,
+                                      fold_backend=backend, merge_mode=mode)
+        res = stream.aggregate(agg, mesh=mesh, merge_every=K1_MERGE_EVERY)
+        return list(res), res.stats
+
+    k1 = {}
+    for backend, mode in (("kernel", "replicated"), ("kernel", "delta"),
+                          ("plain", "replicated")):
+        (out, stats), st = k_run(torch, device, lambda: raw(backend, mode))
+        got = [x.cpu().numpy() for x in out]
+        name = f"K1 raw CC fold_backend={backend} merge_mode={mode}"
+        k_report(name, N_EDGES, st, f" host_syncs/shard-fold="
+                 f"{st['host_syncs'] / (n_chunks * K_SHARDS):.2f} "
+                 f"merge_modes={stats['merge_modes']}")
+        check(len(got) == len(want), f"{name}: {len(got)} emissions")
+        for i, (a, b) in enumerate(zip(got, want)):
+            check(a.dtype == np.int32 and a.shape == (n,),
+                  f"{name} emission {i}: {a.dtype} {a.shape}")
+            check(np.array_equal(a, b),
+                  f"{name} emission {i} != the S = 1 run's")
+        check(stats["merge_modes"][mode] == len(want),
+              f"{name}: merge_modes {stats['merge_modes']}")
+        gathers = 3 * dedup_chunks if backend == "kernel" else 0
+        k_expect_launches(name, st, {"sorted_window_gather": gathers})
+        k1[(backend, mode)] = st
+    check(k1[("kernel", "replicated")]["launches"]["sorted_window_gather"]
+          > 0, "K1 launched no sorted_window_gather")
+    print(f"  every emission equals phase 4's at its boundary, the last "
+          f"scipy's; the gather launched 3 times a dedup shard-chunk "
+          f"({dedup_chunks} of {n_chunks * K_SHARDS})")
+
+    # The gather at one shard's shapes: shard 0's slice of the first chunk
+    # folded as the table, shard 1's dedup lanes as the indices.
+    c0 = next(iter(EdgeChunkSource(src, dst, chunk_size=K1_CHUNK,
+                                   table=IdentityVertexTable(n))))
+    s0, s1 = (s.to(device) for s in split_chunk(c0, K_SHARDS)[:2])
+    cap = max(1 << 20, 3 * (s0.capacity >> 4))
+    table = unionfind.union_edges_dedup(
+        unionfind.fresh_forest(n, device), s0.src, s0.dst, s0.valid,
+        unique_cap=cap, backend="plain")
+    uu, _, live0, _ = unionfind._dedup_pairs(s1.src, s1.dst, s1.valid,
+                                             min(cap, s1.capacity))
+    sidx = torch.where(live0, uu, n - 1).contiguous()
+    g_kernel = kernels.sorted_window_gather(table, sidx)
+    g_plain = kernels.sorted_window_gather_plain(table, sidx)
+    gather_err = int((g_kernel.long() - g_plain.long()).abs().max())
+    check(torch.equal(g_kernel, g_plain),
+          f"K1: sorted_window_gather != plain at the shard's shape "
+          f"(max abs err {gather_err})")
+    print(f"  sorted_window_gather at a shard's shape (L={sidx.shape[0]}, "
+          f"table n={n}): equal to its plain version")
+    del c0, s0, s1, table, uu, live0, sidx, g_kernel, g_plain
+    torch.cuda.empty_cache()
+
+    # K2: the compact cell's call, cut to 2^26 edges (2^24-edge windows):
+    # merge_every staging and event-time staging (split_chunk_host), the
+    # cid-space delta merge. Labels are canonical, so each emission equals
+    # phase 4's (S = 1) at the same boundary.
+    ts = np.arange(N_EDGES, dtype=np.int64)
+
+    def compact(event_time: bool):
+        agg = cc.connected_components(n, merge="gather", codec="compact",
+                                      compact_capacity=CC_COMPACT,
+                                      merge_mode="delta")
+        kw = dict(timestamps=ts, time=TimeCharacteristic.EVENT) \
+            if event_time else {}
+        stream = edge_stream_from_source(EdgeChunkSource(
+            src, dst, chunk_size=K2_CHUNK, table=IdentityVertexTable(n),
+            **kw), n, device=device)
+        run_kw = (dict(window_ms=MERGE_EVERY * CHUNK) if event_time
+                  else dict(merge_every=K2_MERGE_EVERY,
+                            fold_batch=K2_FOLD_BATCH))
+        res = stream.aggregate(agg, mesh=mesh, **run_kw)
+        out = list(res)
+        return out, res, agg
+
+    for event_time in (False, True):
+        (out, res, agg), st = k_run(torch, device,
+                                    lambda: compact(event_time))
+        name = ("K2 compact, event-time windows" if event_time
+                else "K2 compact, merge_every")
+        busy = " ".join(f"{k}={v:.4f}"
+                        for k, v in sorted(res.timer.busy().items()))
+        k_report(name, N_EDGES, st, f" units={res.stats['units']} "
+                 f"merge_modes={res.stats['merge_modes']} "
+                 f"assigned={agg.session.assigned} wire={agg.wire}")
+        print(f"  stage busy s: {busy}")
+        check_native_codecs(name)
+        check(agg.wire == "segments", f"{name}: wire {agg.wire}")
+        check(len(out) == len(labels), f"{name}: {len(out)} emissions")
+        for i, (a, b) in enumerate(zip(out, labels)):
+            check(np.array_equal(a.cpu().numpy(), b),
+                  f"{name} emission {i} != the S = 1 run's")
+        check(res.stats["merge_modes"]["delta"] == len(labels),
+              f"{name}: merge_modes {res.stats['merge_modes']}")
+        check(agg.session.assigned == int((oracle >= 0).sum()),
+              f"{name}: assigned {agg.session.assigned}")
+        k_expect_launches(name, st, {})
+        del out, res, agg
+    del ts
+    torch.cuda.empty_cache()
+
+    # K3: ShardedCC over the same edges as pairs, a label pull every 2^25.
+    k3 = ShardedCC(n, mesh=mesh)
+    folds = []
+    for i in range(N_EDGES // K3_FOLD):
+        lo = i * K3_FOLD
+        before = dict(k3.stats)
+        _, st = k_run(torch, device, lambda: k3.fold(
+            src[lo:lo + K3_FOLD], dst[lo:lo + K3_FOLD]))
+        rounds = k3.stats["rounds"] - before["rounds"]
+        levels = k3.stats["chase_levels"] - before["chase_levels"]
+        folds.append((st["wall_s"], rounds, levels, st["host_syncs"]))
+        k_report(f"K3 ShardedCC fold {i}", K3_FOLD, st,
+                 f" hook_rounds={rounds} chase_levels={levels}")
+        if (i + 1) % 2 == 0:
+            t = time.perf_counter()
+            lab = k3.labels()
+            check(np.array_equal(lab, want[i // 2]),
+                  f"K3: labels after fold {i} != K1's emission {i // 2}")
+            print(f"  labels() after fold {i}: equal to K1's emission "
+                  f"{i // 2} in {time.perf_counter() - t:.4f} s")
+        k_expect_launches("K3", st, {})
+    check(k3.stats["dropped"] == 0, f"K3 dropped {k3.stats['dropped']}")
+    print(f"  ShardedCC stats {k3.stats}; state {k3.per_device_state_bytes()}"
+          f" B a shard")
+    del k3
+    torch.cuda.empty_cache()
+
+    # K4: ShardedDegrees (auto) on phase D2's deletion stream.
+    s2 = np.concatenate([src, src[:D2_DELETES]])
+    d2 = np.concatenate([dst, dst[:D2_DELETES]])
+    ev = np.concatenate([np.zeros(N_EDGES, np.int8),
+                         np.ones(D2_DELETES, np.int8)])
+    sd = deg.sharded_degrees(edge_stream_from_source(EdgeChunkSource(
+        s2, d2, events=ev, chunk_size=CHUNK, table=IdentityVertexTable(n)),
+        n, device=device), mesh=mesh, mode="auto")
+    got, st = k_run(torch, device, sd.final_degrees)
+    k_report("K4 ShardedDegrees mode=auto", s2.shape[0], st,
+             f" fallback_chunks={sd.stats['fallback_chunks']} "
+             f"dropped={sd.stats['dropped']}")
+    final = (signed_degrees(src, dst, 1, n)
+             - signed_degrees(src[:D2_DELETES], dst[:D2_DELETES], 1, n))
+    touched = np.zeros(n, bool)
+    touched[s2] = True
+    touched[d2] = True
+    keys = np.fromiter(got.keys(), np.int64, len(got))
+    vals = np.fromiter(got.values(), np.int64, len(got))
+    order = np.argsort(keys)
+    check(np.array_equal(keys[order], np.nonzero(touched)[0]),
+          "K4: degree keys != the touched slots")
+    check(np.array_equal(vals[order], final[touched]),
+          "K4: degrees != the signed bincount")
+    check(sd.stats["dropped"] == 0, f"K4 dropped {sd.stats['dropped']}")
+    k_expect_launches("K4", st, {})
+    print(f"  {len(got)} degrees equal the signed bincount")
+    del s2, d2, ev, got, keys, vals
+    return {"gather_launches":
+            k1[("kernel", "replicated")]["launches"]["sorted_window_gather"],
+            "gather_err": gather_err,
+            "rounds": [f[1] for f in folds]}
+
+
+def mesh_triangle_phase(torch, device, src, dst, exact_total: int,
+                        j6_est: list) -> dict:
+    """K5-K6 on J4's stream over four logical shards: the sharded sampler
+    (its kernel a shard a chunk), sharded_window_triangles and
+    ShardedExactTriangles."""
+    from gelly_torch.library import triangles as tri
+    from gelly_torch.library.sharded_triangles import ShardedExactTriangles
+    from gelly_torch.ops import kernels
+
+    mesh = k_mesh(device)
+
+    def stream(chunk=J4_CHUNK):
+        return event_stream(src, dst, J4_N, chunk, device)
+
+    # K5: every instance's state equals the unsharded sampler's.
+    def sharded():
+        out = list(tri.sharded_sampler_run(stream(), J6_SAMPLES, mesh,
+                                           seed=J6_SEED))
+        return out[-1][0], [e for _, e in out]
+
+    (states, est), st = k_run(torch, device, sharded)
+    n_chunks = -(-src.shape[0] // J4_CHUNK)
+    k_report("K5 sampled_triangle_count(mesh=)", src.shape[0], st,
+             f" estimates={['%.1f' % e for e in est]}")
+    k_expect_launches("K5", st, {"sampler_step": K_SHARDS * n_chunks})
+    sampler_launches = st["launches"]["sampler_step"]
+    whole = tri.SamplerState(*(torch.cat([getattr(s, f) for s in states])
+                               if getattr(states[0], f).dim()
+                               else getattr(states[0], f)
+                               for f in tri.SamplerState._fields))
+    check(len(est) == len(j6_est) and np.allclose(est, j6_est, rtol=1e-6),
+          f"K5 estimates {est} != J6's {j6_est} (rtol 1e-6)")
+    # The unsharded run (J6's), field by field.
+    s1 = stream()
+    ref = tri._fresh_sampler(J6_SAMPLES, J6_SEED, device)
+    for c in s1:
+        ref = tri._sampler_step(ref, c.to_fields(
+            device, ("src", "dst", "valid")), s1.ctx.table.num_vertices)
+    for f, a, b in zip(tri.SamplerState._fields, whole, ref):
+        check(torch.equal(a, b), f"K5: field {f} != the unsharded run's")
+    print(f"  every instance's state equals the unsharded run's; estimates "
+          f"equal J6's within rtol 1e-6 (last {est[-1]:.1f})")
+    # The kernel at a shard's shape (2^14 instances) on a lane prefix.
+    shard0 = tuple(tri._shard_sampler(
+        tri._fresh_sampler(J6_SAMPLES, J6_SEED, device), mesh)[0])
+    lanes = [torch.from_numpy(x[:K5_PLAIN_LANES]).to(device) for x in (
+        src, dst, np.ones(K5_PLAIN_LANES, bool))]
+    n_v = int(max(src[:J4_CHUNK].max(), dst[:J4_CHUNK].max())) + 1
+    got = kernels.sampler_step(shard0, *lanes, n_v)
+    want = kernels.sampler_step_plain(shard0, *lanes, n_v)
+    for f, a, b in zip(tri.SamplerState._fields, got, want):
+        check(torch.equal(a, b), f"K5: kernel != plain at the shard's "
+                                 f"shape, field {f}")
+    print(f"  sampler_step at a shard's shape ({shard0[0].shape[0]} "
+          f"instances, {K5_PLAIN_LANES} lanes): equal to its plain version")
+    del states, whole, ref, shard0, got, want
+
+    # K6: one 2^20-ms window (the whole of J4's stream).
+    counts, st = k_run(torch, device, lambda: [
+        (w, int(c)) for w, c in tri.sharded_window_triangles(
+            stream(), K6_WINDOW, window_capacity=2 * K6_WINDOW,
+            mesh=mesh)])
+    k_report("K6 sharded_window_triangles", src.shape[0], st,
+             f" counts={counts}")
+    k_expect_launches("K6 windows", st, {})
+    single = [(w, int(c)) for w, c in tri.window_triangles(
+        stream(), K6_WINDOW, window_capacity=2 * K6_WINDOW)]
+    check(counts == single == [(0, exact_total)],
+          f"K6: {counts} != window_triangles {single} / exact "
+          f"{exact_total}")
+    a, b = simple_edges(src, dst, J4_N)
+    d_max = int((np.bincount(a, minlength=J4_N)
+                 + np.bincount(b, minlength=J4_N)).max())
+    t_exact = ShardedExactTriangles(stream(), max_degree=d_max, mesh=mesh)
+    got, st = k_run(torch, device, lambda: t_exact.run().final_counts())
+    k_report(f"K6 ShardedExactTriangles max_degree={d_max}", src.shape[0],
+             st)
+    k_expect_launches("K6 exact", st, {})
+    want = tri.exact_triangle_count(stream()).final_counts()
+    check(got == want and got[-1] == exact_total,
+          f"K6: ShardedExactTriangles != exact_triangle_count "
+          f"({got.get(-1)} / {want.get(-1)})")
+    print(f"  {exact_total} triangles: the sharded window count equals "
+          f"window_triangles, the sharded exact counts equal "
+          f"exact_triangle_count vertex by vertex")
+    return {"sampler_launches": sampler_launches}
 
 
 def main() -> int:
@@ -4060,6 +4444,12 @@ def main() -> int:
     hk = hash_kernel_phase(torch, device)
     transforms_phase(torch, device, src, dst)
     iterative_cc_phase(torch, device, src, dst, oracle)
+
+    # K1-K4. the mesh: four logical shards on the card, phase 4's stream
+    mark("K1-K4", t_start)
+    k14 = mesh_cc_phase(torch, device, src, dst, labels, oracle,
+                        dedup_chunks)
+    torch.cuda.empty_cache()
     del src, dst, labels, oracle
     i4 = neighborhood_phase(torch, device)
     torch.cuda.empty_cache()
@@ -4224,6 +4614,12 @@ def main() -> int:
     mark("J", t_start)
     j = triangle_library_phases(torch, device)
 
+    # K5-K6. the mesh on J4's stream
+    mark("K5-K6", t_start)
+    k56 = mesh_triangle_phase(torch, device, j["j4"]["src"], j["j4"]["dst"],
+                              j["j4"]["total"], j["j6"]["est"])
+    torch.cuda.empty_cache()
+
     # 7. the compact CC path
     mark("7", t_start)
     compact_cc_phase(torch, device)
@@ -4236,7 +4632,8 @@ def main() -> int:
         "source": "gelly_torch/csrc/sorted_window_gather.cu",
         "replaces": "gelly_tpu/ops/pallas_kernels.py:174",
         "launches": st["launches"],
-        "max_abs_err": max_abs_err,
+        "mesh_launches": k14["gather_launches"],
+        "max_abs_err": max(max_abs_err, k14["gather_err"]),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
@@ -4355,6 +4752,7 @@ def main() -> int:
         "source": "gelly_torch/csrc/sampler_step.cu",
         "replaces": "gelly_tpu/library/triangles.py:1421",
         "launches": j["j6"]["launches"],
+        "mesh_launches": k56["sampler_launches"],
         "max_abs_err": 0,
         "ms": j["j6"]["ms"],
         "plain_ms": j["j6"]["plain_ms"],

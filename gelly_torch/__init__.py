@@ -3,7 +3,8 @@
 Mirrors ``gelly_tpu``'s layout (see that package for the design): ``core/``
 chunks, sources and the stream API, ``engine/`` the aggregation engine,
 ``ops/`` union-find, scatter ops and the hand-written Hopper kernels
-(sources in ``csrc/``), ``library/`` the algorithms. The port imports
+(sources in ``csrc/``), ``library/`` the algorithms, ``parallel/`` the
+mesh (S shards driven from one controller; one card may hold several). The port imports
 ``torch`` and numpy only, never JAX or ``gelly_tpu``. Entry points run on
 CUDA unless the caller passes ``device="cpu"``.
 """

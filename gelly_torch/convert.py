@@ -31,6 +31,15 @@ from the same mid-stream state:
   0-d i32, ``keys`` as JAX holds them: u32[S, 2] bit patterns, which the
   port keeps as ``int64`` values).
 
+Sharded state (a mesh of S shards): ``gelly_tpu``'s ``P("shards")`` array,
+taken to numpy as ``[S, ...]``, is the port's list of S per-shard tensors
+(:func:`shards_from_numpy` / :func:`shards_to_numpy`, and per summary
+:func:`sharded_summaries_from_numpy` for the engine's ``[S]`` locals);
+``ShardedCC`` (``parent`` i32, ``seen`` / ``dirty`` bool stripes plus the
+host root and seen caches), the ``ShardedDegrees`` stripes (``int64``) and
+``ShardedExactTriangles`` (``nbr`` / ``aidx`` i32 ``[S, per, D]``, ``deg``
+i32 and ``counts`` i64 stripes, and its host counters) carry both ways.
+
 Dtypes and shapes are checked, never widened or narrowed silently.
 """
 
@@ -324,3 +333,114 @@ def sampler_state_to_numpy(state: SamplerState) -> tuple[np.ndarray, ...]:
     out = [to_numpy(x) for x in state]
     out[7] = out[7].astype(np.uint32)
     return tuple(out)
+
+
+# --------------------------------------------------------------------- #
+# sharded state
+
+
+def shards_from_numpy(stacked, mesh, dtype=None) -> list[torch.Tensor]:
+    """A ``[S, ...]`` array (``np.asarray`` of a ``P("shards")`` array) as
+    S per-shard tensors, shard ``i`` on ``mesh.devices[i]``."""
+    a = np.asarray(stacked)
+    S = len(mesh.devices)
+    if a.ndim < 1 or a.shape[0] != S:
+        raise ValueError(f"sharded array {a.shape} must lead with {S} "
+                         f"shards")
+    if dtype is not None and a.dtype != dtype:
+        raise TypeError(f"sharded array must be {np.dtype(dtype)}, got "
+                        f"{a.dtype}")
+    return [torch.from_numpy(a[i].copy()).to(dev)
+            for i, dev in enumerate(mesh.devices)]
+
+
+def shards_to_numpy(shards: list) -> np.ndarray:
+    """S per-shard tensors as one ``[S, ...]`` array."""
+    return np.stack([to_numpy(x) for x in shards])
+
+
+def sharded_summaries_from_numpy(from_numpy, mesh, *stacked) -> list:
+    """Per-shard summaries of the engine's ``[S]`` locals: ``from_numpy``
+    (e.g. :func:`cc_summary_from_numpy`) applied to each shard's row of
+    every ``[S, ...]`` leaf, on that shard's device."""
+    S = len(mesh.devices)
+    arrays = [np.asarray(x) for x in stacked]
+    for a in arrays:
+        if a.shape[:1] != (S,):
+            raise ValueError(f"sharded leaf {a.shape} must lead with {S} "
+                             f"shards")
+    return [from_numpy(*(a[i] for a in arrays), device=dev)
+            for i, dev in enumerate(mesh.devices)]
+
+
+def sharded_summaries_to_numpy(to_numpy_fn, summaries: list) -> tuple:
+    """The per-shard summaries' leaves stacked to ``[S, ...]`` arrays."""
+    rows = [to_numpy_fn(s) for s in summaries]
+    return tuple(np.stack(leaf) for leaf in zip(*rows))
+
+
+def sharded_cc_to_numpy(cc) -> dict:
+    """A ``ShardedCC``'s state: ``parent`` i32 / ``seen`` / ``dirty`` bool
+    ``[S, per]`` stripes, and the host ``rootcache`` i32 / ``seencache``
+    bool ``[n]`` of its last emission. Reads either package's instance."""
+    def stripes(x):
+        return (shards_to_numpy(x) if isinstance(x, list)
+                else np.asarray(x))
+
+    return {"parent": stripes(cc.parent), "seen": stripes(cc.seen),
+            "dirty": stripes(cc.dirty),
+            "rootcache": np.asarray(cc._rootcache).copy(),
+            "seencache": np.asarray(cc._seencache).copy()}
+
+
+def sharded_cc_from_numpy(cc, parent, seen, dirty, rootcache,
+                          seencache) -> None:
+    """Load :func:`sharded_cc_to_numpy`'s arrays (from either package)
+    into the port's ``ShardedCC`` ``cc`` on its mesh."""
+    S, per, n = cc.S, cc.per, cc.n
+    for name, a, dt in (("parent", parent, _I32), ("seen", seen, _BOOL),
+                        ("dirty", dirty, _BOOL)):
+        if np.shape(a) != (S, per):
+            raise ValueError(f"{name} {np.shape(a)} must be {(S, per)}")
+    for name, a, dt in (("rootcache", rootcache, _I32),
+                        ("seencache", seencache, _BOOL)):
+        if np.asarray(a).dtype != dt or np.shape(a) != (n,):
+            raise TypeError(f"{name} must be {np.dtype(dt)}[{n}]")
+    cc.parent = shards_from_numpy(parent, cc.mesh, _I32)
+    cc.seen = shards_from_numpy(seen, cc.mesh, _BOOL)
+    cc.dirty = shards_from_numpy(dirty, cc.mesh, _BOOL)
+    cc._rootcache = np.asarray(rootcache).copy()
+    cc._seencache = np.asarray(seencache).copy()
+
+
+def sharded_exact_to_numpy(t) -> dict:
+    """A ``ShardedExactTriangles``' state: ``nbr`` / ``aidx`` i32 ``[S,
+    per, D]``, ``deg`` i32 / ``counts`` i64 ``[S, per]`` stripes, and its
+    host ``total`` / ``n_seen`` / ``overflow`` counters. Reads either
+    package's instance."""
+    def stripes(x):
+        return (shards_to_numpy(x) if isinstance(x, list)
+                else np.asarray(x))
+
+    return {"nbr": stripes(t.nbr), "aidx": stripes(t.aidx),
+            "deg": stripes(t.deg), "counts": stripes(t.counts),
+            "total": int(t.total), "n_seen": int(t.n_seen),
+            "overflow": int(t.overflow)}
+
+
+def sharded_exact_from_numpy(t, nbr, aidx, deg, counts, total: int,
+                             n_seen: int, overflow: int) -> None:
+    """Load :func:`sharded_exact_to_numpy`'s state into the port's
+    ``ShardedExactTriangles`` ``t`` on its mesh."""
+    S, per, D = t.S, t.per, t.D
+    for name, a, shape in (("nbr", nbr, (S, per, D)),
+                           ("aidx", aidx, (S, per, D)),
+                           ("deg", deg, (S, per)),
+                           ("counts", counts, (S, per))):
+        if np.shape(a) != shape:
+            raise ValueError(f"{name} {np.shape(a)} must be {shape}")
+    t.nbr = shards_from_numpy(nbr, t.mesh, _I32)
+    t.aidx = shards_from_numpy(aidx, t.mesh, _I32)
+    t.deg = shards_from_numpy(deg, t.mesh, _I32)
+    t.counts = shards_from_numpy(counts, t.mesh, _I64)
+    t.total, t.n_seen, t.overflow = int(total), int(n_seen), int(overflow)

@@ -227,3 +227,25 @@ def concat_chunks(a: EdgeChunk, b: EdgeChunk) -> EdgeChunk:
     dev = a.src.device if not a.is_host() else b.src.device
     return EdgeChunk(*(torch.cat([x.to(dev), y.to(dev)])
                        for x, y in zip(a, b)))
+
+
+def split_chunk_host(chunk: EdgeChunk, parts: int) -> list[EdgeChunk]:
+    """Split a HOST chunk into ``parts`` contiguous slices along the edge
+    axis, padding the tail with zero (invalid) lanes when the capacity is
+    not divisible: the host-side form of ``parallel.partition.split_chunk``
+    for staging paths that compress before the copy to the device (the
+    mesh's event-time codec). Slices are views where no padding is
+    needed."""
+    n = chunk.src.shape[0]
+    per = -(-max(n, parts) // parts)
+    pad = per * parts - n
+
+    def prep(a: torch.Tensor) -> torch.Tensor:
+        a = a.cpu()
+        if pad:
+            a = torch.cat([a, a.new_zeros((pad,) + tuple(a.shape[1:]))])
+        return a
+
+    fields = [prep(f) for f in chunk]
+    return [EdgeChunk(*(f[s * per:(s + 1) * per] for f in fields))
+            for s in range(parts)]

@@ -160,6 +160,48 @@ def _segmented_scan(starts: torch.Tensor, val: torch.Tensor, reduce_fn):
     return val
 
 
+def fold_view(view: NeighborhoodView, initial_value, fold_fn: Callable):
+    """The per-vertex sequential fold over one sorted view (valid entries
+    a prefix): the running accumulator at every position, reset to
+    ``initial_value`` at each run start; the padding past the last edge
+    holds the last accumulator. Step r folds the r-th edge of every
+    neighbourhood at once."""
+    from ..engine.checkpoint import tree_flatten, tree_unflatten
+
+    init_leaves, spec = tree_flatten(initial_value)
+    dev = view.key.device
+    w_len = view.key.shape[0]
+    ok = to_numpy(view.valid)
+    fill = int(ok.sum())  # valid entries are a prefix
+    pos = torch.arange(fill, device=dev)
+    start_pos = pos[view.starts[:fill]]
+    n_seg = start_pos.shape[0]
+    seg_len = torch.diff(torch.cat([
+        start_pos, torch.tensor([fill], device=dev)]))
+    depth = int(seg_len.max()) if n_seg else 0
+    acc = [torch.from_numpy(np.asarray(x)).to(dev).expand(n_seg).clone()
+           for x in init_leaves]
+    outs = [torch.from_numpy(np.asarray(x)).to(dev).expand(w_len).clone()
+            for x in init_leaves]
+    order = torch.argsort(seg_len, descending=True, stable=True)
+    lens = seg_len[order]
+    for r in range(depth):
+        live = int((lens > r).sum())
+        segs = order[:live]
+        p = start_pos[segs] + r
+        new = fold_fn(tree_unflatten(spec, [a[segs] for a in acc]),
+                      view.key[p], view.nbr[p], view.val[p])
+        new_leaves, _ = tree_flatten(new)
+        for a, o, x in zip(acc, outs, new_leaves):
+            x = x.to(a.dtype)
+            a[segs] = x
+            o[p] = x
+    if 0 < fill < w_len:
+        for o in outs:
+            o[fill:] = o[fill - 1]
+    return tree_unflatten(spec, outs)
+
+
 class SnapshotStream:
     """The graph-window stream.
 
@@ -252,46 +294,12 @@ class SnapshotStream:
         every buffer position, reset to ``initial_value`` at each run
         start; the padding past the last edge holds the last
         accumulator."""
-        from ..engine.checkpoint import tree_flatten, tree_unflatten
-
-        init_leaves, spec = tree_flatten(initial_value)
-
-        def close(view: NeighborhoodView):
-            dev = view.key.device
-            w_len = view.key.shape[0]
-            ok = to_numpy(view.valid)
-            fill = int(ok.sum())  # valid entries are a prefix
-            pos = torch.arange(fill, device=dev)
-            start_pos = pos[view.starts[:fill]]
-            n_seg = start_pos.shape[0]
-            seg_len = torch.diff(torch.cat([
-                start_pos, torch.tensor([fill], device=dev)]))
-            depth = int(seg_len.max()) if n_seg else 0
-            acc = [torch.from_numpy(np.asarray(x)).to(dev).expand(n_seg).clone()
-                   for x in init_leaves]
-            outs = [torch.from_numpy(np.asarray(x)).to(dev).expand(w_len).clone()
-                    for x in init_leaves]
-            order = torch.argsort(seg_len, descending=True, stable=True)
-            lens = seg_len[order]
-            for r in range(depth):
-                live = int((lens > r).sum())
-                segs = order[:live]
-                p = start_pos[segs] + r
-                new = fold_fn(tree_unflatten(spec, [a[segs] for a in acc]),
-                              view.key[p], view.nbr[p], view.val[p])
-                new_leaves, _ = tree_flatten(new)
-                for a, o, x in zip(acc, outs, new_leaves):
-                    x = x.to(a.dtype)
-                    a[segs] = x
-                    o[p] = x
-            if 0 < fill < w_len:
-                for o in outs:
-                    o[fill:] = o[fill - 1]
-            return tree_unflatten(spec, outs)
 
         def gen():
             for w, view in self._windows():
-                yield WindowUpdate(w, view.key, close(view), view.ends())
+                yield WindowUpdate(w, view.key,
+                                   fold_view(view, initial_value, fold_fn),
+                                   view.ends())
 
         return gen()
 

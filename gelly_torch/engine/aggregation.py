@@ -36,9 +36,14 @@ plans), whose stream is a :class:`WindowedStream`.
 
 Checkpoints (``checkpoint_path``) and exactly-once resume (``resume``)
 follow ``gelly_tpu``'s file format and rules, so a run either package
-checkpointed resumes in the other. Meshes, pre-compressed streams and
-source providers come with later slices; asking for any of them raises
-``NotImplementedError`` naming its ROADMAP.md item.
+checkpointed resumes in the other. On a mesh of S > 1 shards
+(``mesh=``, ``parallel/mesh.py``) each shard folds its slice of every
+chunk (or its share of every codec batch) into its own locals, and each
+window close merges the shards (butterfly, ``merge_degree`` tree or
+``merge_stacked`` gather) or, with a plan's ``merge_delta``, gathers only
+the rows the window touched. Pre-compressed streams and source providers
+come with later slices; asking for either raises ``NotImplementedError``
+naming its ROADMAP.md item.
 :func:`edges_fold_adapter` runs a per-edge user fold (the reference's
 ``EdgesFold``).
 """
@@ -56,7 +61,7 @@ from typing import Any, Callable, Iterator
 import numpy as np
 import torch
 
-from ..core.chunk import EdgeChunk
+from ..core.chunk import EdgeChunk, split_chunk_host
 from ..core.device import to_numpy
 from . import faults
 from .checkpoint import (
@@ -87,6 +92,21 @@ class SummaryAggregation:
       combine(a, fold(b, c))``: the engine may carry ONE running summary
       across windows (the accumulate plan).
     - ``fold_backend`` — the kernel backend the plan's folds were built for.
+
+    The cross-shard merge on a mesh of S > 1 shards:
+
+    - ``merge_degree`` — the ``SummaryTreeReduce`` degree: a hierarchical
+      tree with ``degree`` group summaries (None: butterfly, or gather
+      when ``merge_stacked`` is set);
+    - ``merge_mode`` — ``"replicated"`` (merge whole shard summaries),
+      ``"delta"`` or ``"auto"`` (per window, delta while ``S * bucket``
+      gathered rows stay within ``merge_delta_auto_rows``);
+    - ``merge_dirty_count(local) -> 0-d int`` — one shard's dirty rows
+      (the engine takes the max over the shards to size the bucket);
+    - ``merge_delta(base, locals_, bucket) -> summary`` — compact each
+      shard's dirty rows to ``bucket`` lanes, gather them to ``base``'s
+      device and apply them to the carried global ``base``: the
+      cross-shard merge and the Merger combine in one step.
 
     The ingest codec (both of the first two must be set to engage):
 
@@ -135,12 +155,21 @@ class SummaryAggregation:
     flatten: Callable[[Summary], Summary] | None = None
     fold_accumulates: bool = False
     fold_backend: str = "plain"
+    merge_degree: int | None = None
+    merge_mode: str = "replicated"
+    merge_delta: Callable[..., Summary] | None = None
+    merge_dirty_count: Callable[[Summary], Any] | None = None
+    merge_delta_auto_rows: int | None = None
     name: str = "aggregation"
 
 
 # Auto-codec threshold: below this slot-space size a dense per-chunk
 # payload (n_v * 4 bytes) is cheaper than touched-slot pairs.
 SPARSE_CODEC_MIN_CAPACITY = 1 << 20
+
+# Smallest dirty-delta gather bucket (the floor of the pow-2 ladder): a
+# plan whose auto bound is below S * floor never takes the delta merge.
+DELTA_MERGE_MIN_BUCKET = 256
 
 
 def available_cores() -> int:
@@ -315,7 +344,6 @@ class WindowedStream(SummaryStream):
 # Knobs of gelly_tpu's run_aggregation this slice does not run, with the
 # value that means "off" and the ROADMAP.md item that brings each.
 _NOT_YET = {
-    "mesh": (None, "queue 1 item 8 (multi-GPU merge)"),
     "source_provider": (None, "queue 1 item 12 (host planes: ingest)"),
     "precompressed": (False, "queue 1 item 12 (host planes: ingest)"),
     "queries": (None, "queue 1 item 11 (batched engines)"),
@@ -519,6 +547,14 @@ def _check_window_knobs(agg, window_ms, allowed_lateness, windowed,
                 "pane ring over them has nothing to combine — drop "
                 "windowed= or use a non-transient plan"
             )
+        if agg.merge_mode == "delta" or agg.merge_delta is not None:
+            raise ValueError(
+                f"aggregation '{agg.name}' supplies a dirty-delta merge "
+                "(merge_mode/merge_delta): the delta path folds dirty "
+                "rows into a CARRIED global summary, but a pane ring "
+                "retires panes — the two memory models are exclusive; "
+                "use the windowed builder variant (merge_delta=None)"
+            )
     if ttl_panes is None:
         return
     if windowed is None:
@@ -553,7 +589,69 @@ def _check_window_knobs(agg, window_ms, allowed_lateness, windowed,
         )
 
 
-def run_aggregation(agg: SummaryAggregation, stream,
+def _check_merge_knobs(agg, S: int) -> bool:
+    """The cross-shard merge knobs' refusals (``gelly_tpu``'s plan-time
+    messages); returns whether the dirty-delta merge is armed."""
+    if agg.merge_mode not in ("replicated", "delta", "auto"):
+        raise ValueError(
+            f"plan {agg.name!r}: merge_mode must be 'replicated', "
+            f"'delta' or 'auto', got {agg.merge_mode!r}"
+        )
+    if S > 1 and agg.merge_mode == "delta" and agg.merge_delta is None:
+        raise ValueError(
+            f"plan {agg.name!r} sets merge_mode='delta' but supplies no "
+            "merge_delta — the delta merge is summary-specific and must "
+            "come from the plan (see SummaryAggregation.merge_delta); "
+            "use merge_mode='replicated' for plans without one"
+        )
+    armed = (S > 1 and agg.merge_delta is not None
+             and (agg.merge_mode == "delta"
+                  or (agg.merge_mode == "auto"
+                      and agg.merge_delta_auto_rows is not None
+                      and S * DELTA_MERGE_MIN_BUCKET
+                      <= agg.merge_delta_auto_rows)))
+    if armed and agg.merge_dirty_count is None:
+        raise ValueError(
+            f"plan {agg.name!r} supplies merge_delta without "
+            "merge_dirty_count — the engine sizes the delta gather "
+            "bucket from the measured count; supply both or neither"
+        )
+    return armed
+
+
+def _shard_rows(tree, num_shards: int) -> list:
+    """Split every leaf's leading axis ``[K', ...]`` into S contiguous
+    row blocks (``gelly_tpu``'s ``[S, K'/S, ...]`` batch split)."""
+    leaves, rebuild = _flatten(tree)
+    out = []
+    for i in range(num_shards):
+        rows = []
+        for _, x in leaves:
+            k = x.shape[0] // num_shards
+            rows.append(x[i * k:(i + 1) * k])
+        out.append(rebuild(rows))
+    return out
+
+
+def _split_stacked(stacked: EdgeChunk, num_shards: int) -> list:
+    """A host-stacked raw unit ``[K, C]`` split per shard to ``[K,
+    ceil(C/S)]`` rows (each row padded with invalid lanes, as
+    ``split_chunk`` pads one chunk)."""
+    out = [[] for _ in range(num_shards)]
+    for f in stacked:
+        f = np.asarray(f)
+        k, c = f.shape[:2]
+        per = -(-c // num_shards)
+        if per * num_shards != c:
+            pad = np.zeros((k, per * num_shards - c) + f.shape[2:], f.dtype)
+            f = np.concatenate([f, pad], axis=1)
+        f = f.reshape((k, num_shards, per) + f.shape[2:])
+        for i in range(num_shards):
+            out[i].append(np.ascontiguousarray(f[:, i]))
+    return [EdgeChunk(*fs) for fs in out]
+
+
+def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
                     merge_every: int | None = None,
                     prefetch_depth: int | None = None,
                     fold_batch: int = 1,
@@ -568,7 +666,8 @@ def run_aggregation(agg: SummaryAggregation, stream,
                     windowed: int | None = None,
                     ttl_panes: int | None = None,
                     **knobs) -> SummaryStream:
-    """Execute ``agg`` over ``stream`` on ``stream.ctx.device``.
+    """Execute ``agg`` over ``stream`` on ``stream.ctx.device``, or on the
+    shards of ``mesh`` (``parallel.mesh.make_mesh``).
 
     ``merge_every`` (chunks, default 1) sets the emit cadence. A plan with
     ``fold_accumulates`` that is not ``transient`` runs the accumulate
@@ -636,6 +735,18 @@ def run_aggregation(agg: SummaryAggregation, stream,
     ``stats`` adds ``checkpoints``, ``checkpoint_bytes`` and
     ``resumed_at``.
 
+    ``mesh`` with S > 1 shards runs ``gelly_tpu``'s sharded plan: fresh
+    locals on every shard each window (never the accumulate plan), each
+    raw chunk split into S slices of ``ceil(C/S)`` lanes (a slice's
+    capacity picks the fold's path), each codec batch stacked with
+    ``groups=S`` and split into S row blocks (``fold_batch`` promoted to a
+    multiple of S; a ``merge_every`` S does not divide turns the codec
+    off, and a ``requires_codec`` plan refuses), and at each close the
+    cross-shard merge then the Merger combine into the global summary on
+    the first shard's device, or one ``merge_delta`` (``merge_mode``,
+    counted in ``stats["merge_modes"]``). Checkpoints hold the global
+    summary, as ``gelly_tpu``'s do.
+
     Every other knob of ``gelly_tpu``'s ``run_aggregation`` is accepted
     by name and raises ``NotImplementedError`` (naming its ROADMAP.md
     item) unless it is left at its "off" value.
@@ -695,17 +806,47 @@ def run_aggregation(agg: SummaryAggregation, stream,
             f"aggregation '{agg.name}' folds only through its ingest codec, "
             "but it supplies no host_compress/fold_compressed pair"
         )
+    from ..parallel import collectives
+    from ..parallel.mesh import Mesh
+    from ..parallel.partition import split_chunk
+
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(
+            f"mesh must be a gelly_torch.parallel.mesh.Mesh, got "
+            f"{type(mesh).__name__}")
+    devices = (list(mesh.devices) if mesh is not None
+               else [stream.ctx.device])
+    S = len(devices)
+    mesh_ = mesh if mesh is not None else Mesh(devices)
+    delta_armed = _check_merge_knobs(agg, S)
     # A pane ring folds every pane from FRESH locals (the ring supplies
-    # the accumulation), so it never runs the accumulate plan.
-    accum = agg.fold_accumulates and not agg.transient and windowed is None
-    # A divisor of merge_every, so window boundaries are unit boundaries;
-    # event-time windows fold one masked chunk at a time.
+    # the accumulation), and S > 1 shards merge their locals each window:
+    # neither runs the accumulate plan.
+    accum = (agg.fold_accumulates and not agg.transient and windowed is None
+             and S == 1)
+    # A divisor of merge_every, so window boundaries are unit boundaries
+    # (and on a sharded codec plan a multiple of S: the payload batch
+    # splits across the shards); event-time windows fold one masked
+    # chunk at a time.
     batch = 1
     if window_ms is None:
         batch = max(1, min(fold_batch, merge_every))
         while merge_every % batch:
             batch -= 1
-    device = stream.ctx.device
+        if use_codec and S > 1:
+            if batch % S:
+                batch = S if merge_every % S == 0 else 1
+            if batch % S:
+                use_codec = False  # no aligned batching possible
+    if agg.requires_codec and not use_codec:
+        raise ValueError(
+            f"aggregation '{agg.name}' folds only through its ingest codec, "
+            "but the codec cannot engage here: "
+            f"merge_every={merge_every} cannot align a payload "
+            f"batch with the {S}-shard mesh (make merge_every a "
+            "multiple of the shard count)"
+        )
+    device = devices[0]
     if device_fields is None:
         device_fields = agg.device_fields
     skip = frozenset()
@@ -718,7 +859,8 @@ def run_aggregation(agg: SummaryAggregation, stream,
         timer = StageTimer()
     stats = {"units": 0, "chunks": 0, "h2d_bytes": 0, "checkpoints": 0,
              "checkpoint_bytes": 0, "resumed_at": None, "late_edges": 0,
-             "windows_closed": 0}
+             "windows_closed": 0,
+             "merge_modes": {"delta": 0, "replicated": 0}}
     win_holder = None
     if windowed is not None:
         win_holder = {"lock": threading.Lock(), "val": None}
@@ -756,6 +898,32 @@ def run_aggregation(agg: SummaryAggregation, stream,
     else:
         fold_unit = agg.fold
 
+    def fresh_locals() -> list:
+        return [agg.init(d) for d in devices]
+
+    def merge_locals(locals_: list, copy: bool = False):
+        """The window's summary: the one shard's locals, or the shards'
+        merge (``gelly_tpu``'s shard-0 result), on ``device``."""
+        if S == 1:
+            return locals_[0]
+        if copy:  # a checkpoint reads the live locals again
+            locals_ = [_clone_tree(l) for l in locals_]
+        if agg.merge_degree is not None:
+            return collectives.hierarchical_merge(
+                agg.combine, locals_, S, min(agg.merge_degree, S),
+                mesh_)[0]
+        if agg.merge_stacked is not None:
+            return collectives.gather_merge(
+                agg.merge_stacked, locals_, mesh_, keep=(0,))[0]
+        return collectives.butterfly_merge(
+            agg.combine, locals_, S, mesh_, keep=(0,))[0]
+
+    def shard_payloads(stacked) -> list:
+        return [stacked] if S == 1 else _shard_rows(stacked, S)
+
+    def shard_chunk(chunk) -> list:
+        return [chunk] if S == 1 else split_chunk(chunk, S)
+
     def gen():
         # The codec's run state is reset first and rebuilt from the loaded
         # summary after: the other order would wipe the rebuilt id session.
@@ -765,11 +933,12 @@ def run_aggregation(agg: SummaryAggregation, stream,
             else 0.0
         stats.update(units=0, chunks=0, h2d_bytes=0, checkpoints=0,
                      checkpoint_bytes=0, resumed_at=None, late_edges=0,
-                     windows_closed=0)
-        # ``summary`` is what the folds update: the running summary of the
-        # accumulate plan, or the locals of the open window (the Merger
-        # plan's, or the open pane's).
-        summary = agg.init(device)
+                     windows_closed=0,
+                     merge_modes={"delta": 0, "replicated": 0})
+        # ``locals_`` is what the folds update, one summary a shard: the
+        # running summary of the accumulate plan, or the locals of the
+        # open window (the Merger plan's, or the open pane's).
+        locals_ = fresh_locals()
         glob = None if accum or windowed is not None else agg.init(device)
         dirty = False  # the locals hold edges no window emitted yet
         skip_until = 0
@@ -804,7 +973,8 @@ def run_aggregation(agg: SummaryAggregation, stream,
             with timer("resume_load"):
                 loaded, skip_until, meta_in = load_checkpoint(
                     checkpoint_path,
-                    like=win_like() if windowed is not None else summary)
+                    like=win_like() if windowed is not None
+                    else agg.init(device))
             if windowed is not None:
                 live_n = int(meta_in.get("ring_live", 0))
                 ring.reload([tree_map(lambda l, i=i: l[i], loaded["panes"])
@@ -821,7 +991,7 @@ def run_aggregation(agg: SummaryAggregation, stream,
                         win_on_resume(to_numpy(persist))
             else:
                 if accum:
-                    summary = loaded
+                    locals_ = [loaded]
                 else:
                     glob = loaded
                 if agg.on_resume is not None:
@@ -837,7 +1007,7 @@ def run_aggregation(agg: SummaryAggregation, stream,
         stats["chunks"] = chunks_consumed
 
         def maybe_checkpoint(force=False):
-            nonlocal last_ckpt_windows, summary, glob
+            nonlocal last_ckpt_windows, locals_, glob
             if not checkpoint_path or (
                     not force
                     and windows - last_ckpt_windows < checkpoint_every):
@@ -846,7 +1016,7 @@ def run_aggregation(agg: SummaryAggregation, stream,
             with timer("checkpoint"):
                 if agg.flatten is not None and windowed is None:
                     if accum:
-                        summary = agg.flatten(summary)
+                        locals_ = [agg.flatten(locals_[0])]
                     else:
                         glob = agg.flatten(glob)
                 meta = {"name": agg.name, "windows": windows,
@@ -864,11 +1034,12 @@ def run_aggregation(agg: SummaryAggregation, stream,
                         snap["last_seen"] = last_seen
                     meta.update(ring_live=ring.live, windowed=windowed)
                 elif accum:
-                    snap = summary
+                    snap = locals_[0]
                 elif dirty:
                     # Event-time windows checkpoint mid-window: the open
                     # window's locals merged into a copy of the global.
-                    snap = copying_combine(summary, glob)
+                    snap = copying_combine(
+                        merge_locals(locals_, copy=True), glob)
                 else:
                     # Right after a close the locals hold no edge.
                     snap = glob
@@ -897,14 +1068,31 @@ def run_aggregation(agg: SummaryAggregation, stream,
             stats["checkpoint_bytes"] += os.path.getsize(checkpoint_path)
 
         def close_window():
-            nonlocal summary, glob, dirty, windows
+            nonlocal locals_, glob, dirty, windows
             dirty = False
             windows += 1
             stats["windows_closed"] = windows
             if accum:
-                return emit(summary)
-            # The parallelism-1 Merger (M/SummaryAggregation.java:107-119).
-            merged = agg.combine(summary, glob)
+                return emit(locals_[0])
+            merged = None
+            if delta_armed:
+                # The measured decision: the largest shard's dirty count
+                # sizes the gather bucket (one scalar read a close).
+                count = int(torch.stack([
+                    agg.merge_dirty_count(l).to(device) for l in locals_
+                ]).max())
+                bucket = max(DELTA_MERGE_MIN_BUCKET,
+                             1 << max(0, count - 1).bit_length())
+                limit = agg.merge_delta_auto_rows
+                if agg.merge_mode == "delta" or (
+                        limit is not None and S * bucket <= limit):
+                    merged = agg.merge_delta(glob, locals_, bucket)
+                    stats["merge_modes"]["delta"] += 1
+            if merged is None:
+                # The cross-shard merge, then the parallelism-1 Merger
+                # (M/SummaryAggregation.java:107-119).
+                merged = agg.combine(merge_locals(locals_), glob)
+                stats["merge_modes"]["replicated"] += 1
             if agg.transient:
                 # Emit combine(window, global), then reset the global to
                 # the combine identity; after a resume the restored
@@ -912,16 +1100,16 @@ def run_aggregation(agg: SummaryAggregation, stream,
                 glob = agg.init(device)
             else:
                 glob = merged
-            summary = agg.init(device)  # fresh locals for the next window
+            locals_ = fresh_locals()  # fresh locals for the next window
             return emit(merged)
 
         def close_pane():
             # Push this merge window's pane (fresh locals from here on, so
             # no later fold writes it), decay TTL slots, and answer the
             # W-pane window by suffix combines.
-            nonlocal summary, dirty, windows, persist, last_seen
-            pane = summary
-            summary = agg.init(device)
+            nonlocal locals_, dirty, windows, persist, last_seen
+            pane = merge_locals(locals_)
+            locals_ = fresh_locals()
             dirty = False
             if win_persist_update is not None:
                 persist = win_persist_update(persist, pane)
@@ -959,17 +1147,27 @@ def run_aggregation(agg: SummaryAggregation, stream,
             return out
 
         close_fn = close_pane if windowed is not None else close_window
-        consumer = (torch.cuda.current_stream(device)
-                    if device.type == "cuda" else None)
-        ring_h2d = PinnedRing(device, h2d_depth + 1, consumer)
+        # One staging ring a shard, each copying to its shard's device.
+        consumers = [torch.cuda.current_stream(d) if d.type == "cuda"
+                     else None for d in devices]
+        rings = [PinnedRing(d, h2d_depth + 1, c)
+                 for d, c in zip(devices, consumers)]
 
-        def to_device(payload, fields_skip):
+        def put_shards(parts, fields_skip):
+            out = [ring.put(p, fields_skip) for ring, p in zip(rings, parts)]
+            stats["h2d_bytes"] = sum(r.bytes for r in rings)
+            return [d for d, _ in out], [e for _, e in out]
+
+        def wait_copies(events):
+            for consumer, event in zip(consumers, events):
+                if event is not None:
+                    consumer.wait_event(event)  # on the device
+
+        def to_device(parts, fields_skip):
             with timer("h2d"):
-                dev, event = ring_h2d.put(payload, fields_skip)
-            stats["h2d_bytes"] = ring_h2d.bytes
-            if event is not None:
-                consumer.wait_event(event)  # on the device
-            return dev
+                devs, events = put_shards(parts, fields_skip)
+            wait_copies(events)
+            return devs
 
         if window_ms is not None:
             # Event-time windows: the shared tumbling iterator masks each
@@ -1006,24 +1204,30 @@ def run_aggregation(agg: SummaryAggregation, stream,
                     continue
                 current_window = w
                 if use_codec:
+                    # On a mesh the masked chunk splits into S host
+                    # slices, one payload row a shard.
                     with timer("ingest_compress"):
-                        payloads = [agg.host_compress(chunk)]
+                        parts = (split_chunk_host(chunk, S) if S > 1
+                                 else [chunk])
+                        payloads = [agg.host_compress(c) for c in parts]
                         if agg.stack_payloads is None:
                             stacked = _stack_tree(payloads)
                         elif agg.stack_ordered:
-                            stacked = agg.stack_payloads(payloads, 1,
+                            stacked = agg.stack_payloads(payloads, S,
                                                          seq=win_seq)
                             win_seq += 1
                         else:
-                            stacked = agg.stack_payloads(payloads, 1)
-                    unit = to_device(stacked, frozenset())
+                            stacked = agg.stack_payloads(payloads, S)
+                    units = to_device(shard_payloads(stacked), frozenset())
                     with timer("fold_dispatch"):
-                        summary = agg.fold_compressed(summary, unit)
+                        locals_ = [agg.fold_compressed(l, u)
+                                   for l, u in zip(locals_, units)]
                 else:
-                    unit = to_device(chunk, skip)
+                    units = to_device(shard_chunk(chunk), skip)
                     with timer("fold_dispatch"):
-                        summary = agg.fold(summary, unit)
-                del unit
+                        locals_ = [agg.fold(l, u)
+                                   for l, u in zip(locals_, units)]
+                del units
                 stats["units"] += 1
                 dirty = True
             # The iterator closed the final window; make it durable.
@@ -1076,26 +1280,28 @@ def run_aggregation(agg: SummaryAggregation, stream,
                 payloads = [agg.host_compress(c) for c in group]
                 payloads += [identity_payload] * (batch - k)
                 if agg.stack_payloads is None:
-                    return _stack_tree(payloads)
-                if agg.stack_ordered:
-                    return agg.stack_payloads(payloads, 1, seq=seq)
-                return agg.stack_payloads(payloads, 1)
+                    stacked = _stack_tree(payloads)
+                elif agg.stack_ordered:
+                    stacked = agg.stack_payloads(payloads, S, seq=seq)
+                else:
+                    stacked = agg.stack_payloads(payloads, S)
+                return shard_payloads(stacked)
             if host_precombine is not None:
                 group = [host_precombine(c) for c in group]
             if batch == 1:
-                return group[0]
+                return shard_chunk(group[0])
             rows = [c.to_numpy() for c in group]
             zero = EdgeChunk(*(np.zeros_like(f) for f in rows[0]))
             rows += [zero] * (batch - k)
-            return EdgeChunk(*(np.stack(fs) for fs in zip(*rows)))
+            stacked = EdgeChunk(*(np.stack(fs) for fs in zip(*rows)))
+            return [stacked] if S == 1 else _split_stacked(stacked, S)
 
         def h2d_unit(staged):
-            payload, k, seq = staged
+            parts, k, seq = staged
             faults.inject("h2d")
             with timer("h2d"):
-                dev, event = ring_h2d.put(payload, skip)
-            stats["h2d_bytes"] = ring_h2d.bytes
-            return dev, event, k, seq
+                devs, events = put_shards(parts, skip)
+            return devs, events, k, seq
 
         def release(unit):  # a unit cancelled before it ran
             agg.on_stage_error(unit[0])
@@ -1112,12 +1318,12 @@ def run_aggregation(agg: SummaryAggregation, stream,
                                    name="gelly-h2d")
         in_window = 0
         try:
-            for unit, event, k, seq in transferred:
+            for units, events, k, seq in transferred:
                 with timer("fold_dispatch"):
-                    if event is not None:
-                        consumer.wait_event(event)  # on the device
-                    summary = fold_unit(summary, unit)
-                del unit
+                    wait_copies(events)
+                    locals_ = [fold_unit(l, u)
+                               for l, u in zip(locals_, units)]
+                del units
                 dirty = True
                 # Last-retired-chunk rule: a chunk counts toward the
                 # checkpoint position once its fold is dispatched.

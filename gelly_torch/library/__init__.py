@@ -15,6 +15,7 @@ from .bipartiteness import (
 from .connected_components import (
     CCSummary,
     cc_host_precombine,
+    connected_components_tree,
     labels_to_components,
 )
 from .degrees import (
@@ -39,6 +40,7 @@ __all__ = [
     "bipartiteness_check",
     "bipartiteness_query",
     "cc_host_precombine",
+    "connected_components_tree",
     "degree_aggregate",
     "degree_distribution",
     "degrees_query",

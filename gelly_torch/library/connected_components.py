@@ -22,8 +22,12 @@ raw plan: it reduces a chunk on the host to its spanning forest.
 
 ``windowed=W`` marks a plan for the engine's sliding pane ring; the
 compact plan's pane-ring variant (:class:`CCWindowPane`) adds the TTL
-decay hooks (``ttl_panes``). The multi-device delta merge raises
-``NotImplementedError`` naming its ROADMAP.md item.
+decay hooks (``ttl_panes``). On a mesh of S > 1 shards the plans merge
+their shards' forests each window (butterfly, ``merge="gather"``'s
+stacked union, or :func:`connected_components_tree`'s hierarchical
+tree), or with ``merge_mode="delta"`` / ``"auto"`` gather only the
+window's dirty rows (:func:`_cc_merge_delta`, and the compact plan's
+cid-space delta).
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from ..engine.aggregation import (
     sparse_payload_id_check,
 )
 from ..ops import segments, unionfind
+from ..parallel import collectives
 from ..utils import native
 
 
@@ -75,8 +80,6 @@ class CCWindowPane(NamedTuple):
 # fold at this chunk size: below it the dedup sorts cost more than the
 # rounds they save. Read at fold time, so it can be patched per run.
 RAW_DEDUP_MIN_CHUNK = 1 << 22
-
-_MESH_ITEM = "ROADMAP.md queue 1 item 8 (multi-GPU merge)"
 
 
 def _host(x) -> np.ndarray:
@@ -192,6 +195,9 @@ def connected_components_compact(
     bounds distinct touched vertices per run; overflow raises
     :class:`~gelly_torch.ops.compact_space.CompactSpaceOverflow`.
 
+    ``merge_mode`` / ``delta_auto_rows`` shape the mesh merge as in
+    :func:`connected_components` (the auto bound defaults to ``M / 4``).
+
     ``wire`` picks the payload format:
 
     - ``"segments"`` — one native call per unit
@@ -205,16 +211,10 @@ def connected_components_compact(
 
     The plan folds compressed payloads only. ``windowed=W`` builds the
     pane-ring variant (:func:`_windowed_compact_variant`); ``ttl_panes=T``
-    (T >= W) arms its per-vertex decay. ``delta_auto_rows`` (the
-    multi-device delta merge) raises ``NotImplementedError``.
+    (T >= W) arms its per-vertex decay.
     """
     from ..ops.compact_space import CompactIdSession
 
-    if delta_auto_rows is not None:
-        raise NotImplementedError(
-            "connected_components_compact(delta_auto_rows=) is not ported "
-            f"yet: {_MESH_ITEM}"
-        )
     if wire not in ("auto", "segments", "pairs"):
         raise ValueError(f"wire must be auto/segments/pairs, got {wire}")
     if merge not in ("tree", "gather"):
@@ -406,6 +406,36 @@ def connected_components_compact(
             vertex_of=st.vertex_of.max(dim=0).values,
         )
 
+    def _dirty(local: CCCompactSummary) -> torch.Tensor:
+        # A window's locals touch a cid by assigning its decode entry
+        # (fresh cids) or by hooking its root (cids of earlier windows).
+        ident = torch.arange(m, dtype=torch.int32, device=local.croot.device)
+        return (local.vertex_of >= 0) | (local.croot != ident)
+
+    def merge_dirty_count(local: CCCompactSummary) -> torch.Tensor:
+        return _dirty(local).sum(dtype=torch.int32)
+
+    def merge_delta(base: CCCompactSummary, locals_: list,
+                    bucket: int) -> CCCompactSummary:
+        # The dirty-delta mesh merge in cid space: every shard's touched
+        # (cid, croot, vertex_of) rows; croot rows are union edges, and a
+        # cid's vertex is recorded by exactly one row, so a max-scatter
+        # reproduces the decode tables' elementwise-max merge.
+        rows = [collectives.compact_delta(
+            _dirty(l), {"r": l.croot, "v": l.vertex_of}, bucket)
+            for l in locals_]
+        gs, gv = collectives.gather_delta(
+            [r[0] for r in rows], [r[1] for r in rows], base.croot.device)
+        ok = gs >= 0
+        croot = unionfind.union_pairs_rooted(
+            base.croot, torch.where(ok, gs, 0), torch.where(ok, gv["r"], 0),
+            ok)
+        vo = torch.cat([base.vertex_of, base.vertex_of.new_full((1,), -1)])
+        vo = vo.scatter_reduce(0, torch.where(ok, gs, m).long(),
+                               torch.where(ok, gv["v"], -1), "amax",
+                               include_self=True)
+        return CCCompactSummary(croot, vo[:m])
+
     def transform(s: CCCompactSummary) -> torch.Tensor:
         # The plan's only full-capacity op: i32[n] labels per window.
         root = unionfind.pointer_jump(s.croot)
@@ -464,6 +494,12 @@ def connected_components_compact(
         ordered_wait_s=lambda: session.wait_s,
         on_resume=lambda summary: session.rebuild_from_vertex_of(
             to_numpy(summary.vertex_of)
+        ),
+        merge_mode=resolve_merge_mode(merge_mode),
+        merge_delta=merge_delta,
+        merge_dirty_count=merge_dirty_count,
+        merge_delta_auto_rows=(
+            m // 4 if delta_auto_rows is None else int(delta_auto_rows)
         ),
         name="connected-components-compact",
     )
@@ -614,9 +650,16 @@ def _windowed_compact_variant(
 
 
 def resolve_merge_mode(merge_mode: str) -> str:
-    """Validate the cross-device merge knob (``"auto"``/``"delta"``/
-    ``"replicated"``). It shapes only multi-device merges, which this
-    slice's one-device engine never runs."""
+    """Validate the cross-shard window merge knob:
+
+    - ``"replicated"`` — merge whole shard summaries (butterfly,
+      hierarchical tree or gather + stacked union): cost ∝ capacity;
+    - ``"delta"`` — gather only the dirty ``(slot, parent)`` rows of the
+      window and union them into the carried global summary: cost ∝ the
+      window's hooks;
+    - ``"auto"`` — per window, delta while the gathered rows stay within
+      the plan's ``merge_delta_auto_rows``, else replicated.
+    """
     if merge_mode not in ("auto", "delta", "replicated"):
         raise ValueError(
             f"merge_mode must be auto/delta/replicated, got {merge_mode!r}"
@@ -669,10 +712,14 @@ def connected_components(
     ``ingest_combine=False`` builds the raw plan; ``fold_backend``
     (:func:`resolve_fold_backend`) picks its sort-dedup gather:
     ``"kernel"`` for the hand-written CUDA ``sorted_window_gather``,
-    ``"plain"``/``"auto"`` for plain PyTorch gathers. ``windowed=W``
-    marks the plan for the engine's sliding pane ring (emissions cover the
-    last W merge windows); ``ttl_panes`` needs ``codec="compact"``. The
-    delta knob raises ``NotImplementedError``.
+    ``"plain"``/``"auto"`` for plain PyTorch gathers; a raw fold takes
+    the sort-dedup path when its chunk (on a mesh: each shard's slice)
+    holds at least :data:`RAW_DEDUP_MIN_CHUNK` lanes. ``merge_mode``
+    (:func:`resolve_merge_mode`) picks the mesh's window merge and
+    ``delta_auto_rows`` the ``"auto"`` crossover (default ``n / 4``
+    gathered rows). ``windowed=W`` marks the plan for the engine's
+    sliding pane ring (emissions cover the last W merge windows; the
+    merge is then replicated); ``ttl_panes`` needs ``codec="compact"``.
     """
     if codec == "compact":
         if not ingest_combine:
@@ -688,19 +735,18 @@ def connected_components(
             "per-vertex decay evicts through the CompactIdSession "
             "rebuild hook, which dense/sparse plans have no analog of"
         )
-    if windowed is not None and int(windowed) < 1:
-        raise ValueError(f"windowed must be >= 1 pane, got {windowed}")
-    if delta_auto_rows is not None:
-        raise NotImplementedError(
-            "connected_components(delta_auto_rows=) is not ported yet: "
-            f"{_MESH_ITEM}"
-        )
+    if windowed is not None:
+        if int(windowed) < 1:
+            raise ValueError(f"windowed must be >= 1 pane, got {windowed}")
+        # A pane ring retires panes: the delta merge, which folds into a
+        # CARRIED global summary, cannot engage.
+        merge_mode = "replicated"
     if merge not in ("tree", "gather"):
         raise ValueError(f"merge must be tree/gather, got {merge!r}")
     n = vertex_capacity
     sparse = resolve_sparse_codec(codec, n)
-    resolve_merge_mode(merge_mode)
     backend = resolve_fold_backend(fold_backend, n)
+    mode = resolve_merge_mode(merge_mode)
 
     def init(device=DEFAULT_DEVICE) -> CCSummary:
         parent = unionfind.fresh_forest(n, device)
@@ -807,6 +853,9 @@ def connected_components(
         # Label-preserving: pointer_jump only shortcuts chains.
         return CCSummary(unionfind.pointer_jump(s.parent), s.seen)
 
+    mk_delta, mk_count = _cc_merge_delta(n)
+    if windowed is not None:
+        mk_delta = mk_count = None
     codec_on = ingest_combine
     agg = SummaryAggregation(
         init=init,
@@ -835,10 +884,63 @@ def connected_components(
         fold_accumulates=True,  # CC forests are pure edge-set summaries
         fold_backend=backend,
         device_fields=("src", "dst", "valid"),  # what the raw fold reads
+        merge_mode=mode,
+        merge_delta=mk_delta,
+        merge_dirty_count=mk_count,
+        # Past n/4 gathered rows the replicated merge's whole-forest unions
+        # win (gelly_tpu's structural guess; delta_auto_rows overrides).
+        merge_delta_auto_rows=(
+            None if windowed is not None
+            else n // 4 if delta_auto_rows is None
+            else int(delta_auto_rows)
+        ),
         name=f"connected-components-{merge}",
     )
     if windowed is not None:
         agg.windowed_panes = int(windowed)
+    return agg
+
+
+def _cc_merge_delta(n: int):
+    """The ``CCSummary`` dirty-delta merge: each shard's touched ``(slot,
+    parent)`` rows (a fresh-forest local IS its edge set ``{(i,
+    parent[i])}`` plus its seen marks), gathered and unioned into the
+    carried global summary with :func:`~gelly_torch.ops.unionfind.
+    union_pairs_rooted` (pair-sized rounds, no full-capacity flatten; the
+    transform's pointer jump chases the depth)."""
+
+    def dirty(local: CCSummary) -> torch.Tensor:
+        ident = torch.arange(n, dtype=torch.int32, device=local.parent.device)
+        return local.seen | (local.parent != ident)
+
+    def merge_dirty_count(local: CCSummary) -> torch.Tensor:
+        return dirty(local).sum(dtype=torch.int32)
+
+    def merge_delta(base: CCSummary, locals_: list,
+                    bucket: int) -> CCSummary:
+        rows = [collectives.compact_delta(dirty(l), l.parent, bucket)
+                for l in locals_]
+        gs, gv = collectives.gather_delta(
+            [r[0] for r in rows], [r[1] for r in rows], base.parent.device)
+        ok = gs >= 0
+        si = torch.where(ok, gs, 0)
+        parent = unionfind.union_pairs_rooted(
+            base.parent, si, torch.where(ok, gv, 0), ok)
+        return CCSummary(parent, segments.mark_seen(base.seen, si, ok))
+
+    return merge_delta, merge_dirty_count
+
+
+def connected_components_tree(vertex_capacity: int,
+                              degree: int | None = None
+                              ) -> SummaryAggregation:
+    """ConnectedComponentsTree parity alias (merge-tree combine):
+    ``degree`` is the ``SummaryTreeReduce`` partial-parallelism knob
+    (ConnectedComponentsTree.java:28-34 -> SummaryTreeReduce.java:75); the
+    mesh merge runs as a hierarchical tree with ``degree`` group
+    summaries after its first phase."""
+    agg = connected_components(vertex_capacity, merge="tree")
+    agg.merge_degree = degree
     return agg
 
 

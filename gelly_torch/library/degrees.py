@@ -15,8 +15,11 @@ edges:
 :class:`DegreeDistributionStream` (``DegreeDistribution.java``) yields the
 degree histogram after every chunk. ``degree_aggregate(windowed=W)``
 marks the plan for the engine's sliding pane ring (degrees over the last
-W merge windows). ``degrees_query`` and the sharded degrees raise
-``NotImplementedError`` naming their ROADMAP.md item.
+W merge windows). :class:`ShardedDegrees` stripes the degree vector
+over a mesh's shards and routes each endpoint to its owner (the keyed
+exchange), with a broadcast fallback for skewed chunks.
+``degrees_query`` raises ``NotImplementedError`` naming its ROADMAP.md
+item.
 """
 
 from __future__ import annotations
@@ -40,7 +43,6 @@ from ..ops.unionfind import host_sync
 from ..utils import native
 
 _BATCHED_ITEM = "ROADMAP.md queue 1 item 11 (batched engines)"
-_MESH_ITEM = "ROADMAP.md queue 1 item 8 (multi-GPU merge)"
 
 
 def degree_aggregate(vertex_capacity: int, count_out: bool = True,
@@ -265,16 +267,156 @@ class DegreeDistributionStream:
 
 
 class ShardedDegrees:
-    """Vertex-partitioned degree state over several devices; not ported
-    yet."""
+    """Vertex-striped degree state over a mesh — the ``keyBy``
+    parallelism (the reference co-locates a vertex's edges on one subtask,
+    ``M/SimpleEdgeStream.java:492``). Shard ``d`` holds the ``int64``
+    degrees of slots ``{g : g % S == d}`` at offset ``g // S``.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"ShardedDegrees is not ported yet: {_MESH_ITEM}"
-        )
+    - ``mode="auto"`` (default): the keyed exchange, but a chunk whose
+      exchange buckets overflow is left unapplied and replayed through
+      the broadcast step (``stats["fallback_chunks"]`` counts them);
+    - ``mode="exchange"``: each shard takes an even slice of the chunk
+      and one ``all_to_all``
+      (:func:`~gelly_torch.parallel.partition.repartition_by_key`)
+      delivers every ``(endpoint, ±1)`` to its owner; overflow is counted
+      in ``stats["dropped"]`` and raises;
+    - ``mode="broadcast"``: every shard scans the whole chunk and keeps
+      its owned endpoints.
+
+    Drops are read every 8 chunks (one host read a chunk then), as
+    ``gelly_tpu`` checks them.
+    """
+
+    def __init__(self, stream, mesh=None, count_out=True, count_in=True,
+                 mode: str = "auto", bucket_slack: float = 2.0):
+        from ..parallel import mesh as mesh_lib, partition
+
+        if mode not in ("auto", "exchange", "broadcast"):
+            raise ValueError(
+                f"mode must be auto/exchange/broadcast, got {mode}")
+        self.stream = stream
+        self.mesh = mesh if mesh is not None else mesh_lib.make_mesh()
+        self.count_out = count_out
+        self.count_in = count_in
+        self.mode = mode
+        self.bucket_slack = bucket_slack
+        self.stats = {"dropped": 0}
+        n = stream.ctx.vertex_capacity
+        self.per_shard = partition.slots_per_shard(
+            n, mesh_lib.num_shards(self.mesh))
+
+    def _broadcast_step(self, deg: list, chunk) -> list:
+        from ..parallel import partition
+
+        S = len(deg)
+        out = []
+        for me, (d, dev) in enumerate(zip(deg, self.mesh.devices)):
+            c = chunk.to_fields(dev, ("src", "dst", "event", "valid"))
+            delta = torch.where(c.event == 1, -1, 1).to(torch.int64)
+            for on, ends in ((self.count_out, c.src),
+                             (self.count_in, c.dst)):
+                if on:
+                    mine = partition.owned_mask(ends, S, me)
+                    d = segments.masked_scatter_add(
+                        d, partition.to_local_slot(ends, S), delta,
+                        c.valid & mine)
+            out.append(d)
+        return out
+
+    def _exchange_step(self, deg: list, chunk):
+        from ..parallel import partition
+
+        S = len(deg)
+        keys, deltas, valids = [], [], []
+        for part, dev in zip(partition.split_chunk(chunk, S),
+                             self.mesh.devices):
+            c = part.to_fields(dev, ("src", "dst", "event", "valid"))
+            delta = torch.where(c.event == 1, -1, 1).to(torch.int64)
+            k, dd, vv = [], [], []
+            if self.count_out:
+                k.append(c.src)
+                dd.append(delta)
+                vv.append(c.valid)
+            if self.count_in:
+                k.append(c.dst)
+                dd.append(delta)
+                vv.append(c.valid)
+            keys.append(torch.cat(k))
+            deltas.append(torch.cat(dd))
+            valids.append(torch.cat(vv))
+        cap = partition.default_bucket_capacity(
+            keys[0].shape[0], S, self.bucket_slack)
+        key_r, dd_r, valid_r, dropped = partition.repartition_by_key(
+            self.mesh, keys, deltas, valids, S, cap)
+        out = []
+        for d, k, dd, v, dr in zip(deg, key_r, dd_r, valid_r, dropped):
+            applied = segments.masked_scatter_add(
+                d, partition.to_local_slot(k, S), dd, v)
+            # An overflowing chunk is left UNAPPLIED on every shard (the
+            # count is global): auto replays it, strict mode raises.
+            out.append(torch.where(dr == 0, applied, d))
+        return out, dropped[0]
+
+    def final_degrees(self) -> dict[int, int]:
+        from ..parallel import partition
+
+        n = self.stream.ctx.vertex_capacity
+        S = len(self.mesh.devices)
+        mode = self.mode
+        deg = [torch.zeros(self.per_shard, dtype=torch.int64, device=dev)
+               for dev in self.mesh.devices]
+        seen = np.zeros((n,), bool)
+        pending: list = []  # (chunk, dropped) awaiting the drop check
+        self.stats["fallback_chunks"] = 0
+
+        def check_drops():
+            nonlocal deg
+            dropped_total = 0
+            for c, d in pending:
+                nd = int(host_sync(d))
+                if not nd:
+                    continue
+                if mode == "auto":
+                    # The overflowing chunk was left unapplied: replay it
+                    # through the skew-proof broadcast step.
+                    deg = self._broadcast_step(deg, c)
+                    self.stats["fallback_chunks"] += 1
+                else:
+                    dropped_total += nd
+            pending.clear()
+            if dropped_total:
+                self.stats["dropped"] += dropped_total
+                raise ValueError(
+                    f"{dropped_total} endpoint updates overflowed the "
+                    f"exchange buckets; raise bucket_slack or use "
+                    f"mode='auto' (no silent drops)"
+                )
+
+        for i, c in enumerate(self.stream):
+            ok = to_numpy(c.valid).astype(bool)
+            # An endpoint is "touched" only for the directions counted.
+            if self.count_out:
+                seen[to_numpy(c.src)[ok]] = True
+            if self.count_in:
+                seen[to_numpy(c.dst)[ok]] = True
+            if mode == "broadcast":
+                deg = self._broadcast_step(deg, c)
+                continue
+            deg, dropped = self._exchange_step(deg, c)
+            pending.append((c, dropped))
+            if i % 8 == 7:
+                check_drops()
+        check_drops()
+        # De-stripe the shard-concatenated state to global slot order.
+        out = partition.unstripe(
+            torch.cat([d.cpu() for d in deg]).numpy(), S)
+        slots = np.nonzero(seen)[0]
+        raw = self.stream.ctx.decode(slots)
+        return {int(r): int(out[s]) for s, r in zip(slots, raw)}
 
 
-def sharded_degrees(*args, **kwargs):
-    raise NotImplementedError(
-        f"sharded_degrees is not ported yet: {_MESH_ITEM}"
-    )
+def sharded_degrees(stream, mesh=None, count_out=True, count_in=True,
+                    mode: str = "auto", bucket_slack: float = 2.0
+                    ) -> ShardedDegrees:
+    return ShardedDegrees(stream, mesh, count_out, count_in, mode,
+                          bucket_slack)

@@ -48,9 +48,11 @@ triangle programs, held to it bit for bit:
   kernel on a card, one thread an instance; its plain version on the CPU).
 
 The slab loops of the sparse, bucketed and exact paths are plain PyTorch:
-a few launches a slab of a vectorised step. Not ported yet, each raising
-``NotImplementedError`` that names its ROADMAP item: the mesh paths
-(:func:`sharded_window_triangles`, ``sampled_triangle_count(mesh=)``).
+a few launches a slab of a vectorised step. The mesh paths:
+:func:`sharded_window_triangles` (the keyed exchange, per-shard partial
+adjacencies summed across the shards) and ``sampled_triangle_count
+(mesh=)`` (the instance axis split over the shards, each running the
+sampler kernel).
 """
 
 from __future__ import annotations
@@ -66,7 +68,6 @@ from ..ops.rowtable import put_where_
 from ..ops.segments import INT_MAX
 from ..utils.prefetch import prefetch_map
 
-_MESH_ITEM = "ROADMAP.md queue 1 item 8 (multi-GPU merge)"
 _I64_MAX = torch.iinfo(torch.int64).max
 # The packed wire holds a*n + b in i32: capacities with n*n at or past
 # this take the unpacked dense path.
@@ -877,15 +878,73 @@ def window_triangles(stream, window_ms: int, capacity: int | None = None,
     return ((w, int(c)) for w, c in counts)
 
 
+def _wedge_count_slabbed(adj: torch.Tensor, key: torch.Tensor,
+                         nbr: torch.Tensor, valid: torch.Tensor, n: int,
+                         slab_bytes: int = 1 << 28) -> torch.Tensor:
+    """:func:`_wedge_count_from_adj`'s ``"gather"`` count with the
+    ``m[:, a] & m[:, b]`` product taken in slabs of lanes, so at most
+    ``slab_bytes`` booleans are live at once (integer sums: the same
+    count)."""
+    m = adj.triu_(diagonal=1)
+    canon = valid & (key < nbr)
+    uniq = segments.unique_pairs_mask(key, nbr, canon, n)
+    a = key.long().clamp(0, n - 1)
+    b = nbr.long().clamp(0, n - 1)
+    slab = max(1, slab_bytes // max(n, 1))
+    total = torch.zeros((), dtype=torch.int64, device=adj.device)
+    for lo in range(0, a.shape[0], slab):
+        hi = lo + slab
+        per_edge = (m[:, a[lo:hi]] & m[:, b[lo:hi]]).sum(
+            dim=0, dtype=torch.int32)
+        total = total + torch.where(uniq[lo:hi], per_edge, 0).sum(
+            dtype=torch.int64)
+    return total
+
+
 def sharded_window_triangles(stream, window_ms: int,
                              capacity: int | None = None,
                              window_capacity: int | None = None,
                              mesh=None,
                              bucket_slack: float = 2.0) -> Iterator[tuple]:
-    """The mesh-parallel window count of the reference."""
-    raise NotImplementedError(
-        f"sharded_window_triangles is not ported to gelly_torch yet: "
-        f"{_MESH_ITEM}")
+    """Mesh-parallel window triangle count (``WindowTriangles.java:61-139``
+    at parallelism > 1): yields ``(window_index, count)``, the count an
+    ``int64`` 0-d tensor on the first shard's device.
+
+    The direction-ALL keyed exchange
+    (:class:`~gelly_torch.parallel.sharded_window.ShardedSnapshotStream`)
+    puts each group vertex's window neighbourhood on its owner shard.
+    Each shard scatters a ``uint8`` partial adjacency; the partials are
+    summed across the shards (``gelly_tpu``'s ``psum``); then each shard
+    counts the wedges closed by its owned canonical edges (the gather
+    method, slabbed) and the counts are summed. Exact parity with
+    :func:`window_triangles`."""
+    from ..parallel import mesh as mesh_lib
+    from ..parallel.sharded_window import ShardedSnapshotStream
+
+    n = capacity if capacity is not None else stream.ctx.vertex_capacity
+    m = mesh if mesh is not None else mesh_lib.make_mesh()
+    snap = ShardedSnapshotStream(stream, window_ms, "all", window_capacity,
+                                 m, bucket_slack)
+    dev0 = m.devices[0]
+
+    def gen():
+        for w, views in snap.views():
+            parts = []
+            for v in views:
+                part = torch.zeros((n, n), dtype=torch.uint8,
+                                   device=v.key.device)
+                ok = v.valid
+                part[v.key[ok].long(), v.nbr[ok].long()] = 1
+                parts.append(part)
+            total = parts[0].clone()
+            for p in parts[1:]:
+                total += p.to(total.device)
+            counts = [_wedge_count_slabbed(
+                (total.to(v.key.device) > 0), v.key, v.nbr, v.valid, n
+            ).to(dev0) for v in views]
+            yield w, torch.stack(counts).sum()
+
+    return gen()
 
 
 # --------------------------------------------------------------------- #
@@ -1361,6 +1420,58 @@ def sampler_estimate(state: SamplerState, num_vertices=None) -> float:
     return float(scaled / s * state.edge_count.to(torch.float32))
 
 
+def _shard_sampler(state: SamplerState, mesh) -> list:
+    """The instance axis split into S contiguous blocks, one a shard
+    (``gelly_tpu``'s ``device_put_sharded_leading``); ``edge_count`` is
+    replicated."""
+    S = len(mesh.devices)
+    per = state.src.shape[0] // S
+    out = []
+    for i, dev in enumerate(mesh.devices):
+        out.append(SamplerState(*(
+            (f[i * per:(i + 1) * per] if f.dim() else f).to(dev, copy=True)
+            for f in state)))
+    return out
+
+
+def sharded_sampler_estimate(states: list, num_vertices=None) -> float:
+    """:func:`sampler_estimate` over a sharded instance axis: each shard's
+    ``float32`` partial sum, added in shard order (``gelly_tpu``'s
+    ``psum``; its grouping may differ in the last bits)."""
+    dev = states[0].src.device
+    scaled = torch.zeros((), dtype=torch.float32, device=dev)
+    for st in states:
+        beta = (st.src_found & st.trg_found).to(torch.float32)
+        v = (st.v_at if num_vertices is None
+             else torch.full_like(st.v_at, num_vertices))
+        scaled = scaled + (beta * (v - 2).clamp(min=0).to(
+            torch.float32)).sum().to(dev)
+    s = sum(st.src.shape[0] for st in states)
+    return float(scaled / s * states[0].edge_count.to(dev, torch.float32))
+
+
+def sharded_sampler_run(stream, num_samples: int, mesh,
+                        num_vertices: int | None = None,
+                        seed: int = 0xDEADBEEF) -> Iterator[tuple]:
+    """``(per-shard states, estimate)`` after each chunk of the sharded
+    sampler: every shard advances its instances over the whole chunk
+    (edges replicated, ``BroadcastTriangleCount.java:41-45``) with the
+    sampler kernel."""
+    S = len(mesh.devices)
+    if num_samples % S:
+        raise ValueError(
+            f"num_samples {num_samples} not divisible by {S} shards"
+        )
+    states = _shard_sampler(
+        _fresh_sampler(num_samples, seed, mesh.devices[0]), mesh)
+    for c in stream:
+        v = (num_vertices if num_vertices is not None
+             else stream.ctx.table.num_vertices)
+        states = [_sampler_step(st, c.to_fields(dev, _STEP_FIELDS), v)
+                  for st, dev in zip(states, mesh.devices)]
+        yield states, sharded_sampler_estimate(states, num_vertices)
+
+
 def sampled_triangle_count(stream, num_samples: int,
                            num_vertices: int | None = None,
                            seed: int = 0xDEADBEEF,
@@ -1372,12 +1483,18 @@ def sampled_triangle_count(stream, num_samples: int,
     the stream's *live* vertex count, read after each chunk is produced
     (the slot capacity can be much larger, which would blow up variance
     via phantom third-vertex draws). The state lives on
-    ``stream.ctx.device``.
+    ``stream.ctx.device``, or with ``mesh`` its instance axis is split
+    over the shards (:func:`sharded_sampler_run`): the per-instance key
+    streams make every instance's state the unsharded run's, bit for bit.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            f"sampled_triangle_count(mesh=) is not ported to gelly_torch "
-            f"yet: {_MESH_ITEM}")
+        if num_samples % len(mesh.devices):
+            raise ValueError(
+                f"num_samples {num_samples} not divisible by "
+                f"{len(mesh.devices)} shards"
+            )
+        return (est for _, est in sharded_sampler_run(
+            stream, num_samples, mesh, num_vertices, seed))
     device = stream.ctx.device
 
     def gen():

@@ -37,9 +37,17 @@ from gelly_tpu.library import bipartiteness as jbp
 from gelly_tpu.parallel.mesh import make_mesh
 from gelly_tpu.utils import native as jnative
 
+from _torch_native import load_jax_native
+
 # BipartitenessCheckTest.getBipartiteEdges / getNonBipartiteEdges
 BIPARTITE = [(1, 2), (1, 3), (1, 4), (4, 5), (4, 7), (4, 9)]
 NON_BIPARTITE = [(1, 2), (2, 3), (3, 1), (4, 5), (5, 7), (4, 1)]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native_loaded():
+    # A lost build race with another test process is a wait.
+    load_jax_native("chunk_combiner")
 
 
 def _run_port(edges, merge_every=2, chunk_size=2, **kw):

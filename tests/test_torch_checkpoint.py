@@ -466,10 +466,15 @@ def test_checkpoint_knob_validation(tmp_path):
     with pytest.raises(FileNotFoundError):
         stream.aggregate(agg, checkpoint_path=str(tmp_path / "none.npz"),
                          resume=True).result()
-    # The window knobs are ported: a pane ring checkpoints; TTL without
-    # a ring and lateness without window_ms refuse as JAX does.
-    windowed = stream.aggregate(agg, checkpoint_path=str(tmp_path / "w.npz"),
-                                windowed=2, merge_every=MERGE_EVERY)
+    # The window knobs are ported: a pane ring checkpoints (the plan's
+    # windowed builder variant: a plan with the dirty-delta merge refuses
+    # a ring, as JAX's does); TTL without a ring and lateness without
+    # window_ms refuse as JAX does.
+    with pytest.raises(ValueError, match="dirty-delta"):
+        stream.aggregate(agg, windowed=2, merge_every=MERGE_EVERY)
+    windowed = stream.aggregate(
+        tcc.connected_components(N, codec="sparse", windowed=2),
+        checkpoint_path=str(tmp_path / "w.npz"), merge_every=MERGE_EVERY)
     windowed.result()
     assert windowed.stats["checkpoints"] > 0
     for knob, value, match in (("ttl_panes", 3, "requires windowed"),

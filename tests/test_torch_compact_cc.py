@@ -38,12 +38,20 @@ from gelly_tpu.ops import unionfind as ju
 from gelly_tpu.parallel.mesh import make_mesh
 from gelly_tpu.utils import native as jnat
 
+from _torch_native import load_jax_native
+
 jcc = importlib.import_module("gelly_tpu.library.connected_components")
 
 N = 1024
 N_EDGES = 2700  # 11 chunks of 256: windows of 4, 4 and 3 chunks
 CHUNK = 256
 MERGE_EVERY = 4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native_loaded():
+    # A lost build race with another test process is a wait.
+    load_jax_native("chunk_combiner")
 
 
 def _zipf(seed=3, e=N_EDGES, n=N, a=1.3):
@@ -770,13 +778,22 @@ def test_engine_knob_validation():
         stream.aggregate(agg, codec_workers=2, ingest_workers=2)
     with pytest.raises(ValueError, match="h2d_depth"):
         stream.aggregate(agg, h2d_depth=-1)
-    for knob, value in (("mesh", object()), ("precompressed", True),
+    for knob, value in (("precompressed", True),
                         ("source_provider", True)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             stream.aggregate(agg, **{knob: value})
+    # mesh= is ported: it takes a gelly_torch mesh.
+    with pytest.raises(TypeError, match="Mesh"):
+        stream.aggregate(agg, mesh=object())
     # The window knobs are ported (they run, or refuse as JAX does).
     assert len(list(stream.aggregate(agg, window_ms=10))) > 0
-    assert len(list(stream.aggregate(agg, windowed=2, merge_every=4))) > 0
+    # A plan with the dirty-delta merge refuses a pane ring as gelly_tpu's
+    # does; its windowed builder variant runs.
+    with pytest.raises(ValueError, match="dirty-delta"):
+        stream.aggregate(agg, windowed=2, merge_every=4)
+    assert len(list(stream.aggregate(
+        tcc.connected_components(N, codec="sparse", windowed=2),
+        merge_every=4))) > 0
     with pytest.raises(ValueError, match="window_ms"):
         stream.aggregate(agg, allowed_lateness=5)
     with pytest.raises(TypeError):
@@ -808,8 +825,9 @@ def test_compact_plan_refusals():
     windowed = tcc.connected_components(N, codec="compact", windowed=2)
     assert windowed.windowed_panes == 2
     assert windowed.name == "connected-components-compact-windowed"
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tcc.connected_components_compact(N, delta_auto_rows=8)
+    # The mesh merge knobs are ported: the bound is the plan's.
+    assert tcc.connected_components_compact(
+        N, delta_auto_rows=8).merge_delta_auto_rows == 8
     with pytest.raises(ValueError, match="codec"):
         tcc.connected_components(N, codec="bogus")
 

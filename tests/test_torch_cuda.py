@@ -4,7 +4,8 @@ matching fold, on random states and on their edge cases); the CC (raw,
 compact and sparse plans), window-triangle, degree and bipartiteness
 (raw, dense and sparse plans) paths, the spanner plans, the matching and
 the stream API on CUDA vs the same paths on the CPU; the engine's pinned
-H2D ring; resumes that come back on the card.
+H2D ring; resumes that come back on the card; the mesh paths on four
+logical shards of the card vs four CPU shards.
 
 Marked ``cuda``; every test takes the ``cuda_device`` fixture, which skips
 when the machine has no card (decided at run time, never at import time,
@@ -1003,3 +1004,80 @@ def test_triangle_library_on_card_equals_cpu(cuda_device):
     for x, y in zip(a[2] + a[3], b[2] + b[3]):
         assert torch.equal(x, y)
     assert a[4] == b[4]
+
+
+# --------------------------------------------------------------------- #
+# the mesh: four logical shards of the card against four CPU shards
+
+
+def _mesh_path(path: str, device):
+    """One mesh path at a small size on ``[device] * 4`` shards; integer
+    outputs pulled to numpy."""
+    from gelly_torch.library import degrees as tdeg
+    from gelly_torch.library.sharded_triangles import ShardedExactTriangles
+    from gelly_torch.parallel.mesh import make_mesh
+    from gelly_torch.parallel.sharded_cc import ShardedCC
+
+    mesh = make_mesh(4, devices=[device] * 4)
+    n = 1 << 12
+    rng = np.random.default_rng(len(path))
+    src = (rng.zipf(1.3, 1 << 14) % n).astype(np.int32)
+    dst = (rng.zipf(1.3, 1 << 14) % n).astype(np.int32)
+
+    def stream(chunk=1 << 12, **kw):
+        return edge_stream_from_source(EdgeChunkSource(
+            src, dst, chunk_size=chunk, table=IdentityVertexTable(n), **kw),
+            n, device=device)
+
+    if path in ("raw-delta", "raw-tree"):
+        agg = (tcc.connected_components(n, ingest_combine=False,
+                                        fold_backend="kernel",
+                                        merge_mode="delta")
+               if path == "raw-delta" else tcc.connected_components_tree(
+                   n, degree=2))
+        res = stream().aggregate(agg, mesh=mesh, merge_every=2)
+        out = [x.cpu().numpy() for x in res]
+        return out + [np.array(sorted(res.stats["merge_modes"].items()))]
+    if path == "compact":
+        agg = tcc.connected_components(n, codec="compact", compact_capacity=n,
+                                       merge_mode="delta")
+        return [x.cpu().numpy() for x in stream(1 << 10).aggregate(
+            agg, mesh=mesh, merge_every=8, fold_batch=8)]
+    if path == "sharded-cc":
+        cc = ShardedCC(n, mesh=mesh)
+        cc.fold(src, dst)
+        return [cc.labels()] + [p.cpu().numpy() for p in cc.parent]
+    if path == "degrees":
+        got = tdeg.sharded_degrees(stream(), mesh=mesh,
+                                   mode="auto").final_degrees()
+        return [np.array(sorted(got.items()))]
+    if path == "sampler":  # 4 chunks of 128 lanes (the plain loop is slow)
+        src, dst = src[:512], dst[:512]
+        states = list(ttri.sharded_sampler_run(stream(128), 256, mesh))[-1][0]
+        return [f.cpu().numpy() for st in states for f in st]
+    ts = np.arange(src.shape[0], dtype=np.int64)
+    win = [(w, int(c)) for w, c in ttri.sharded_window_triangles(
+        stream(timestamps=ts, time=TimeCharacteristic.EVENT), 1 << 13,
+        capacity=n, window_capacity=1 << 15, mesh=mesh)]
+    exact = ShardedExactTriangles(stream(), max_degree=n,
+                                  mesh=mesh).run().final_counts()
+    return [np.array(win), np.array(sorted(exact.items()))]
+
+
+@pytest.mark.parametrize("path", ["raw-delta", "raw-tree", "compact",
+                                  "sharded-cc", "degrees", "sampler",
+                                  "triangles"])
+def test_mesh_paths_on_card_equal_cpu(cuda_device, path, monkeypatch):
+    # Each shard's 1024-lane slice takes the dedup fold and its gather.
+    monkeypatch.setattr(tcc, "RAW_DEDUP_MIN_CHUNK", 1 << 10)
+    before = (kernels.sorted_window_gather.launches,
+              kernels.sampler_step.launches)
+    got = _mesh_path(path, cuda_device)
+    if path == "raw-delta":
+        assert kernels.sorted_window_gather.launches > before[0]
+    if path == "sampler":  # 4 chunks on 4 shards
+        assert kernels.sampler_step.launches == before[1] + 16
+    want = _mesh_path(path, torch.device("cpu"))
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and np.array_equal(a, b)

@@ -31,7 +31,15 @@ from gelly_tpu.library import degrees as jdeg
 from gelly_tpu.parallel.mesh import make_mesh
 from gelly_tpu.utils import native as jnative
 
+from _torch_native import load_jax_native
+
 N_V = 64
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native_loaded():
+    # A lost build race with another test process is a wait.
+    load_jax_native("chunk_combiner")
 
 
 def _edges(n_e, seed, deletions, n_v=N_V, zipf=False):
@@ -307,10 +315,12 @@ def test_unported_knobs_name_their_item():
     assert tdeg.degree_aggregate(16, windowed=2).windowed_panes == 2
     with pytest.raises(NotImplementedError, match="item 11"):
         tdeg.degrees_query(16)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tdeg.ShardedDegrees(None)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tdeg.sharded_degrees(None)
+    # The sharded degrees are ported (tests/test_torch_sharded_library.py
+    # holds them to gelly_tpu); a bad mode raises as gelly_tpu's does.
+    with pytest.raises(ValueError, match="mode must be"):
+        tdeg.ShardedDegrees(None, mode="bogus")
+    with pytest.raises(ValueError, match="mode must be"):
+        tdeg.sharded_degrees(None, mode="bogus")
 
 
 def test_default_device_is_the_card():

@@ -31,8 +31,16 @@ from gelly_tpu.core.stream import edge_stream_from_source as j_stream
 from gelly_tpu.core.vertices import IdentityVertexTable as JIdentity
 from gelly_tpu.utils import native as jnative
 
+from _torch_native import load_jax_native
+
 TM = importlib.import_module("gelly_torch.library.matching")
 JM = importlib.import_module("gelly_tpu.library.matching")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native_loaded():
+    # A lost build race with another test process is a wait.
+    load_jax_native("matching")
 
 
 def _stream(edges, n_v, chunk):

@@ -223,9 +223,13 @@ def test_live_vertex_count_equals_fixed():
 
 
 def test_mesh_is_not_ported():
+    # The mesh path is ported (tests/test_torch_sharded_library.py); an
+    # instance count the shards do not divide raises as gelly_tpu's does.
+    from gelly_torch.parallel.mesh import make_mesh as t_make_mesh
+
     t = t_edges([(0, 1)], vertex_capacity=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        t_sampled(t, 8, mesh=object())
+    with pytest.raises(ValueError, match="not divisible by 3 shards"):
+        t_sampled(t, 8, mesh=t_make_mesh(3, devices=["cpu"] * 3))
 
 
 @pytest.mark.parametrize("split", [1, 3])

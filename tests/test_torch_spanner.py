@@ -42,6 +42,8 @@ from gelly_tpu.ops import rowtable as jrow
 from gelly_tpu.parallel.mesh import make_mesh
 from gelly_tpu.utils import native as jnative
 
+from _torch_native import load_jax_native
+
 tsp = importlib.import_module("gelly_torch.library.spanner")
 jsp = importlib.import_module("gelly_tpu.library.spanner")
 
@@ -51,6 +53,12 @@ _j_batched = jax.jit(jsp._sparse_insert_edges_batched,
 _j_k2 = jax.jit(jsp._sparse_fold_chunk_k2, static_argnums=(4, 5))
 _j_dense_insert = jax.jit(jsp._insert_edges, static_argnums=(4,))
 _j_dense_batched = jax.jit(jsp._insert_edges_batched, static_argnums=(4, 5))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native_loaded():
+    # A lost build race with another test process is a wait.
+    load_jax_native("spanner", "chunk_combiner")
 
 
 def _j_sparse(n, D, E):

@@ -387,8 +387,13 @@ def test_unported_parts_raise(case, monkeypatch):
         want = {w: int(c) for w, c in jtri.window_triangles_bucketed(j, 400)}
         got = {w: int(c) for w, c in ttri.window_triangles_bucketed(t, 400)}
     assert got == want == GOLDEN
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        list(ttri.sharded_window_triangles(t, 400))
+    # The mesh count was the last part raising; on two CPU shards it
+    # gives the same windows.
+    from gelly_torch.parallel.mesh import make_mesh as t_make_mesh
+
+    sharded = {w: int(c) for w, c in ttri.sharded_window_triangles(
+        t, 400, mesh=t_make_mesh(2, devices=["cpu"] * 2))}
+    assert sharded == GOLDEN
 
 
 # --------------------------------------------------------------------- #
