@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Drive gelly_torch's streaming connected-components, window-triangle,
 degree, bipartiteness, k-spanner and weighted-matching paths, the
-per-window Merger plan, windows (event-time, lateness, pane rings, TTL),
-the stream API, the rest of the triangle library (bucketed, capped-
-degree and unpacked dense windows, exact and sampled counts) and the
-mesh (four logical shards), on one CUDA card.
+per-window Merger plan, fused multi-query, windows (event-time,
+lateness, pane rings, TTL), the stream API, the rest of the triangle
+library (bucketed, capped-degree and unpacked dense windows, exact and
+sampled counts) and the mesh (four logical shards), on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -66,7 +66,8 @@ Phases (any failure exits nonzero and prints no result line):
    three gate and matching kernels, the two hash-set entries, the row
    insert and the sampler step, each with the JAX function it replaces,
    the gather's and the sampler's launches on the mesh as
-   ``mesh_launches``), then ``{"ok": true, "device": ...}`` last.
+   ``mesh_launches``, the gather's and entry 2's in phase L1 as
+   ``multiquery_launches``), then ``{"ok": true, "device": ...}`` last.
 
 The durable phases (checkpoints, exactly-once resume, the resilient
 runner), each checking that the native codec was never disabled:
@@ -174,6 +175,31 @@ G. ``bench.py:bench_matching`` (BASELINE #5, no cut): the ratings fixture
    ``csrc/matching_step.cu`` kernel) equals it (integer weights: no f32
    threshold window), and the kernel equals its plain version on a
    ``2^12``-edge prefix.
+
+Fused multi-query (phase L, right after F3, on phase 4's stream and
+``2^22``-edge chunks, ``merge_every=4``; each timed run prints its wall,
+edges a second, stage busy seconds, H2D bytes, kernel launches and peak
+device memory, its launch counts set to 0 just before it):
+
+L. L1: ``run_aggregation(None, stream, queries=[cc_query(2^24,
+   fold_backend="kernel"), degrees_query(2^24), bipartiteness_query(2^24),
+   spanner_query(2^24, 2, every=4, max_degree=16, gate_batch=2^14)])``:
+   4 emissions, each query's equal to its standalone run at the same
+   boundary (phase 4's kernel labels, a degree and a bipartiteness run,
+   F3's emissions: the same plan), each freed once compared; the gather
+   launched 3 times a dedup chunk and entry 2 of ``csrc/spanner_gate.cu``
+   at each of the spanner's merge windows and each emission's
+   merge-on-read (counted); the fused wall and H2D bytes beside the sum of
+   the four standalone runs'. L2: the trio ``cc_query``,
+   ``degrees_query``, ``bipartiteness_query`` with ``compressed=True,
+   codec="sparse"``, ``fold_batch=4``: the shared compress stage took
+   every chunk (counted), the wire bytes an edge, every emission equal to
+   the three standalone sparse-codec runs' (and the CC labels to phase
+   4's). L3: L2's trio on ``make_mesh(4, devices=[cuda:0] * 4)``: every
+   emission equal to L2's (CC labels and degrees; bipartiteness's ``ok``).
+   L4: L1's quartet checkpointed every window and stopped once the
+   window-2 checkpoint is on disk (after the 3rd emission), then a fresh
+   plan resuming from it: windows 3 and 4 equal L1's.
 
 Windows (phase H) and the stream API (phase I), after phase G (I5 after
 phase 6); each timed run prints its wall, edges a second, stage busy
@@ -2136,12 +2162,238 @@ def spanner_twitter_phase(torch, device, src, dst) -> dict:
           f"{hist.tolist()} ({int((hops <= 2).sum())} within 2; gate levels "
           f"a window {levels}, every edge within k^levels), "
           f"{time.perf_counter() - t0:.2f} s")
-    del out, last
-    torch.cuda.empty_cache()
+    del last
     # No profiled rerun here (cut to fit phases H and I in the time limit;
-    # PR 7's idle share over the first two windows is in PERF.md).
+    # an earlier idle share over the first two windows is in PERF.md).
+    # The emissions stay on the card: phase L holds its fused spanner to
+    # them.
     return {"launches": st["launches"][HAND_KERNELS.index(
-        "sparse_insert_edges_batched")]}
+        "sparse_insert_edges_batched")], "out": out,
+        "wall_s": st["wall_s"], "h2d_bytes": st["h2d_bytes"]}
+
+# Phase L (fused multi-query, after F3, on phase 4's stream and chunks): the
+# library quartet through run_aggregation(queries=...) at full width. L1:
+# the raw fused fold (CC on the gather kernel, the spanner on F3's plan with
+# its own merge window of MERGE_EVERY chunks); L2: the shared sparse codec;
+# L3: L2's trio on four logical shards of the card; L4: L1's quartet
+# stopped and resumed from its window-2 checkpoint.
+L_FOLD_BATCH = 4  # L2 and L3's codec units (a multiple of the shards)
+L3_SHARDS = 4
+L3_EDGES = N_EDGES
+
+
+def l_source(src, dst, n_edges: int = N_EDGES):
+    from gelly_torch.core.io import EdgeChunkSource
+    from gelly_torch.core.vertices import IdentityVertexTable
+
+    return EdgeChunkSource(src[:n_edges], dst[:n_edges], chunk_size=CHUNK,
+                           table=IdentityVertexTable(N_VERTICES))
+
+
+def quartet_queries():
+    from gelly_torch import library as lib
+
+    n = N_VERTICES
+    return [lib.cc_query(n, fold_backend="kernel"), lib.degrees_query(n),
+            lib.bipartiteness_query(n),
+            lib.spanner_query(n, 2, every=MERGE_EVERY, max_degree=SPANNER_D,
+                              gate_batch=SPANNER_SUB)]
+
+
+def codec_trio():
+    from gelly_torch import library as lib
+
+    return [q(N_VERTICES, compressed=True, codec="sparse")
+            for q in (lib.cc_query, lib.degrees_query,
+                      lib.bipartiteness_query)]
+
+
+def same_tree(torch, a, b) -> bool:
+    """Every leaf of two summaries or emissions equal, dtype and shape
+    included (tensors on the card, or host arrays)."""
+    from gelly_torch.engine.checkpoint import tree_flatten
+
+    la, lb = tree_flatten(a)[0], tree_flatten(b)[0]
+    if len(la) != len(lb):
+        return False
+    for x, y in zip(la, lb):
+        x, y = (v if isinstance(v, torch.Tensor)
+                else torch.from_numpy(np.asarray(v)) for v in (x, y))
+        if x.dtype != y.dtype or x.shape != y.shape \
+                or not torch.equal(x, y.to(x.device)):
+            return False
+    return True
+
+
+def multiquery_phase(torch, device, src, dst, labels, cc_run, dedup_chunks,
+                     f3) -> dict:
+    """Phase L. ``labels`` and ``cc_run`` are phase 4's kernel run (host
+    labels a window, its stats), ``f3`` F3's run: its emissions on the
+    card (``"out"``, taken and freed here as they are compared), wall and
+    H2D bytes. Returns the gather's and entry 2's launches in L1."""
+    from gelly_torch.engine.checkpoint import read_checkpoint_header
+    from gelly_torch.parallel.mesh import make_mesh
+
+    n_chunks = -(-N_EDGES // CHUNK)
+    n_windows = -(-n_chunks // MERGE_EVERY)
+
+    def fused(queries, n_edges=N_EDGES, fold_batch=1, **knobs):
+        return drive(torch, device, None, l_source(src, dst, n_edges),
+                     N_VERTICES, n_edges, MERGE_EVERY, fold_batch, None,
+                     queries=queries, **knobs)
+
+    def alone(agg, fold_batch=1):
+        return drive(torch, device, agg, l_source(src, dst), N_VERTICES,
+                     N_EDGES, MERGE_EVERY, fold_batch, None)
+
+    def cc_equal(got, i):
+        return same(got.cpu().numpy(), labels[i])
+
+    # L1. The raw fused fold: every query's emissions held to its
+    # standalone run at the same boundaries.
+    out, st = fused(quartet_queries())
+    # Entry 2 runs at each of the spanner's merge windows and in each
+    # emission's merge-on-read.
+    merges = n_chunks // MERGE_EVERY + n_windows
+    report_run("phase L1 fused quartet", st,
+               expect={"sorted_window_gather": 3 * dedup_chunks,
+                       "sparse_insert_edges_batched": merges})
+    check(len(out) == n_windows and all(
+        sorted(e) == ["bipartiteness", "cc", "degrees", "spanner"]
+        for e in out), f"L1: {len(out)} emissions")
+    check(st["stats"]["multiquery.emissions"] == 4 * n_windows
+          and st["stats"]["multiquery.runs"] == 1,
+          f"L1: counters {st['stats']}")
+    for i, e in enumerate(out):
+        check(cc_equal(e.pop("cc"), i), f"L1 window {i}: cc != phase 4's")
+
+    # L4. The quartet checkpointed every window, stopped once the window-2
+    # checkpoint is written (after the 3rd emission), and a fresh plan
+    # resuming from it: windows 3 and 4 equal L1's.
+    tmp = tempfile.mkdtemp(prefix="gelly-mq-")
+    try:
+        path = os.path.join(tmp, "ck.npz")
+        knobs = {"checkpoint_path": path, "checkpoint_every": 1}
+        got, st_stop = fused(quartet_queries(), stop_after=3, **knobs)
+        del got
+        header = read_checkpoint_header(path)
+        check(header["position"] == 2 * MERGE_EVERY
+              and header["meta"]["windows"] == 2,
+              f"L4: after the stop the checkpoint is at "
+              f"{header['position']} {header['meta']}")
+        ck_bytes = os.path.getsize(path)
+        # The resumed run writes no checkpoint: its cadence is past the
+        # stream's last window.
+        got, st_res = fused(quartet_queries(), resume=True,
+                            checkpoint_path=path,
+                            checkpoint_every=n_windows)
+        check(st_res["stats"]["resumed_at"] == 2 * MERGE_EVERY,
+              f"L4: resumed at {st_res['stats']['resumed_at']}")
+        check(len(got) == n_windows - 2, f"L4: {len(got)} emissions")
+        for i, (g, w) in enumerate(zip(got, out[2:])):
+            check(cc_equal(g["cc"], i + 2), f"L4 window {i + 3}: cc")
+            for name in ("degrees", "bipartiteness", "spanner"):
+                check(same_tree(torch, g[name], w[name]),
+                      f"L4 window {i + 3}: {name} != L1's")
+        del got
+        busy = st_res["busy"]
+        print(f"phase L4 stop after 3 emissions: wall="
+              f"{st_stop['wall_s']:.4f} s, checkpoint busy "
+              f"{st_stop['busy'].get('checkpoint', 0):.4f} s for "
+              f"{st_stop['stats']['checkpoints']} writes of {ck_bytes} B; "
+              f"resume at position "
+              f"{2 * MERGE_EVERY}: load={busy['resume_load']:.4f} s "
+              f"skip={busy['resume_skip']:.4f} s, call to first emission "
+              f"{st_res['first_emission_s']:.4f} s, wall="
+              f"{st_res['wall_s']:.4f} s; windows 3-{n_windows} equal L1's")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # L1's standalone runs: degrees and bipartiteness here, the spanner
+    # is F3's run (the same plan, stream and boundaries).
+    deg, st_deg = alone(quartet_queries()[1].agg)
+    report_run("phase L1 standalone degrees", st_deg)
+    for i, (a, e) in enumerate(zip(deg, out)):
+        check(same_tree(torch, a, e.pop("degrees")),
+              f"L1 window {i}: degrees != the standalone run's")
+    del deg
+    bip, st_bip = alone(quartet_queries()[2].agg)
+    report_run("phase L1 standalone bipartiteness", st_bip)
+    for i, (a, e) in enumerate(zip(bip, out)):
+        check(same_tree(torch, a, e.pop("bipartiteness")),
+              f"L1 window {i}: bipartiteness != the standalone run's")
+    del bip
+    f3_out = f3.pop("out")
+    check(len(f3_out) == n_windows, f"L1: F3 gave {len(f3_out)}")
+    for i, e in enumerate(out):
+        check(same_tree(torch, f3_out[i], e.pop("spanner")),
+              f"L1 window {i}: spanner != F3's")
+        f3_out[i] = None
+    del out, f3_out
+    torch.cuda.empty_cache()
+    runs = {"cc": cc_run, "degrees": st_deg, "bipartiteness": st_bip,
+            "spanner": f3}
+    wall_sum = sum(r["wall_s"] for r in runs.values())
+    h2d_sum = sum(r["h2d_bytes"] for r in runs.values())
+    print(f"phase L1: fused wall={st['wall_s']:.4f} s h2d={st['h2d_bytes']} B "
+          f"against the four standalone runs' sum wall={wall_sum:.4f} s "
+          f"h2d={h2d_sum} B ("
+          + ", ".join(f"{k} {r['wall_s']:.4f} s {r['h2d_bytes']} B"
+                      for k, r in runs.items())
+          + f"); fused/sum wall {st['wall_s'] / wall_sum:.4f}, h2d "
+          f"{st['h2d_bytes'] / h2d_sum:.4f}; every window of every query "
+          f"equal to its standalone run")
+    result = {"gather_launches": st["launches"][HAND_KERNELS.index(
+        "sorted_window_gather")], "merge_launches": st["launches"][
+        HAND_KERNELS.index("sparse_insert_edges_batched")]}
+
+    # L2. The shared sparse codec: one multi-query payload a chunk.
+    out2, st2 = fused(codec_trio(), fold_batch=L_FOLD_BATCH)
+    report_run("phase L2 fused codec trio", st2)
+    check_native_codecs("phase L2")
+    check(st2["stats"]["multiquery.compressed_chunks"] == n_chunks,
+          f"L2: {st2['stats']['multiquery.compressed_chunks']} compressed "
+          f"chunks != {n_chunks}")
+    check(len(out2) == n_windows, f"L2: {len(out2)} emissions")
+    wall2 = h2d2 = 0.0
+    for q in codec_trio():
+        a, st_q = alone(q.agg, fold_batch=L_FOLD_BATCH)
+        report_run(f"phase L2 standalone {q.name} sparse codec", st_q)
+        wall2 += st_q["wall_s"]
+        h2d2 += st_q["h2d_bytes"]
+        check(len(a) == n_windows and all(
+            same_tree(torch, x, e[q.name]) for x, e in zip(a, out2)),
+            f"L2: {q.name} != its standalone codec run")
+        del a
+    for i, e in enumerate(out2):
+        check(cc_equal(e["cc"], i), f"L2 window {i}: cc != phase 4's")
+    print(f"phase L2: the shared compress stage took "
+          f"{st2['stats']['multiquery.compressed_chunks']} chunks, wire "
+          f"{st2['h2d_bytes'] / N_EDGES:.4f} B/edge; fused wall="
+          f"{st2['wall_s']:.4f} s h2d={st2['h2d_bytes']} B against the "
+          f"three standalone codec runs' sum wall={wall2:.4f} s "
+          f"h2d={int(h2d2)} B; every window equal")
+
+    # L3. L2's trio on four logical shards of the card.
+    mesh = make_mesh(L3_SHARDS, devices=[device] * L3_SHARDS)
+    out3, st3 = fused(codec_trio(), n_edges=L3_EDGES,
+                      fold_batch=L_FOLD_BATCH, mesh=mesh)
+    report_run(f"phase L3 fused codec trio on {L3_SHARDS} shards", st3)
+    n3 = -(-L3_EDGES // CHUNK)
+    check(st3["stats"]["multiquery.compressed_chunks"] == n3,
+          f"L3: {st3['stats']['multiquery.compressed_chunks']} compressed "
+          f"chunks != {n3}")
+    check(len(out3) == -(-n3 // MERGE_EVERY), f"L3: {len(out3)} emissions")
+    for i, (g, w) in enumerate(zip(out3, out2)):
+        check(same_tree(torch, g["cc"], w["cc"])
+              and same_tree(torch, g["degrees"], w["degrees"])
+              and bool(g["bipartiteness"].ok) == bool(w["bipartiteness"].ok),
+              f"L3 window {i}: != the S = 1 run's")
+    print(f"phase L3: {len(out3)} windows equal L2's (S = 1): cc labels, "
+          f"degrees, bipartiteness ok "
+          f"({bool(out3[-1]['bipartiteness'].ok)})")
+    del out2, out3
+    return result
 
 
 def bounded_degree_stream(n: int, seed: int):
@@ -4347,12 +4599,14 @@ def main() -> int:
         reset_launches(kernels)
         unionfind.host_sync.count = 0
         t = time.perf_counter()
-        out = list(stream.aggregate(agg, merge_every=MERGE_EVERY))
+        res = stream.aggregate(agg, merge_every=MERGE_EVERY)
+        out = list(res)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         stats = {
             "wall_s": wall,
             "edges_per_s": N_EDGES / wall,
+            "h2d_bytes": res.stats["h2d_bytes"],
             "launches": kernels.sorted_window_gather.launches,
             "host_syncs": unionfind.host_sync.count,
             "peak_mem_bytes": torch.cuda.max_memory_allocated(device),
@@ -4427,6 +4681,12 @@ def main() -> int:
     f2 = spanner_bench_phase(torch, device, f2_stream)
     torch.cuda.empty_cache()
     f3 = spanner_twitter_phase(torch, device, src, dst)
+    torch.cuda.empty_cache()
+
+    # L. fused multi-query on phase 4's stream (L1 against F3's emissions)
+    mark("L", t_start)
+    mq = multiquery_phase(torch, device, src, dst, labels, st, dedup_chunks,
+                          f3)
     torch.cuda.empty_cache()
     f4 = spanner_gate_phase(torch, device, f2_stream)
     del f2_stream
@@ -4633,6 +4893,7 @@ def main() -> int:
         "replaces": "gelly_tpu/ops/pallas_kernels.py:174",
         "launches": st["launches"],
         "mesh_launches": k14["gather_launches"],
+        "multiquery_launches": mq["gather_launches"],
         "max_abs_err": max(max_abs_err, k14["gather_err"]),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -4680,6 +4941,7 @@ def main() -> int:
         "source": "gelly_torch/csrc/spanner_gate.cu",
         "replaces": "gelly_tpu/library/spanner.py:309",
         "launches": f3["launches"],
+        "multiquery_launches": mq["merge_launches"],
         "max_abs_err": 0,
         "ms": f2["ms"],
         "plain_ms": f2["plain_ms"],

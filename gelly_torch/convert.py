@@ -40,6 +40,11 @@ host root and seen caches), the ``ShardedDegrees`` stripes (``int64``) and
 ``ShardedExactTriangles`` (``nbr`` / ``aidx`` i32 ``[S, per, D]``, ``deg``
 i32 and ``counts`` i64 stripes, and its host counters) carry both ways.
 
+A fused multi-query state (``engine/multiquery.py``: ``"_step"``, a 0-d
+``int64``, beside one summary a query, or ``{"local", "global"}`` for a
+query with its own merge window) carries through the per-query
+converters (:func:`fused_state_from_numpy` / :func:`fused_state_to_numpy`).
+
 Dtypes and shapes are checked, never widened or narrowed silently.
 """
 
@@ -49,6 +54,8 @@ import numpy as np
 import torch
 
 from .core.device import DEFAULT_DEVICE, resolve_device, to_numpy
+from .engine.checkpoint import tree_flatten
+from .engine.multiquery import STEP_KEY
 from .library.bipartiteness import BipartiteSummary
 from .library.connected_components import (
     CCCompactSummary,
@@ -444,3 +451,56 @@ def sharded_exact_from_numpy(t, nbr, aidx, deg, counts, total: int,
     t.deg = shards_from_numpy(deg, t.mesh, _I32)
     t.counts = shards_from_numpy(counts, t.mesh, _I64)
     t.total, t.n_seen, t.overflow = int(total), int(n_seen), int(overflow)
+
+
+def _sub_from_numpy(from_numpy, x, device):
+    if isinstance(x, (tuple, list)):  # NamedTuples (nested ones too)
+        return from_numpy(*tree_flatten(x)[0], device=device)
+    return from_numpy(x, device=device)
+
+
+def fused_state_from_numpy(spec: dict, arrays: dict,
+                           device: torch.device | str = DEFAULT_DEVICE
+                           ) -> dict:
+    """A fused multi-query state on ``device``. ``spec`` maps each query
+    name to its converter (e.g. :func:`cc_summary_from_numpy`,
+    :func:`degrees_from_numpy`); ``arrays`` holds ``"_step"`` (0-d
+    ``int64``) and each query's arrays: a tuple of the converter's
+    arguments (a NamedTuple of arrays, nested or not, as ``gelly_tpu``'s
+    state taken to numpy gives it) or a single array, or ``{"local": ...,
+    "global": ...}`` of those for a query with its own merge window."""
+    missing = sorted(set(spec) - set(arrays))
+    extra = sorted(set(arrays) - set(spec) - {STEP_KEY})
+    if STEP_KEY not in arrays or missing or extra:
+        raise ValueError(
+            f"fused arrays must hold {STEP_KEY!r} and exactly the queries "
+            f"{sorted(spec)} (missing {missing}, unknown {extra})")
+    out = {STEP_KEY: _tensors(device, {STEP_KEY: (_I64, 0)},
+                              **{STEP_KEY: arrays[STEP_KEY]})[0]}
+    for name, from_numpy in spec.items():
+        x = arrays[name]
+        if isinstance(x, dict):
+            out[name] = {k: _sub_from_numpy(from_numpy, x[k], device)
+                         for k in ("local", "global")}
+        else:
+            out[name] = _sub_from_numpy(from_numpy, x, device)
+    return out
+
+
+def _sub_to_numpy(x):
+    if isinstance(x, torch.Tensor):
+        return to_numpy(x)
+    return tuple(to_numpy(leaf) for leaf in tree_flatten(x)[0])
+
+
+def fused_state_to_numpy(state: dict) -> dict:
+    """The host arrays of a fused state: ``"_step"`` and, for each query,
+    its summary's leaves in field order (a tuple; one array for a bare
+    tensor summary), or ``{"local": ..., "global": ...}`` of those."""
+    out = {STEP_KEY: to_numpy(state[STEP_KEY])}
+    for name, x in state.items():
+        if name == STEP_KEY:
+            continue
+        out[name] = ({k: _sub_to_numpy(v) for k, v in x.items()}
+                     if isinstance(x, dict) else _sub_to_numpy(x))
+    return out

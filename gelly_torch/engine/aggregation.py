@@ -36,9 +36,11 @@ plans), whose stream is a :class:`WindowedStream`.
 
 Checkpoints (``checkpoint_path``) and exactly-once resume (``resume``)
 follow ``gelly_tpu``'s file format and rules, so a run either package
-checkpointed resumes in the other. On a mesh of S > 1 shards
-(``mesh=``, ``parallel/mesh.py``) each shard folds its slice of every
-chunk (or its share of every codec batch) into its own locals, and each
+checkpointed resumes in the other. Fused multi-query plans
+(``queries=``, ``engine/multiquery.py``) run as one accumulate plan. On a
+mesh of S > 1 shards (``mesh=``, ``parallel/mesh.py``) each shard folds
+its slice of every chunk (or its share of every codec batch) into its
+own locals, and each
 window close merges the shards (butterfly, ``merge_degree`` tree or
 ``merge_stacked`` gather) or, with a plan's ``merge_delta``, gathers only
 the rows the window touched. Pre-compressed streams and source providers
@@ -84,6 +86,9 @@ class SummaryAggregation:
     - ``combine(a, b)`` → summary: associative + commutative merge.
     - ``transform(summary)`` → emission (optional).
     - ``transient`` — when True the global summary resets every window.
+    - ``jit_transform`` — ``gelly_tpu``'s flag of a device transform; a
+      plan that sets it False (a host-side transform) cannot be fused
+      (``engine/multiquery.py``).
     - ``merge_stacked`` — optional ``stacked -> summary`` merge of K
       summaries at once (leading axis K).
     - ``flatten`` — optional label-preserving compaction of the summary,
@@ -139,6 +144,7 @@ class SummaryAggregation:
     combine: Callable[[Summary, Summary], Summary]
     transform: Callable[[Summary], Any] | None = None
     transient: bool = False
+    jit_transform: bool = True
     merge_stacked: Callable[[Summary], Summary] | None = None
     host_compress: Callable[[EdgeChunk], Any] | None = None
     fold_compressed: Callable[[Summary, Any], Summary] | None = None
@@ -344,9 +350,8 @@ class WindowedStream(SummaryStream):
 # Knobs of gelly_tpu's run_aggregation this slice does not run, with the
 # value that means "off" and the ROADMAP.md item that brings each.
 _NOT_YET = {
-    "source_provider": (None, "queue 1 item 12 (host planes: ingest)"),
-    "precompressed": (False, "queue 1 item 12 (host planes: ingest)"),
-    "queries": (None, "queue 1 item 11 (batched engines)"),
+    "source_provider": (None, "queue 1 item 12b (ingest)"),
+    "precompressed": (False, "queue 1 item 12b (ingest)"),
 }
 
 
@@ -386,18 +391,35 @@ def _copying(combine):
     return lambda a, b: combine(_clone_tree(a), _clone_tree(b))
 
 
-def _flatten(payload):
-    """``(leaves, rebuild)`` of a payload: a dict (sorted keys), a
-    NamedTuple (its fields) or a single array."""
+def _flatten(payload, prefix: tuple = ()):
+    """``(leaves, rebuild)`` of a payload tree: dicts (sorted keys),
+    NamedTuples (their fields) and tuples, nested or not; anything else is
+    a leaf. Each leaf comes with its key: its field name at the top level
+    (the names ``skip`` lists), the path of names below it (a fused
+    multi-query payload nests one dict a query), ``""`` for a bare
+    array."""
     if isinstance(payload, dict):
-        keys = sorted(payload)
-        return ([(k, payload[k]) for k in keys],
-                lambda ls: dict(zip(keys, ls)))
-    if isinstance(payload, tuple):
-        fields = getattr(payload, "_fields", range(len(payload)))
-        return (list(zip(fields, payload)),
-                lambda ls: type(payload)(*ls))
-    return [("", payload)], lambda ls: ls[0]
+        names = sorted(payload)
+        items = [payload[k] for k in names]
+        make = lambda vals: dict(zip(names, vals))  # noqa: E731
+    elif isinstance(payload, tuple):
+        names = list(getattr(payload, "_fields", range(len(payload))))
+        items = list(payload)
+        make = ((lambda vals: type(payload)(*vals))
+                if hasattr(payload, "_fields") else tuple)
+    else:
+        key = prefix[0] if len(prefix) == 1 else (prefix or "")
+        return [(key, payload)], lambda ls: ls[0]
+    parts = [_flatten(x, prefix + (n,)) for n, x in zip(names, items)]
+
+    def rebuild(ls):
+        vals, i = [], 0
+        for leaves, rb in parts:
+            vals.append(rb(ls[i:i + len(leaves)]))
+            i += len(leaves)
+        return make(vals)
+
+    return [leaf for leaves, _ in parts for leaf in leaves], rebuild
 
 
 def _stack_tree(payloads: list):
@@ -540,6 +562,14 @@ def _check_window_knobs(agg, window_ms, allowed_lateness, windowed,
                 "window_ms is a different cadence axis — size the pane "
                 "with merge_every instead"
             )
+        if getattr(agg, "queries", None):
+            raise ValueError(
+                f"fused plan '{agg.name}' cannot carry a pane ring: the "
+                "ring combines ONE plan's pane summaries, and per-query "
+                "cadences (QuerySpec.every) would desynchronize the "
+                "shared pane boundary — run the windowed query as its "
+                "own stream"
+            )
         if agg.transient:
             raise ValueError(
                 f"aggregation '{agg.name}' is transient (emit-and-reset "
@@ -665,6 +695,7 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
                     window_ms: int | None = None, allowed_lateness: int = 0,
                     windowed: int | None = None,
                     ttl_panes: int | None = None,
+                    queries=None,
                     **knobs) -> SummaryStream:
     """Execute ``agg`` over ``stream`` on ``stream.ctx.device``, or on the
     shards of ``mesh`` (``parallel.mesh.make_mesh``).
@@ -747,6 +778,15 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
     counted in ``stats["merge_modes"]``). Checkpoints hold the global
     summary, as ``gelly_tpu``'s do.
 
+    ``queries=[...]`` (with ``agg=None``) fuses the queries into one
+    plan (:func:`~gelly_torch.engine.multiquery.fuse`): each chunk is
+    staged and copied once and every query folds it in the one fused
+    fold. ``merge_every`` mode only, with no ``host_precombine`` and no
+    pane ring; on S > 1 shards every query must accumulate. The stream is
+    a :class:`~gelly_torch.engine.multiquery.MultiQueryStream` (emission
+    dicts keyed by query name, live per-query snapshots). A fused plan
+    passed as ``agg`` runs the same way.
+
     Every other knob of ``gelly_tpu``'s ``run_aggregation`` is accepted
     by name and raises ``NotImplementedError`` (naming its ROADMAP.md
     item) unless it is left at its "off" value.
@@ -756,6 +796,19 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
     from ..utils.prefetch import prefetch, prefetch_map
 
     _refuse_later_knobs(knobs)
+    if queries is not None:
+        if agg is not None:
+            raise ValueError(
+                "pass a single aggregation OR queries=[...], not both "
+                "(queries are fused into one plan by engine.multiquery)"
+            )
+        from .multiquery import fuse
+
+        agg = fuse(queries)
+    if agg is None:
+        raise ValueError("an aggregation is required (or pass queries=[...])")
+    # The normalized QuerySpec tuple of a fused plan; None for plain plans.
+    fused = getattr(agg, "queries", None) or None
     if resume and not checkpoint_path:
         raise ValueError("resume=True requires checkpoint_path")
     if checkpoint_every < 1:
@@ -818,6 +871,29 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
                else [stream.ctx.device])
     S = len(devices)
     mesh_ = mesh if mesh is not None else Mesh(devices)
+    if fused:
+        if window_ms is not None:
+            raise ValueError(
+                f"fused plan '{agg.name}' is merge_every-only: per-query "
+                "cadences (QuerySpec.every) count chunks, and event-time "
+                "windows cannot mask the shared fused fold per query"
+            )
+        if host_precombine is not None:
+            raise ValueError(
+                "host_precombine rewrites the shared chunk for ONE "
+                "query's benefit; a fused plan folds EVERY query from "
+                "the same chunk — drop it (fold the pre-combine into "
+                "that query's own fold instead)"
+            )
+        if S > 1 and any(not q.accum or q.every != 1 for q in fused):
+            raise ValueError(
+                f"fused plan '{agg.name}' carries a non-accumulating "
+                "query (or a per-query merge window > 1): its in-fold "
+                "merges are per-partition, so the fused plan is "
+                f"single-shard — run on a 1-device mesh (S={S} here); "
+                "scale out by sharding the TENANT axis via "
+                "MultiTenantEngine(mesh=...) instead"
+            )
     delta_armed = _check_merge_knobs(agg, S)
     # A pane ring folds every pane from FRESH locals (the ring supplies
     # the accumulation), and S > 1 shards merge their locals each window:
@@ -1367,4 +1443,8 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
                   else SummaryStream(gen))
     out_stream.timer = timer
     out_stream.stats = stats
+    if fused:
+        from .multiquery import MultiQueryStream
+
+        out_stream = MultiQueryStream(out_stream, agg)
     return out_stream

@@ -44,9 +44,9 @@ name that stream itself.
 Every decision is counted in ``ResilientRunner.stats`` (retries, watchdog
 timeouts, degradations, source restarts, checkpoints written, missed and
 their bytes), where ``gelly_tpu`` publishes them on its ``obs`` bus, which
-the port does not have yet (ROADMAP.md queue 1 item 12). Coordinated
+the port does not have yet (ROADMAP.md queue 1 item 12a). Coordinated
 multi-host checkpoints (``coordinator=``, ``adopt_state=``,
-``reshard_source=``) raise ``NotImplementedError`` (queue 1 item 11).
+``reshard_source=``) raise ``NotImplementedError`` (queue 1 item 11c).
 """
 
 from __future__ import annotations
@@ -75,7 +75,7 @@ from .checkpoint import (
 
 logger = logging.getLogger("gelly_torch.resilience")
 
-_COORDINATION_ITEM = "ROADMAP.md queue 1 item 11 (engine/coordination)"
+_COORDINATION_ITEM = "ROADMAP.md queue 1 item 11c (engine/coordination)"
 
 
 class StreamFault(RuntimeError):

@@ -15,6 +15,7 @@ from .bipartiteness import (
 from .connected_components import (
     CCSummary,
     cc_host_precombine,
+    cc_query,
     connected_components_tree,
     labels_to_components,
 )
@@ -40,6 +41,7 @@ __all__ = [
     "bipartiteness_check",
     "bipartiteness_query",
     "cc_host_precombine",
+    "cc_query",
     "connected_components_tree",
     "degree_aggregate",
     "degree_distribution",

@@ -15,7 +15,8 @@ sticky ``failed`` bit, the analog of the merge collapsing to
   per unit; the fold takes the compacted-root-space union while four times
   the unit's padded lanes fit in the capacity.
 
-``bipartiteness_query`` (the fused engines) raises ``NotImplementedError``.
+:func:`bipartiteness_query` is the plan as a fused multi-query query
+(``engine/multiquery.py``).
 """
 
 from __future__ import annotations
@@ -35,8 +36,6 @@ from ..engine.aggregation import (
 from ..ops import parity_unionfind as puf, segments
 from ..utils import native
 from .connected_components import cc_labels_numpy
-
-_BATCHED_ITEM = "ROADMAP.md queue 1 item 11 (batched engines)"
 
 
 class BipartiteSummary(NamedTuple):
@@ -232,9 +231,17 @@ def bipartiteness_check(vertex_capacity: int, ingest_combine: bool = True,
 
 def bipartiteness_query(vertex_capacity: int, *, name: str = "bipartiteness",
                         compressed: bool = False, codec: str = "auto"):
-    """The fused-engine query form; not ported yet."""
-    raise NotImplementedError(
-        f"bipartiteness_query is not ported yet: {_BATCHED_ITEM}"
+    """Fuse-compatible bipartiteness query (``engine.multiquery.fuse``):
+    the parity-union fold (``ingest_combine=False`` by default;
+    ``compressed=True`` keeps the parity codec on for the fused shared
+    codec)."""
+    from ..engine.multiquery import QuerySpec
+
+    return QuerySpec(
+        name=name,
+        agg=bipartiteness_check(vertex_capacity,
+                                ingest_combine=compressed, codec=codec),
+        slot_capacity=vertex_capacity,
     )
 
 

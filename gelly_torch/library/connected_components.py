@@ -901,6 +901,30 @@ def connected_components(
     return agg
 
 
+def cc_query(vertex_capacity: int, *, name: str = "cc",
+             merge: str = "gather", fold_backend: str = "auto",
+             compressed: bool = False, codec: str = "auto"):
+    """Fuse-compatible CC query (``engine.multiquery.fuse``), tagged with
+    its slot capacity so ``fuse`` can refuse mismatched chunk schemas.
+
+    ``compressed=False`` (default) builds the raw fold
+    (``ingest_combine=False``): the fused pipeline stages each chunk once
+    for every query. ``compressed=True`` keeps the ingest codec on; when
+    every query of a fused set does, the fused plan compresses each chunk
+    once into one multi-query payload. ``codec`` picks the payload as in
+    :func:`connected_components` (``"compact"`` is stack-ordered and
+    cannot be fused)."""
+    from ..engine.multiquery import QuerySpec
+
+    return QuerySpec(
+        name=name,
+        agg=connected_components(vertex_capacity, merge=merge,
+                                 ingest_combine=compressed, codec=codec,
+                                 fold_backend=fold_backend),
+        slot_capacity=vertex_capacity,
+    )
+
+
 def _cc_merge_delta(n: int):
     """The ``CCSummary`` dirty-delta merge: each shard's touched ``(slot,
     parent)`` rows (a fresh-forest local IS its edge set ``{(i,

@@ -18,8 +18,8 @@ marks the plan for the engine's sliding pane ring (degrees over the last
 W merge windows). :class:`ShardedDegrees` stripes the degree vector
 over a mesh's shards and routes each endpoint to its owner (the keyed
 exchange), with a broadcast fallback for skewed chunks.
-``degrees_query`` raises ``NotImplementedError`` naming its ROADMAP.md
-item.
+:func:`degrees_query` is the plan as a fused multi-query query
+(``engine/multiquery.py``).
 """
 
 from __future__ import annotations
@@ -41,8 +41,6 @@ from ..engine.aggregation import (
 from ..ops import segments
 from ..ops.unionfind import host_sync
 from ..utils import native
-
-_BATCHED_ITEM = "ROADMAP.md queue 1 item 11 (batched engines)"
 
 
 def degree_aggregate(vertex_capacity: int, count_out: bool = True,
@@ -168,9 +166,20 @@ def degree_aggregate(vertex_capacity: int, count_out: bool = True,
 def degrees_query(vertex_capacity: int, *, name: str = "degrees",
                   count_out: bool = True, count_in: bool = True,
                   compressed: bool = False, codec: str = "auto"):
-    """The fused-engine query form; not ported yet."""
-    raise NotImplementedError(
-        f"degrees_query is not ported yet: {_BATCHED_ITEM}"
+    """Fuse-compatible degree query (``engine.multiquery.fuse``): the
+    ±1-scatter fold (``ingest_combine=False`` by default: the fused
+    pipeline stages each chunk once for every query; ``compressed=True``
+    keeps the delta codec on for the fused shared codec).
+    ``count_out``/``count_in`` pick the direction, so out- and in-degree
+    can ride one fused fold as two named queries."""
+    from ..engine.multiquery import QuerySpec
+
+    return QuerySpec(
+        name=name,
+        agg=degree_aggregate(vertex_capacity, count_out=count_out,
+                             count_in=count_in,
+                             ingest_combine=compressed, codec=codec),
+        slot_capacity=vertex_capacity,
     )
 
 
@@ -327,6 +336,9 @@ class ShardedDegrees:
         from ..parallel import partition
 
         S = len(deg)
+        if not (self.count_out or self.count_in):
+            # gelly_tpu's jnp.concatenate of no keys raises this.
+            raise ValueError("Need at least one array to concatenate.")
         keys, deltas, valids = [], [], []
         for part, dev in zip(partition.split_chunk(chunk, S),
                              self.mesh.devices):

@@ -292,6 +292,7 @@ def sparse_spanner(vertex_capacity: int, k: int, max_degree: int,
         transform=None,
         host_compress=hc,
         fold_compressed=fc,
+        device_fields=("src", "dst", "valid"),  # what the raw fold reads
         name=f"sparse-spanner-k{k}",
     )
 
@@ -417,6 +418,7 @@ def spanner(vertex_capacity: int, k: int,
         transform=None,
         host_compress=hc,
         fold_compressed=fc,
+        device_fields=("src", "dst", "valid"),  # what the raw fold reads
         name=f"spanner-k{k}",
     )
 
@@ -425,11 +427,22 @@ def spanner_query(vertex_capacity: int, k: int, *, name: str = "spanner",
                   every: int = 1, max_edges: int | None = None,
                   max_degree: int | None = None,
                   gate_batch: int | None = None):
-    """The fuse-compatible k-spanner query of ``gelly_tpu``: not ported
-    yet (it needs the fused multi-query engine)."""
-    raise NotImplementedError(
-        "spanner_query is not ported yet: ROADMAP.md queue 1 item 11 "
-        "(batched engines)"
+    """Fuse-compatible k-spanner query (``engine.multiquery.fuse``).
+
+    The spanner is the one non-accumulating plan of the library quartet:
+    the fused plan carries ``{local, global}`` sub-state and runs the
+    cross-window merge (``CombineSpanners``) in the fused fold every
+    ``every`` chunks, the query's own merge window. Its emission is
+    ``combine(local, global)`` on copies (merge-on-read), so the window's
+    tail is always included, as in the standalone plan."""
+    from ..engine.multiquery import QuerySpec
+
+    return QuerySpec(
+        name=name,
+        agg=spanner(vertex_capacity, k, max_edges=max_edges,
+                    max_degree=max_degree, gate_batch=gate_batch),
+        every=every,
+        slot_capacity=vertex_capacity,
     )
 
 

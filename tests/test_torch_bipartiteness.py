@@ -119,8 +119,14 @@ def test_result_dtypes_and_device():
 
 
 def test_unported_query_names_its_item():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tbp.bipartiteness_query(16)
+    # The fused query builder is ported: it builds gelly_tpu's spec.
+    for kw in ({}, {"name": "bp", "compressed": True, "codec": "sparse"}):
+        t, j = tbp.bipartiteness_query(16, **kw), jbp.bipartiteness_query(
+            16, **kw)
+        assert (t.name, t.every, t.slot_capacity, t.accum) == (
+            j.name, j.every, j.slot_capacity, j.accum)
+        assert t.agg.name == j.agg.name
+        assert (t.agg.host_compress is None) == (j.agg.host_compress is None)
 
 
 def test_default_device_is_the_card():

@@ -22,6 +22,7 @@ from gelly_torch.core.io import EdgeChunkSource, TimeCharacteristic
 from gelly_torch.core.stream import edge_stream_from_source
 from gelly_torch.core.vertices import IdentityVertexTable
 from gelly_torch.engine.aggregation import PinnedRing
+from gelly_torch.engine.checkpoint import tree_flatten
 from gelly_torch.library import connected_components as tcc
 from gelly_torch.library import triangles as ttri
 from gelly_torch.ops import kernels
@@ -1081,3 +1082,95 @@ def test_mesh_paths_on_card_equal_cpu(cuda_device, path, monkeypatch):
     assert len(got) == len(want)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+# ---------------------------------------------------------------------- #
+# fused multi-query (engine/multiquery.py)
+
+
+def _fused_run(device, queries, mesh=None, merge_every=2, **kw):
+    from gelly_torch.engine.multiquery import run_multiquery
+
+    res = run_multiquery(queries(), _spanner_stream(device, chunk=1024),
+                         merge_every=merge_every, mesh=mesh, **kw)
+    return [{n: [x.cpu().numpy() for x in tree_flatten(e[n])[0]]
+             for n in e} for e in res], res
+
+
+def _fused_equal(got, want, windows=3):
+    assert len(got) == len(want) == windows
+    for a, b in zip(got, want):
+        assert sorted(a) == sorted(b)
+        for n in a:
+            assert len(a[n]) == len(b[n])
+            for x, y in zip(a[n], b[n]):
+                assert x.dtype == y.dtype and np.array_equal(x, y), n
+
+
+def _quartet_queries():
+    from gelly_torch.library import (bipartiteness_query, cc_query,
+                                     degrees_query, spanner_query)
+
+    return [cc_query(512, fold_backend="kernel"), degrees_query(512),
+            bipartiteness_query(512),
+            spanner_query(512, 2, every=2, max_degree=8, gate_batch=256)]
+
+
+def _codec_trio():
+    from gelly_torch.library import (bipartiteness_query, cc_query,
+                                     degrees_query)
+
+    return [q(512, compressed=True, codec="sparse")
+            for q in (cc_query, degrees_query, bipartiteness_query)]
+
+
+@pytest.mark.parametrize("path", ["quartet", "codec", "mesh"])
+def test_fused_multiquery_on_card_equals_cpu(cuda_device, path,
+                                             monkeypatch):
+    # The quartet's raw CC fold takes the dedup fold (and its gather) on
+    # 1024-lane chunks; the spanner's every=2 merge launches entry 2.
+    from gelly_torch.parallel.mesh import make_mesh
+
+    monkeypatch.setattr(tcc, "RAW_DEDUP_MIN_CHUNK", 1 << 10)
+    queries = {"quartet": _quartet_queries, "codec": _codec_trio,
+               "mesh": _codec_trio}[path]
+    meshes = {"cuda": None, "cpu": None}
+    kw = {}
+    if path == "mesh":  # the codec engages with merge_every a multiple of S
+        meshes = {d: make_mesh(4, devices=[d] * 4) for d in meshes}
+        kw = dict(merge_every=4, fold_batch=4)
+    before = (kernels.sorted_window_gather.launches,
+              kernels.sparse_insert_edges_batched.launches)
+    got, res = _fused_run(cuda_device, queries, meshes["cuda"], **kw)
+    if path == "quartet":
+        assert kernels.sorted_window_gather.launches > before[0]
+        assert kernels.sparse_insert_edges_batched.launches > before[1]
+    else:
+        assert res.stats["multiquery.compressed_chunks"] == 6
+    want, _ = _fused_run(torch.device("cpu"), queries, meshes["cpu"], **kw)
+    _fused_equal(got, want, 2 if path == "mesh" else 3)
+
+
+def test_fused_quartet_checkpoint_resumes_on_card(cuda_device, tmp_path):
+    from gelly_torch.engine.multiquery import run_multiquery
+
+    p = str(tmp_path / "ck.npz")
+
+    def run(stop_after=None, **kw):
+        res = run_multiquery(_quartet_queries(),
+                             _spanner_stream("cuda", chunk=1024),
+                             merge_every=2, checkpoint_path=p, **kw)
+        out = []
+        for e in res:
+            assert e["spanner"].nbr.device.type == "cuda"
+            out.append({n: [x.cpu().numpy() for x in tree_flatten(e[n])[0]]
+                        for n in e})
+            if len(out) == stop_after:
+                break
+        return out, res
+
+    full, _ = run()
+    run(stop_after=2)
+    got, res = run(resume=True)
+    assert res.stats["resumed_at"] == 2
+    _fused_equal(full[:1] + got, full)

@@ -313,8 +313,13 @@ def test_degree_distribution_overflow_message_equals_gelly_tpu():
 def test_unported_knobs_name_their_item():
     # windowed= (item 10) is ported: the plan is marked for the ring.
     assert tdeg.degree_aggregate(16, windowed=2).windowed_panes == 2
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tdeg.degrees_query(16)
+    # The fused query builder is ported: it builds gelly_tpu's spec.
+    for kw in ({}, {"name": "out", "count_in": False, "compressed": True}):
+        t, j = tdeg.degrees_query(16, **kw), jdeg.degrees_query(16, **kw)
+        assert (t.name, t.every, t.slot_capacity, t.accum) == (
+            j.name, j.every, j.slot_capacity, j.accum)
+        assert t.agg.name == j.agg.name
+        assert (t.agg.host_compress is None) == (j.agg.host_compress is None)
     # The sharded degrees are ported (tests/test_torch_sharded_library.py
     # holds them to gelly_tpu); a bad mode raises as gelly_tpu's does.
     with pytest.raises(ValueError, match="mode must be"):

@@ -324,8 +324,14 @@ def test_spanner_plan_errors_equal_jax():
             mod.spanner(16, 3, ingest_combine=True)
         with pytest.raises(ValueError, match="payload_cap"):
             mod.spanner(16, 3, max_degree=4, ingest_combine=True)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tsp.spanner_query(16, 2)
+    # The fused query builder is ported: it builds gelly_tpu's spec (the
+    # spanner is the quartet's one non-accumulating query).
+    for kw in ({}, {"name": "sp", "every": 4, "max_degree": 8,
+                    "gate_batch": 16, "max_edges": 64}):
+        t, j = tsp.spanner_query(16, 2, **kw), jsp.spanner_query(16, 2, **kw)
+        assert (t.name, t.every, t.slot_capacity, t.accum) == (
+            j.name, j.every, j.slot_capacity, j.accum)
+        assert t.agg.name == j.agg.name and not t.accum
 
 
 @pytest.mark.parametrize("writer,reader", [("torch", "jax"),
