@@ -4,7 +4,8 @@ degree, bipartiteness, k-spanner and weighted-matching paths, the
 per-window Merger plan, fused multi-query, windows (event-time,
 lateness, pane rings, TTL), the stream API, the rest of the triangle
 library (bucketed, capped-degree and unpacked dense windows, exact and
-sampled counts) and the mesh (four logical shards), on one CUDA card.
+sampled counts), the mesh (four logical shards) and the main path traced
+through the obs core, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -67,7 +68,8 @@ Phases (any failure exits nonzero and prints no result line):
    insert and the sampler step, each with the JAX function it replaces,
    the gather's and the sampler's launches on the mesh as
    ``mesh_launches``, the gather's and entry 2's in phase L1 as
-   ``multiquery_launches``), then ``{"ok": true, "device": ...}`` last.
+   ``multiquery_launches``, the gather's in a traced run of phase M1 as
+   ``obs_launches``), then ``{"ok": true, "device": ...}`` last.
 
 The durable phases (checkpoints, exactly-once resume, the resilient
 runner), each checking that the native codec was never disabled:
@@ -200,6 +202,35 @@ L. L1: ``run_aggregation(None, stream, queries=[cc_query(2^24,
    L4: L1's quartet checkpointed every window and stopped once the
    window-2 checkpoint is on disk (after the 3rd emission), then a fresh
    plan resuming from it: windows 3 and 4 equal L1's.
+
+The traced main path (phase M, right after phase L; the obs core of
+``gelly_torch/obs`` and ``utils.metrics.trace``):
+
+M. M1: phase 4's run (``2^24`` slots, ``2^26`` Zipf edges, seed 17,
+   ``2^22``-edge chunks, ``merge_every=4``, ``fold_backend="kernel"``)
+   under ``obs.scope()`` with ``SpanTracer(heartbeat_every_s=0.05)``
+   installed, then untraced, alternating, best of 2 each: every emission
+   equal to phase 4's; 16 ``compress``, 16 ``h2d`` and 16 ``fold`` spans,
+   4 ``merge_emit`` spans and 4 ``window_close`` instants;
+   ``engine.chunks_folded`` 16, ``engine.windows_closed`` 4,
+   ``engine.edges_folded`` the stream's edges; 16
+   ``engine.fold_dispatch_ms`` samples; a backlog age of 0 at the end; at
+   least one heartbeat; the ``write_chrome_trace`` file valid; 3 gather
+   launches a dedup chunk (48); host syncs a unit equal traced and
+   untraced. Prints both walls and the overhead (gated loosely, < 50%).
+   M2: the first 4 chunks inside ``trace(log_dir, tracer=tr)``
+   (``torch.profiler``): one Chrome JSON in ``log_dir`` whose CUDA kernel
+   events hold the gather as many times as it launched, the
+   ``torch_profiler_start`` / ``torch_profiler_stop`` instants carrying
+   ``tr.trace_id``; prints the device idle share (one minus the union of
+   kernel and copy intervals over the traced window). M3: L2's call
+   traced: every ``fold`` span's ``queries`` is
+   ``"cc,degrees,bipartiteness"``, one ``multiquery/<name>`` span a query
+   a window, ``multiquery.compressed_chunks`` on the bus the chunk count,
+   every emission equal to L2's. M4: phase C's ``ResilientRunner`` traced
+   with ``dump_on("faults.injected")``: two ``faults.injected`` instants,
+   two valid flight dumps, ``resilience.retries`` on the bus equal to
+   ``runner.stats["retries"]`` (2), the forest equal to phase C's.
 
 Windows (phase H) and the stream API (phase I), after phase G (I5 after
 phase 6); each timed run prints its wall, edges a second, stage busy
@@ -568,6 +599,11 @@ def profiled(torch, fn, cpu: bool = True):
         per_op[e.name] = (t + (e.time_range.end - e.time_range.start), c + 1)
     top = sorted(((name, t * 1e-6, c) for name, (t, c) in per_op.items()),
                  key=lambda x: -x[1])[:5]
+    return wall, union_length(spans) * 1e-6, len(spans), top
+
+
+def union_length(spans) -> float:
+    """Length of the union of sorted ``(start, end)`` intervals."""
     busy, (lo, hi) = 0.0, spans[0]
     for s, e in spans[1:]:
         if s > hi:
@@ -575,8 +611,7 @@ def profiled(torch, fn, cpu: bool = True):
             lo, hi = s, e
         else:
             hi = max(hi, e)
-    busy += hi - lo
-    return wall, busy * 1e-6, len(spans), top
+    return busy + hi - lo
 
 
 def print_profiled(name, wall, busy, spans, top) -> None:
@@ -971,23 +1006,12 @@ def kill9_phase(torch, device, src, dst, oracle) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def resilient_raw_phase(torch, device, src, dst, plain_last,
-                        path_wall) -> int:
-    """Phase C: ``ResilientRunner`` over phase 4's raw stream with the
-    kernel backend, a checkpoint every 4 chunks and two injected faults;
-    returns the gather's launches in the run."""
+def resilient_plan(torch, device, src, dst):
+    """Phase C's raw kernel plan: ``(agg, stream(), stage)``."""
     from gelly_torch.core.io import EdgeChunkSource
     from gelly_torch.core.stream import edge_stream_from_source
     from gelly_torch.core.vertices import IdentityVertexTable
-    from gelly_torch.engine import faults
-    from gelly_torch.engine.resilience import (
-        ResilienceConfig,
-        ResilientRunner,
-        RetryPolicy,
-    )
     from gelly_torch.library import connected_components as cc
-    from gelly_torch.ops import kernels, unionfind
-    from gelly_torch.utils import native
 
     agg = cc.connected_components(N_VERTICES, merge="gather",
                                   ingest_combine=False, fold_backend="kernel")
@@ -1003,6 +1027,51 @@ def resilient_raw_phase(torch, device, src, dst, plain_last,
             f: getattr(c, f).pin_memory().to(device, non_blocking=True)
             for f in agg.device_fields})
 
+    return agg, stream, stage
+
+
+def resilient_run(torch, device, src, dst, tmp: str):
+    """One ``ResilientRunner`` run of phase C's plan into checkpoint
+    directory ``tmp``, under a ``FaultPlan`` raising once at ``step`` and
+    once at ``checkpoint_write``, its launch counts set to 0 just before
+    it: ``(runner, final state, plan, wall_s, gather launches)``."""
+    from gelly_torch.engine import faults
+    from gelly_torch.engine.resilience import (
+        ResilienceConfig,
+        ResilientRunner,
+        RetryPolicy,
+    )
+    from gelly_torch.ops import kernels
+
+    agg, stream, stage = resilient_plan(torch, device, src, dst)
+    plan = faults.FaultPlan([faults.Fault("step", at=5),
+                             faults.Fault("checkpoint_write", at=1)])
+    torch.cuda.synchronize()
+    reset_launches(kernels)
+    t = time.perf_counter()
+    with faults.install(plan):
+        runner = ResilientRunner(
+            lambda s, c: (agg.fold(s, c), None), stream(),
+            lambda: agg.init(device), checkpoint_dir=tmp, stage=stage,
+            config=ResilienceConfig(
+                checkpoint_every_chunks=RESILIENT_EVERY,
+                retry=RetryPolicy(base_delay=0.01)))
+        final = runner.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return runner, final, plan, wall, kernels.sorted_window_gather.launches
+
+
+def resilient_raw_phase(torch, device, src, dst, plain_last,
+                        path_wall) -> dict:
+    """Phase C: ``ResilientRunner`` over phase 4's raw stream with the
+    kernel backend, a checkpoint every 4 chunks and two injected faults;
+    returns the gather's launches in the run and the final forest on the
+    host (``parent``, ``seen``)."""
+    from gelly_torch.ops import unionfind
+    from gelly_torch.utils import native
+
+    agg, stream, stage = resilient_plan(torch, device, src, dst)
     ref = agg.init(device)
     for c in stream():
         ref = agg.fold(ref, stage(c))
@@ -1011,22 +1080,8 @@ def resilient_raw_phase(torch, device, src, dst, plain_last,
         "phase C: the plain chunk loop != phase 4's last emission")
     tmp = tempfile.mkdtemp(prefix="gelly-resilient-")
     try:
-        plan = faults.FaultPlan([faults.Fault("step", at=5),
-                                 faults.Fault("checkpoint_write", at=1)])
-        torch.cuda.synchronize()
-        reset_launches(kernels)
-        t = time.perf_counter()
-        with faults.install(plan):
-            runner = ResilientRunner(
-                lambda s, c: (agg.fold(s, c), None), stream(),
-                lambda: agg.init(device), checkpoint_dir=tmp, stage=stage,
-                config=ResilienceConfig(
-                    checkpoint_every_chunks=RESILIENT_EVERY,
-                    retry=RetryPolicy(base_delay=0.01)))
-            final = runner.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        launches = kernels.sorted_window_gather.launches
+        runner, final, plan, wall, launches = resilient_run(
+            torch, device, src, dst, tmp)
         st = runner.stats
         n_chunks = N_EDGES // CHUNK
         check(torch.equal(final.parent, ref.parent)
@@ -1050,7 +1105,8 @@ def resilient_raw_phase(torch, device, src, dst, plain_last,
               f"{st['checkpoint_bytes'] // max(st['checkpoint_writes'], 1)}"
               f" bytes, last write {st['checkpoint_write_s']:.4f} s, "
               f"gather launches={launches}; forest bit-identical")
-        return launches
+        return {"launches": launches, "parent": final.parent.cpu(),
+                "seen": final.seen.cpu()}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2230,7 +2286,8 @@ def multiquery_phase(torch, device, src, dst, labels, cc_run, dedup_chunks,
     """Phase L. ``labels`` and ``cc_run`` are phase 4's kernel run (host
     labels a window, its stats), ``f3`` F3's run: its emissions on the
     card (``"out"``, taken and freed here as they are compared), wall and
-    H2D bytes. Returns the gather's and entry 2's launches in L1."""
+    H2D bytes. Returns the gather's and entry 2's launches in L1, and
+    L2's emissions (on the card) and wall."""
     from gelly_torch.engine.checkpoint import read_checkpoint_header
     from gelly_torch.parallel.mesh import make_mesh
 
@@ -2392,8 +2449,266 @@ def multiquery_phase(torch, device, src, dst, labels, cc_run, dedup_chunks,
     print(f"phase L3: {len(out3)} windows equal L2's (S = 1): cc labels, "
           f"degrees, bipartiteness ok "
           f"({bool(out3[-1]['bipartiteness'].ok)})")
-    del out2, out3
+    del out3
+    # L2's emissions stay on the card for phase M3's traced rerun.
+    result.update(l2_out=out2, l2_wall=st2["wall_s"])
     return result
+
+
+# Phase M (the traced main path, after phase L): phase 4's kernel run under
+# a SpanTracer with a 0.05 s heartbeat, best of 2 traced and 2 untraced,
+# alternating; its first 4 chunks inside utils.metrics.trace
+# (torch.profiler); L2's codec trio traced; phase C's resilient run with
+# flight dumps on its injected faults.
+M_HEARTBEAT_S = 0.05
+M_REPS = 2
+M2_CHUNKS = 4
+M_OVERHEAD_GATE = 0.5  # loose, as tests/test_obs.py's smoke gate
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def m_raw_run(torch, device, src, dst, n_edges: int = N_EDGES):
+    """Phase 4's kernel run over the first ``n_edges``, its launch and
+    host-sync counts set to 0 just before it: ``(emissions on the card,
+    wall_s, gather launches, host syncs, units)``."""
+    from gelly_torch.core.stream import edge_stream_from_source
+    from gelly_torch.library import connected_components as cc
+    from gelly_torch.ops import kernels, unionfind
+
+    stream = edge_stream_from_source(l_source(src, dst, n_edges),
+                                     N_VERTICES, device=device)
+    agg = cc.connected_components(N_VERTICES, merge="gather",
+                                  ingest_combine=False, fold_backend="kernel")
+    torch.cuda.synchronize()
+    reset_launches(kernels)
+    unionfind.host_sync.count = 0
+    t = time.perf_counter()
+    res = stream.aggregate(agg, merge_every=MERGE_EVERY)
+    out = list(res)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return (out, wall, kernels.sorted_window_gather.launches,
+            unionfind.host_sync.count, res.stats["units"])
+
+
+def device_idle_share(events) -> tuple[float, float, int]:
+    """``(idle share, window_s, device spans)`` of a Chrome-trace event
+    list: one minus the union of the kernel and copy intervals over the
+    traced window (the first to the last event of the file)."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS)
+    timed = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    lo = min(e["ts"] for e in timed)
+    hi = max(e["ts"] + e["dur"] for e in timed)
+    busy = union_length(spans) if spans else 0.0
+    return 1 - busy / (hi - lo), (hi - lo) * 1e-6, len(spans)
+
+
+def obs_phase(torch, device, src, dst, labels, dedup_chunks, mq,
+              c_run) -> dict:
+    """Phase M. ``labels`` are phase 4's host labels a window, ``mq``
+    phase L's result (L2's emissions, taken here, and wall), ``c_run``
+    phase C's final forest on the host. Returns the gather's launches in
+    M1's traced runs."""
+    import glob
+    from collections import Counter
+
+    from gelly_torch import obs
+    from gelly_torch.ops import kernels
+    from gelly_torch.utils.metrics import trace
+
+    n_chunks = N_EDGES // CHUNK
+    n_windows = n_chunks // MERGE_EVERY
+    tmp = tempfile.mkdtemp(prefix="gelly-obs-")
+    try:
+        # M1. Traced and untraced, alternating, best of M_REPS each.
+        walls = {"traced": [], "untraced": []}
+        syncs = {"traced": set(), "untraced": set()}
+        for rep in range(M_REPS):
+            tr = obs.SpanTracer(heartbeat_every_s=M_HEARTBEAT_S)
+            with obs.scope() as bus, obs.install(tr):
+                out, wall, launches, host_syncs, units = m_raw_run(
+                    torch, device, src, dst)
+            walls["traced"].append(wall)
+            syncs["traced"].add(host_syncs / units)
+            what = f"M1 traced run {rep}"
+            check(len(out) == n_windows and all(
+                same(x.cpu().numpy(), labels[i]) for i, x in enumerate(out)),
+                f"{what}: an emission != phase 4's")
+            del out
+            spans = Counter(r["name"] for r in tr.records()
+                            if r["ph"] == "X")
+            closes = len(tr.instants("window_close"))
+            check(spans["compress"] == spans["h2d"] == spans["fold"]
+                  == n_chunks and spans["merge_emit"] == n_windows
+                  and closes == n_windows,
+                  f"{what}: spans {dict(spans)}, {closes} window closes")
+            counters = bus.snapshot()["counters"]
+            check(counters.get("engine.chunks_folded") == n_chunks
+                  and counters.get("engine.windows_closed") == n_windows
+                  and counters.get("engine.edges_folded") == len(src),
+                  f"{what}: counters {counters}")
+            hist = bus.histogram("engine.fold_dispatch_ms")
+            check(hist is not None and hist.snapshot()["count"] == n_chunks,
+                  f"{what}: fold_dispatch_ms samples "
+                  f"{hist.snapshot()['count'] if hist else None}")
+            check(bus.watermarks.max_backlog_age() == 0,
+                  f"{what}: backlog age {bus.watermarks.max_backlog_age()}")
+            beats = len(tr.instants("heartbeat"))
+            check(beats >= 1, f"{what}: no heartbeat line")
+            check(launches == 3 * dedup_chunks,
+                  f"{what}: {launches} gather launches != 3 x "
+                  f"{dedup_chunks} dedup chunks")
+            path = os.path.join(tmp, f"m1-{rep}.json")
+            obs.write_chrome_trace(path, tr, bus=bus)
+            with open(path) as f:
+                obs.validate_chrome_trace(json.load(f))
+            trace_bytes = os.path.getsize(path)
+            gather_launches = launches
+
+            out, wall, launches, host_syncs, units = m_raw_run(
+                torch, device, src, dst)
+            walls["untraced"].append(wall)
+            syncs["untraced"].add(host_syncs / units)
+            check(launches == gather_launches,
+                  f"M1 untraced run {rep}: {launches} gather launches")
+            check(len(out) == n_windows and all(
+                same(x.cpu().numpy(), labels[i]) for i, x in enumerate(out)),
+                f"M1 untraced run {rep}: an emission != phase 4's")
+            del out
+        check(len(syncs["traced"]) == 1 and syncs["traced"]
+              == syncs["untraced"],
+              f"M1: host syncs a unit traced {syncs['traced']} untraced "
+              f"{syncs['untraced']}")
+        on, off = min(walls["traced"]), min(walls["untraced"])
+        overhead = on / off - 1
+        print(f"phase M1 traced raw path (fold_backend=kernel): "
+              f"traced walls {[round(w, 4) for w in walls['traced']]} s, "
+              f"untraced {[round(w, 4) for w in walls['untraced']]} s; best "
+              f"{on:.4f} s against {off:.4f} s: overhead {overhead:.4f} "
+              f"(gate < {M_OVERHEAD_GATE}); {dict(spans)} spans, "
+              f"{closes} window closes, {beats} heartbeats, "
+              f"{trace_bytes} B of Chrome trace (valid); gather launches "
+              f"{gather_launches}; host syncs/unit "
+              f"{next(iter(syncs['traced'])):.3f} traced and untraced")
+        check(overhead < M_OVERHEAD_GATE,
+              f"M1: tracer overhead {overhead:.4f}")
+
+        # M2. The first M2_CHUNKS chunks inside trace() on torch.profiler.
+        log_dir = os.path.join(tmp, "profile")
+        tr = obs.SpanTracer(heartbeat_every_s=None)
+        with obs.scope(), obs.install(tr):
+            t = time.perf_counter()
+            with trace(log_dir, tracer=tr):
+                out, wall, launches, _, _ = m_raw_run(
+                    torch, device, src, dst, M2_CHUNKS * CHUNK)
+            traced_s = time.perf_counter() - t
+        check(len(out) == 1 and same(out[0].cpu().numpy(), labels[0]),
+              "M2: the profiled window != phase 4's first")
+        del out
+        files = glob.glob(os.path.join(log_dir, "torch_profiler.*.json"))
+        check(len(files) == 1, f"M2: profile files {files}")
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+        device_kernels = [e for e in events if e.get("cat") == "kernel"]
+        gathers = sum("sorted_window_gather_kernel" in e.get("name", "")
+                      for e in device_kernels)
+        check(device_kernels and gathers == launches > 0,
+              f"M2: {len(device_kernels)} kernel events, {gathers} of the "
+              f"gather against {launches} launches")
+        marks = [i for i in tr.instants()
+                 if i["name"].startswith("torch_profiler_")]
+        check([i["name"] for i in marks] == ["torch_profiler_start",
+                                             "torch_profiler_stop"]
+              and all(i["args"]["trace_id"] == tr.trace_id for i in marks),
+              f"M2: alignment instants {marks}")
+        idle, window_s, n_dev = device_idle_share(events)
+        print(f"phase M2 trace() on torch.profiler, first {M2_CHUNKS} "
+              f"chunks: wall {wall:.4f} s ({traced_s:.4f} s with the "
+              f"profile's export), {len(events)} events in "
+              f"{os.path.getsize(files[0])} B, {len(device_kernels)} kernel "
+              f"events, {gathers} of them the gather = its {launches} "
+              f"launches; device idle share {idle:.4f} over a "
+              f"{window_s:.4f} s traced window ({n_dev} kernel and copy "
+              f"spans); alignment instants carry trace_id {tr.trace_id}")
+
+        # M3. L2's fused codec trio under a tracer.
+        l2_out = mq.pop("l2_out")
+        tr = obs.SpanTracer(heartbeat_every_s=None)
+        with obs.scope() as bus, obs.install(tr):
+            out3, st3 = drive(torch, device, None, l_source(src, dst),
+                              N_VERTICES, N_EDGES, MERGE_EVERY, L_FOLD_BATCH,
+                              None, queries=codec_trio())
+            counters = bus.snapshot()["counters"]
+        report_run("phase M3 traced fused codec trio", st3)
+        names = [q.name for q in codec_trio()]
+        folds = tr.spans("fold")
+        check(folds and all(sp["args"]["queries"] == ",".join(names)
+                            for sp in folds),
+              f"M3: fold spans' queries {[sp['args'] for sp in folds]}")
+        per_query = {}
+        for sp in tr.spans("multiquery"):
+            per_query.setdefault(sp["track"], []).append(
+                sp["args"]["window"])
+        check(per_query == {f"multiquery/{n}": list(
+            range(1, n_windows + 1)) for n in names},
+            f"M3: multiquery spans {per_query}")
+        check(counters.get("multiquery.compressed_chunks") == n_chunks,
+              f"M3: compressed chunks {counters}")
+        check(len(out3) == len(l2_out) == n_windows and all(
+            same_tree(torch, g[n], w[n])
+            for g, w in zip(out3, l2_out) for n in names),
+            "M3: an emission != L2's")
+        del out3, l2_out
+        print(f"phase M3: traced wall {st3['wall_s']:.4f} s against L2's "
+              f"untraced {mq['l2_wall']:.4f} s; {len(folds)} fold spans "
+              f"carry queries={','.join(names)}, "
+              f"{sum(map(len, per_query.values()))} multiquery spans, "
+              f"{int(counters['multiquery.compressed_chunks'])} compressed "
+              f"chunks on the bus; every emission equal to L2's")
+
+        # M4. Phase C's resilient run with flight dumps on its faults.
+        flight = os.path.join(tmp, "flight")
+        os.makedirs(flight)
+        ckdir = os.path.join(tmp, "ck")
+        tr = obs.SpanTracer(heartbeat_every_s=None)
+        with obs.scope() as bus, obs.install(tr):
+            unsubscribe = tr.dump_on("faults.injected", out_dir=flight,
+                                     bus=bus)
+            runner, final, plan, wall, launches = resilient_run(
+                torch, device, src, dst, ckdir)
+            unsubscribe()
+            counters = bus.snapshot()["counters"]
+        injected = tr.instants("faults.injected")
+        check(len(injected) == 2 and len(plan.fired) == 2,
+              f"M4: {len(injected)} fault instants, fired {plan.fired}")
+        check(len(tr.dumps) == 2, f"M4: flight dumps {tr.dumps}")
+        for path in tr.dumps:
+            with open(path) as f:
+                dump = json.load(f)
+            obs.validate_chrome_trace(dump)
+            check(dump["otherData"]["incident"] == "faults.injected"
+                  and any(e["name"] == "faults.injected"
+                          for e in dump["traceEvents"]),
+                  f"M4: {path} lacks its incident")
+        check(counters.get("resilience.retries")
+              == runner.stats["retries"] == 2,
+              f"M4: bus retries {counters.get('resilience.retries')}, "
+              f"stats {runner.stats['retries']}")
+        check(torch.equal(final.parent.cpu(), c_run["parent"])
+              and torch.equal(final.seen.cpu(), c_run["seen"]),
+              "M4: the forest != phase C's")
+        print(f"phase M4 traced resilient raw fold: wall={wall:.4f} s, "
+              f"gather launches={launches}; {len(injected)} faults.injected "
+              f"instants ({[i['args']['boundary'] for i in injected]}), "
+              f"{len(tr.dumps)} valid flight dumps, resilience.retries="
+              f"{int(counters['resilience.retries'])} = stats, "
+              f"resilience.checkpoints="
+              f"{int(counters.get('resilience.checkpoints', 0))}; forest "
+              f"equal to phase C's")
+        return {"gather_launches": gather_launches}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def bounded_degree_stream(n: int, seed: int):
@@ -4661,7 +4976,8 @@ def main() -> int:
 
     # C. the resilient raw fold with the kernel, under two faults
     mark("C, B", t_start)
-    resilient_raw_phase(torch, device, src, dst, labels[-1], st["wall_s"])
+    c_run = resilient_raw_phase(torch, device, src, dst, labels[-1],
+                                st["wall_s"])
     # B. kill -9 of a child checkpointing the compact plan, then resume
     kill9_phase(torch, device, src, dst, oracle)
     del labels_plain
@@ -4688,6 +5004,15 @@ def main() -> int:
     mq = multiquery_phase(torch, device, src, dst, labels, st, dedup_chunks,
                           f3)
     torch.cuda.empty_cache()
+
+    # M. the traced main path (M3 against L2's emissions)
+    mark("M", t_start)
+    traced = obs_phase(torch, device, src, dst, labels, dedup_chunks, mq,
+                       c_run)
+    del c_run
+    torch.cuda.empty_cache()
+
+    mark("F4, G", t_start)
     f4 = spanner_gate_phase(torch, device, f2_stream)
     del f2_stream
     torch.cuda.empty_cache()
@@ -4894,6 +5219,7 @@ def main() -> int:
         "launches": st["launches"],
         "mesh_launches": k14["gather_launches"],
         "multiquery_launches": mq["gather_launches"],
+        "obs_launches": traced["gather_launches"],
         "max_abs_err": max(max_abs_err, k14["gather_err"]),
         "ms": kernel_ms,
         "plain_ms": plain_ms,

@@ -48,6 +48,20 @@ come with later slices; asking for either raises ``NotImplementedError``
 naming its ROADMAP.md item.
 :func:`edges_fold_adapter` runs a per-edge user fold (the reference's
 ``EdgesFold``).
+
+**Observability**: install an ``obs.SpanTracer`` (``with
+gelly_torch.obs.install(SpanTracer()): ...``) around a run and every unit
+records ``produce``/``compress``/``h2d``/``fold`` spans, every window
+close a ``window_close`` (or ``pane_close``) instant and a
+``merge_emit`` span, every checkpoint a ``checkpoint`` span, and a
+heartbeat line reports eps, queue depths and the last-retired position;
+export with ``obs.write_chrome_trace``. With a tracer or
+``obs.bus.recording()`` on, the fold and merge latencies go to bus
+histograms and the chunk positions through the ``bus.watermarks``
+ledger. Without either, the unit path does no span or histogram work,
+not even a clock read. The ``engine.*``, ``windows.*`` and
+``pipeline.*`` counters and gauges are published to ``obs.get_bus()``
+either way, beside ``stream.stats`` and ``stream.timer``.
 """
 
 from __future__ import annotations
@@ -65,6 +79,8 @@ import torch
 
 from ..core.chunk import EdgeChunk, split_chunk_host
 from ..core.device import to_numpy
+from ..obs import bus as obs_bus
+from ..obs import tracing as obs_tracing
 from . import faults
 from .checkpoint import (
     load_checkpoint,
@@ -344,6 +360,7 @@ class WindowedStream(SummaryStream):
         with self._holder["lock"]:
             val = self._holder["val"]
             self.stats["windows.snapshot_reads"] += 1
+        obs_bus.get_bus().inc("windows.snapshot_reads")
         return val
 
 
@@ -420,6 +437,21 @@ def _flatten(payload, prefix: tuple = ()):
         return make(vals)
 
     return [leaf for leaves, _ in parts for leaf in leaves], rebuild
+
+
+def _payload_nbytes(parts: list) -> int:
+    """Host bytes of a staged unit's shard payloads — span attribution
+    only (called on the tracer-enabled path, never the bare unit path)."""
+    return int(sum(x.numel() * x.element_size()
+                   if isinstance(x, torch.Tensor) else getattr(x, "nbytes", 0)
+                   for part in parts for _, x in _flatten(part)[0]))
+
+
+def _group_edges(group) -> int:
+    """Valid-edge count of a unit's host chunks — span/heartbeat
+    attribution only (one count of a chunk's mask, tracer-enabled path
+    only; ``count_nonzero`` reads the bools without widening them)."""
+    return int(sum(int(c.valid.count_nonzero()) for c in group))
 
 
 def _stack_tree(payloads: list):
@@ -1005,6 +1037,30 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
         # summary after: the other order would wipe the rebuilt id session.
         if agg.on_run_start is not None:
             agg.on_run_start()
+        # Observability bindings, resolved ONCE per run: `tracer` is None
+        # unless an obs.SpanTracer is installed, and `telemetry` is False
+        # (`wm` None) unless a tracer is installed or obs.bus.recording()
+        # is on. Every span, histogram and watermark site below is guarded
+        # by these, so the disabled unit path does no span or histogram
+        # work, not even a clock read. The bus is always on, touched at
+        # unit and window cadence.
+        tracer = obs_tracing.active_tracer()
+        bus = obs_bus.get_bus()
+        telemetry = obs_bus.telemetry_on()
+        wm = bus.watermarks if telemetry else None
+        staged_hw = 0  # staged-depth high-water since the last beat
+        # Fused plans name the queries riding each fold dispatch.
+        fold_attrs = ({"queries": ",".join(q.name for q in fused)}
+                      if fused else {})
+        hb = meter = None
+        if tracer is not None:
+            from ..utils.metrics import ThroughputMeter
+
+            meter = ThroughputMeter()
+            if tracer.heartbeat_every_s is not None:
+                from ..obs.heartbeat import Heartbeat
+
+                hb = Heartbeat(tracer.heartbeat_every_s)
         wait0 = agg.ordered_wait_s() if agg.ordered_wait_s is not None \
             else 0.0
         stats.update(units=0, chunks=0, h2d_bytes=0, checkpoints=0,
@@ -1022,10 +1078,11 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
         current_window = None  # the open event-time window
         ring = persist = last_seen = None
         if windowed is not None:
-            ring = PaneRing(windowed, copying_combine,
-                            on_combine=lambda k: stats.__setitem__(
-                                "windows.combine_dispatches",
-                                stats["windows.combine_dispatches"] + k))
+            def on_combine(k):
+                stats["windows.combine_dispatches"] += k
+                bus.inc("windows.combine_dispatches", k)
+
+            ring = PaneRing(windowed, copying_combine, on_combine=on_combine)
             if win_persist_init is not None:
                 persist = win_persist_init(device)
             if ttl_panes is not None:
@@ -1081,6 +1138,21 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
                 lat_state = _load_lateness(checkpoint_path, skip_until)
         chunks_consumed = skip_until
         stats["chunks"] = chunks_consumed
+        if wm is not None:
+            # (Re)seed the e2e ledger at the exactly-once resume point,
+            # so backlog age never reads stamps from before a resume.
+            wm.seed("stream", skip_until)
+
+        def publish_watermarks():
+            # The backlog-age low watermark after a window close. Without
+            # a checkpoint path the close IS the retirement point.
+            if wm is None:
+                return
+            if not checkpoint_path:
+                wm.retire_durable("stream", chunks_consumed, bus=bus,
+                                  prefix="engine")
+            bus.gauge("engine.backlog_age_s",
+                      round(wm.backlog_age("stream"), 6))
 
         def maybe_checkpoint(force=False):
             nonlocal last_ckpt_windows, locals_, glob
@@ -1089,6 +1161,7 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
                     and windows - last_ckpt_windows < checkpoint_every):
                 return
             last_ckpt_windows = windows
+            t_ck = tracer.now() if tracer is not None else 0.0
             with timer("checkpoint"):
                 if agg.flatten is not None and windowed is None:
                     if accum:
@@ -1128,8 +1201,11 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
                         meta={"wins": [int(w) for w in st["wins"]],
                               "closed_upto": st["closed_upto"],
                               "max_ts": st["max_ts"]})
+                t_wall = time.perf_counter()
                 save_checkpoint(checkpoint_path, snap,
                                 position=chunks_consumed, meta=meta)
+                ck_bytes = obs_bus.publish_checkpoint(
+                    bus, "engine", checkpoint_path, t0=t_wall)
                 if allowed_lateness:
                     # Older sidecars are no resume's pair any more.
                     keep = f"{checkpoint_path}.lateness.{chunks_consumed}"
@@ -1141,7 +1217,21 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
                             except OSError:
                                 pass
             stats["checkpoints"] += 1
-            stats["checkpoint_bytes"] += os.path.getsize(checkpoint_path)
+            stats["checkpoint_bytes"] += ck_bytes
+            if wm is not None:
+                # The durability point: every position the checkpoint
+                # covers retires from the e2e ledger.
+                wm.retire_durable("stream", chunks_consumed, bus=bus,
+                                  prefix="engine")
+                bus.gauge("engine.backlog_age_s",
+                          round(wm.backlog_age("stream"), 6))
+            if tracer is not None:
+                cctx = tracer.ctx(("fold", chunks_consumed))
+                clink = ({"trace": cctx[0], "parent": cctx[1]}
+                         if cctx is not None else {})
+                tracer.span("checkpoint", "checkpoint", t_ck,
+                            position=chunks_consumed, windows=windows,
+                            bytes=ck_bytes, **clink)
 
         def close_window():
             nonlocal locals_, glob, dirty, windows
@@ -1149,14 +1239,20 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
             windows += 1
             stats["windows_closed"] = windows
             if accum:
+                bus.inc("engine.windows_closed")
+                if tracer is not None:
+                    tracer.instant("window_close", window=windows,
+                                   mode="accumulate")
                 return emit(locals_[0])
             merged = None
+            mode = "replicated"
             if delta_armed:
                 # The measured decision: the largest shard's dirty count
                 # sizes the gather bucket (one scalar read a close).
                 count = int(torch.stack([
                     agg.merge_dirty_count(l).to(device) for l in locals_
                 ]).max())
+                bus.gauge("engine.window_dirty_rows", count)
                 bucket = max(DELTA_MERGE_MIN_BUCKET,
                              1 << max(0, count - 1).bit_length())
                 limit = agg.merge_delta_auto_rows
@@ -1164,6 +1260,8 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
                         limit is not None and S * bucket <= limit):
                     merged = agg.merge_delta(glob, locals_, bucket)
                     stats["merge_modes"]["delta"] += 1
+                    bus.inc("engine.dirty_rows_gathered", S * bucket)
+                    mode = "delta"
             if merged is None:
                 # The cross-shard merge, then the parallelism-1 Merger
                 # (M/SummaryAggregation.java:107-119).
@@ -1177,6 +1275,9 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
             else:
                 glob = merged
             locals_ = fresh_locals()  # fresh locals for the next window
+            bus.inc("engine.windows_closed")
+            if tracer is not None:
+                tracer.instant("window_close", window=windows, mode=mode)
             return emit(merged)
 
         def close_pane():
@@ -1184,6 +1285,7 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
             # no later fold writes it), decay TTL slots, and answer the
             # W-pane window by suffix combines.
             nonlocal locals_, dirty, windows, persist, last_seen
+            t_h = time.perf_counter() if telemetry else 0.0
             pane = merge_locals(locals_)
             locals_ = fresh_locals()
             dirty = False
@@ -1193,6 +1295,8 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
             windows += 1
             stats["windows_closed"] = windows
             stats["windows.panes_closed"] += 1
+            bus.inc("engine.windows_closed")
+            bus.inc("windows.panes_closed")
             if last_seen is not None:
                 last_seen[to_numpy(win_touched(pane))] = windows
                 assigned = int(agg.session.assigned)
@@ -1212,12 +1316,21 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
                     last_seen = ls2
                     ring.reload(panes2, ring.panes_closed)
                     stats["windows.evicted_slots"] += n_evict
+                    bus.inc("windows.evicted_slots", n_evict)
                 stats["windows.live_slots"] = int(agg.session.assigned)
+                bus.gauge("windows.live_slots", int(agg.session.assigned))
             q = ring.query()
             if win_query_fixup is not None:
                 q = win_query_fixup(q, persist)
             out = emit(q)
             stats["windows.ring_live"] = ring.live
+            bus.gauge("windows.ring_live", ring.live)
+            if telemetry:
+                bus.observe("windows.pane_close_ms",
+                            (time.perf_counter() - t_h) * 1e3)
+            if tracer is not None:
+                tracer.instant("pane_close", window=windows,
+                               ring_live=ring.live, combines=ring.combines)
             with win_holder["lock"]:
                 win_holder["val"] = {"window": windows, "labels": out}
             return out
@@ -1265,50 +1378,90 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
                     stats["chunks"] = chunks_consumed
                     if chunks_consumed <= skip_until:
                         continue
+                    if wm is not None:
+                        wm.stamp("stream", chunks_consumed - 1)
                     yield chunk
 
             win_seq = 0
-            for kind, w, chunk, _ in tumbling_window_events(
-                    counted_chunks(), window_ms, stats,
-                    initial_window=current_window,
-                    allowed_lateness=allowed_lateness,
-                    state_handle=lat_handle, initial_state=lat_state):
-                if kind == "close":
-                    with timer("merge_emit"):
-                        out = close_window()
-                    yield out
-                    continue
-                current_window = w
-                if use_codec:
-                    # On a mesh the masked chunk splits into S host
-                    # slices, one payload row a shard.
-                    with timer("ingest_compress"):
-                        parts = (split_chunk_host(chunk, S) if S > 1
-                                 else [chunk])
-                        payloads = [agg.host_compress(c) for c in parts]
-                        if agg.stack_payloads is None:
-                            stacked = _stack_tree(payloads)
-                        elif agg.stack_ordered:
-                            stacked = agg.stack_payloads(payloads, S,
-                                                         seq=win_seq)
-                            win_seq += 1
-                        else:
-                            stacked = agg.stack_payloads(payloads, S)
-                    units = to_device(shard_payloads(stacked), frozenset())
-                    with timer("fold_dispatch"):
-                        locals_ = [agg.fold_compressed(l, u)
-                                   for l, u in zip(locals_, units)]
-                else:
-                    units = to_device(shard_chunk(chunk), skip)
-                    with timer("fold_dispatch"):
-                        locals_ = [agg.fold(l, u)
-                                   for l, u in zip(locals_, units)]
-                del units
-                stats["units"] += 1
-                dirty = True
-            # The iterator closed the final window; make it durable.
-            if checkpoint_path and windows:
-                maybe_checkpoint(force=True)
+            wm_unit = 0  # span unit id (window mode is consumer-serial)
+            try:
+                for kind, w, chunk, _ in tumbling_window_events(
+                        counted_chunks(), window_ms, stats,
+                        initial_window=current_window,
+                        allowed_lateness=allowed_lateness,
+                        state_handle=lat_handle, initial_state=lat_state):
+                    if kind == "close":
+                        t_merge = tracer.now() if tracer is not None else 0.0
+                        t_h = time.perf_counter() if telemetry else 0.0
+                        with timer("merge_emit"):
+                            out = close_window()
+                        if telemetry:
+                            bus.observe("engine.merge_emit_ms",
+                                        (time.perf_counter() - t_h) * 1e3)
+                            wm.retire_fold("stream", chunks_consumed,
+                                           bus=bus, prefix="engine")
+                        if tracer is not None:
+                            tracer.span("merge_emit", "merge_emit", t_merge,
+                                        window=windows)
+                        publish_watermarks()
+                        yield out
+                        continue
+                    current_window = w
+                    if use_codec:
+                        # On a mesh the masked chunk splits into S host
+                        # slices, one payload row a shard.
+                        t0 = tracer.now() if tracer is not None else 0.0
+                        with timer("ingest_compress"):
+                            parts = (split_chunk_host(chunk, S) if S > 1
+                                     else [chunk])
+                            payloads = [agg.host_compress(c) for c in parts]
+                            if agg.stack_payloads is None:
+                                stacked = _stack_tree(payloads)
+                            elif agg.stack_ordered:
+                                stacked = agg.stack_payloads(payloads, S,
+                                                             seq=win_seq)
+                                win_seq += 1
+                            else:
+                                stacked = agg.stack_payloads(payloads, S)
+                        if tracer is not None:
+                            tracer.span("compress", "compress/window", t0,
+                                        unit=wm_unit, window=int(w),
+                                        payload_bytes=_payload_nbytes(
+                                            [stacked]))
+                            t0 = tracer.now()
+                        units = to_device(shard_payloads(stacked),
+                                          frozenset())
+                        if tracer is not None:
+                            tracer.span("h2d", "h2d/slot0", t0, unit=wm_unit,
+                                        slot=0)
+                            t0 = tracer.now()
+                        t_h = time.perf_counter() if telemetry else 0.0
+                        with timer("fold_dispatch"):
+                            locals_ = [agg.fold_compressed(l, u)
+                                       for l, u in zip(locals_, units)]
+                    else:
+                        units = to_device(shard_chunk(chunk), skip)
+                        t0 = tracer.now() if tracer is not None else 0.0
+                        t_h = time.perf_counter() if telemetry else 0.0
+                        with timer("fold_dispatch"):
+                            locals_ = [agg.fold(l, u)
+                                       for l, u in zip(locals_, units)]
+                    if telemetry:
+                        bus.observe("engine.fold_dispatch_ms",
+                                    (time.perf_counter() - t_h) * 1e3)
+                    if tracer is not None:
+                        tracer.span("fold", "fold", t0, unit=wm_unit,
+                                    window=int(w))
+                    wm_unit += 1
+                    del units
+                    stats["units"] += 1
+                    dirty = True
+                # The iterator closed the final window; make it durable.
+                if checkpoint_path and windows:
+                    maybe_checkpoint(force=True)
+            finally:
+                # Stage accounting lands on the bus on ANY exit.
+                timer.publish(bus)
             return
 
         identity_payload = None
@@ -1323,6 +1476,7 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
             seq = 0
             group: list = []
             it = iter(stream)
+            t_unit = tracer.now() if tracer is not None else 0.0
             if skip_until:
                 # Chunks folded before the checkpoint: dropped unstaged.
                 with timer("resume_skip"):
@@ -1331,18 +1485,48 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
             for chunk in it:
                 group.append(chunk)
                 if len(group) == batch:
+                    if tracer is not None:
+                        tracer.span("produce", "produce", t_unit,
+                                    unit=seq, chunks=batch)
                     yield seq, group
                     seq += 1
                     group = []
+                    if tracer is not None:
+                        t_unit = tracer.now()
             if group:
+                if tracer is not None:
+                    tracer.span("produce", "produce", t_unit,
+                                unit=seq, chunks=len(group))
                 yield seq, group
 
         def stage_unit(unit):
+            # The unit's trace context is its seq: the compress span here,
+            # the H2D span (buffer slot) and the fold span all carry it.
             seq, group = unit
+            if wm is not None:
+                # Ingress stamps at staging time, on the exactly-once
+                # chunk positions the fold and checkpoint will retire.
+                base = skip_until + seq * batch
+                for j in range(len(group)):
+                    wm.stamp("stream", base + j)
             try:
                 faults.inject("codec")
+                t0 = tracer.now() if tracer is not None else 0.0
                 with timer("ingest_compress"):
-                    return _stage(seq, group), len(group), seq
+                    parts = _stage(seq, group)
+                k = len(group)
+                edges = None
+                if tracer is not None:
+                    edges = _group_edges(group)
+                    tracer.span(
+                        "compress",
+                        f"compress/{threading.current_thread().name}",
+                        t0, unit=seq, chunks=k, edges=edges,
+                        payload_bytes=_payload_nbytes(parts),
+                        queue_depth=bus.gauges.get(
+                            "pipeline.staged_depth", 0),
+                    )
+                return parts, k, seq, edges
             except BaseException:
                 # Release the unit's ordered turn so the units parked
                 # behind it unwind; the error reaches the consumer.
@@ -1373,28 +1557,63 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
             return [stacked] if S == 1 else _split_stacked(stacked, S)
 
         def h2d_unit(staged):
-            parts, k, seq = staged
+            parts, k, seq, edges = staged
             faults.inject("h2d")
+            t0 = tracer.now() if tracer is not None else 0.0
             with timer("h2d"):
                 devs, events = put_shards(parts, skip)
-            return devs, events, k, seq
+            if tracer is not None:
+                # Slot attribution: which staging buffer this unit took.
+                slot = seq % h2d_depth if h2d_depth > 0 else 0
+                tracer.span(
+                    "h2d", f"h2d/slot{slot}", t0, unit=seq, chunks=k,
+                    slot=slot,
+                    queue_depth=bus.gauges.get("pipeline.h2d_depth", 0),
+                )
+            return devs, events, k, seq, edges
 
         def release(unit):  # a unit cancelled before it ran
             agg.on_stage_error(unit[0])
 
         pipe_cancel = threading.Event()
+        # Queue-depth gauges ride the prefetch enqueue hook only when
+        # tracing: the disabled path stays untouched.
+        staged_gauge = h2d_gauge = None
+        if tracer is not None:
+            staged_gauge = lambda d: bus.gauge(  # noqa: E731
+                "pipeline.staged_depth", d)
+            h2d_gauge = lambda d: bus.gauge(  # noqa: E731
+                "pipeline.h2d_depth", d)
         staged = prefetch_map(
             stage_unit, produced_units(), depth=prefetch_depth,
             workers=ingest_workers, cancel=pipe_cancel,
             on_cancel=(release if agg.stack_ordered
-                       and agg.on_stage_error is not None else None))
+                       and agg.on_stage_error is not None else None),
+            gauge=staged_gauge)
         transferred = map(h2d_unit, staged)
         if h2d_depth > 0:
             transferred = prefetch(transferred, depth=h2d_depth,
-                                   name="gelly-h2d")
+                                   name="gelly-h2d", gauge=h2d_gauge)
+
+        def merge_span(t_merge, t_h, **final):
+            # The window close's latency, span (causally linked to the
+            # fold frontier) and watermarks.
+            if telemetry:
+                bus.observe("engine.merge_emit_ms",
+                            (time.perf_counter() - t_h) * 1e3)
+            if tracer is not None:
+                mctx = tracer.ctx(("fold", chunks_consumed))
+                mlink = ({"trace": mctx[0], "parent": mctx[1]}
+                         if mctx is not None else {})
+                tracer.span("merge_emit", "merge_emit", t_merge,
+                            window=windows, **final, **mlink)
+            publish_watermarks()
+
         in_window = 0
         try:
-            for units, events, k, seq in transferred:
+            for units, events, k, seq, edges in transferred:
+                t_fold = tracer.now() if tracer is not None else 0.0
+                t_h = time.perf_counter() if telemetry else 0.0
                 with timer("fold_dispatch"):
                     wait_copies(events)
                     locals_ = [fold_unit(l, u)
@@ -1406,16 +1625,71 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
                 chunks_consumed += k
                 stats["units"] += 1
                 stats["chunks"] = chunks_consumed
+                bus.inc("engine.units_folded")
+                bus.inc("engine.chunks_folded", k)
+                if telemetry:
+                    bus.observe("engine.fold_dispatch_ms",
+                                (time.perf_counter() - t_h) * 1e3)
+                    staged_hw = max(staged_hw, bus.gauges.get(
+                        "pipeline.staged_depth", 0))
+                    wm.retire_fold("stream", chunks_consumed,
+                                   bus=bus, prefix="engine")
+                if tracer is not None:
+                    # Causal link: the unit's first position may carry a
+                    # staging context onto the fold span, and the fold
+                    # frontier is re-bound under its own key for the
+                    # covering checkpoint or merge.
+                    fctx = tracer.ctx(chunks_consumed - k)
+                    fold_sid = tracer.next_span_id()
+                    link = ({"trace": fctx[0], "parent": fctx[1]}
+                            if fctx is not None else {})
+                    tracer.span("fold", "fold", t_fold, unit=seq,
+                                chunks=k, edges=edges, span=fold_sid,
+                                **link, **fold_attrs)
+                    tracer.bind_ctx(
+                        ("fold", chunks_consumed),
+                        fctx[0] if fctx is not None else tracer.trace_id,
+                        fold_sid)
+                    if edges:
+                        meter.record(edges)
+                        bus.inc("engine.edges_folded", edges)
+                        meter.publish(bus, prefix="engine.throughput")
+                    if hb is not None and hb.due():
+                        # due() guards the field building: a unit's
+                        # heartbeat cost is one clock compare.
+                        hb.tick(
+                            position=chunks_consumed,
+                            eps=meter.snapshot()["edges_per_sec"],
+                            windows=windows,
+                            staged_depth=bus.gauges.get(
+                                "pipeline.staged_depth", 0),
+                            h2d_depth=bus.gauges.get(
+                                "pipeline.h2d_depth", 0),
+                            staged_hw=staged_hw,
+                            fold_p99_ms=round(bus.quantile(
+                                "engine.fold_dispatch_ms", 0.99), 3),
+                            backlog_age_max_s=round(
+                                bus.watermarks.max_backlog_age(), 3),
+                            slo_breaching=int(bus.gauges.get(
+                                "slo.breaching", 0)),
+                        )
+                        staged_hw = 0
                 in_window += k
                 if in_window >= merge_every:
                     in_window = 0
+                    t_merge = tracer.now() if tracer is not None else 0.0
+                    t_h = time.perf_counter() if telemetry else 0.0
                     with timer("merge_emit"):
                         out = close_fn()
+                    merge_span(t_merge, t_h)
                     yield out
                 maybe_checkpoint()
             if in_window:
+                t_merge = tracer.now() if tracer is not None else 0.0
+                t_h = time.perf_counter() if telemetry else 0.0
                 with timer("merge_emit"):
                     out = close_fn()
+                merge_span(t_merge, t_h, final=True)
                 yield out
                 maybe_checkpoint(force=True)
         finally:
@@ -1438,6 +1712,9 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
             if agg.ordered_wait_s is not None:
                 timer.reattribute("ingest_compress", "codec_wait",
                                   agg.ordered_wait_s() - wait0)
+            # Stage accounting lands on the bus at teardown, so tests
+            # read busy seconds without holding the timer object.
+            timer.publish(bus)
 
     out_stream = (WindowedStream(gen, win_holder) if windowed is not None
                   else SummaryStream(gen))

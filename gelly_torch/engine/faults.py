@@ -26,8 +26,9 @@ Faults fire by per-boundary call index, so a plan is reproducible
 run-to-run regardless of thread interleaving at other boundaries; the only
 randomness is the seeded ``rate`` mode. :func:`inject` is a module-global
 ``None`` check when no plan is installed. ``FaultPlan.fired`` is the
-record of what fired (``gelly_tpu`` also publishes it on its ``obs`` bus,
-which the port does not have yet).
+record of what fired; each fault is also published on the ``obs`` bus as
+a ``faults.injected`` event (an instant on an installed tracer) before it
+takes effect.
 """
 
 from __future__ import annotations
@@ -141,6 +142,15 @@ class FaultPlan:
                 self.fired.append((boundary, index, f.kind))
         if f is None:
             return
+        # Published BEFORE the fault takes effect (outside the plan lock):
+        # a hang or kill-adjacent raise still leaves the injection visible
+        # on the obs bus — and, with a tracer installed, as an instant
+        # event on the exported timeline (one per injected fault).
+        from ..obs import bus as obs_bus
+
+        obs_bus.get_bus().emit(
+            "faults.injected", boundary=boundary, index=index, kind=f.kind,
+        )
         if f.kind == "hang":
             time.sleep(f.hang_seconds)
             return

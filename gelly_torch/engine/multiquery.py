@@ -42,8 +42,11 @@ query's payload in the one fused fold (build the sub-queries with the
 choice: ``True`` refuses a set the codec cannot cover, ``False`` pins the
 raw fold, ``"auto"`` engages when eligible.
 
-Until the port has an obs bus, the ``multiquery.*`` counters of
-``gelly_tpu`` live in the stream's ``stats`` under the same names.
+The ``multiquery.*`` counters go to the ``obs`` bus under
+``gelly_tpu``'s names, and the stream's ``stats`` keeps a view of them;
+with a tracer installed, every window adds one span a query on its
+``multiquery/<name>`` track, and the engine's fold spans name the
+queries riding each dispatch.
 """
 
 from __future__ import annotations
@@ -57,6 +60,8 @@ import torch
 
 from ..core.chunk import EdgeChunk
 from ..core.device import DEFAULT_DEVICE, resolve_device, to_numpy
+from ..obs import bus as obs_bus
+from ..obs import tracing as obs_tracing
 from .aggregation import (
     SummaryAggregation,
     SummaryStream,
@@ -361,6 +366,7 @@ def fuse(queries, *, name: str | None = None,
             # One multi-query payload a chunk. The engine's empty identity
             # chunk is not a stream chunk: it is not counted.
             if bool(to_numpy(chunk.valid).any()):
+                obs_bus.get_bus().inc("multiquery.compressed_chunks")
                 with count_lock:
                     st = plan.stats
                     st["multiquery.compressed_chunks"] = st.get(
@@ -449,10 +455,12 @@ class MultiQueryStream(SummaryStream):
     Iterating yields the fused emission dict (``{query_name: emission}``)
     once per closed window. :meth:`snapshot` answers from the last yielded
     window, from any thread; the lock is held only for the reference swap.
-    ``stats`` is the engine's, plus ``gelly_tpu``'s ``multiquery.*``
-    counters: ``runs``, ``emissions``, ``snapshot_reads``,
-    ``compressed_chunks``, the ``fused_queries`` gauge and ``emit_ms``
-    (each window's snapshot publication, lock wait and swap, in ms).
+    The ``multiquery.*`` counters (``runs``, ``emissions``,
+    ``snapshot_reads``, ``compressed_chunks``), the ``fused_queries``
+    gauge and the ``emit_ms`` histogram (each window's snapshot
+    publication, lock wait and swap, in ms; recorded with a tracer or
+    recording on) go to the bus. ``stats`` is the engine's, plus a view
+    of the same counters and every ``emit_ms`` sample as a list.
     """
 
     def __init__(self, inner: SummaryStream, plan: MultiQueryPlan):
@@ -471,18 +479,41 @@ class MultiQueryStream(SummaryStream):
         plan.stats = self.stats
 
     def _gen(self):
+        # Bound once per run, as the engine binds its own.
+        bus = obs_bus.get_bus()
+        tracer = obs_tracing.active_tracer()
+        telemetry = obs_bus.telemetry_on()
         names = self.plan.query_names
         stats = self.stats
         stats["multiquery.fused_queries"] = len(names)
         stats["multiquery.runs"] += 1
-        for out in self._inner:
+        bus.gauge("multiquery.fused_queries", len(names))
+        bus.inc("multiquery.runs")
+        it = iter(self._inner)
+        while True:
+            t0 = tracer.now() if tracer is not None else 0.0
+            try:
+                out = next(it)
+            except StopIteration:
+                return
             t = time.perf_counter()
             with self._lock:
                 self._latest = out
                 self._window += 1
-            stats["multiquery.emit_ms"].append(
-                (time.perf_counter() - t) * 1e3)
+                w = self._window
+            emit_ms = (time.perf_counter() - t) * 1e3
+            stats["multiquery.emit_ms"].append(emit_ms)
+            if telemetry:
+                bus.observe("multiquery.emit_ms", emit_ms)
             stats["multiquery.emissions"] += len(names)
+            bus.inc("multiquery.emissions", len(names))
+            if tracer is not None:
+                # One span a query a window on its own multiquery/<name>
+                # track, covering the window's wall: the trace shows the
+                # one compress/H2D/fold pipeline feeding Q query tracks.
+                for n in names:
+                    tracer.span("multiquery", f"multiquery/{n}", t0,
+                                query=n, window=w)
             yield out
 
     def snapshot(self, query: str | None = None):
@@ -495,6 +526,7 @@ class MultiQueryStream(SummaryStream):
                 self.stats["multiquery.snapshot_reads"] += 1
         if latest is None:
             return None
+        obs_bus.get_bus().inc("multiquery.snapshot_reads")
         if query is None:
             return {n: tree_map(to_host, latest[n])
                     for n in self.plan.query_names}

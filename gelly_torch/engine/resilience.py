@@ -41,10 +41,17 @@ per step. Each guarded call runs on a fresh daemon thread, whose current
 CUDA stream is the device's default stream: work on a side stream must
 name that stream itself.
 
-Every decision is counted in ``ResilientRunner.stats`` (retries, watchdog
-timeouts, degradations, source restarts, checkpoints written, missed and
-their bytes), where ``gelly_tpu`` publishes them on its ``obs`` bus, which
-the port does not have yet (ROADMAP.md queue 1 item 12a). Coordinated
+Every decision — retries, watchdog timeouts, degradations, source
+restarts, checkpoint misses and rotation refusals — lands on the
+process-wide ``obs`` event bus (``gelly_torch.obs.get_bus()``) as a
+counter and an event, and completed checkpoint writes as
+``resilience.checkpoints`` / ``checkpoint_bytes`` /
+``checkpoint_write_s`` (with the ``checkpoint_write_ms`` histogram when
+recording); an installed ``obs.SpanTracer`` shows each event as an
+instant. ``ResilientRunner.stats`` keeps the same counts beside the bus.
+With a tracer or recording on, the runner's chunk positions ride the
+``bus.watermarks`` ledger (stamped as read, retired at each fold and
+each checkpoint). Coordinated
 multi-host checkpoints (``coordinator=``, ``adopt_state=``,
 ``reshard_source=``) raise ``NotImplementedError`` (queue 1 item 11c).
 """
@@ -61,6 +68,7 @@ import threading
 import time
 from typing import Any, Callable, Iterator
 
+from ..obs import bus as obs_bus
 from ..utils import native as native_mod
 from ..utils.prefetch import restartable_prefetch
 from . import faults as faults_mod
@@ -188,6 +196,12 @@ class Watchdog:
         t.start()
         if not done.wait(self.timeout):
             self.stats.bump("watchdog_timeouts")
+            # Observable, not just raised: tests read the fire count off
+            # the bus; an installed tracer gets the instant.
+            obs_bus.get_bus().emit(
+                "resilience.watchdog_timeouts", boundary=boundary,
+                timeout_s=self.timeout,
+            )
             raise WatchdogTimeout(boundary, self.timeout)
         kind, payload = box[0]
         if kind == "err":
@@ -325,10 +339,21 @@ class CheckpointManager:
                         "checkpoint_write", attempt, e
                     ) from e
                 self.stats.bump("retries")
+                # The port counts the writer's own retries as retries,
+                # in stats and on the bus alike.
+                obs_bus.get_bus().emit(
+                    "resilience.retries", boundary="checkpoint_write",
+                    attempt=attempt,
+                    error=f"{type(e).__name__}: {e}"[:200],
+                )
                 time.sleep(self.retry.delay(attempt - 1, self._rng))
         self.stats.bump("checkpoint_writes")
         self.stats.bump("checkpoint_bytes", os.path.getsize(path))
         self.stats["checkpoint_write_s"] = time.perf_counter() - t0
+        # Durability currency on the bus: bytes written and write latency
+        # are what the checkpoint cadence trades against fold throughput.
+        obs_bus.publish_checkpoint(obs_bus.get_bus(), "resilience", path,
+                                   t0=t0)
         # Torn-write simulation point: fires AFTER the file is durable so a
         # corrupt fault produces exactly the artifact load must survive.
         faults_mod.inject("checkpoint_corrupt", path=path)
@@ -356,6 +381,10 @@ class CheckpointManager:
                 load_checkpoint(files[-1])
         except (CheckpointCorruptError, OSError) as e:
             self.stats.bump("rotation_skipped")
+            obs_bus.get_bus().emit(
+                "resilience.rotation_skipped", path=files[-1],
+                error=f"{type(e).__name__}: {e}"[:200],
+            )
             logger.error(
                 "newest checkpoint %s failed post-write validation (%s); "
                 "keeping the previous rotation files as fallback",
@@ -581,6 +610,11 @@ class ResilientRunner:
                 if attempt >= policy.max_attempts:
                     raise RetriesExhausted(boundary, attempt, e) from e
                 self.stats.bump("retries")
+                obs_bus.get_bus().emit(
+                    "resilience.retries", boundary=boundary,
+                    attempt=attempt,
+                    error=f"{type(e).__name__}: {e}"[:200],
+                )
                 delay = policy.delay(attempt - 1, self._rng)
                 logger.warning(
                     "boundary '%s' attempt %d/%d failed (%s: %s); "
@@ -613,6 +647,11 @@ class ResilientRunner:
         self._degraded = True
         self.stats["degraded"] = True
         self.stats["degradations"] += 1
+        obs_bus.get_bus().emit(
+            "resilience.degradations", stem=stem or "",
+            failures=self._native_failures,
+            error=f"{type(exc).__name__}: {exc}"[:200],
+        )
         return True
 
     # ------------------------------------------------------------------ #
@@ -647,11 +686,21 @@ class ResilientRunner:
         start = self.position
         last_ckpt_pos = start
         last_ckpt_time = cfg.clock()
+        # Serving-plane telemetry (the engine's zero-cost-when-disabled
+        # guard): ingress stamps ride the runner's exactly-once positions.
+        wm_bus = obs_bus.get_bus()
+        wm = wm_bus.watermarks if obs_bus.telemetry_on() else None
+        if wm is not None:
+            wm.seed("stream", start)
 
         def should_restart(exc: BaseException) -> bool:
             ok = default_retryable(exc)
             if ok:
                 self.stats["restarts"] += 1
+                obs_bus.get_bus().emit(
+                    "resilience.source_restarts", position=self.position,
+                    error=f"{type(exc).__name__}: {exc}"[:200],
+                )
                 logger.warning(
                     "chunk source failed (%s: %s); restarting at chunk %d",
                     type(exc).__name__, exc, self.position,
@@ -672,6 +721,8 @@ class ResilientRunner:
         )
         try:
             for chunk in chunk_iter:
+                if wm is not None:
+                    wm.stamp("stream", self.position)
                 if self._stage is not None:
                     chunk = self._guard(
                         "h2d", lambda c=chunk: self._stage(c)
@@ -684,6 +735,9 @@ class ResilientRunner:
                 self._native_failures = 0
                 self.state = state
                 self.position += 1
+                if wm is not None:
+                    wm.retire_fold("stream", self.position, bus=wm_bus,
+                                   prefix="resilience")
                 self.stats["chunks"] = self.position - start
                 if emission is not None:
                     yield self.position, emission
@@ -704,6 +758,11 @@ class ResilientRunner:
                     state = self._checkpoint(state, final=True)
                     self.state = state
                 self.manager.close()
+            elif wm is not None:
+                # No durability point configured: end of stream is the
+                # retirement point, so a completed run reads no backlog.
+                wm.retire_durable("stream", self.position, bus=wm_bus,
+                                  prefix="resilience")
         except BaseException:
             # Leave the newest durable checkpoint in place for the next
             # incarnation; just stop the writer cleanly.
@@ -730,6 +789,10 @@ class ResilientRunner:
         except (WatchdogTimeout, RetriesExhausted):
             self.stats["checkpoint_failures"] += 1
             consecutive = self.manager.consecutive_failures
+            obs_bus.get_bus().emit(
+                "resilience.checkpoint_misses", position=self.position,
+                consecutive=consecutive, final=final,
+            )
             if final or consecutive >= self.config.max_checkpoint_failures:
                 raise
             logger.error(
@@ -740,7 +803,20 @@ class ResilientRunner:
             )
             return state
         self.stats["checkpoints"] += 1
+        self._retire_durable()
         return state
+
+    def _retire_durable(self) -> None:
+        """Durability point: the e2e ledger retires every position the
+        just-published snapshot covers (an async write is in flight; the
+        bus's completed-write counters stay the durability authority)."""
+        if not obs_bus.telemetry_on():
+            return
+        b = obs_bus.get_bus()
+        b.watermarks.retire_durable("stream", self.position, bus=b,
+                                    prefix="resilience")
+        b.gauge("engine.backlog_age_s",
+                round(b.watermarks.backlog_age("stream"), 6))
 
     def run(self):
         """Drain the stream; return the final state tree."""

@@ -33,6 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..obs import bus as obs_bus
 from ..ops.segments import INT_MAX
 from ..ops.unionfind import host_sync
 from . import collectives
@@ -270,6 +271,11 @@ class ShardedCC:
         counts = torch.stack([d.sum(dtype=torch.int32).cpu()
                               for d in self.dirty]).numpy()
         mx = int(counts.max()) if counts.size else 0
+        # Per-window dirty-row gauges: labels() moves dirty rows, not
+        # capacity, and these make that cost visible per window close.
+        bus = obs_bus.get_bus()
+        bus.gauge("sharded_cc.window_dirty_rows", int(counts.sum()))
+        bus.gauge("sharded_cc.window_dirty_max_shard", mx)
         bucket = max(64, 1 << max(0, mx - 1).bit_length())
         if S * bucket * 2 >= self.n:
             # Dense delta: the full pull moves fewer bytes than S padded
@@ -280,6 +286,7 @@ class ShardedCC:
             g = (sl * S + sg).astype(np.int32)
             pv = par[sg, sl]
             self.stats["emissions_dense"] += 1
+            bus.inc("sharded_cc.emissions_dense")
         else:
             gs, vals = self._pull_delta(bucket)
             gs = torch.cat([x.cpu() for x in gs]).numpy()
@@ -288,6 +295,8 @@ class ShardedCC:
             g = gs[okm].astype(np.int32)
             pv = pv[okm]
             self.stats["emissions_sparse"] += 1
+            bus.inc("sharded_cc.emissions_sparse")
+        bus.inc("sharded_cc.dirty_rows_gathered", int(g.size))
         self._seencache[g] = True  # dirty ⊇ newly seen
         rc = self._rootcache
         tmp = rc.copy()

@@ -27,13 +27,16 @@ class _Error:
 
 
 def prefetch(it: Iterable[T], depth: int = 2,
-             name: str = "gelly-prefetch") -> Iterator[T]:
+             name: str = "gelly-prefetch", gauge=None) -> Iterator[T]:
     """Iterate ``it`` on a background thread, ``depth`` items ahead (a
     plain pass-through when depth is 0).
 
     Cancellation-safe: abandoning the returned generator signals the
     worker, which stops pulling from the source instead of blocking on
-    the full queue. ``name`` names the worker thread.
+    the full queue. ``name`` names the worker thread. ``gauge``
+    (optional ``callable(int)``) samples the queue depth after each
+    enqueue (the executor wires it to an ``obs`` bus gauge); None costs
+    nothing.
     """
     if depth <= 0:
         yield from it
@@ -55,6 +58,8 @@ def prefetch(it: Iterable[T], depth: int = 2,
             for item in it:
                 if not put(item):
                     return
+                if gauge is not None:
+                    gauge(q.qsize())
         except BaseException as e:  # re-raised at the consumer
             put(_Error(e))
         finally:
@@ -85,7 +90,7 @@ def prefetch(it: Iterable[T], depth: int = 2,
 def prefetch_map(fn, it: Iterable, depth: int = 2,
                  workers: int = 2,
                  cancel: "threading.Event | None" = None,
-                 on_cancel=None) -> Iterator:
+                 on_cancel=None, gauge=None) -> Iterator:
     """Apply ``fn`` to up to ``depth`` upcoming items of ``it`` on a pool
     of ``workers`` threads, yielding results in input order (a plain map
     when depth or workers is 0).
@@ -105,6 +110,8 @@ def prefetch_map(fn, it: Iterable, depth: int = 2,
     was submitted but never ran because the stream was cancelled: a
     worker may take item i+1 while item i is being cancelled, so work
     that waits on its predecessors (ordered turns) must be told.
+
+    ``gauge`` — the same queue-depth-at-enqueue hook as :func:`prefetch`.
     """
     if depth <= 0 or workers <= 0:
         yield from map(fn, it)
@@ -131,6 +138,8 @@ def prefetch_map(fn, it: Iterable, depth: int = 2,
                 while not cancel.is_set():
                     try:
                         q.put(fut, timeout=0.1)
+                        if gauge is not None:
+                            gauge(q.qsize())
                         break
                     except queue.Full:
                         continue

@@ -1174,3 +1174,55 @@ def test_fused_quartet_checkpoint_resumes_on_card(cuda_device, tmp_path):
     got, res = run(resume=True)
     assert res.stats["resumed_at"] == 2
     _fused_equal(full[:1] + got, full)
+
+
+def test_traced_raw_kernel_run_equals_untraced(cuda_device, monkeypatch,
+                                               tmp_path):
+    # A small raw kernel run under a tracer and inside trace(): the same
+    # emissions as untraced, one fold span a chunk, and the profile's
+    # CUDA events hold the gather kernel as often as it launched.
+    import glob
+    import json
+
+    from gelly_torch import obs
+    from gelly_torch.utils.metrics import trace
+
+    monkeypatch.setattr(tcc, "RAW_DEDUP_MIN_CHUNK", 1 << 14)
+    n = 1 << 16
+    rng = np.random.default_rng(17)
+    src = (rng.zipf(1.3, 1 << 17) % n).astype(np.int32)
+    dst = (rng.zipf(1.3, 1 << 17) % n).astype(np.int32)
+
+    def run():
+        s = edge_stream_from_source(
+            EdgeChunkSource(src, dst, chunk_size=1 << 14,
+                            table=IdentityVertexTable(n)), n, device="cuda")
+        agg = tcc.connected_components(n, ingest_combine=False,
+                                       fold_backend="kernel")
+        return [x.cpu() for x in s.aggregate(agg, merge_every=4)]
+
+    untraced = run()
+    tr = obs.SpanTracer(heartbeat_every_s=None)
+    log_dir = str(tmp_path / "prof")
+    with obs.scope() as bus, obs.install(tr):
+        before = kernels.sorted_window_gather.launches
+        with trace(log_dir, tracer=tr):
+            traced = run()
+        torch.cuda.synchronize()
+        launches = kernels.sorted_window_gather.launches - before
+        counters = bus.snapshot()["counters"]
+    assert len(traced) == len(untraced) == 2
+    for a, b in zip(traced, untraced):
+        assert torch.equal(a, b)
+    assert len(tr.spans("fold")) == counters["engine.chunks_folded"] == 8
+    assert counters["engine.windows_closed"] == 2
+    assert launches > 0
+    (path,) = glob.glob(f"{log_dir}/torch_profiler.*.json")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    gathers = [e for e in events if e.get("cat") == "kernel"
+               and "sorted_window_gather_kernel" in e.get("name", "")]
+    assert len(gathers) == launches
+    names = [i["name"] for i in tr.instants()
+             if i["name"].startswith("torch_profiler")]
+    assert names == ["torch_profiler_start", "torch_profiler_stop"]

@@ -7,8 +7,9 @@ shards, the ``fuse`` and ``run_aggregation`` refusals, the shared codec,
 checkpoint resumes, live snapshots and the kill -9 child) and holds each
 to ``gelly_tpu``: every emission at every window, every state leaf after
 every chunk (``_step`` included), checkpoint files in both directions,
-snapshots, the ``multiquery.*`` counters (``stream.stats`` here, the obs
-bus there) and every error text. Port-only: the spanner's in-place
+snapshots, the ``multiquery.*`` counters (on both packages' obs buses,
+and the port's ``stream.stats`` view of them), the fold spans' per-query
+attribution and the ``multiquery/<name>`` tracks, and every error text. Port-only: the spanner's in-place
 combine never changes the state off a boundary or under merge-on-read, a
 fused emission does not change when later folds run, the fused
 ``device_fields`` union, and fused states carried by ``convert``.
@@ -131,6 +132,7 @@ from gelly_torch.library import (  # noqa: E402
     spanner_query as t_sq,
 )
 from gelly_torch.library import connected_components as tcc  # noqa: E402
+from gelly_torch import obs as t_obs  # noqa: E402
 from gelly_torch.parallel import mesh as tmesh  # noqa: E402
 from gelly_tpu import edge_stream_from_edges as j_edges  # noqa: E402
 from gelly_tpu.engine import aggregation as jagg  # noqa: E402
@@ -144,6 +146,7 @@ from gelly_tpu.library.connected_components import (  # noqa: E402
 )
 from gelly_tpu.library.degrees import degrees_query as j_dq  # noqa: E402
 from gelly_tpu.library.spanner import spanner_query as j_sq  # noqa: E402
+from gelly_tpu import obs as j_obs  # noqa: E402
 from gelly_tpu.obs import bus as obs_bus  # noqa: E402
 from gelly_tpu.parallel import mesh as jmesh  # noqa: E402
 
@@ -465,6 +468,30 @@ def test_fused_codec_one_payload_a_chunk_window_parity():
     assert res.stats["units"] == n_chunks  # one fold a chunk
 
 
+def test_fused_codec_compresses_once_a_chunk_on_the_bus():
+    # The traced half of the codec-sharing test: one compress span and
+    # one fold span a chunk (not a chunk times Q), and the bus's
+    # multiquery.compressed_chunks counts the chunks, in both packages.
+    edges = _bipartite_adversarial_edges()
+    n_chunks = -(-len(edges) // CHUNK)
+    got = {}
+    for pkg, o in (("t", t_obs), ("j", j_obs)):
+        tracer = o.SpanTracer()
+        with o.scope() as bus, o.install(tracer):
+            out = list(_run(pkg, _codec_queries(pkg), edges=edges,
+                            merge_every=2))
+        got[pkg] = (bus.snapshot()["counters"],
+                    len(tracer.spans("compress")), len(tracer.spans("fold")),
+                    len(out))
+    counters, n_compress, n_fold, n_out = got["t"]
+    assert counters["multiquery.compressed_chunks"] == n_chunks
+    assert n_compress == n_fold == n_chunks
+    assert got["t"][1:] == got["j"][1:]
+    for key in ("multiquery.compressed_chunks", "engine.chunks_folded",
+                "multiquery.emissions"):
+        assert counters[key] == got["j"][0][key], key
+
+
 @pytest.mark.parametrize("fold_batch", [1, 2])
 def test_fused_codec_matches_standalone_codec_runs(fold_batch):
     kw = dict(merge_every=2, fold_batch=fold_batch)
@@ -712,7 +739,8 @@ def test_live_snapshots_one_window_staleness():
     res = tmq.run_multiquery([t_cq(N_V), t_dq(N_V)], _stream("t"),
                              merge_every=2, **_kw("t"))
     assert isinstance(res, tmq.MultiQueryStream)
-    seen, err = _drive_snapshots(res)
+    with t_obs.scope() as t_bus:
+        seen, err = _drive_snapshots(res)
     assert err == jerr and "unknown query" in err[1]
     assert len(seen) == len(jseen) >= 2
     for i, ((out, cc, both), (_, jcc, jboth)) in enumerate(zip(seen, jseen)):
@@ -723,8 +751,11 @@ def test_live_snapshots_one_window_staleness():
         _same(jboth, both, f"snapshot {i}")
     counters = bus.snapshot()["counters"]
     st = res.stats
+    t_counters = t_bus.snapshot()["counters"]
     for key in ("runs", "emissions", "snapshot_reads"):
-        assert st[f"multiquery.{key}"] == counters[f"multiquery.{key}"], key
+        assert st[f"multiquery.{key}"] == counters[f"multiquery.{key}"] \
+            == t_counters[f"multiquery.{key}"], key
+    assert t_bus.gauges["multiquery.fused_queries"] == 2
     assert st["multiquery.runs"] == 1
     assert st["multiquery.emissions"] == 2 * len(seen)
     assert st["multiquery.fused_queries"] == \
@@ -733,6 +764,42 @@ def test_live_snapshots_one_window_staleness():
     # A second run of the stream counts on, as the bus does.
     res.result()
     assert st["multiquery.runs"] == 2
+
+
+def test_fold_spans_carry_per_query_attribution(tmp_path):
+    queries = [t_cq(N_V), t_dq(N_V)]
+    tracer = t_obs.SpanTracer()
+    with t_obs.scope() as bus, t_obs.install(tracer):
+        windows = len(list(_run("t", queries, merge_every=2)))
+    folds = tracer.spans("fold")
+    assert folds and all(
+        s["args"]["queries"] == "cc,degrees" for s in folds
+    )
+    # one per-query track span per window close
+    per_query = {}
+    for s in tracer.spans("multiquery"):
+        assert s["track"] == f"multiquery/{s['args']['query']}"
+        per_query.setdefault(s["args"]["query"], []).append(
+            s["args"]["window"])
+    assert sorted(per_query) == ["cc", "degrees"]
+    assert all(v == list(range(1, windows + 1))
+               for v in per_query.values())
+    path = str(tmp_path / "trace.json")
+    trace = t_obs.write_chrome_trace(path, tracer, bus=bus)
+    t_obs.validate_chrome_trace(trace)
+    # The same run in gelly_tpu: the same fold and query spans.
+    j_tracer = j_obs.SpanTracer()
+    with j_obs.scope(), j_obs.install(j_tracer):
+        assert len(list(_run("j", [j_cq(N_V), j_dq(N_V)],
+                             merge_every=2))) == windows
+
+    def key(tr, stage):
+        return sorted((s["track"], s["args"].get("unit"),
+                       s["args"].get("queries"), s["args"].get("query"),
+                       s["args"].get("window")) for s in tr.spans(stage))
+
+    for stage in ("fold", "multiquery"):
+        assert key(tracer, stage) == key(j_tracer, stage), stage
 
 
 def test_stream_aggregate_with_queries():

@@ -4,7 +4,8 @@ Mirrors ``tests/test_resilience.py`` on the port: retry and backoff,
 the watchdog, checkpoint rotation, torn files, stale-tmp reaping, fault
 injection at every boundary this slice fires, degradation to the fallback
 step, source restarts, hung checkpoint writes and the time cadence. Where
-``gelly_tpu`` reads its ``obs`` bus, these read ``runner.stats``. The CC
+``gelly_tpu`` reads its ``obs`` bus, these read the port's bus and
+``runner.stats`` beside it (equal where ``gelly_tpu`` says they are). The CC
 fold cases hold the port's resumed forests to an uninterrupted run and to
 ``gelly_tpu``'s resilient fold over the same stream, bit for bit.
 """
@@ -20,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from gelly_torch import edge_stream_from_edges
+from gelly_torch import edge_stream_from_edges, obs
 from gelly_torch.core.io import EdgeChunkSource as TSource
 from gelly_torch.core.stream import edge_stream_from_source as t_stream
 from gelly_torch.core.vertices import IdentityVertexTable as TIdentity
@@ -392,8 +393,8 @@ def test_disable_sends_the_codec_probes_to_numpy():
 
 def test_stats_count_the_injection_matrix(tmp_path):
     # One run drives all three ladders — a retried step fault, a native
-    # degradation, and a hung checkpoint write — and runner.stats counts
-    # every one of them (gelly_tpu counts them on its obs bus).
+    # degradation, and a hung checkpoint write — and the obs bus counts
+    # every one of them (plus the injections), as runner.stats does.
     def boom():
         e = MemoryError("native alloc failed")
         e.stem = "stats_stem"
@@ -410,18 +411,36 @@ def test_stats_count_the_injection_matrix(tmp_path):
                      hang_seconds=10.0),                # one tolerated miss
     ])
     try:
-        with faults.install(plan):
-            r = ResilientRunner(
-                native_step, list(range(10)), np.int64(0),
-                checkpoint_dir=str(tmp_path),
-                config=_fast(degrade_after=2, checkpoint_every_chunks=3,
-                             watchdog_timeout=0.3),
-                fallback_step=_step,
-            )
-            final = r.run()
+        with obs.scope() as bus:
+            with faults.install(plan):
+                r = ResilientRunner(
+                    native_step, list(range(10)), np.int64(0),
+                    checkpoint_dir=str(tmp_path),
+                    config=_fast(degrade_after=2, checkpoint_every_chunks=3,
+                                 watchdog_timeout=0.3),
+                    fallback_step=_step,
+                )
+                final = r.run()
+            counters = bus.snapshot()["counters"]
+            gauges = bus.snapshot()["gauges"]
     finally:
         native.reenable("stats_stem")
     assert int(final) == int(_clean_run(10))
+    # every ladder is countable off the bus, matching the runner's stats
+    assert counters["resilience.retries"] == r.stats["retries"] >= 1
+    assert counters["resilience.degradations"] == 1
+    assert counters["resilience.checkpoint_misses"] \
+        == r.stats["checkpoint_failures"] == 1
+    # The bus counts COMPLETED writes (the hung one never completes);
+    # runner stats count non-raising save() initiations — both present,
+    # deliberately different currencies.
+    assert counters["resilience.checkpoints"] \
+        == r.stats["checkpoint_writes"] >= 1
+    assert counters["faults.injected"] == len(plan.fired) >= 4
+    # durability currency rides along: bytes written + last write latency
+    assert counters["resilience.checkpoint_bytes"] \
+        == r.stats["checkpoint_bytes"] > 0
+    assert gauges["resilience.checkpoint_write_s"] >= 0
     assert r.stats["retries"] >= 1
     assert r.stats["degradations"] == 1
     assert r.stats["checkpoint_failures"] == 1
@@ -448,15 +467,20 @@ def test_stats_count_watchdog_fires_and_source_restarts():
     plan = faults.FaultPlan([
         faults.Fault("step", at=2, kind="hang", hang_seconds=5.0),
     ])
-    with faults.install(plan):
-        r = ResilientRunner(
-            _step, make_iter, np.int64(0),
-            config=_fast(watchdog_timeout=0.2),
-        )
-        final = r.run()
+    with obs.scope() as bus:
+        with faults.install(plan):
+            r = ResilientRunner(
+                _step, make_iter, np.int64(0),
+                config=_fast(watchdog_timeout=0.2),
+            )
+            final = r.run()
+        counters = bus.snapshot()["counters"]
     assert int(final) == int(_clean_run(8))
     assert r.stats["watchdog_timeouts"] >= 1
     assert r.stats["restarts"] == 1
+    assert counters["resilience.watchdog_timeouts"] \
+        == r.stats["watchdog_timeouts"]
+    assert counters["resilience.source_restarts"] == r.stats["restarts"] == 1
 
 
 @pytest.mark.parametrize("where", ["mid-stream", "open"])
@@ -539,6 +563,35 @@ def test_checkpoint_write_fault_retried_inside_manager(tmp_path):
         os.path.join(tmp_path, "ckpt-000000000006.npz"), like=np.int64(0)
     )
     assert pos == 6
+
+
+def test_checkpoint_writer_retries_are_counted_on_the_bus(tmp_path):
+    # The port counts the checkpoint writer's own retries in
+    # runner.stats["retries"] (ROADMAP.md, "Divergences kept by
+    # design"), so its bus counts them too: the two stay equal, and the
+    # retry shows as an instant naming the checkpoint_write boundary.
+    plan = faults.FaultPlan([
+        faults.Fault("step", at=2, count=1),
+        faults.Fault("checkpoint_write", at=0, count=1,
+                     exc=lambda: OSError("EIO")),
+    ])
+    tr = obs.SpanTracer(heartbeat_every_s=None)
+    with obs.scope() as bus:
+        with obs.install(tr), faults.install(plan):
+            r = ResilientRunner(
+                _step, list(range(6)), np.int64(0),
+                checkpoint_dir=str(tmp_path),
+                config=_fast(checkpoint_every_chunks=2),
+            )
+            final = r.run()
+        counters = bus.snapshot()["counters"]
+    assert int(final) == int(_clean_run(6))
+    assert counters["resilience.retries"] == r.stats["retries"] == 2
+    assert sorted(i["args"]["boundary"]
+                  for i in tr.instants("resilience.retries")) == [
+        "checkpoint_write", "step"]
+    assert counters["faults.injected"] == len(plan.fired) == 2
+    assert len(tr.instants("faults.injected")) == 2
 
 
 def test_time_based_checkpoint_cadence(tmp_path):
