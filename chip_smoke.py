@@ -4,8 +4,9 @@ degree, bipartiteness, k-spanner and weighted-matching paths, the
 per-window Merger plan, fused multi-query, windows (event-time,
 lateness, pane rings, TTL), the stream API, the rest of the triangle
 library (bucketed, capped-degree and unpacked dense windows, exact and
-sampled counts), the mesh (four logical shards) and the main path traced
-through the obs core, on one CUDA card.
+sampled counts), the mesh (four logical shards), the main path traced
+through the obs core and the multi-tenant engine with its QoS plane, on
+one CUDA card.
 
     python3 chip_smoke.py
 
@@ -69,7 +70,8 @@ Phases (any failure exits nonzero and prints no result line):
    the gather's and the sampler's launches on the mesh as
    ``mesh_launches``, the gather's and entry 2's in phase L1 as
    ``multiquery_launches``, the gather's in a traced run of phase M1 as
-   ``obs_launches``), then ``{"ok": true, "device": ...}`` last.
+   ``obs_launches``, the gather's in phase N3's kernel tier as
+   ``tenant_launches``), then ``{"ok": true, "device": ...}`` last.
 
 The durable phases (checkpoints, exactly-once resume, the resilient
 runner), each checking that the native codec was never disabled:
@@ -231,6 +233,41 @@ M. M1: phase 4's run (``2^24`` slots, ``2^26`` Zipf edges, seed 17,
    with ``dump_on("faults.injected")``: two ``faults.injected`` instants,
    two valid flight dumps, ``resilience.retries`` on the bus equal to
    ``runner.stats["retries"]`` (2), the forest equal to phase C's.
+
+The multi-tenant engine (phase N, right after phase M;
+``engine/tenants.py``, ``engine/qos.py``; each tier's fold form read off
+``TenantPlan.forms``):
+
+N. N1 (``bench.py:bench_tenants``' sweep at its size):
+   ``cc_tenant_tier(2^12, chunk_capacity=2^10)``, 8192 uniform edges a
+   tenant (seed ``1000 + t``, 8 chunks), ``merge_every=2``, N = 1, 8, 64
+   and 256 tenants: the batched engine's drain against N single-stream
+   ``run_aggregation`` passes over the same plan (walls, edges/s and
+   their ratio printed, not gated); 8 dispatches at every N, the
+   lane-batched fold called once a round (its wrapper counted), every
+   tenant's labels equal to its single-stream run's. N2 (full width):
+   4096 tenants x ``2^12`` slots = ``2^24`` slots of tier state, each
+   tenant 8 chunks of ``2^10`` Zipf edges (``synth_edges``, seed ``17 +
+   t``): 8 dispatches and 8 lane-batched folds, every tenant equal to
+   scipy (one call over the lane-offset graph, canonical-min labels),
+   the first 64 equal to their single-stream runs; prints the wall,
+   edges/s, ``tenants.round_ms`` p50 and p99 and the peak device memory.
+   N3 (the kernel tier): ``cc_tenant_tier(2^22, chunk_capacity=2^22,
+   fold_backend="kernel")``, 4 tenants of 4 Zipf chunks (seed ``100 +
+   t``): the dedup fold lane by lane, the gather launched 3 times a
+   lane-chunk whose distinct pairs fit its cap (counted apart), each
+   tenant equal to its single-stream kernel and plain runs. N4: N2's
+   tenants through ``cc_tenant_tier(2^12, chunk_capacity=2^10,
+   compressed=True, codec="sparse")`` with ``submit_payload`` (payloads
+   compressed before the timed window): every window's snapshot equal
+   to N2's, ``tenants.compressed_dispatches == tenants.dispatches``, the
+   wire bytes an edge. N5 at 64 tenants of N1's tier: (a) serving mode,
+   4 submitter threads and a querying thread, every answer a snapshot a
+   tenant prefix gives, windows never going back, the labels after
+   ``stop()`` equal to N1's; (b) per-tenant checkpoints, a stop after
+   window 2 and a resume in a new engine equal to N1's; (c) a
+   ``QosController`` parks tenant 0 (lane freed, the parked row
+   answering) and unparks it, every tenant equal to N1's.
 
 Windows (phase H) and the stream API (phase I), after phase G (I5 after
 phase 6); each timed run prints its wall, edges a second, stage busy
@@ -2711,6 +2748,492 @@ def obs_phase(torch, device, src, dst, labels, dedup_chunks, mq,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------- #
+# phase N: the tenant engine
+
+N_SLOTS = 1 << 12  # a tenant tier's capacity class (bench_tenants')
+N_CHUNK = 1 << 10
+N_EDGES_PER = 1 << 13  # 8 chunks a tenant
+N_MERGE_EVERY = 2
+N1_TENANTS = (1, 8, 64, 256)
+N2_TENANTS = 4096  # x 2^12 slots = 2^24 slots of tier state
+N2_SINGLE = 64  # tenants also held to their single-stream runs
+N3_SLOTS = 1 << 22
+N3_TENANTS = 4
+N3_CHUNKS = 4
+N5_TENANTS = 64
+N5_SUBMITTERS = 4
+
+
+def tenant_chunks(src, dst, n: int, chunk: int) -> list:
+    """Identity-slot host chunks of one tenant's stream."""
+    from gelly_torch.core.chunk import make_chunk
+
+    return [make_chunk(src[i:i + chunk], dst[i:i + chunk],
+                       raw_src=src[i:i + chunk].astype(np.int64),
+                       raw_dst=dst[i:i + chunk].astype(np.int64),
+                       capacity=chunk, device=None)
+            for i in range(0, src.shape[0], chunk)]
+
+
+def bench_tenant_edges(t: int):
+    """``bench.py:_tenant_chunks``' stream of tenant ``t`` (seed 1000 + t)."""
+    rng = np.random.default_rng(1000 + t)
+    src = rng.integers(0, N_SLOTS, N_EDGES_PER).astype(np.int32)
+    dst = rng.integers(0, N_SLOTS, N_EDGES_PER).astype(np.int32)
+    return src, dst
+
+
+def single_stream(torch, device, agg, src, dst, n: int, chunk: int,
+                  merge_every: int = N_MERGE_EVERY):
+    """A tenant's single-stream ``run_aggregation`` pass: its emissions
+    on the host."""
+    from gelly_torch.core.io import EdgeChunkSource
+    from gelly_torch.core.stream import edge_stream_from_source
+    from gelly_torch.core.vertices import IdentityVertexTable
+
+    stream = edge_stream_from_source(
+        EdgeChunkSource(src, dst, chunk_size=chunk,
+                        table=IdentityVertexTable(n)), n, device=device)
+    return [x.cpu().numpy()
+            for x in stream.aggregate(agg, merge_every=merge_every)]
+
+
+def count_lane_folds(agg):
+    """Wrap the plan's lane-batched fold with a call counter and a host
+    clock (before any tier plan is built from it; the fold ends in its
+    fixpoint's host sync); returns ``[calls, seconds]``."""
+    form = agg.lane_form
+    calls = [0, 0.0]
+
+    def counted(state, chunk):
+        calls[0] += 1
+        t = time.perf_counter()
+        out = form.fold(state, chunk)
+        calls[1] += time.perf_counter() - t
+        return out
+
+    agg.lane_form = form._replace(fold=counted)
+    return calls
+
+
+def time_calls(obj, name: str) -> list:
+    """Wrap the method ``name`` of ``obj`` with a host clock; returns
+    ``[seconds]`` spent in it."""
+    fn = getattr(obj, name)
+    spent = [0.0]
+
+    def timed(*args):
+        t = time.perf_counter()
+        out = fn(*args)
+        spent[0] += time.perf_counter() - t
+        return out
+
+    setattr(obj, name, timed)
+    return spent
+
+
+def drain_timed(torch, device, eng):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = eng.drain()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def tenant_phase(torch, device) -> dict:
+    """Phase N. Returns the gather's launches in N3 and N2's numbers."""
+    from gelly_torch import obs
+    from gelly_torch.engine.qos import QOS_PARKED, QosController, QosPolicy
+    from gelly_torch.engine.tenants import MultiTenantEngine
+    from gelly_torch.library.connected_components import cc_tenant_tier
+    from gelly_torch.ops import kernels
+
+    def engine(**kw):
+        return MultiTenantEngine(merge_every=N_MERGE_EVERY, device=device,
+                                 **kw)
+
+    # N1. bench_tenants' sweep: the batched engine against N single-stream
+    # passes over the same plan.
+    agg, cap = cc_tenant_tier(N_SLOTS, chunk_capacity=N_CHUNK)
+    folds = count_lane_folds(agg)
+    rounds = N_EDGES_PER // N_CHUNK
+    n1_labels = {}
+    for n_t in N1_TENANTS:
+        edges = [bench_tenant_edges(t) for t in range(n_t)]
+        eng = engine()
+        eng.add_tier("bench", agg, cap)
+        for t, (s, d) in enumerate(edges):
+            eng.admit(t, "bench",
+                      chunks=tenant_chunks(s, d, N_SLOTS, N_CHUNK))
+        folds[0] = 0
+        with obs.scope() as bus:
+            out, batched_s = drain_timed(torch, device, eng)
+        plan = eng._tiers["bench"].batch.plan
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        seq = [single_stream(torch, device, agg, s, d, N_SLOTS,
+                             N_CHUNK)[-1] for s, d in edges]
+        seq_s = time.perf_counter() - t
+        total = n_t * N_EDGES_PER
+        print(f"phase N1 N={n_t}: batched {total / batched_s:.1f} edges/s "
+              f"wall={batched_s:.4f} s, sequential {total / seq_s:.1f} "
+              f"edges/s wall={seq_s:.4f} s, ratio {seq_s / batched_s:.3f} "
+              f"dispatches={eng.stats['dispatches']} "
+              f"lane_batched_folds={folds[0]} lanes={plan.lanes} "
+              f"form={plan.forms['fold']}")
+        check(eng.stats["dispatches"] == rounds
+              and bus.counters["tenants.dispatches"] == rounds,
+              f"N1 N={n_t}: {eng.stats['dispatches']} dispatches")
+        check(plan.forms["fold"] == "lane-batched" and folds[0] == rounds,
+              f"N1 N={n_t}: {folds[0]} batched folds ({plan.forms})")
+        for t in range(n_t):
+            check(same(out[t], seq[t]),
+                  f"N1 N={n_t}: tenant {t} != its single-stream run")
+        if n_t == N5_TENANTS:
+            n1_labels = {t: out[t] for t in range(n_t)}
+        del eng, out, seq
+
+    # N2. Full width: 4096 tenants x 2^12 slots, 8 Zipf chunks each.
+    t0 = time.perf_counter()
+    edges = [synth_edges(N_EDGES_PER, N_SLOTS, 17 + t)
+             for t in range(N2_TENANTS)]
+    chunks = [tenant_chunks(s, d, N_SLOTS, N_CHUNK) for s, d in edges]
+    print(f"phase N2 streams: {N2_TENANTS} tenants x {N_EDGES_PER} Zipf "
+          f"edges in {time.perf_counter() - t0:.2f} s")
+    agg2, _ = cc_tenant_tier(N_SLOTS, chunk_capacity=N_CHUNK)
+    folds2 = count_lane_folds(agg2)
+    def n2_engine(a):
+        eng = engine()
+        eng.add_tier("full", a, N_CHUNK)
+        for t in range(N2_TENANTS):
+            eng.admit(t, "full", chunks=chunks[t])
+        return eng
+
+    eng = n2_engine(agg2)
+    # The wall's parts: pulls (each tenant's next chunk normalized on the
+    # host), staging (host stack, pinned buffer, one H2D copy), the
+    # lane-batched folds, the rest (window closes, queries, bookkeeping).
+    pulls2 = time_calls(eng, "_pull_sources")
+    staging2 = time_calls(eng._tiers["full"].batch, "stage")
+    snaps2 = []
+    close = eng._close_window
+
+    def record(tier, bus, tracer):
+        close(tier, bus, tracer)
+        snaps2.append(tier.snapshot)
+
+    eng._close_window = record
+    torch.cuda.reset_peak_memory_stats(device)
+    with obs.scope() as bus, obs.record_metrics():
+        out2, wall2 = drain_timed(torch, device, eng)
+        p50 = bus.quantile("tenants.round_ms", 0.5)
+        p99 = bus.quantile("tenants.round_ms", 0.99)
+    peak2 = torch.cuda.max_memory_allocated(device)
+    plan2 = eng._tiers["full"].batch.plan
+    total2 = N2_TENANTS * N_EDGES_PER
+    print(f"phase N2: {N2_TENANTS} tenants x {N_SLOTS} slots = "
+          f"{N2_TENANTS * N_SLOTS} slots, {total2} edges: "
+          f"{total2 / wall2:.1f} edges/s wall={wall2:.4f} s "
+          f"round_ms p50={p50:.3f} p99={p99:.3f} peak_mem={peak2} B "
+          f"dispatches={eng.stats['dispatches']} "
+          f"lane_batched_folds={folds2[0]} form={plan2.forms['fold']} "
+          f"staged H2D copies={eng._tiers['full'].batch._stager.copies} "
+          f"bytes={eng._tiers['full'].batch._stager.bytes}; of the wall: "
+          f"pulls {pulls2[0]:.4f} s, staging {staging2[0]:.4f} s, "
+          f"lane-batched folds {folds2[1]:.4f} s")
+    check(eng.stats["dispatches"] == rounds, "N2: dispatches")
+    check(plan2.forms["fold"] == "lane-batched" and folds2[0] == rounds,
+          f"N2: {folds2[0]} batched folds ({plan2.forms})")
+    check(len(snaps2) == rounds // N_MERGE_EVERY, f"N2: {len(snaps2)} "
+          "window snapshots")
+    got2 = np.stack([out2[t] for t in range(N2_TENANTS)])
+    check(got2.dtype == np.int32 and got2.shape == (N2_TENANTS, N_SLOTS),
+          f"N2: {got2.dtype} {got2.shape}")
+    t0 = time.perf_counter()
+    off = (np.arange(N2_TENANTS, dtype=np.int64) * N_SLOTS)
+    flat_src = np.concatenate([s + off[t] for t, (s, _) in enumerate(edges)])
+    flat_dst = np.concatenate([d + off[t] for t, (_, d) in enumerate(edges)])
+    oracle = scipy_oracle(flat_src.astype(np.int64),
+                          flat_dst.astype(np.int64), N2_TENANTS * N_SLOTS)
+    oracle = oracle.reshape(N2_TENANTS, N_SLOTS)
+    oracle = np.where(oracle >= 0, oracle - off[:, None].astype(np.int32),
+                      -1).astype(np.int32)
+    check(np.array_equal(got2, oracle), "N2: labels != scipy's")
+    print(f"phase N2 oracle: every tenant equal to scipy (one call over "
+          f"the lane-offset graph) in {time.perf_counter() - t0:.2f} s")
+    del flat_src, flat_dst, oracle
+    for t in range(N2_SINGLE):
+        s, d = edges[t]
+        want = single_stream(torch, device, agg2, s, d, N_SLOTS, N_CHUNK)
+        check(same(out2[t], want[-1]),
+              f"N2: tenant {t} != its single-stream run")
+    del eng, out2
+    # One more N2 drain under torch.profiler (the card only): the device's
+    # busy time and idle share over the tier's wall.
+    print_profiled("N2 tenant tier", *profiled(
+        torch, lambda: n2_engine(agg2).drain(), cpu=False))
+
+    # N4. N2's tenants through the sparse codec tier, compressed on the
+    # submitter's side before the timed window.
+    agg4, cap4 = cc_tenant_tier(N_SLOTS, chunk_capacity=N_CHUNK,
+                                compressed=True, codec="sparse")
+    t0 = time.perf_counter()
+    payloads = [[agg4.host_compress(c) for c in cs] for cs in chunks]
+    compress_s = time.perf_counter() - t0
+    wire = sum(p["v"].nbytes + p["r"].nbytes
+               for ps in payloads for p in ps)
+    eng = engine()
+    eng.add_tier("codec", agg4, cap4, compressed=True)
+    snaps4 = []
+    close4 = eng._close_window
+
+    def record4(tier, bus, tracer):
+        close4(tier, bus, tracer)
+        snaps4.append(tier.snapshot)
+
+    eng._close_window = record4
+    t0 = time.perf_counter()
+    for t in range(N2_TENANTS):
+        eng.admit(t, "codec")
+        for p in payloads[t]:
+            eng.submit_payload(t, p)
+        eng.finish(t)
+    submit_s = time.perf_counter() - t0
+    with obs.scope() as bus:
+        out4, wall4 = drain_timed(torch, device, eng)
+        counters = dict(bus.counters)
+    plan4 = eng._tiers["codec"].batch.plan
+    print(f"phase N4: {total2} edges {total2 / wall4:.1f} edges/s "
+          f"wall={wall4:.4f} s (host compress {compress_s:.2f} s and "
+          f"submit {submit_s:.2f} s before it) wire "
+          f"{wire / total2:.4f} B/edge "
+          f"compressed_dispatches={counters.get('tenants.compressed_dispatches')}"
+          f" form={plan4.forms['fold_codec']}")
+    check(counters.get("tenants.compressed_dispatches")
+          == counters.get("tenants.dispatches") == rounds,
+          f"N4: counters {counters}")
+    check(plan4.forms["fold_codec"] == "lane-batched", f"N4: {plan4.forms}")
+    check(len(snaps4) == len(snaps2) and all(
+        torch.equal(a, b) for a, b in zip(snaps2, snaps4)),
+        "N4: a window snapshot != N2's")
+    del eng, out4, payloads, snaps2, snaps4, chunks, edges
+    torch.cuda.empty_cache()
+
+    # N3. The kernel tier: 4 tenants over 2^22 slots in 2^22-edge chunks,
+    # the dedup fold lane by lane, its gather counted.
+    agg3, cap3 = cc_tenant_tier(N3_SLOTS, chunk_capacity=N3_SLOTS,
+                                fold_backend="kernel")
+    plain3, _ = cc_tenant_tier(N3_SLOTS, chunk_capacity=N3_SLOTS)
+    edges3 = [synth_edges(N3_CHUNKS * N3_SLOTS, N3_SLOTS, 100 + t)
+              for t in range(N3_TENANTS)]
+    unique_cap = max(1 << 20, 3 * (N3_SLOTS >> 4))
+    dedup3 = 0
+    for s, d in edges3:
+        for lo in range(0, s.shape[0], N3_SLOTS):
+            a = torch.from_numpy(s[lo:lo + N3_SLOTS]).to(device).long()
+            b = torch.from_numpy(d[lo:lo + N3_SLOTS]).to(device).long()
+            key = (torch.minimum(a, b) << 32) | torch.maximum(a, b)
+            dedup3 += int(torch.unique(key).numel()) <= unique_cap
+    eng = engine()
+    eng.add_tier("kernel", agg3, cap3)
+    for t, (s, d) in enumerate(edges3):
+        eng.admit(t, "kernel", chunks=tenant_chunks(s, d, N3_SLOTS,
+                                                    N3_SLOTS))
+    reset_launches(kernels)
+    out3, wall3 = drain_timed(torch, device, eng)
+    launches3 = kernels.sorted_window_gather.launches
+    plan3 = eng._tiers["kernel"].batch.plan
+    total3 = N3_TENANTS * N3_CHUNKS * N3_SLOTS
+    print(f"phase N3: {N3_TENANTS} tenants x {N3_SLOTS} slots, {total3} "
+          f"edges in {N3_SLOTS}-edge chunks: {total3 / wall3:.1f} edges/s "
+          f"wall={wall3:.4f} s gather_launches={launches3} (3 x "
+          f"{dedup3} dedup lane-chunks, counted apart) "
+          f"form={plan3.forms['fold']}")
+    check(plan3.forms["fold"] == "lane-by-lane", f"N3: {plan3.forms}")
+    check(launches3 > 0 and launches3 == 3 * dedup3,
+          f"N3: {launches3} launches != 3 x {dedup3} dedup lane-chunks")
+    for t, (s, d) in enumerate(edges3):
+        want_k = single_stream(torch, device, agg3, s, d, N3_SLOTS, N3_SLOTS)
+        want_p = single_stream(torch, device, plain3, s, d, N3_SLOTS,
+                               N3_SLOTS)
+        check(same(out3[t], want_k[-1]) and same(out3[t], want_p[-1]),
+              f"N3: tenant {t} != its single-stream kernel / plain run")
+    del eng, out3, edges3
+    torch.cuda.empty_cache()
+
+    # N5. Serving, durability and QoS at 64 tenants of N1's tier.
+    edges5 = {t: bench_tenant_edges(t) for t in range(N5_TENANTS)}
+    chunks5 = {t: tenant_chunks(s, d, N_SLOTS, N_CHUNK)
+               for t, (s, d) in edges5.items()}
+    # Every label row a tenant's snapshot may hold: its prefix after j
+    # chunks, j = 0..8 (emissions a chunk of its single-stream run).
+    empty = np.full(N_SLOTS, -1, np.int32).tobytes()
+    prefixes = {t: {empty} | {x.tobytes() for x in single_stream(
+        torch, device, agg, s, d, N_SLOTS, N_CHUNK, merge_every=1)}
+        for t, (s, d) in edges5.items()}
+    # (a) serving mode: 4 submitter threads, 1 querying thread.
+    import threading
+
+    eng = engine()
+    eng.add_tier("serve", agg, cap)
+    for t in range(N5_TENANTS):
+        eng.admit(t, "serve")
+    # The querying thread's tally: answers, non-empty ones, answers no
+    # snapshot made, and per tenant the last window it saw (never back).
+    tally = {"answers": 0, "rows": 0, "stale": 0, "backwards": 0}
+    errors = []
+    done = threading.Event()
+
+    def submitter(k):
+        try:
+            for t in range(k, N5_TENANTS, N5_SUBMITTERS):
+                for c in chunks5[t]:
+                    eng.submit(t, c)
+                eng.finish(t)
+        except Exception as e:  # noqa: BLE001
+            errors.append(e)
+
+    def querier():
+        rng = np.random.default_rng(5)
+        last = {}
+        try:
+            while not done.is_set():
+                t = int(rng.integers(0, N5_TENANTS))
+                w = eng.snapshot_window(t)
+                row = eng.labels(t)
+                time.sleep(0.0002)  # a query stream, not a spin on the GIL
+                tally["answers"] += 1
+                tally["backwards"] += w < last.get(t, 0)
+                last[t] = w
+                if row is not None:
+                    tally["rows"] += 1
+                    tally["stale"] += row.tobytes() not in prefixes[t]
+        except Exception as e:  # noqa: BLE001
+            errors.append(e)
+
+    threads = [threading.Thread(target=submitter, args=(k,))
+               for k in range(N5_SUBMITTERS)]
+    threads.append(threading.Thread(target=querier))
+    t0 = time.perf_counter()
+    eng.start()
+    try:
+        for th in threads:
+            th.start()
+        for th in threads[:-1]:
+            th.join(120)
+        deadline = time.time() + 120
+        while time.time() < deadline and not (
+                all(r["done"] for r in eng.telemetry().values())
+                and eng._tiers["serve"].chunks_in_window == 0):
+            time.sleep(0.01)
+    finally:
+        done.set()
+        threads[-1].join(30)
+        eng.stop()
+    serve_s = time.perf_counter() - t0
+    check(not errors, f"N5a: {errors[:3]}")
+    check(tally["rows"] > 0 and tally["stale"] == 0
+          and tally["backwards"] == 0, f"N5a: querying thread {tally}")
+    for t in range(N5_TENANTS):
+        check(same(eng.labels(t), n1_labels[t]),
+              f"N5a: tenant {t} != N1's after stop()")
+    print(f"phase N5a: serving {N5_TENANTS} tenants from "
+          f"{N5_SUBMITTERS} submitter threads in {serve_s:.3f} s, "
+          f"{tally['answers']} answers from the querying thread "
+          f"({tally['rows']} non-empty), each one a snapshot made; labels "
+          f"equal N1's")
+    del eng
+    # (b) stop after window 2 with per-tenant checkpoints, resume.
+    tmp = tempfile.mkdtemp(prefix="gelly-tenants-")
+    try:
+        eng = engine(checkpoint_dir=tmp, checkpoint_every=1)
+        eng.add_tier("durable", agg, cap)
+        for t in range(N5_TENANTS):
+            eng.admit(t, "durable", chunks=chunks5[t][:2 * N_MERGE_EVERY])
+        eng.drain()
+        check(eng.stats["windows_closed"] == 2, "N5b: windows before stop")
+        del eng
+        t0 = time.perf_counter()
+        eng = engine(checkpoint_dir=tmp, checkpoint_every=1, resume=True)
+        eng.add_tier("durable", agg, cap)
+        for t in range(N5_TENANTS):
+            eng.admit(t, "durable", chunks=chunks5[t])
+        out5 = eng.drain()
+        resume_s = time.perf_counter() - t0
+        check(eng.stats["chunks"] == N5_TENANTS * (rounds
+                                                   - 2 * N_MERGE_EVERY),
+              f"N5b: the resumed engine folded {eng.stats['chunks']}")
+        for t in range(N5_TENANTS):
+            check(same(out5[t], n1_labels[t]),
+                  f"N5b: tenant {t} resumed != uninterrupted")
+        print(f"phase N5b: stopped after window 2, {N5_TENANTS} "
+              f"per-tenant rotations resumed in a new engine in "
+              f"{resume_s:.3f} s; labels equal the uninterrupted run's")
+        del eng
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # (c) a QosController parks one tenant and unparks it.
+    victim = 0
+    pol = QosPolicy(backlog_budget_s=0.5, limit_after=1, park_after=1,
+                    unpark_below_s=0.25, unpark_grace_s=0.0)
+    qos = QosController(default=QosPolicy(), eval_every_s=0.01,
+                        per_tenant={victim: pol})
+
+    def wait(pred, timeout=60.0):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline and not pred():
+            time.sleep(0.005)
+        return pred()
+
+    with obs.scope() as bus:
+        ages = {}
+        bus.watermarks.backlog_age = lambda tid: ages.get(tid, 0.0)
+        eng = engine(qos=qos, poll_s=0.005)
+        eng.add_tier("qos", agg, cap)
+        for t in range(N5_TENANTS):
+            eng.admit(t, "qos")
+        eng.start()
+        try:
+            for t in range(N5_TENANTS):
+                for c in chunks5[t][:2]:
+                    eng.submit(t, c)
+            check(wait(lambda: all(eng.position(t) == 2
+                                   for t in range(N5_TENANTS))),
+                  "N5c: the first two rounds")
+            ages.update({victim: 10.0, 1: 10.0})
+            check(wait(lambda: eng.qos_state(victim) == QOS_PARKED
+                       and eng._tenants[victim].lane == -1),
+                  "N5c: the victim was not parked")
+            parked_row = eng.labels(victim)
+            check(parked_row is not None
+                  and parked_row.tobytes() in prefixes[victim],
+                  "N5c: the parked row is not a snapshot of the victim")
+            eng.submit(victim, chunks5[victim][2])
+            ages.update({victim: 0.0, 1: 0.0})
+            check(wait(lambda: eng.qos_state(victim) != QOS_PARKED
+                       and eng._tenants[victim].lane >= 0),
+                  "N5c: the victim was not unparked")
+            for t in range(N5_TENANTS):
+                for c in chunks5[t][3 if t == victim else 2:]:
+                    eng.submit(t, c)
+                eng.finish(t)
+            check(wait(lambda: all(
+                eng.labels(t) is not None
+                and same(eng.labels(t), n1_labels[t])
+                for t in range(N5_TENANTS))),
+                "N5c: labels after park and unpark != N1's")
+        finally:
+            eng.stop()
+        print(f"phase N5c: tenant {victim} parked (lane freed) and "
+              f"unparked; qos.parked={bus.counters.get('qos.parked')} "
+              f"qos.unparked={bus.counters.get('qos.unparked')}; all "
+              f"{N5_TENANTS} tenants' labels equal N1's")
+    torch.cuda.empty_cache()
+    return {"gather_launches": launches3, "dedup_lane_chunks": dedup3,
+            "n2_wall_s": wall2}
+
+
 def bounded_degree_stream(n: int, seed: int):
     """Two random Hamiltonian cycles over ``n`` slots, edges shuffled: every
     vertex has degree at most 4, so any ball of radius 3 holds at most
@@ -5012,6 +5535,10 @@ def main() -> int:
     del c_run
     torch.cuda.empty_cache()
 
+    # N. the tenant engine
+    mark("N", t_start)
+    tenants = tenant_phase(torch, device)
+
     mark("F4, G", t_start)
     f4 = spanner_gate_phase(torch, device, f2_stream)
     del f2_stream
@@ -5220,6 +5747,7 @@ def main() -> int:
         "mesh_launches": k14["gather_launches"],
         "multiquery_launches": mq["gather_launches"],
         "obs_launches": traced["gather_launches"],
+        "tenant_launches": tenants["gather_launches"],
         "max_abs_err": max(max_abs_err, k14["gather_err"]),
         "ms": kernel_ms,
         "plain_ms": plain_ms,

@@ -40,6 +40,10 @@ host root and seen caches), the ``ShardedDegrees`` stripes (``int64``) and
 ``ShardedExactTriangles`` (``nbr`` / ``aidx`` i32 ``[S, per, D]``, ``deg``
 i32 and ``counts`` i64 stripes, and its host counters) carry both ways.
 
+A tenant tier's stacked ``state`` or ``global_`` (``engine/tenants.py``:
+every leaf ``[lanes, ...]``) carries through :func:`tenant_state_from_numpy`
+/ :func:`tenant_state_to_numpy`, leaves in ``jax.tree`` order.
+
 A fused multi-query state (``engine/multiquery.py``: ``"_step"``, a 0-d
 ``int64``, beside one summary a query, or ``{"local", "global"}`` for a
 query with its own merge window) carries through the per-query
@@ -54,7 +58,7 @@ import numpy as np
 import torch
 
 from .core.device import DEFAULT_DEVICE, resolve_device, to_numpy
-from .engine.checkpoint import tree_flatten
+from .engine.checkpoint import _numpy_dtype, tree_flatten, tree_unflatten
 from .engine.multiquery import STEP_KEY
 from .library.bipartiteness import BipartiteSummary
 from .library.connected_components import (
@@ -504,3 +508,38 @@ def fused_state_to_numpy(state: dict) -> dict:
         out[name] = ({k: _sub_to_numpy(v) for k, v in x.items()}
                      if isinstance(x, dict) else _sub_to_numpy(x))
     return out
+
+
+def tenant_state_from_numpy(agg, arrays,
+                            device: torch.device | str = DEFAULT_DEVICE):
+    """A ``TenantBatch``'s stacked ``state`` or ``global_`` for the plan
+    ``agg``, on ``device``. ``arrays`` is ``gelly_tpu``'s stack taken to
+    numpy: any tree whose leaves come in ``jax.tree`` order (the summary
+    NamedTuple, a fused dict, a list of leaves); each leaf is ``[lanes] +``
+    the shape of ``agg.init()``'s leaf, in its dtype."""
+    tpl, spec = tree_flatten(agg.init("cpu"))
+    leaves = [np.asarray(a) for a in tree_flatten(arrays)[0]]
+    if len(leaves) != len(tpl):
+        raise ValueError(f"the plan's summary has {len(tpl)} leaves, got "
+                         f"{len(leaves)}")
+    lanes = {a.shape[0] if a.ndim else None for a in leaves}
+    if len(lanes) != 1 or None in lanes:
+        raise ValueError(f"every leaf must lead with one lane count, got "
+                         f"{[a.shape for a in leaves]}")
+    out = []
+    for i, (a, t) in enumerate(zip(leaves, tpl)):
+        want = _numpy_dtype(t)
+        if a.dtype != want:
+            raise TypeError(f"leaf {i} must be {want}, got {a.dtype}")
+        if a.shape[1:] != tuple(t.shape):
+            raise ValueError(f"leaf {i} {a.shape} must be [lanes] + "
+                             f"{tuple(t.shape)}")
+        out.append(torch.from_numpy(a.copy()).to(resolve_device(device)))
+    return tree_unflatten(spec, out)
+
+
+def tenant_state_to_numpy(state) -> list:
+    """The host leaves of a tier's stacked ``state`` or ``global_``, in
+    ``jax.tree`` order (``jax.tree.unflatten`` of ``gelly_tpu``'s stack
+    structure rebuilds its tree)."""
+    return [to_numpy(x) for x in tree_flatten(state)[0]]

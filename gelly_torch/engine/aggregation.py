@@ -72,13 +72,13 @@ import itertools
 import os
 import threading
 import time
-from typing import Any, Callable, Iterator
+from typing import Any, Callable, Iterator, NamedTuple
 
 import numpy as np
 import torch
 
 from ..core.chunk import EdgeChunk, split_chunk_host
-from ..core.device import to_numpy
+from ..core.device import DEFAULT_DEVICE, resolve_device, to_numpy
 from ..obs import bus as obs_bus
 from ..obs import tracing as obs_tracing
 from . import faults
@@ -153,6 +153,10 @@ class SummaryAggregation:
     all). The engine copies only those to the device, as ``gelly_tpu``'s
     jit drops the arguments a fold never reads; the others stay host
     tensors in the chunk the fold gets.
+
+    ``lane_form`` — optional :class:`LaneForm`: the plan's folds over
+    summaries stacked on a tenant lane axis in one call
+    (:func:`_compiled_tenant_plan`); None folds a tier lane by lane.
     """
 
     init: Callable[[torch.device], Summary]
@@ -183,6 +187,7 @@ class SummaryAggregation:
     merge_dirty_count: Callable[[Summary], Any] | None = None
     merge_delta_auto_rows: int | None = None
     name: str = "aggregation"
+    lane_form: Any = None
 
 
 # Auto-codec threshold: below this slot-space size a dense per-chunk
@@ -711,6 +716,332 @@ def _split_stacked(stacked: EdgeChunk, num_shards: int) -> list:
         for i in range(num_shards):
             out[i].append(np.ascontiguousarray(f[:, i]))
     return [EdgeChunk(*fs) for fs in out]
+
+
+# ---------------------------------------------------------------------- #
+# tenant tiers: the stacked plan of engine/tenants.py
+
+# The lane-offset form folds lanes * slots slots as one i32 index space.
+LANE_SPACE_MAX = (1 << 31) - 1
+
+
+class LaneForm(NamedTuple):
+    """A plan's lane-offset form: its device functions over summaries
+    stacked on a leading lane axis (``[lanes, ...]`` leaves holding
+    lane-local ids), each ONE call for every lane.
+
+    Lane ``l``'s ids are offset by ``l * slots`` into one flat space of
+    ``lanes * slots`` slots, the plan's own device routine runs once over
+    it, and the offsets come off again. Components and counts never cross
+    lanes, and each routine here gives every lane what it gives that lane
+    alone (canonical forests, integer sums), so the stacked result equals
+    folding each lane by itself bit for bit.
+
+    - ``fold(stack, chunk)`` folds every lane's ``[lanes, C]`` chunk row
+      (the tier selects inactive lanes back);
+    - ``fold_compressed(stack, payload)`` folds ``[lanes, K, ...]``
+      payload rows;
+    - ``combine``, ``transform``, ``flatten``: stacked counterparts of the
+      plan's;
+    - ``raw_ok(chunk_capacity)`` — whether ``fold`` is the plan's fold at
+      that chunk size (None: at every size);
+    - ``plain`` — the plan's ``(fold, fold_compressed, combine,
+      transform, flatten)`` this form mirrors: a function replaced on the
+      plan since is folded lane by lane.
+    """
+
+    slots: int
+    fold: Callable | None = None
+    fold_compressed: Callable | None = None
+    combine: Callable | None = None
+    transform: Callable | None = None
+    flatten: Callable | None = None
+    raw_ok: Callable[[int], bool] | None = None
+    plain: tuple = ()
+
+
+_FORM_FUNCS = ("fold", "fold_compressed", "combine", "transform", "flatten")
+
+
+def lane_offsets(lanes: int, slots: int, device) -> torch.Tensor:
+    """``i32[lanes, 1]``: lane ``l``'s id offset ``l * slots``."""
+    return (torch.arange(lanes, dtype=torch.int64, device=device)
+            * slots).to(torch.int32).view(lanes, 1)
+
+
+def lane_form_of(agg: "SummaryAggregation", fold, fold_compressed, combine,
+                 transform, flatten, slots: int,
+                 raw_ok: Callable[[int], bool] | None = None) -> LaneForm:
+    """The :class:`LaneForm` of ``agg`` (built after it), mirroring the
+    plan functions it has now."""
+    return LaneForm(slots=slots, fold=fold, fold_compressed=fold_compressed,
+                    combine=combine, transform=transform, flatten=flatten,
+                    raw_ok=raw_ok,
+                    plain=tuple(getattr(agg, f) for f in _FORM_FUNCS))
+
+
+class TenantPlan(NamedTuple):
+    """The stacked physical plan of one tenant tier (see
+    ``engine/tenants.py``): every function takes and returns summaries
+    STACKED on a leading tenant axis of width ``lanes``.
+
+    ``fold(state, stacked, active, lanes_on=None)`` advances every lane
+    whose ``active`` is True by its row of ``stacked`` (a ``[lanes, C]``
+    chunk, or for ``fold_codec`` a ``[lanes, 1, ...]`` payload) and
+    returns the stack; an inactive lane keeps its rows bit-unchanged, as
+    ``gelly_tpu``'s ``jnp.where(active, new, old)``. ``lanes_on`` (the
+    active lanes, on the host) saves reading ``active`` back. ``snapshot``
+    never aliases the live state.
+
+    Port-only fields: ``forms`` — for each of ``fold``, ``fold_codec``,
+    ``merger``, ``transform`` and ``flatten``, ``"lane-batched"`` (one
+    call a shard folds the shard's lanes, :class:`LaneForm`) or
+    ``"lane-by-lane"`` (one plan call a lane, on the lane's row views);
+    ``device``, the device holding the stack; ``chunk_capacity``, the
+    tier's, which the raw fold's form was decided for.
+    """
+
+    init: Callable[[], Summary]
+    fold: Callable[..., Summary]
+    merger: Callable[[Summary, Summary], Summary]
+    transform: Callable[[Summary], Any] | None
+    snapshot: Callable[[Summary], Any]
+    flatten: Callable[[Summary], Summary] | None
+    lanes: int
+    fold_codec: Callable[..., Summary] | None = None
+    forms: dict | None = None
+    device: Any = None
+    chunk_capacity: int | None = None
+
+
+def _rows(tree, rows):
+    return tree_map(lambda x: x[rows], tree)
+
+
+def _moved(tree, device):
+    """``tree`` with its device tensors on ``device`` (host tensors stay:
+    the chunk fields a fold does not read are never staged)."""
+    return tree_map(
+        lambda x: x.to(device) if isinstance(x, torch.Tensor)
+        and x.device.type != "cpu" and x.device != device else x, tree)
+
+
+def _write_rows(stack, rows, new) -> None:
+    """Copy ``new`` into the ``rows`` of every leaf of ``stack``."""
+    for old, val in zip(tree_flatten(stack)[0], tree_flatten(new)[0]):
+        old[rows].copy_(val)
+
+
+def _cat_trees(trees: list, device):
+    """One tree whose leaves concatenate the trees' leaves on axis 0."""
+    flat = [tree_flatten(t) for t in trees]
+    return tree_unflatten(flat[0][1], [
+        torch.cat([leaves[i].to(device) for leaves, _ in flat])
+        for i in range(len(flat[0][0]))])
+
+
+def _select_rows(stack, rows, new, keep: torch.Tensor) -> None:
+    """Write ``new`` into ``stack[rows]`` where ``keep`` (``bool[r]``) is
+    True; the other rows stay as they are."""
+    for old, val in zip(tree_flatten(stack)[0], tree_flatten(new)[0]):
+        block = old[rows]
+        mask = keep.view((-1,) + (1,) * (block.dim() - 1))
+        block.copy_(torch.where(mask, val.to(block.device), block))
+
+
+def _compiled_tenant_plan(agg: SummaryAggregation, lanes: int, mesh=None, *,
+                          device: torch.device | str = DEFAULT_DEVICE,
+                          chunk_capacity: int | None = None) -> TenantPlan:
+    """Build (and memoize on the aggregation instance under
+    ``gelly_tpu``'s key) the stacked plan of a tenant tier of ``lanes``
+    lanes.
+
+    ``gelly_tpu`` ``jax.vmap``-s the plan's functions over the lane axis.
+    The port's folds are fixpoints with host syncs, which ``vmap`` cannot
+    batch, so the plan build picks each function's form once, from the
+    plan and ``chunk_capacity``, and records it in ``TenantPlan.forms``:
+
+    - **lane-batched** where the plan has a :class:`LaneForm` for the
+      function (CC's generic raw fold, its dense and sparse codec folds,
+      combine, transform and flatten; every function of the degree plan)
+      and the shard's ``lanes * slots`` fits the ``i32`` space: one call
+      a shard folds every lane, inactive lanes selected back by row;
+    - **lane-by-lane** otherwise (CC's dedup fold, whose overflow branches
+      and window misses are per-lane decisions; a fused ``MultiQueryPlan``,
+      whose merge windows branch on each lane's own step): one plan call a
+      lane on the lane's row views, inactive lanes untouched.
+
+    Nothing falls back at run time. ``mesh`` with S > 1 shards needs
+    ``lanes % S == 0``; each shard's block of lanes folds on its device.
+    The stack lives on ``device`` (the mesh's first device). Refusals,
+    their order and texts, are ``gelly_tpu``'s.
+    """
+    if lanes < 1:
+        raise ValueError(f"lanes must be >= 1, got {lanes}")
+    windowed_panes = getattr(agg, "windowed_panes", None)
+    if windowed_panes is not None:
+        raise ValueError(
+            f"aggregation '{agg.name}' carries a pane ring "
+            f"(windowed_panes={windowed_panes}): the ring's two-stack "
+            "state and TTL session rebuilds are single-stream host "
+            "structures the vmapped tenant lanes cannot share — run "
+            "the windowed query as its own stream, or add the "
+            "non-windowed builder variant as the tier plan"
+        )
+    if agg.stack_ordered:
+        raise ValueError(
+            f"aggregation '{agg.name}' uses an ordered stacker "
+            "(stack_ordered: its codec session assigns compact ids in "
+            "GLOBAL STREAM order — per-run host state no concurrent "
+            "tenant lane order can reproduce); build the tier plan on a "
+            "stateless codec (e.g. codec='sparse') or the raw fold "
+            "(ingest_combine=False)"
+        )
+    if agg.requires_codec and agg.fold_compressed is None:
+        raise ValueError(
+            f"aggregation '{agg.name}' sets requires_codec but supplies "
+            "no fold_compressed — the tier has no fold to compile"
+        )
+    if agg.transform is not None and not agg.jit_transform:
+        raise ValueError(
+            f"aggregation '{agg.name}' uses a host-side transform "
+            "(jit_transform=False); tenant snapshots are device-resident "
+            "vmapped transforms"
+        )
+    mesh_key = None
+    devices = None
+    if mesh is not None and mesh.num_shards > 1:
+        S = mesh.num_shards
+        if lanes % S:
+            raise ValueError(
+                f"tenant lanes {lanes} must be a multiple of the "
+                f"{S}-device mesh to shard the tenant axis"
+            )
+        mesh_key = (tuple(str(d) for d in mesh.devices), mesh.axis_names)
+        devices = list(mesh.devices)
+    elif mesh is not None:
+        devices = list(mesh.devices)
+    dev = devices[0] if devices is not None else resolve_device(device)
+    if devices is None or len(devices) == 1:
+        devices = [dev]
+    key = ("tenants", lanes, agg.fold_backend, agg.merge_mode, mesh_key)
+    per_agg = agg.__dict__.setdefault("_plan_cache", {})
+    hit = per_agg.get(key)
+    if (hit is not None and hit.device == dev
+            and hit.chunk_capacity == chunk_capacity):
+        return hit
+
+    S = len(devices)
+    block = lanes // S
+    form = agg.lane_form
+    fits = form is not None and block * form.slots <= LANE_SPACE_MAX
+
+    def batched(name: str) -> bool:
+        i = _FORM_FUNCS.index(name)
+        return (fits and getattr(form, name) is not None
+                and len(form.plain) == len(_FORM_FUNCS)
+                and getattr(agg, name) is form.plain[i])
+
+    raw_batched = batched("fold") and (
+        form.raw_ok is None
+        or (chunk_capacity is not None and form.raw_ok(chunk_capacity)))
+    codec_batched = (agg.fold_compressed is not None
+                     and batched("fold_compressed"))
+
+    def shard_rows(i: int) -> slice:
+        return slice(i * block, (i + 1) * block)
+
+    def batch_init():
+        one = agg.init(dev)
+        return tree_map(lambda l: l.unsqueeze(0).expand(
+            (lanes,) + tuple(l.shape)).clone(), one)
+
+    def host_lanes(active, lanes_on):
+        if lanes_on is not None:
+            return [int(l) for l in lanes_on]
+        return np.flatnonzero(to_numpy(active)).tolist()
+
+    def stacked_fold(form_fn):
+        # One call a shard over its block; inactive lanes' rows selected
+        # back (masking their edges alone would still flatten a forest).
+        def fold(state, stacked, active, lanes_on=None):
+            keep = torch.as_tensor(active).to(dev)
+            for i, d in enumerate(devices):
+                rows = shard_rows(i)
+                new = form_fn(_moved(_rows(state, rows), d),
+                              _moved(_rows(stacked, rows), d))
+                _select_rows(state, rows, new, keep[rows])
+            return state
+        return fold
+
+    def lane_fold(plan_fn):
+        # One plan call a lane on the lane's row views; inactive lanes'
+        # rows are not touched.
+        def fold(state, stacked, active, lanes_on=None):
+            for l in host_lanes(active, lanes_on):
+                d = devices[l // block]
+                new = plan_fn(_moved(_rows(state, l), d),
+                              _moved(_rows(stacked, l), d))
+                _write_rows(state, l, new)
+            return state
+        return fold
+
+    def stacked_map(form_fn):
+        def fn(*stacks):
+            outs = [form_fn(*(_moved(_rows(s, shard_rows(i)), d)
+                              for s in stacks))
+                    for i, d in enumerate(devices)]
+            return outs[0] if S == 1 else _cat_trees(outs, dev)
+        return fn
+
+    def lane_map(plan_fn):
+        def fn(*stacks):
+            return _stack_panes([_moved(plan_fn(
+                *(_moved(_rows(s, l), devices[l // block]) for s in stacks)),
+                dev) for l in range(lanes)])
+        return fn
+
+    forms = {}
+
+    def pick(name, form_name, plan_fn, on_form):
+        forms[name] = "lane-batched" if on_form else "lane-by-lane"
+        return (stacked_fold(getattr(form, form_name)) if on_form
+                else lane_fold(plan_fn))
+
+    batch_fold = pick("fold", "fold", agg.fold, raw_batched)
+    batch_fold_codec = None
+    if agg.fold_compressed is not None:
+        batch_fold_codec = pick("fold_codec", "fold_compressed",
+                                agg.fold_compressed, codec_batched)
+
+    def pick_map(name, plan_fn, form_name=None):
+        if plan_fn is None:
+            return None
+        on_form = batched(form_name or name)
+        forms[name] = "lane-batched" if on_form else "lane-by-lane"
+        return (stacked_map(getattr(form, form_name or name)) if on_form
+                else lane_map(plan_fn))
+
+    batch_merger = pick_map("merger", agg.combine, "combine")
+    batch_transform = pick_map("transform", agg.transform)
+    batch_flatten = pick_map("flatten", agg.flatten)
+
+    if batch_transform is not None:
+        snapshot_fn = batch_transform
+    else:
+        # A query snapshot must never alias the live stack, which the next
+        # round's fold writes in place.
+        def snapshot_fn(s):
+            return tree_map(lambda x: x.clone(), s)
+
+    plan = TenantPlan(
+        init=batch_init, fold=batch_fold, merger=batch_merger,
+        transform=batch_transform, snapshot=snapshot_fn,
+        flatten=batch_flatten, lanes=lanes, fold_codec=batch_fold_codec,
+        forms=forms, device=dev, chunk_capacity=chunk_capacity,
+    )
+    per_agg[key] = plan
+    return plan
 
 
 def run_aggregation(agg: SummaryAggregation, stream, mesh=None,

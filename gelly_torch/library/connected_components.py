@@ -42,6 +42,8 @@ from ..engine.aggregation import (
     SummaryAggregation,
     bucket_stack_payloads,
     group_combine_payloads,
+    lane_form_of,
+    lane_offsets,
     resolve_sparse_codec,
     sparse_payload_id_check,
 )
@@ -898,7 +900,121 @@ def connected_components(
     )
     if windowed is not None:
         agg.windowed_panes = int(windowed)
+    else:
+        agg.lane_form = _cc_lane_form(agg, n)
     return agg
+
+
+def _cc_lane_form(agg: SummaryAggregation, n: int):
+    """The plan's lane-offset form (tenant tiers): a ``[L, n]`` stack of
+    forests is one forest of ``L * n`` slots once lane ``l``'s ids are
+    offset by ``l * n``. ``union_edges`` ends in a full ``pointer_jump``
+    and ``union_pairs_compact`` maps every root group to its minimum, so
+    each lane's forest comes out as the lane alone would give it. The
+    dedup fold (chunks of :data:`RAW_DEDUP_MIN_CHUNK` lanes or more) takes
+    per-lane branches and stays lane by lane."""
+
+    def flat(st: CCSummary):
+        off = lane_offsets(st.parent.shape[0], n, st.parent.device)
+        return (st.parent + off).reshape(-1), st.seen.reshape(-1), off
+
+    def back(parent, seen, off) -> CCSummary:
+        lanes = off.shape[0]
+        return CCSummary(parent.view(lanes, n) - off, seen.view(lanes, n))
+
+    def fold(st: CCSummary, chunk) -> CCSummary:
+        parent, seen, off = flat(st)
+        src = (chunk.src + off).reshape(-1)
+        dst = (chunk.dst + off).reshape(-1)
+        valid = chunk.valid.reshape(-1)
+        parent = unionfind.union_edges(parent, src, dst, valid)
+        seen = segments.mark_seen(seen, src, valid)
+        return back(parent, segments.mark_seen(seen, dst, valid), off)
+
+    def fold_dense(st: CCSummary, labels: torch.Tensor) -> CCSummary:
+        # labels: i32[L, K, n]; lane l's pairs (v, labels[l, k, v] >= 0).
+        parent, _, off = flat(st)
+        lanes, k = labels.shape[:2]
+        off3 = off.view(lanes, 1, 1)
+        ok = labels >= 0
+        v = (torch.arange(n, dtype=torch.int32, device=labels.device)
+             + off3).expand(lanes, k, n)
+        lab = torch.where(ok, labels + off3, 0)
+        parent = unionfind.union_edges(parent, v.reshape(-1),
+                                       lab.reshape(-1), ok.reshape(-1))
+        present = ok.any(dim=1)
+        return CCSummary(parent.view(lanes, n) - off, st.seen | present)
+
+    def fold_sparse(st: CCSummary, payload) -> CCSummary:
+        # payload: {"v", "r"} i32[L, K, cap], -1-padded per lane.
+        parent, seen, off = flat(st)
+        v, r = payload["v"], payload["r"]
+        lanes = v.shape[0]
+        off3 = off.view(lanes, 1, 1)
+        ok = v >= 0
+        vi = torch.where(ok, v + off3, off3).reshape(-1)
+        ri = (r + off3).reshape(-1)
+        ok = ok.reshape(-1)
+        if 4 * (v.numel() // lanes) <= n:  # the per-lane plan's choice
+            parent = unionfind.union_pairs_compact(parent, vi, ri, ok)
+        else:
+            parent = unionfind.union_edges(parent, vi, ri, ok)
+        return back(parent, segments.mark_seen(seen, vi, ok), off)
+
+    def combine(a: CCSummary, b: CCSummary) -> CCSummary:
+        pa, sa, off = flat(a)
+        pb = (b.parent + off).reshape(-1)
+        idx = torch.arange(pa.shape[0], dtype=torch.int32, device=pa.device)
+        parent = unionfind.union_edges(pa, idx, pb,
+                                       torch.ones_like(idx, dtype=torch.bool))
+        return back(parent, sa | b.seen.reshape(-1), off)
+
+    def transform(st: CCSummary) -> torch.Tensor:
+        parent, _, off = flat(st)
+        p = unionfind.pointer_jump(parent).view(off.shape[0], n) - off
+        return torch.where(st.seen, p, -1)
+
+    def flatten(st: CCSummary) -> CCSummary:
+        parent, seen, off = flat(st)
+        return back(unionfind.pointer_jump(parent), seen, off)
+
+    return lane_form_of(
+        agg, fold=fold,
+        fold_compressed=(None if agg.fold_compressed is None
+                         else fold_sparse if agg.stack_payloads is not None
+                         else fold_dense),
+        combine=combine, transform=transform, flatten=flatten, slots=n,
+        raw_ok=lambda chunk_capacity: chunk_capacity < RAW_DEDUP_MIN_CHUNK)
+
+
+def cc_tenant_tier(
+    vertex_capacity: int, chunk_capacity: int = 1 << 10,
+    fold_backend: str = "auto", delta_auto_rows: int | None = None,
+    compressed: bool = False, codec: str = "auto",
+) -> tuple[SummaryAggregation, int]:
+    """A CC plan for one multi-tenant capacity tier
+    (``engine/tenants.py``): returns ``(agg, chunk_capacity)`` for
+    ``MultiTenantEngine.add_tier``, as ``gelly_tpu``'s.
+
+    ``compressed=False`` (default) builds the raw-fold tier: lanes fold
+    raw per-tenant chunks. ``compressed=True`` keeps the stateless ingest
+    codec on, for an ``add_tier(..., compressed=True)`` tier whose lanes
+    fold PRE-COMPRESSED payloads (compressed once at the producer;
+    ``codec`` picks the payload format, ``"sparse"`` the wire-win shape).
+    The compact-id codec stays refused either way: its id session
+    consumes payloads in global stream order, which concurrent tenant
+    lanes cannot provide. ``vertex_capacity`` is the tier's capacity
+    class; every tenant of the tier shares its plan. A tier of chunks
+    below :data:`RAW_DEDUP_MIN_CHUNK` folds all its lanes in one call
+    (:class:`~gelly_torch.engine.aggregation.LaneForm`); larger chunks
+    take the dedup fold lane by lane.
+    """
+    agg = connected_components(
+        vertex_capacity, merge="gather", ingest_combine=compressed,
+        codec=codec,
+        fold_backend=fold_backend, delta_auto_rows=delta_auto_rows,
+    )
+    return agg, int(chunk_capacity)
 
 
 def cc_query(vertex_capacity: int, *, name: str = "cc",

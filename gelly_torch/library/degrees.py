@@ -35,6 +35,8 @@ from ..engine.aggregation import (
     SummaryAggregation,
     bucket_stack_payloads,
     group_combine_payloads,
+    lane_form_of,
+    lane_offsets,
     resolve_sparse_codec,
     sparse_payload_id_check,
 )
@@ -160,7 +162,44 @@ def degree_aggregate(vertex_capacity: int, count_out: bool = True,
     )
     if windowed is not None:
         agg.windowed_panes = int(windowed)
+    else:
+        agg.lane_form = _degree_lane_form(agg, n, count_out, count_in)
     return agg
+
+
+def _degree_lane_form(agg: SummaryAggregation, n: int, count_out: bool,
+                      count_in: bool):
+    """The plan's lane-offset form (tenant tiers): a ``[L, n]`` stack of
+    degree vectors is one vector of ``L * n`` slots once lane ``l``'s ids
+    are offset by ``l * n``; integer sums do not depend on the order of
+    the scatter, so each lane's row is what the lane alone would give."""
+
+    def fold(deg, chunk):
+        off = lane_offsets(deg.shape[0], n, deg.device)
+        flat = chunk._replace(
+            src=(chunk.src + off).reshape(-1),
+            dst=(chunk.dst + off).reshape(-1),
+            event=chunk.event.reshape(-1), valid=chunk.valid.reshape(-1))
+        return scatter_degrees(deg.reshape(-1), flat, count_out,
+                               count_in).view(deg.shape)
+
+    def fold_dense(deg, deltas):  # deltas: i32[L, K, n]
+        return deg + deltas.sum(dim=1, dtype=torch.int64)
+
+    def fold_sparse(deg, payload):  # {"v", "d"}: [L, K, cap], -1-padded
+        v = payload["v"]
+        off = lane_offsets(deg.shape[0], n, deg.device).view(-1, 1, 1)
+        ok = v >= 0
+        return segments.masked_scatter_add(
+            deg.reshape(-1), torch.where(ok, v + off, off).reshape(-1),
+            payload["d"].reshape(-1), ok.reshape(-1)).view(deg.shape)
+
+    return lane_form_of(
+        agg, fold=fold,
+        fold_compressed=(None if agg.fold_compressed is None
+                         else fold_sparse if agg.stack_payloads is not None
+                         else fold_dense),
+        combine=lambda a, b: a + b, transform=None, flatten=None, slots=n)
 
 
 def degrees_query(vertex_capacity: int, *, name: str = "degrees",

@@ -1226,3 +1226,51 @@ def test_traced_raw_kernel_run_equals_untraced(cuda_device, monkeypatch,
     names = [i["name"] for i in tr.instants()
              if i["name"].startswith("torch_profiler")]
     assert names == ["torch_profiler_start", "torch_profiler_stop"]
+
+
+@pytest.mark.parametrize("kind", ["raw", "codec", "kernel"])
+def test_tenant_tier_on_card_equals_cpu(cuda_device, kind, monkeypatch):
+    # 16 tenants of uneven lengths through one tier on the card and on the
+    # CPU: every tenant's final snapshot equal. "raw"
+    # and "codec" fold lane-batched; "kernel" folds lane by lane through
+    # the dedup fold and launches the gather.
+    from gelly_torch import edge_stream_from_edges
+    from gelly_torch.engine.tenants import MultiTenantEngine
+
+    n, chunk = 1 << 15, 1 << 10
+    if kind == "kernel":
+        monkeypatch.setattr(tcc, "RAW_DEDUP_MIN_CHUNK", chunk)
+    rng = np.random.default_rng(29)
+    edges = {t: rng.integers(0, n, ((2 + t % 4) * chunk, 2))
+             for t in range(16)}
+
+    def run(device):
+        agg, cap = tcc.cc_tenant_tier(
+            n, chunk_capacity=chunk, compressed=kind == "codec",
+            codec="sparse",
+            fold_backend="kernel" if kind == "kernel" else "auto")
+        eng = MultiTenantEngine(merge_every=2, device=device)
+        eng.add_tier("x", agg, cap, compressed=kind == "codec")
+        for t, e in edges.items():
+            cs = list(edge_stream_from_edges(
+                [(int(a), int(b)) for a, b in e], vertex_capacity=n,
+                chunk_size=chunk, table=IdentityVertexTable(n),
+                device="cpu"))
+            eng.admit(t, "x", chunks=[agg.host_compress(c) for c in cs]
+                      if kind == "codec" else cs)
+        return eng, eng.drain()
+
+    before = kernels.sorted_window_gather.launches
+    card, got = run(cuda_device)
+    launched = kernels.sorted_window_gather.launches - before
+    _, want = run("cpu")
+    assert card._tiers["x"].batch.state.parent.device.type == "cuda"
+    forms = card._tiers["x"].batch.plan.forms
+    if kind == "kernel":
+        assert forms["fold"] == "lane-by-lane" and launched > 0
+    else:
+        assert forms["fold_codec" if kind == "codec" else "fold"] \
+            == "lane-batched" and launched == 0
+    for t in edges:
+        assert got[t].dtype == want[t].dtype
+        assert got[t].tobytes() == want[t].tobytes(), t

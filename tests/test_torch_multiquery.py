@@ -818,6 +818,45 @@ def test_stream_aggregate_with_queries():
 # kill -9
 
 
+# ---------------------------------------------------------------------- #
+# multi-tenant integration: N tenants x Q queries, one round a chunk
+
+
+def test_multiquery_plan_as_tenant_tier():
+    """A MultiQueryPlan is a valid tenant-tier plan: N tenants x Q queries
+    advance in chunks-per-tenant rounds, every tenant's per-query snapshot
+    equals its single-tenant fused run and gelly_tpu's tier."""
+    from gelly_torch.engine.tenants import MultiTenantEngine
+    from gelly_tpu.engine.tenants import MultiTenantEngine as JEngine
+
+    def tenant_edges(seed):
+        rng = np.random.default_rng(seed)
+        return [(int(a), int(b))
+                for a, b in rng.integers(0, N_V, (3 * CHUNK, 2))]
+
+    outs = {}
+    for pkg in "jt":
+        b = B[pkg]
+        fused = b["mq"].fuse([b["cc"](N_V), b["degrees"](N_V)])
+        eng = (JEngine(merge_every=2) if pkg == "j"
+               else MultiTenantEngine(merge_every=2, device="cpu"))
+        eng.add_tier("mq", fused, CHUNK)
+        for i in range(4):
+            eng.admit(i, "mq", chunks=_stream(pkg, tenant_edges(i)))
+        outs[pkg] = eng.drain()
+        assert eng.stats["dispatches"] == 3  # chunks per tenant, not 4 x 3
+    for i in range(4):
+        oracle = tagg.run_aggregation(
+            None, _stream("t", tenant_edges(i)),
+            queries=[t_cq(N_V), t_dq(N_V)], merge_every=2, **_kw("t")
+        ).result()
+        assert sorted(outs["t"][i]) == ["cc", "degrees"]
+        for name in ("cc", "degrees"):
+            _same(oracle[name], outs["t"][i][name], f"tenant{i}/{name}")
+            _same(outs["j"][i][name], outs["t"][i][name],
+                  f"tenant{i}/{name} vs gelly_tpu")
+
+
 def _spawn(ckpt, out, sleep_s, mode):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(

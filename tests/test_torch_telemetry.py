@@ -7,8 +7,9 @@ in-order traffic never rebuilding) and its STATS-shape test against the
 port, then runs one seeded sequence of seed, stamp, retire, rekey and
 drop operations through both packages' ``Watermarks`` on the same fake
 clock and holds every snapshot, backlog age and retirement histogram
-equal (exact). The file's other tests drive the ingest server, the
-tenant engine or coordination, which the port does not have yet.
+equal (exact). It also mirrors the tenant engine's submit-stamp
+regression. The file's other tests drive the ingest server or
+coordination, which the port does not have yet.
 """
 
 import json
@@ -211,3 +212,45 @@ def test_watermarks_sequence_equals_jax(seed):
     assert t_h == j_h
     assert t_h["engine.e2e_ingress_to_fold_ms"]["count"] > 0
     assert t_h["engine.e2e_ingress_to_durable_ms"]["count"] > 0
+
+
+# --------------------------------------------------------------------- #
+# tenant engine: submit stamps keyed by a monotonic position
+
+
+def test_tenant_submit_stamp_survives_mid_dispatch_submit():
+    """Submit-side stamp positions come from the tenant's monotonic
+    ``submitted`` counter, not ``consumed + len(queue)``, which
+    under-counts by one between the scheduler's queue pop and its
+    ``consumed`` bump: a submit landing there must stamp a new
+    position, not re-stamp the previous chunk's."""
+    from gelly_torch import edge_stream_from_edges
+    from gelly_torch.engine.tenants import MultiTenantEngine
+    from gelly_torch.library.connected_components import cc_tenant_tier
+
+    n_v = 128
+
+    def chunks(seed, n=3):
+        rng = np.random.default_rng(seed)
+        stream = edge_stream_from_edges(
+            [(int(a), int(b)) for a, b in rng.integers(0, n_v, (n * 8, 2))],
+            vertex_capacity=n_v, chunk_size=8, device="cpu",
+        )
+        return list(stream)[:n]
+
+    with obs.scope() as bus, obs.record_metrics():
+        agg, cap = cc_tenant_tier(n_v, chunk_capacity=8)
+        eng = MultiTenantEngine(merge_every=1, device="cpu")
+        eng.add_tier("small", agg, cap)
+        eng.admit(7, "small")
+        c1, c2, c3 = chunks(31)
+        eng.submit(7, c1)
+        eng.submit(7, c2)
+        # The dispatch window: the chunk is popped, ``consumed`` not yet
+        # bumped.
+        with eng._lock:
+            eng._tenants[7].queue.popleft()
+        eng.submit(7, c3)  # must stamp position 2, not re-stamp 1
+        snap = bus.watermarks.snapshot()["7"]
+        assert snap["pending"] == 3, snap
+        assert snap["oldest_position"] == 0
