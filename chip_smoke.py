@@ -46,10 +46,10 @@ Phases (any failure exits nonzero and prints no result line):
    adjacency), and the kernel's launch count must equal the number of
    windows whose group picked the kernel (counted independently);
 7. compact CC path (``bench.py:bench_cc_large``'s call, cut in depth to
-   half): ``2^27`` Zipf edges
+   a quarter): phase 4's ``2^26`` Zipf edges
    (seed 17) over ``2^24`` slots in ``2^20``-edge chunks through
    ``connected_components(2^24, merge="gather", codec="compact",
-   compact_capacity=2^23)`` with ``merge_every=32`` and ``fold_batch=16``
+   compact_capacity=2^23)`` with ``merge_every=16`` and ``fold_batch=16``
    (the native unit codec built from ``native/chunk_combiner.cc`` with
    ``g++``; default codec workers, ``prefetch_depth`` and ``h2d_depth``): a
    warm-up on the first 16 chunks, then two timed runs, each with its
@@ -58,9 +58,9 @@ Phases (any failure exits nonzero and prints no result line):
    alone (unit builder, id session and stacker, no device) with the
    pipeline's worker count. Checks: the segments wire and
    its fold were taken; 4 emissions of ``int32[2^24]``, each equal to the
-   raw plan's (``2^22``-edge chunks, ``merge_every=8``) at the same
-   boundary; the final labels equal the scipy oracle;
-   ``session.assigned`` equals the seen slots; on the first ``2^25``
+   raw plan's (``2^22``-edge chunks, ``merge_every=4``) at the same
+   boundary; the final labels equal phase 4's scipy oracle;
+   ``session.assigned`` equals the seen slots; on the first ``2^24``
    edges, the pairs wire and the sparse plan (``connected_components(2^24)``,
    which folds with ``union_pairs_compact``) equal the first emission.
    The path launches neither hand-written kernel (counted);
@@ -80,7 +80,7 @@ A. (in phase 7) the compact path with ``checkpoint_path`` and
    ``checkpoint_every=1``, twice, timed: 4 checkpoints, every emission
    equal to the plain runs'; its ``checkpoint`` busy seconds, bytes a
    checkpoint and the checkpoint directory's filesystem. Then a run that
-   stops after the 3rd emission (the window-2 checkpoint at position 128
+   stops after the 3rd emission (the window-2 checkpoint at position 32
    stays on disk) and a fresh plan resuming from it: 2 emissions equal to
    windows 3 and 4, the load, ``on_resume`` and skip seconds and the time
    to recover (call to first emission);
@@ -201,9 +201,10 @@ L. L1: ``run_aggregation(None, stream, queries=[cc_query(2^24,
    the three standalone sparse-codec runs' (and the CC labels to phase
    4's). L3: L2's trio on ``make_mesh(4, devices=[cuda:0] * 4)``: every
    emission equal to L2's (CC labels and degrees; bipartiteness's ``ok``).
-   L4: L1's quartet checkpointed every window and stopped once the
-   window-2 checkpoint is on disk (after the 3rd emission), then a fresh
-   plan resuming from it: windows 3 and 4 equal L1's.
+   L4: L1's quartet checkpointed every second window (a 3.7 GB write
+   each) and stopped once the window-2 checkpoint is on disk (after the
+   3rd emission), then a fresh plan resuming from it: windows 3 and 4
+   equal L1's.
 
 The traced main path (phase M, right after phase L; the obs core of
 ``gelly_torch/obs`` and ``utils.metrics.trace``):
@@ -424,15 +425,16 @@ WEDGE_REPS = 5
 DENSE_N = 4096  # the dense random wedge check
 
 # The compact CC path: bench.py:bench_cc_large (streaming_cc_large) cut in
-# depth to half (2^27 edges: the 2^28-edge stream took 102-118 s to make),
-# 2^20-edge chunks, 4 windows of 2^25 edges.
-CC_EDGES = 1 << 27
+# depth to a quarter, phase 4's 2^26 edges and oracle (a 2^27-edge stream
+# of its own took 59-63 s to make and its oracle 18 s), 2^20-edge chunks,
+# 4 windows of 2^24 edges.
+CC_EDGES = N_EDGES
 CC_CHUNK = 1 << 20
-CC_MERGE_EVERY = 32
+CC_MERGE_EVERY = 16
 CC_FOLD_BATCH = 16
 CC_COMPACT = 1 << 23
-CC_RAW_MERGE_EVERY = 8  # 2^22-edge raw chunks: the same 2^25 boundaries
-CC_PREFIX = 1 << 25  # one window: the pairs wire and the sparse plan
+CC_RAW_MERGE_EVERY = 4  # 2^22-edge raw chunks: the same 2^24 boundaries
+CC_PREFIX = 1 << 24  # one window: the pairs wire and the sparse plan
 
 # Phase B (kill -9): phase 4's 2^26-edge stream through the compact plan in
 # 2^20-edge chunks, 4 windows of one 16-chunk unit each (a depth cut of
@@ -1148,8 +1150,9 @@ def resilient_raw_phase(torch, device, src, dst, plain_last,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def compact_cc_phase(torch, device) -> None:
-    """Phase 7: the compact CC plan at bench_cc_large's full size."""
+def compact_cc_phase(torch, device, src, dst, oracle) -> None:
+    """Phase 7: the compact CC plan (bench_cc_large's call) over phase 4's
+    stream, held to phase 4's scipy labels ``oracle``."""
     from gelly_torch.core.io import EdgeChunkSource
     from gelly_torch.core.stream import edge_stream_from_source
     from gelly_torch.core.vertices import IdentityVertexTable
@@ -1165,10 +1168,6 @@ def compact_cc_phase(torch, device) -> None:
     print(f"native chunk_combiner: g++ build and load "
           f"{time.perf_counter() - t0:.2f} s -> "
           f"{os.path.relpath(native.library_path('chunk_combiner'))}")
-    t0 = time.perf_counter()
-    src, dst = synth_edges(CC_EDGES, N_VERTICES, SEED)
-    print(f"compact stream: {CC_EDGES} Zipf edges over {N_VERTICES} slots "
-          f"(seed {SEED}) in {time.perf_counter() - t0:.2f} s")
 
     def source(n_edges, chunk):
         return EdgeChunkSource(src[:n_edges], dst[:n_edges],
@@ -1263,17 +1262,13 @@ def compact_cc_phase(torch, device) -> None:
     for i, (a, b) in enumerate(zip(labels, raw)):
         check(np.array_equal(a, b), f"compact emission {i} != raw plan's")
     del raw
-    t0 = time.perf_counter()
-    oracle = scipy_oracle(src, dst, N_VERTICES)
     check(np.array_equal(labels[-1], oracle),
-          "compact final labels != scipy oracle")
+          "compact final labels != phase 4's scipy oracle")
     seen = int((labels[-1] >= 0).sum())
     check(assigned == seen,
           f"session.assigned {assigned} != {seen} seen slots")
-    print(f"oracle: scipy csgraph labels equal ({seen} seen slots = "
-          f"session.assigned, {int(np.unique(oracle[oracle >= 0]).size)} "
-          f"components) in {time.perf_counter() - t0:.2f} s")
-    del oracle
+    print(f"oracle: phase 4's scipy labels equal ({seen} seen slots = "
+          f"session.assigned)")
     durable_compact_phase(torch, compact_plan, run, report, labels,
                           [r[1]["wall_s"] for r in runs])
 
@@ -2361,18 +2356,20 @@ def multiquery_phase(torch, device, src, dst, labels, cc_run, dedup_chunks,
     for i, e in enumerate(out):
         check(cc_equal(e.pop("cc"), i), f"L1 window {i}: cc != phase 4's")
 
-    # L4. The quartet checkpointed every window, stopped once the window-2
-    # checkpoint is written (after the 3rd emission), and a fresh plan
-    # resuming from it: windows 3 and 4 equal L1's.
+    # L4. The quartet checkpointed every second window (one 3.7 GB write
+    # before the stop), stopped once the window-2 checkpoint is written
+    # (after the 3rd emission), and a fresh plan resuming from it:
+    # windows 3 and 4 equal L1's.
     tmp = tempfile.mkdtemp(prefix="gelly-mq-")
     try:
         path = os.path.join(tmp, "ck.npz")
-        knobs = {"checkpoint_path": path, "checkpoint_every": 1}
+        knobs = {"checkpoint_path": path, "checkpoint_every": 2}
         got, st_stop = fused(quartet_queries(), stop_after=3, **knobs)
         del got
         header = read_checkpoint_header(path)
         check(header["position"] == 2 * MERGE_EVERY
-              and header["meta"]["windows"] == 2,
+              and header["meta"]["windows"] == 2
+              and st_stop["stats"]["checkpoints"] == 1,
               f"L4: after the stop the checkpoint is at "
               f"{header['position']} {header['meta']}")
         ck_bytes = os.path.getsize(path)
@@ -2823,9 +2820,9 @@ def time_calls(obj, name: str) -> list:
     fn = getattr(obj, name)
     spent = [0.0]
 
-    def timed(*args):
+    def timed(*args, **kw):
         t = time.perf_counter()
-        out = fn(*args)
+        out = fn(*args, **kw)
         spent[0] += time.perf_counter() - t
         return out
 
@@ -5322,6 +5319,490 @@ def mesh_triangle_phase(torch, device, src, dst, exact_total: int,
     return {"sampler_launches": sampler_launches}
 
 
+# --------------------------------------------------------------------- #
+# Phase O: the mesh across processes (gloo) and coordinated recovery
+
+O_HOSTS = 2
+O_EVERY = 2  # a barrier every 2 chunks: 4 committed epochs a host
+O_LEASE_TTL_S = 4.0
+O_BARRIER_TIMEOUT_S = 60.0
+O2_UNIT_SLEEP_S = 0.5
+# The survivor's bound: it reaches its next barrier within O_EVERY units,
+# the dead leader's lease lapses O_LEASE_TTL_S after its last beat (at
+# most a third of the ttl before the kill), and the survivor looks once a
+# third of the ttl; 2 s more for its exit.
+O2_SURVIVOR_BOUND_S = (O_EVERY * (O2_UNIT_SLEEP_S + 1.0)
+                       + O_LEASE_TTL_S * 5 / 3 + 2.0)
+O3_PROCS = 4
+O3_SHARDS = 2  # logical shards a process: 8 on the card
+O3_EDGES = 1 << 24
+O3_EXCHANGE = 1 << 20  # keyed-exchange entries a shard
+O3_DEGREE = 4  # = O3_PROCS: the hierarchical leader hop crosses processes
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def merge_forest_pair(a, b):
+    """The combine of a ``(parent, seen)`` forest pair."""
+    from gelly_torch.ops import unionfind
+
+    return (unionfind.merge_forests(a[0], b[0]), a[1] | b[1])
+
+
+def host_partition(src, dst, pid: int, nprocs: int):
+    """Host ``pid``'s chunks of phase 4's stream: ``pid::nprocs``."""
+    n = len(src) // CHUNK
+    return (np.ascontiguousarray(src.reshape(n, CHUNK)[pid::nprocs]).ravel(),
+            np.ascontiguousarray(dst.reshape(n, CHUNK)[pid::nprocs]).ravel())
+
+
+def fold_child(torch, device, directory: str, pid: int, cfg: dict) -> dict:
+    """O1 and O2's host: its partition through a coordinated
+    ``ResilientRunner`` (a barrier every ``O_EVERY`` chunks), then the
+    cross-process butterfly of the forests; writes its local forest and
+    its merged labels."""
+    from gelly_torch.engine.coordination import (
+        CoordinationConfig,
+        Coordinator,
+        HostIdentity,
+    )
+    from gelly_torch.engine.resilience import (
+        ResilienceConfig,
+        ResilientRunner,
+    )
+    from gelly_torch.ops import kernels, unionfind
+    from gelly_torch.parallel import collectives
+    from gelly_torch.parallel import mesh as mesh_lib
+
+    nprocs = cfg["nprocs"]
+    src = np.load(os.path.join(cfg["data"], "src.npy"), mmap_mode="r")
+    dst = np.load(os.path.join(cfg["data"], "dst.npy"), mmap_mode="r")
+    hsrc, hdst = host_partition(src, dst, pid, nprocs)
+    agg, stream, stage = resilient_plan(torch, device, hsrc, hdst)
+    first_fold = []
+
+    def step(s, c):
+        if not first_fold:
+            first_fold.append(time.time())
+        if cfg["sleep_s"]:
+            time.sleep(cfg["sleep_s"])
+        return agg.fold(s, c), None
+
+    co = Coordinator(
+        cfg["store"], HostIdentity(pid, nprocs,
+                                   coordinator_address=cfg["address"]),
+        CoordinationConfig(lease_ttl=O_LEASE_TTL_S, poll_s=0.01,
+                           barrier_timeout=O_BARRIER_TIMEOUT_S))
+    agree_s = time_calls(co, "agree_position")
+    publish_s = time_calls(co, "publish")
+    recover_s = time_calls(co, "recover")
+    load_s = time_calls(co.store, "load_shard")
+    runner = ResilientRunner(
+        step, stream(), lambda: agg.init(device), coordinator=co,
+        stage=stage,
+        config=ResilienceConfig(checkpoint_every_chunks=O_EVERY,
+                                watchdog_timeout=120.0),
+        flatten_state=agg.flatten, adopt_state=agg.combine)
+    torch.cuda.synchronize()
+    reset_launches(kernels)
+    t = time.perf_counter()
+    final = runner.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = kernels.sorted_window_gather.launches
+    folded = runner.stats["chunks"]
+
+    mesh = mesh_lib.make_mesh(devices=[device])
+    local = [None] * nprocs
+    local[pid] = (final.parent, final.seen)
+    torch.distributed.barrier()  # both hosts enter the merge together
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    merged = collectives.butterfly_merge(merge_forest_pair, local, nprocs,
+                                         mesh=mesh)[pid]
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t
+    np.save(os.path.join(directory, f"parent-{pid}.npy"),
+            final.parent.cpu().numpy())
+    np.save(os.path.join(directory, f"seen-{pid}.npy"),
+            final.seen.cpu().numpy())
+    np.save(os.path.join(directory, f"labels-{pid}.npy"),
+            unionfind.component_labels(*merged).cpu().numpy())
+
+    # The gather at this host's shapes (uncounted: after the run): its
+    # final forest as the table, its first chunk's sorted dedup lo
+    # endpoints as the indices.
+    c = stage(next(iter(stream())))
+    unique_cap = max(1 << 20, 3 * (CHUNK >> 4))
+    uu, _, live, _ = unionfind._dedup_pairs(c.src, c.dst, c.valid,
+                                            min(unique_cap, CHUNK))
+    sidx = torch.where(live, uu, N_VERTICES - 1).contiguous()
+    got = kernels.sorted_window_gather(final.parent, sidx)
+    want = kernels.sorted_window_gather_plain(final.parent, sidx)
+    return {
+        "wall_s": wall, "edges": folded * CHUNK,
+        "edges_per_s": folded * CHUNK / wall,
+        "position": runner.position, "chunks": folded,
+        "resumed_at": runner.position - folded,
+        "agree_s": agree_s[0], "publish_s": publish_s[0],
+        "recover_s": recover_s[0], "shard_load_s": load_s[0],
+        "shard_bytes": os.path.getsize(co.store.shard_path(
+            co.committed_epoch, pid, co.committed_position)),
+        "epochs": co.committed_epoch, "launches": launches,
+        "merge_s": merge_s, "merge_sent_bytes": mesh.sent_bytes,
+        "merge_received_bytes": mesh.received_bytes,
+        "gather_equal": bool(torch.equal(got, want)),
+        "gather_err": int((got.long() - want.long()).abs().max()),
+        "first_fold_at": first_fold[0] if first_fold else None,
+    }
+
+
+def merge_child(torch, device, directory: str, pid: int, cfg: dict) -> dict:
+    """O3's process: two logical shards on the card, each folding its
+    strided eighth of phase 4's first ``O3_EDGES`` edges; the butterfly
+    and the hierarchical merge of the 8 forests, then the keyed exchange
+    of ``O3_EXCHANGE`` entries a shard, checked here (conservation,
+    ownership, no drop)."""
+    from gelly_torch.core.chunk import make_chunk
+    from gelly_torch.library import connected_components as cc
+    from gelly_torch.ops import unionfind
+    from gelly_torch.parallel import collectives, partition
+    from gelly_torch.parallel import mesh as mesh_lib
+
+    src = np.load(os.path.join(cfg["data"], "src.npy"),
+                  mmap_mode="r")[:O3_EDGES]
+    dst = np.load(os.path.join(cfg["data"], "dst.npy"),
+                  mmap_mode="r")[:O3_EDGES]
+    mesh = mesh_lib.make_mesh(devices=[device] * O3_SHARDS)
+    S = mesh.num_shards
+    agg = cc.connected_components(N_VERTICES, merge="gather",
+                                  ingest_combine=False, fold_backend="kernel")
+    states = [None] * S
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for d in mesh.local_shards:
+        st = agg.fold(agg.init(device), make_chunk(
+            np.ascontiguousarray(src[d::S]), np.ascontiguousarray(dst[d::S]),
+            device=device))
+        states[d] = (st.parent, st.seen)
+    torch.cuda.synchronize()
+    out = {"fold_s": time.perf_counter() - t}
+    rounds = {"butterfly": 3, "hierarchical": 4}  # log2 8; 1 + 2 + 1
+    for name, merge in (
+            ("butterfly", lambda: collectives.butterfly_merge(
+                merge_forest_pair, states, S, mesh=mesh)),
+            ("hierarchical", lambda: collectives.hierarchical_merge(
+                merge_forest_pair, states, S, O3_DEGREE, mesh=mesh))):
+        sent, received = mesh.sent_bytes, mesh.received_bytes
+        torch.distributed.barrier()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        merged = merge()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        labels = [unionfind.component_labels(*merged[d])
+                  for d in mesh.local_shards]
+        check(all(torch.equal(x, labels[0]) for x in labels),
+              f"phase O3: {name}: this process's shards disagree")
+        np.save(os.path.join(directory, f"{name}-labels-{pid}.npy"),
+                labels[0].cpu().numpy())
+        out[name] = {"wall_s": wall, "rounds": rounds[name],
+                     "sent_bytes": mesh.sent_bytes - sent,
+                     "received_bytes": mesh.received_bytes - received}
+        del merged, labels
+    del states
+
+    L = O3_EXCHANGE
+    keys_np = [np.ascontiguousarray(src[j::S][:L]) for j in range(S)]
+    pays_np = [np.ascontiguousarray(dst[j::S][:L]) for j in range(S)]
+    keys = [torch.from_numpy(keys_np[j]).to(device)
+            if mesh.devices[j] is not None else None for j in range(S)]
+    pays = [{"dst": torch.from_numpy(pays_np[j]).to(device)}
+            if mesh.devices[j] is not None else None for j in range(S)]
+    valids = [torch.ones(L, dtype=torch.bool, device=device)
+              if mesh.devices[j] is not None else None for j in range(S)]
+    sent, received = mesh.sent_bytes, mesh.received_bytes
+    torch.distributed.barrier()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    k2, p2, v2, dropped = partition.repartition_by_key(
+        mesh, keys, pays, valids, S, L)  # bucket L: the worst case fits
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    all_k = np.concatenate(keys_np)
+    all_p = np.concatenate(pays_np)
+    for d in mesh.local_shards:
+        ok = v2[d].cpu().numpy()
+        gk, gp = k2[d].cpu().numpy()[ok], p2[d]["dst"].cpu().numpy()[ok]
+        check(bool((gk % S == d).all()),
+              f"phase O3: shard {d} received keys it does not own")
+        mine = all_k % S == d
+        wk, wp = all_k[mine], all_p[mine]
+        go, wo = np.lexsort((gp, gk)), np.lexsort((wp, wk))
+        check(np.array_equal(gk[go], wk[wo]) and np.array_equal(gp[go],
+                                                                 wp[wo]),
+              f"phase O3: shard {d}'s received multiset != its share")
+        check(int(dropped[d]) == 0, f"phase O3: {int(dropped[d])} dropped")
+    out["exchange"] = {"wall_s": wall, "entries": L * S,
+                       "sent_bytes": mesh.sent_bytes - sent,
+                       "received_bytes": mesh.received_bytes - received}
+    return out
+
+
+def coord_child(directory: str, pid: int) -> int:
+    """A process of phase O (``--coord-child <dir> <process>``): joins
+    the gloo group of ``<dir>/run.json``, runs its mode and writes
+    ``<dir>/result-<process>.json``. A failure exits at once with 1: a
+    dead peer's process group would hold the teardown."""
+    import traceback
+
+    import torch
+
+    with open(os.path.join(directory, "run.json")) as f:
+        cfg = json.load(f)
+    device = torch.device(cfg["device"])
+    torch.cuda.set_device(device)
+    torch.zeros(1, device=device)
+    torch.cuda.synchronize()
+    t_cuda = time.time()
+    from gelly_torch.parallel import mesh as mesh_lib
+
+    try:
+        t = time.perf_counter()
+        mesh_lib.initialize_multihost(cfg["address"], cfg["nprocs"], pid)
+        pg_s = time.perf_counter() - t
+        body = merge_child if cfg["mode"] == "merge" else fold_child
+        out = body(torch, device, directory, pid, cfg)
+        out.update(spawned_at=cfg["spawned_at"],
+                   spawn_to_cuda_s=t_cuda - cfg["spawned_at"],
+                   init_process_group_s=pg_s,
+                   peak_mem_bytes=torch.cuda.max_memory_allocated(device))
+        with open(os.path.join(directory, f"result-{pid}.json"), "w") as f:
+            json.dump(out, f)
+        print(json.dumps({"coord_child": out}), flush=True)
+        torch.distributed.destroy_process_group()
+    except BaseException as e:  # noqa: BLE001 — reported, then exit 1
+        print(f"coord_child {pid} failed: {type(e).__name__}: {e}",
+              flush=True)
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    return 0
+
+
+def coord_phase(torch, device, src, dst, final_labels, oracle,
+                dedup_flags) -> dict:
+    """Phase O. Returns O1's gather launches a host."""
+    from gelly_torch.engine.coordination import CheckpointStore
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="gelly-coord-")
+    here = os.path.abspath(__file__)
+    procs = []
+
+    def spawn(name, mode, nprocs, sleep_s=0.0, store=None):
+        run_dir = os.path.join(tmp, name)
+        os.makedirs(run_dir)
+        cfg = {"mode": mode, "nprocs": nprocs, "sleep_s": sleep_s,
+               "address": f"127.0.0.1:{free_port()}", "data": tmp,
+               "device": str(device),
+               "store": store or os.path.join(run_dir, "store"),
+               "spawned_at": time.time()}
+        with open(os.path.join(run_dir, "run.json"), "w") as f:
+            json.dump(cfg, f)
+        ps = []
+        for pid in range(nprocs):
+            log = open(os.path.join(run_dir, f"{pid}.log"), "w")
+            ps.append(subprocess.Popen(
+                [sys.executable, here, "--coord-child", run_dir, str(pid)],
+                stdout=log, stderr=subprocess.STDOUT))
+            log.close()
+        procs.extend(ps)
+        return run_dir, ps
+
+    def tail(run_dir, pid):
+        with open(os.path.join(run_dir, f"{pid}.log")) as f:
+            return f.read()[-3000:]
+
+    def finish(run_dir, ps, what):
+        for pid, p in enumerate(ps):
+            rc = p.wait(timeout=CHILD_TIMEOUT_S)
+            check(rc == 0, f"phase {what}: process {pid} failed (rc={rc}): "
+                  f"{tail(run_dir, pid)}")
+        out = []
+        for pid in range(len(ps)):
+            with open(os.path.join(run_dir, f"result-{pid}.json")) as f:
+                out.append(json.load(f))
+        return out
+
+    def report(what, pid, r):
+        print(f"phase {what} host {pid}: wall={r['wall_s']:.4f} s "
+              f"({r['edges_per_s']:.1f} edges/s, {r['chunks']} chunks from "
+              f"position {r['resumed_at']}); agree_position "
+              f"{r['agree_s']:.4f} s, publish {r['publish_s']:.4f} s; "
+              f"shard checkpoint {r['shard_bytes']} B, epochs committed "
+              f"{r['epochs']}; merge {r['merge_s']:.4f} s, "
+              f"{r['merge_sent_bytes']} B sent / "
+              f"{r['merge_received_bytes']} B received through gloo; "
+              f"gather launches {r['launches']}; peak_mem "
+              f"{r['peak_mem_bytes']} B; spawn to CUDA "
+              f"{r['spawn_to_cuda_s']:.4f} s, init_process_group "
+              f"{r['init_process_group_s']:.4f} s")
+
+    try:
+        t0 = time.perf_counter()
+        np.save(os.path.join(tmp, "src.npy"), src)
+        np.save(os.path.join(tmp, "dst.npy"), dst)
+        print(f"phase O stream written in {time.perf_counter() - t0:.2f} s "
+              f"to {tmp}")
+        n_host = N_EDGES // CHUNK // O_HOSTS
+
+        # O1: the coordinated 2-host fold and the cross-process merge.
+        t0 = time.perf_counter()
+        o1_dir, ps = spawn("o1", "fold", O_HOSTS)
+        o1 = finish(o1_dir, ps, "O1")
+        o1_s = time.perf_counter() - t0
+        for pid, r in enumerate(o1):
+            report("O1", pid, r)
+            want = 3 * sum(dedup_flags[pid::O_HOSTS])
+            check(r["chunks"] == n_host and r["resumed_at"] == 0,
+                  f"phase O1: host {pid} folded {r['chunks']} chunks")
+            check(r["epochs"] == n_host // O_EVERY,
+                  f"phase O1: host {pid} committed {r['epochs']} epochs")
+            check(r["launches"] == want,
+                  f"phase O1: host {pid}: {r['launches']} gather launches "
+                  f"!= 3 x {want // 3} dedup chunks")
+            check(r["gather_equal"], f"phase O1: host {pid}: the gather "
+                  f"!= its plain version (max abs err {r['gather_err']})")
+        for pid in range(O_HOSTS):
+            merged = np.load(os.path.join(o1_dir, f"labels-{pid}.npy"))
+            check(np.array_equal(merged, final_labels)
+                  and np.array_equal(merged, oracle),
+                  f"phase O1: host {pid}'s merged labels != phase 4's / "
+                  f"scipy's")
+        print(f"phase O1 {O_HOSTS} hosts x {n_host} chunks in {o1_s:.2f} s: "
+              f"every host's merged labels equal phase 4's and scipy's; "
+              f"gather exact at a host's shapes")
+
+        # O2: kill -9 of the leader once the first manifest committed.
+        t0 = time.perf_counter()
+        o2_dir, ps = spawn("o2-killed", "fold", O_HOSTS,
+                           sleep_s=O2_UNIT_SLEEP_S)
+        store = os.path.join(o2_dir, "store")
+        deadline = time.monotonic() + CHILD_TIMEOUT_S
+        man = None
+        while man is None and time.monotonic() < deadline:
+            for pid, p in enumerate(ps):
+                check(p.poll() is None, f"phase O2: process {pid} exited "
+                      f"(rc={p.returncode}) before the kill: "
+                      f"{tail(o2_dir, pid)}")
+            if os.path.exists(os.path.join(store, "MANIFEST.json")):
+                man = CheckpointStore(store).read_manifest()
+            time.sleep(0.01)
+        check(man is not None, "phase O2: no manifest before the deadline")
+        os.kill(ps[0].pid, signal.SIGKILL)
+        t_kill = time.monotonic()
+        while ps[1].poll() is None and \
+                time.monotonic() - t_kill < 3 * O2_SURVIVOR_BOUND_S:
+            time.sleep(0.01)
+        exit_s = time.monotonic() - t_kill
+        check(ps[0].wait(timeout=60) == -signal.SIGKILL,
+              f"phase O2: the leader ended with {ps[0].returncode}")
+        rc1 = ps[1].poll()
+        check(rc1 is not None and rc1 != 0,
+              f"phase O2: the survivor did not fail (rc={rc1})")
+        check("CoordinationError" in tail(o2_dir, 1),
+              f"phase O2: the survivor failed otherwise: {tail(o2_dir, 1)}")
+        check(exit_s <= O2_SURVIVOR_BOUND_S,
+              f"phase O2: the survivor took {exit_s:.2f} s to exit "
+              f"(bound {O2_SURVIVOR_BOUND_S:.2f} s)")
+        man = CheckpointStore(store).read_manifest()
+        resume_pos = man["position"]
+        check(0 < resume_pos < n_host,
+              f"phase O2: the manifest is at position {resume_pos}")
+        print(f"phase O2 SIGKILL of the leader at manifest epoch "
+              f"{man['epoch']} (position {resume_pos}); the survivor exited "
+              f"nonzero after {exit_s:.4f} s (bound "
+              f"{O2_SURVIVOR_BOUND_S:.2f} s: lease ttl {O_LEASE_TTL_S} s)")
+        o2r_dir, ps = spawn("o2-resumed", "fold", O_HOSTS, store=store)
+        o2 = finish(o2r_dir, ps, "O2")
+        for pid, r in enumerate(o2):
+            report("O2", pid, r)
+            check(r["resumed_at"] == resume_pos
+                  and r["chunks"] == n_host - resume_pos,
+                  f"phase O2: host {pid} resumed at {r['resumed_at']} and "
+                  f"folded {r['chunks']} chunks (manifest {resume_pos})")
+            for leaf in ("parent", "seen"):
+                a = np.load(os.path.join(o1_dir, f"{leaf}-{pid}.npy"))
+                b = np.load(os.path.join(o2r_dir, f"{leaf}-{pid}.npy"))
+                check(a.dtype == b.dtype and a.tobytes() == b.tobytes(),
+                      f"phase O2: host {pid}'s {leaf} != O1's")
+            manifest_s = r["recover_s"] - r["shard_load_s"]
+            print(f"phase O2 host {pid} time to recover (spawn to first "
+                  f"fold) {r['first_fold_at'] - r['spawned_at']:.4f} s: "
+                  f"process start to CUDA ready {r['spawn_to_cuda_s']:.4f} "
+                  f"s, init_process_group {r['init_process_group_s']:.4f} "
+                  f"s, manifest read {manifest_s:.4f} s, shard load "
+                  f"{r['shard_load_s']:.4f} s")
+        for pid in range(O_HOSTS):
+            check(np.array_equal(
+                np.load(os.path.join(o2r_dir, f"labels-{pid}.npy")),
+                final_labels),
+                f"phase O2: host {pid}'s resumed merged labels != O1's")
+        print(f"phase O2 in {time.perf_counter() - t0:.2f} s: both hosts "
+              f"resumed at position {resume_pos}; local forests "
+              f"byte-identical to O1's, merged labels equal")
+
+        # O3: 4 processes x 2 logical shards, merges and the exchange.
+        t0 = time.perf_counter()
+        o3_dir, ps = spawn("o3", "merge", O3_PROCS)
+        t = time.perf_counter()
+        oracle3 = scipy_oracle(src[:O3_EDGES], dst[:O3_EDGES], N_VERTICES)
+        oracle_s = time.perf_counter() - t
+        o3 = finish(o3_dir, ps, "O3")
+        for name in ("butterfly", "hierarchical"):
+            for pid in range(O3_PROCS):
+                got = np.load(os.path.join(o3_dir,
+                                           f"{name}-labels-{pid}.npy"))
+                check(np.array_equal(got, oracle3),
+                      f"phase O3: process {pid}'s {name} merge != scipy's "
+                      f"components")
+        for pid, r in enumerate(o3):
+            print(f"phase O3 process {pid}: fold {r['fold_s']:.4f} s; "
+                  + "; ".join(
+                      f"{n} {r[n]['wall_s']:.4f} s, {r[n]['rounds']} "
+                      f"rounds, {r[n]['sent_bytes']} B sent / "
+                      f"{r[n]['received_bytes']} B received"
+                      for n in ("butterfly", "hierarchical"))
+                  + f"; exchange of {r['exchange']['entries']} entries "
+                  f"{r['exchange']['wall_s']:.4f} s, "
+                  f"{r['exchange']['sent_bytes']} B sent; peak_mem "
+                  f"{r['peak_mem_bytes']} B; init_process_group "
+                  f"{r['init_process_group_s']:.4f} s")
+        print(f"phase O3 {O3_PROCS} processes x {O3_SHARDS} shards in "
+              f"{time.perf_counter() - t0:.2f} s (scipy oracle "
+              f"{oracle_s:.2f} s): every process's butterfly and "
+              f"hierarchical (degree {O3_DEGREE}) labels equal scipy's "
+              f"components; the exchange "
+              f"conserved every shard's multiset, striped, 0 dropped")
+        print(f"phase O total {time.perf_counter() - t_phase:.2f} s "
+              f"(loopback gloo through host memory on one card)")
+        return {"gather_launches": [r["launches"] for r in o1]}
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -5343,6 +5824,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--durable-child"]:
         return durable_child(sys.argv[2])
+    if sys.argv[1:2] == ["--coord-child"]:
+        return coord_child(sys.argv[2], int(sys.argv[3]))
     from gelly_torch.core.io import EdgeChunkSource, TimeCharacteristic
     from gelly_torch.core.stream import edge_stream_from_source
     from gelly_torch.core.vertices import IdentityVertexTable
@@ -5463,14 +5946,15 @@ def main() -> int:
 
     # Independent count of the chunks that take the dedup-and-kernel
     # branch: chunk >= RAW_DEDUP_MIN_CHUNK and distinct pairs <= cap.
-    dedup_chunks = 0
+    dedup_flags = []
     for lo in range(0, N_EDGES, CHUNK):
         s = torch.from_numpy(src[lo:lo + CHUNK]).to(device).long()
         d = torch.from_numpy(dst[lo:lo + CHUNK]).to(device).long()
         key = (torch.minimum(s, d) << 32) | torch.maximum(s, d)
         distinct = int(torch.unique(key).numel())
-        if CHUNK >= cc.RAW_DEDUP_MIN_CHUNK and distinct <= unique_cap:
-            dedup_chunks += 1
+        dedup_flags.append(CHUNK >= cc.RAW_DEDUP_MIN_CHUNK
+                           and distinct <= unique_cap)
+    dedup_chunks = sum(dedup_flags)
     print(f"dedup-branch chunks: {dedup_chunks} of {n_chunks}")
     check(len(labels) == len(labels_plain) == -(-n_chunks // MERGE_EVERY),
           f"emission count {len(labels)} / {len(labels_plain)}")
@@ -5505,6 +5989,11 @@ def main() -> int:
     kill9_phase(torch, device, src, dst, oracle)
     del labels_plain
     torch.cuda.empty_cache()
+
+    # O. the mesh across processes and coordinated recovery
+    mark("O", t_start)
+    coord = coord_phase(torch, device, src, dst, labels[-1], oracle,
+                        dedup_flags)
 
     # D. degrees; E. bipartiteness (both on phase 4's stream at Twitter
     mark("D, E", t_start)
@@ -5562,7 +6051,7 @@ def main() -> int:
     k14 = mesh_cc_phase(torch, device, src, dst, labels, oracle,
                         dedup_chunks)
     torch.cuda.empty_cache()
-    del src, dst, labels, oracle
+    del labels
     i4 = neighborhood_phase(torch, device)
     torch.cuda.empty_cache()
 
@@ -5734,7 +6223,8 @@ def main() -> int:
 
     # 7. the compact CC path
     mark("7", t_start)
-    compact_cc_phase(torch, device)
+    compact_cc_phase(torch, device, src, dst, oracle)
+    del src, dst, oracle
 
     # 8. result lines
     mark("8", t_start)
@@ -5748,6 +6238,7 @@ def main() -> int:
         "multiquery_launches": mq["gather_launches"],
         "obs_launches": traced["gather_launches"],
         "tenant_launches": tenants["gather_launches"],
+        "multihost_launches": coord["gather_launches"],
         "max_abs_err": max(max_abs_err, k14["gather_err"]),
         "ms": kernel_ms,
         "plain_ms": plain_ms,

@@ -1223,13 +1223,14 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
             "but it supplies no host_compress/fold_compressed pair"
         )
     from ..parallel import collectives
-    from ..parallel.mesh import Mesh
+    from ..parallel.mesh import Mesh, require_one_process
     from ..parallel.partition import split_chunk
 
     if mesh is not None and not isinstance(mesh, Mesh):
         raise TypeError(
             f"mesh must be a gelly_torch.parallel.mesh.Mesh, got "
             f"{type(mesh).__name__}")
+    require_one_process(mesh, "run_aggregation(mesh=...)")
     devices = (list(mesh.devices) if mesh is not None
                else [stream.ctx.device])
     S = len(devices)
@@ -1566,6 +1567,11 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
 
         def close_window():
             nonlocal locals_, glob, dirty, windows
+            if not accum:
+                # The cross-shard merge boundary: a seeded FaultPlan can
+                # raise or hang here, as at gelly_tpu's window merge (an
+                # accumulating plan merges nothing at a close).
+                faults.inject("collective")
             dirty = False
             windows += 1
             stats["windows_closed"] = windows
@@ -1616,6 +1622,7 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
             # no later fold writes it), decay TTL slots, and answer the
             # W-pane window by suffix combines.
             nonlocal locals_, dirty, windows, persist, last_seen
+            faults.inject("collective")
             t_h = time.perf_counter() if telemetry else 0.0
             pane = merge_locals(locals_)
             locals_ = fresh_locals()

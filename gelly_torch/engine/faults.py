@@ -13,8 +13,8 @@ call :func:`inject`:
 - ``"h2d"``               — host→device staging of a chunk or unit
 - ``"step"``              — the fold ``step(state, chunk)`` dispatch
 - ``"source"``            — the chunk source / prefetch worker
-- ``"collective"``        — the cross-device window merge (not ported yet)
-- ``"barrier"``           — multi-host coordination (not ported yet)
+- ``"collective"``        — the cross-shard merge at a window or pane close
+- ``"barrier"``           — multi-host coordination (``engine/coordination``)
 - ``"checkpoint_write"``  — before a checkpoint file write
 - ``"checkpoint_read"``   — before a checkpoint file read
 - ``"checkpoint_corrupt"``— after a checkpoint write, with the file path

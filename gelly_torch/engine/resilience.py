@@ -51,9 +51,15 @@ recording); an installed ``obs.SpanTracer`` shows each event as an
 instant. ``ResilientRunner.stats`` keeps the same counts beside the bus.
 With a tracer or recording on, the runner's chunk positions ride the
 ``bus.watermarks`` ledger (stamped as read, retired at each fold and
-each checkpoint). Coordinated
-multi-host checkpoints (``coordinator=``, ``adopt_state=``,
-``reshard_source=``) raise ``NotImplementedError`` (queue 1 item 11c).
+each checkpoint).
+
+- **Coordinated multi-host checkpoints** (``coordinator=``, an
+  ``engine/coordination.Coordinator``): at cadence the hosts agree on a
+  barrier position, each folds its own partition to it and publishes its
+  shard through a two-phase commit; resume goes through
+  ``Coordinator.recover`` (with ``adopt_state=`` the degraded re-join
+  adopts a lost host's shards, and ``reshard_source=`` re-routes its
+  chunks).
 """
 
 from __future__ import annotations
@@ -80,10 +86,9 @@ from .checkpoint import (
     to_host,
     tree_map,
 )
+from .coordination import CoordinationError
 
 logger = logging.getLogger("gelly_torch.resilience")
-
-_COORDINATION_ITEM = "ROADMAP.md queue 1 item 11c (engine/coordination)"
 
 
 class StreamFault(RuntimeError):
@@ -516,15 +521,29 @@ class ResilientRunner:
     REPLACES the live fold state (labels must be identical — e.g.
     ``ops/unionfind.pointer_jump`` on the parent leaf).
 
+    ``coordinator`` — an ``engine/coordination.Coordinator`` switches the
+    runner to COORDINATED checkpoints on a multi-host mesh: at cadence
+    the hosts run a checkpoint barrier (``agree_position`` — all agree
+    on the max last-retired-chunk position), each folds its own
+    partition up to the agreed position, and publishes its shard via
+    the two-phase commit (prepared markers + leader-written manifest).
+    Resume goes through ``Coordinator.recover``: manifest validation,
+    CRC-checked own-shard load, and — with ``adopt_state`` (a
+    ``combine(state, orphan_state) -> state``) — the degraded-capacity
+    takeover of a permanently lost host's shards; ``reshard_source``
+    (``(old_count, new_count) -> None``) then re-routes the lost hosts'
+    chunks. Mutually exclusive with ``checkpoint_dir`` (the coordinator
+    owns its store). Coordination failures (dead peer, commit timeout,
+    barrier skew) are FATAL, never silently tolerated — a desynced mesh
+    must surface; the watchdog still bounds hung protocol calls. The
+    runner closes the coordinator when the run ends.
+
     ``run()`` returns the final state; ``emissions()`` yields
     ``(position, emission)`` for every non-None emission as it happens.
     ``stats`` counts chunks, retries (the checkpoint writer's included),
     checkpoints (initiated, written, missed, bytes), source restarts,
     watchdog timeouts and degradations, and records ``resumed_from`` (the
-    checkpoint path) and ``resume_load_s``.
-
-    ``coordinator``, ``adopt_state`` and ``reshard_source`` (coordinated
-    multi-host checkpoints) raise ``NotImplementedError``.
+    checkpoint path, or the coordinator's manifest) and ``resume_load_s``.
     """
 
     def __init__(
@@ -544,14 +563,6 @@ class ResilientRunner:
         adopt_state: Callable[[Any, Any], Any] | None = None,
         reshard_source: Callable[[int, int], Any] | None = None,
     ):
-        for name, value in (("coordinator", coordinator),
-                            ("adopt_state", adopt_state),
-                            ("reshard_source", reshard_source)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"ResilientRunner({name}=...) is not ported yet: "
-                    f"{_COORDINATION_ITEM}"
-                )
         self._step = step
         self._make_iter = _make_seekable(chunks)
         self._init_state = init_state
@@ -571,6 +582,29 @@ class ResilientRunner:
             degraded=False, degradations=0, watchdog_timeouts=0,
         )
         self._watchdog = Watchdog(self.config.watchdog_timeout, self.stats)
+        self._adopt = adopt_state
+        self._reshard_source = reshard_source
+        self.coordinator = coordinator
+        if coordinator is not None and checkpoint_dir is not None:
+            raise ValueError(
+                "pass checkpoint_dir OR coordinator, not both: the "
+                "coordinator owns its shared store (path-per-host epoch "
+                "layout), a local rotation dir would shadow it"
+            )
+        # Coordination calls get a LARGER watchdog budget than plain
+        # boundaries: a barrier legitimately waits up to the protocol's
+        # own barrier_timeout, whose error names the missing/dead hosts
+        # — the generic WatchdogTimeout must only fire for a genuine
+        # hang (an injected hang fault, a wedged fsync), never first, or
+        # it masks the actionable diagnosis.
+        self._barrier_watchdog = Watchdog(None, self.stats)
+        if coordinator is not None:
+            wt = self.config.watchdog_timeout
+            self._barrier_watchdog = Watchdog(
+                None if wt is None
+                else wt + 2 * coordinator.config.barrier_timeout,
+                self.stats,
+            )
         self.manager = None
         if checkpoint_dir is not None:
             self.manager = CheckpointManager(
@@ -660,7 +694,36 @@ class ResilientRunner:
     def _initial_state(self):
         state = (self._init_state()
                  if callable(self._init_state) else self._init_state)
-        if self.manager is not None and self._resume:
+        if self.coordinator is not None and self._resume:
+            t0 = time.perf_counter()
+            # The template's leaves fix each loaded tensor's device.
+            found = self._barrier_watchdog.call(
+                lambda: self.coordinator.recover(
+                    like=state, adopt=self._adopt,
+                    reshard=self._reshard_source,
+                ),
+                "barrier",
+            )
+            if found is not None:
+                rec_state, self.position, meta = found
+                if rec_state is not None:
+                    # None = a NEW host joining a smaller committed
+                    # group: fresh state, barrier-agreed position.
+                    state = rec_state
+                self._meta.update(
+                    {k: v for k, v in meta.items() if k not in self._meta}
+                )
+                # The manifest IS the coordinated resume record (the
+                # shard path varies per host and may be an adopted set).
+                self.stats["resumed_from"] = (
+                    self.coordinator.store.manifest_path
+                )
+                self.stats["resume_load_s"] = time.perf_counter() - t0
+                logger.info(
+                    "coordinated resume at chunk %d (epoch %s)",
+                    self.position, self.coordinator.committed_epoch,
+                )
+        elif self.manager is not None and self._resume:
             t0 = time.perf_counter()
             # The template's leaves fix each loaded tensor's device, so a
             # resumed fold stays where init_state put it.
@@ -711,6 +774,7 @@ class ResilientRunner:
             faults_mod.inject("source")
             return self._make_iter(pos)
 
+        barrier: tuple[int, int] | None = None  # (epoch, agreed position)
         chunk_iter = restartable_prefetch(
             source_iter,
             depth=cfg.prefetch_depth,
@@ -748,12 +812,62 @@ class ResilientRunner:
                 if not due and cfg.checkpoint_every_seconds is not None:
                     due = (cfg.clock() - last_ckpt_time
                            >= cfg.checkpoint_every_seconds)
-                if self.manager is not None and due:
+                if self.coordinator is not None:
+                    self.coordinator.maybe_beat()
+                    if barrier is None and due:
+                        # Checkpoint barrier: agree on max(last-retired)
+                        # across hosts; this host may still be behind the
+                        # agreed position — keep folding until it retires
+                        # it, THEN publish. Every host snapshots the same
+                        # position.
+                        barrier = self._barrier_watchdog.call(
+                            lambda p=self.position:
+                                self.coordinator.agree_position(p),
+                            "barrier",
+                        )
+                    if barrier is not None and self.position >= barrier[1]:
+                        state = self._checkpoint_coordinated(
+                            state, *barrier
+                        )
+                        self.state = state
+                        barrier = None
+                        last_ckpt_pos = self.position
+                        last_ckpt_time = cfg.clock()
+                elif self.manager is not None and due:
                     state = self._checkpoint(state)
                     self.state = state
                     last_ckpt_pos = self.position
                     last_ckpt_time = cfg.clock()
-            if self.manager is not None:
+            if self.coordinator is not None:
+                if barrier is not None:
+                    # The stream ended BELOW a pending barrier position:
+                    # another host proposed more chunks than this
+                    # partition holds. Peers are waiting for this host's
+                    # shard at a position it can never reach — surface
+                    # the skew instead of deadlocking them.
+                    raise CoordinationError(
+                        f"stream exhausted at chunk {self.position} but "
+                        f"the checkpoint barrier agreed on {barrier[1]} "
+                        "— coordinated partitions must have equal chunk "
+                        "counts"
+                    )
+                if self.position > last_ckpt_pos:
+                    epoch, agreed = self._barrier_watchdog.call(
+                        lambda p=self.position:
+                            self.coordinator.agree_position(p),
+                        "barrier",
+                    )
+                    if agreed != self.position:
+                        raise CoordinationError(
+                            f"hosts disagree on the final position "
+                            f"({agreed} vs {self.position}) — coordinated "
+                            "partitions must have equal chunk counts"
+                        )
+                    state = self._checkpoint_coordinated(
+                        state, epoch, agreed, final=True
+                    )
+                    self.state = state
+            elif self.manager is not None:
                 if self.position > last_ckpt_pos:
                     state = self._checkpoint(state, final=True)
                     self.state = state
@@ -772,6 +886,16 @@ class ResilientRunner:
                 except BaseException:
                     logger.exception("checkpoint writer shutdown failed")
             raise
+        finally:
+            # The runner owns the coordinator's lifecycle for the run:
+            # closing stops the lease beat thread (peers see this host
+            # depart within lease_ttl) and drops the observability
+            # registration — one Coordinator per incarnation.
+            if self.coordinator is not None:
+                try:
+                    self.coordinator.close()
+                except BaseException:
+                    logger.exception("coordinator shutdown failed")
 
     def _checkpoint(self, state, final: bool = False):
         """Cadenced snapshot. A failed MID-STREAM checkpoint (hung write,
@@ -779,8 +903,7 @@ class ResilientRunner:
         otherwise healthy fold — tolerated up to ``max_checkpoint_failures``
         consecutive misses; the end-of-stream checkpoint always raises.
         Returns the (possibly flattened) state the fold continues with."""
-        if self._flatten is not None:
-            state = self._flatten(state)
+        state = self._flattened(state)
         try:
             self.manager.save(
                 state, self.position,
@@ -803,6 +926,43 @@ class ResilientRunner:
             )
             return state
         self.stats["checkpoints"] += 1
+        self._retire_durable()
+        return state
+
+    def _flattened(self, state):
+        """Apply the cadenced path flatten (when configured) — the
+        returned state replaces the live fold state, so chase depth
+        stays bounded across the whole stream, not just in snapshots."""
+        if self._flatten is None:
+            return state
+        return self._flatten(state)
+
+    def _checkpoint_coordinated(self, state, epoch: int, agreed: int,
+                                final: bool = False):
+        """Publish this host's shard at the barrier-agreed position via
+        the coordinator's two-phase commit. Unlike the local path,
+        failures here are FATAL: a host that silently skips a
+        coordinated epoch desyncs the whole group (peers block on its
+        prepared marker), so the error must surface and take the
+        incarnation down — recovery restarts from the previous
+        committed epoch."""
+        if self.position != agreed:
+            raise CoordinationError(
+                f"coordinated checkpoint at position {self.position} but "
+                f"the barrier agreed on {agreed} — driver bug"
+            )
+        state = self._flattened(state)
+        host = tree_map(to_host, state)
+        self._barrier_watchdog.call(
+            lambda: self.coordinator.publish(
+                epoch, host, self.position,
+                meta={**self._meta, "wall_time": time.time()},
+            ),
+            "barrier",
+        )
+        self.stats["checkpoints"] += 1
+        # Same durability point as the local path: a committed barrier
+        # epoch retires this host's ledger up to the agreed position.
         self._retire_durable()
         return state
 

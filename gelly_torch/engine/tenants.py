@@ -323,6 +323,9 @@ class TenantBatch:
         self.accum = agg.fold_accumulates and not agg.transient
         self.state = None  # accum: the running stack; else: window locals
         self.global_ = None  # non-accum only: the carried global stack
+        from ..parallel.mesh import require_one_process
+
+        require_one_process(mesh, "TenantBatch(mesh=...)")
         self.shards = mesh.num_shards if mesh is not None else 1
         self.device = (mesh.devices[0] if mesh is not None
                        else resolve_device(device))
@@ -723,6 +726,9 @@ class MultiTenantEngine:
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every = checkpoint_every
         self.resume = resume
+        from ..parallel.mesh import require_one_process
+
+        require_one_process(mesh, "MultiTenantEngine(mesh=...)")
         self.mesh = mesh
         self.device = (mesh.devices[0] if mesh is not None
                        else resolve_device(device))

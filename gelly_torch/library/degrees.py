@@ -344,6 +344,7 @@ class ShardedDegrees:
                 f"mode must be auto/exchange/broadcast, got {mode}")
         self.stream = stream
         self.mesh = mesh if mesh is not None else mesh_lib.make_mesh()
+        mesh_lib.require_one_process(self.mesh, "ShardedDegrees")
         self.count_out = count_out
         self.count_in = count_in
         self.mode = mode

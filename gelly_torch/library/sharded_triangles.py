@@ -191,6 +191,7 @@ class ShardedExactTriangles:
                  mesh=None):
         self.stream = stream
         self.mesh = mesh if mesh is not None else mesh_lib.make_mesh()
+        mesh_lib.require_one_process(self.mesh, "ShardedExactTriangles")
         self.S = mesh_lib.num_shards(self.mesh)
         self.n = capacity or stream.ctx.vertex_capacity
         self.per = slots_per_shard(self.n, self.S)

@@ -1457,6 +1457,9 @@ def sharded_sampler_run(stream, num_samples: int, mesh,
     sampler: every shard advances its instances over the whole chunk
     (edges replicated, ``BroadcastTriangleCount.java:41-45``) with the
     sampler kernel."""
+    from ..parallel.mesh import require_one_process
+
+    require_one_process(mesh, "sharded_sampler_run")
     S = len(mesh.devices)
     if num_samples % S:
         raise ValueError(

@@ -13,12 +13,10 @@ pipeline queue depths (read from the bus gauges the prefetch legs
 publish), and the last-retired chunk position (the exactly-once resume
 point — what a crash right now would resume from). Every line also
 carries HOST IDENTITY (``process_index`` / ``process_count`` /
-``coordinator_address`` from ``parallel/mesh.host_info``) so
-interleaved multi-host logs and Perfetto captures are attributable per
-host. ``gelly_tpu`` adds the live ``leader`` flag while a
-coordinated-recovery ``Coordinator`` is active; the port has no
-coordinator until ROADMAP.md queue 1 item 11c, so the key is omitted,
-as ``gelly_tpu`` omits it with no coordinator.
+``coordinator_address`` from ``parallel/mesh.host_info``, plus the
+live ``leader`` flag when a coordinated-recovery ``Coordinator`` is
+active) so interleaved multi-host logs and Perfetto captures are
+attributable per host.
 """
 
 from __future__ import annotations
@@ -31,14 +29,20 @@ logger = logging.getLogger("gelly_torch.obs")
 
 
 def host_fields() -> dict:
-    """Static host identity — merged into every heartbeat line and into
-    exported traces' ``otherData``. The lazy import keeps ``obs``
-    importable standalone. The ``leader`` flag of an active
-    ``Coordinator`` joins these fields with item 11c (coordination);
-    until then it is omitted, as with no coordinator."""
+    """Static host identity plus the live leadership flag — merged into
+    every heartbeat line and into exported traces' ``otherData``.
+    Lazy imports keep ``obs`` importable standalone; leadership comes
+    from the active ``engine/coordination.Coordinator`` (absent → the
+    ``leader`` key is omitted, single-host logs stay unchanged)."""
     from ..parallel.mesh import host_info
 
-    return host_info()
+    fields = host_info()
+    from ..engine.coordination import leader_flag
+
+    leader = leader_flag()
+    if leader is not None:
+        fields["leader"] = leader
+    return fields
 
 
 class Heartbeat:
@@ -79,7 +83,8 @@ class Heartbeat:
             # the cadence boundary) — lines must be attributable 1:1.
             beat_no = self.beats
         # Host identity rides every line (beats are rate-limited, so the
-        # lazy import costs nothing on the hot path — tick() returns above long before this).
+        # two lazy imports + leadership read cost nothing on the hot
+        # path — tick() returns above long before this).
         line = dict(host_fields(), **fields, beat=beat_no)
         self.lines.append(line)
         logger.info(

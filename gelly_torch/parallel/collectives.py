@@ -23,6 +23,16 @@ whose results no kept shard depends on are skipped (the engine reads
 shard 0 only); the kept results equal ``gelly_tpu``'s. The dirty-delta
 helpers (:func:`compact_delta`, :func:`gather_delta`) move only the rows a
 window touched.
+
+On a mesh that spans processes (pass ``mesh=``), each process holds and
+combines its own shards (``None`` elsewhere), and the schedules are the
+same: a partner in the same process is a ``tree_to`` copy, and a partner
+in another process is exchanged through the process group. Each leaf is
+staged through a host buffer (pinned when the shard is on a card: gloo's
+point-to-point ops take CPU tensors), and every send and receive of a
+round is posted before any is waited on (``isend`` / ``irecv``), so two
+partners that both send first cannot deadlock. Partners' summaries share
+their leaves' shapes and dtypes, as every mesh summary does.
 """
 
 from __future__ import annotations
@@ -62,6 +72,93 @@ def _first_device(tree):
                 if isinstance(x, torch.Tensor))
 
 
+def _procs(mesh, n: int) -> tuple:
+    return mesh.processes if mesh is not None else (0,) * n
+
+
+def host_buffer(nbytes: int, pinned: bool) -> torch.Tensor:
+    """A ``uint8`` host staging buffer (pinned for copies to or from a
+    card)."""
+    return torch.empty(nbytes, dtype=torch.uint8, pin_memory=pinned)
+
+
+def _leaf_bytes(x) -> torch.Tensor:
+    return torch.as_tensor(x).contiguous().reshape(-1).view(torch.uint8)
+
+
+def _tree_nbytes(tree) -> int:
+    return sum(_leaf_bytes(x).numel() for x in tree_flatten(tree)[0])
+
+
+def _pack(tree) -> torch.Tensor:
+    """Every leaf's bytes, in leaf order, in one host buffer."""
+    parts = [_leaf_bytes(x) for x in tree_flatten(tree)[0]]
+    buf = host_buffer(sum(p.numel() for p in parts),
+                       any(p.is_cuda for p in parts))
+    off = 0
+    for p in parts:
+        buf[off:off + p.numel()].copy_(p)
+        off += p.numel()
+    return buf
+
+
+def _unpack(buf: torch.Tensor, like, device):
+    """The tree ``_pack`` wrote into ``buf``, shaped like ``like``, on
+    ``device`` (fresh tensors: nothing aliases the buffer)."""
+    leaves, spec = tree_flatten(like)
+    out, off = [], 0
+    for x in leaves:
+        x = torch.as_tensor(x)
+        n = x.numel() * x.element_size()
+        part = buf[off:off + n]
+        part = part.clone() if device.type == "cpu" else part.to(device)
+        out.append(part.view(x.dtype).reshape(x.shape))
+        off += n
+    return tree_unflatten(spec, out)
+
+
+def _fetch(mesh, cur: list, wants, devs: list) -> dict:
+    """``{(i, j): copy of cur[j] on devs[i]}`` for every pair ``(i, j)`` of
+    ``wants`` whose receiver ``i`` this process holds (every process
+    passes the same ``wants``). A shard held elsewhere comes through the
+    process group, once for all of this process's receivers; a shard held
+    here is copied with ``tree_to``."""
+    procs = _procs(mesh, len(cur))
+    me = procs[0] if mesh is None else mesh.process_index
+    out: dict = {}
+    inbound: dict = {}   # j held elsewhere -> its receivers held here
+    outbound = set()     # (process, j): j held here, a receiver there
+    for i, j in wants:
+        if procs[i] == me and procs[j] == me:
+            out[(i, j)] = tree_to(cur[j], devs[i])
+        elif procs[i] == me:
+            inbound.setdefault(j, []).append(i)
+        elif procs[j] == me:
+            outbound.add((procs[i], j))
+    if not inbound and not outbound:
+        return out
+    import torch.distributed as dist
+
+    works, bufs = [], {}
+    for q, j in sorted(outbound):
+        buf = _pack(cur[j])
+        bufs[(q, j)] = buf
+        mesh.sent_bytes += buf.numel()
+        works.append(dist.isend(buf, dst=q, tag=j))
+    for j, recv in sorted(inbound.items()):
+        buf = host_buffer(_tree_nbytes(cur[recv[0]]),
+                           any(devs[i].type == "cuda" for i in recv))
+        bufs[j] = buf
+        works.append(dist.irecv(buf, src=procs[j], tag=j))
+    for w in works:
+        w.wait()
+    for j, recv in inbound.items():
+        mesh.received_bytes += bufs[j].numel()
+        for i in recv:
+            out[(i, j)] = _unpack(bufs[j], cur[i], devs[i])
+    return out
+
+
 def butterfly_merge(combine: Callable, summaries: list, num_shards: int,
                     mesh=None, keep: Iterable[int] | None = None) -> list:
     """Recursive-doubling allreduce with a custom combine monoid.
@@ -80,8 +177,10 @@ def butterfly_merge(combine: Callable, summaries: list, num_shards: int,
     cur = list(summaries)
     for r, step in enumerate(steps):
         # The round's partner copies, all taken before any combine.
-        other = {i: tree_to(cur[i ^ step], devs[i]) for i in need[r]}
-        cur = [combine(cur[i], other[i]) if i in need[r] else None
+        other = _fetch(mesh, cur, [(i, i ^ step) for i in sorted(need[r])],
+                       devs)
+        cur = [combine(cur[i], other[(i, i ^ step)])
+               if (i, i ^ step) in other else None
                for i in range(num_shards)]
     if keep is not None:
         kept = set(keep)
@@ -110,21 +209,22 @@ def hierarchical_merge(combine: Callable, summaries: list, num_shards: int,
     group = num_shards // degree
     cur = list(summaries)
     step = 1
-    while step < group:  # phase 1: intra-group butterflies
-        other = [tree_to(cur[i ^ step], devs[i]) for i in range(num_shards)]
-        cur = [combine(cur[i], other[i]) for i in range(num_shards)]
-        step <<= 1
-    while step < num_shards:  # phase 2: leaders only
-        leaders = [i for i in range(num_shards) if i % group == 0]
-        other = {i: tree_to(cur[i ^ step], devs[i]) for i in leaders}
-        cur = [combine(cur[i], other[i]) if i in other else cur[i]
-               for i in range(num_shards)]
+    while step < num_shards:
+        # Phase 1 (intra-group butterflies, strides below ``group``), then
+        # phase 2 (leaders only).
+        pairs = [(i, i ^ step) for i in range(num_shards)
+                 if step < group or i % group == 0]
+        other = _fetch(mesh, cur, pairs, devs)
+        cur = [combine(cur[i], other[(i, j)]) if (i, j) in other else cur[i]
+               for i, j in ((i, i ^ step) for i in range(num_shards))]
         step <<= 1
     st = group >> 1
     while st >= 1:  # phase 3: binomial broadcast, largest stride first
-        recv = {i + st: tree_to(cur[i], devs[i + st])
-                for i in range(num_shards)
-                if (i % group) % (2 * st) == 0 and (i % group) + st < group}
+        got = _fetch(mesh, cur, [
+            (i + st, i) for i in range(num_shards)
+            if (i % group) % (2 * st) == 0 and (i % group) + st < group],
+            devs)
+        recv = {i: v for (i, _), v in got.items()}
         cur = [recv.get(i, c) for i, c in enumerate(cur)]
         st >>= 1
     return cur
@@ -150,10 +250,17 @@ def gather_merge(merge_stacked: Callable, summaries: list, mesh=None,
     """Gather every shard's summary (stacked in shard order) and fold with
     ``merge_stacked``; every kept shard computes the same global result."""
     devs = _devices(summaries, mesh)
+    procs = _procs(mesh, len(summaries))
     kept = range(len(summaries)) if keep is None else keep
+    got = _fetch(mesh, summaries, [
+        (i, j) for i in kept for j in range(len(summaries))
+        if procs[j] != procs[i]], devs)
     out = [None] * len(summaries)
     for i in kept:
-        out[i] = merge_stacked(stack_trees(summaries, devs[i]))
+        if devs[i] is not None:
+            out[i] = merge_stacked(stack_trees(
+                [got.get((i, j), s) for j, s in enumerate(summaries)],
+                devs[i]))
     return out
 
 
@@ -161,6 +268,13 @@ def psum_tree(trees: list, mesh=None) -> list:
     """Elementwise-additive merge (degree histograms, counters): every
     shard gets the sum, added in shard order."""
     devs = _devices(trees, mesh)
+    procs = _procs(mesh, len(trees))
+    # Each process's first shard receives every shard held elsewhere.
+    first = {p: procs.index(p) for p in set(procs)}
+    got = _fetch(mesh, trees, [
+        (first[p], j) for p in sorted(first) for j in range(len(trees))
+        if procs[j] != p], devs)
+    mine = first[procs[0] if mesh is None else mesh.process_index]
 
     def add(xs):
         total = xs[0]
@@ -168,8 +282,9 @@ def psum_tree(trees: list, mesh=None) -> list:
             total = total + x.to(total.device)
         return total
 
-    total = _zip_leaves(add, trees)
-    return [tree_to(total, d) for d in devs]
+    total = _zip_leaves(add, [got.get((mine, j), t)
+                              for j, t in enumerate(trees)])
+    return [tree_to(total, d) if d is not None else None for d in devs]
 
 
 # ---------------------------------------------------------------------- #

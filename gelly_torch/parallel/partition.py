@@ -16,6 +16,12 @@ Counterpart of ``gelly_tpu/parallel/partition.py``, with its three modes:
 Ownership is STRIPED: slot ``s`` lives on shard ``s % S`` at local offset
 ``s // S`` (vertex tables assign slots in order, so a range partition
 would send every early vertex to shard 0).
+
+On a mesh that spans processes, the exchange is one
+``torch.distributed.all_to_all_single`` a leaf over host-staged blocks
+(the splits are equal: the bucket capacity is fixed), and the dropped
+count goes through ``collectives.psum_tree`` (added in shard order). Each
+process passes and gets back its own shards (``None`` elsewhere).
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch
 
 from ..core.chunk import EdgeChunk
 from ..engine.checkpoint import tree_flatten, tree_map, tree_unflatten
+from .collectives import host_buffer, psum_tree
 
 
 def _split_leaf(x: torch.Tensor, num_shards: int) -> list[torch.Tensor]:
@@ -125,6 +132,8 @@ def all_to_all(mesh, blocks: list, num_shards: int) -> list:
     """``lax.all_to_all(split_axis=0, concat_axis=0)`` over a list of S
     per-shard ``[S * b, ...]`` tensors: shard ``j`` receives block ``j`` of
     every shard, in shard order, on its device."""
+    if mesh.process_count > 1:
+        return _all_to_all_processes(mesh, blocks, num_shards)
     b = blocks[0].shape[0] // num_shards
     out = []
     for j, dev in enumerate(mesh.devices):
@@ -134,22 +143,56 @@ def all_to_all(mesh, blocks: list, num_shards: int) -> list:
     return out
 
 
+def _all_to_all_processes(mesh, blocks: list, num_shards: int) -> list:
+    """:func:`all_to_all` on a mesh that spans processes: every local
+    block's rows as bytes in one host buffer, ordered (destination
+    process, source shard, destination shard), one ``all_to_all_single``
+    with equal splits, then each local shard's ``S * b`` rows in source
+    shard order."""
+    import torch.distributed as dist
+
+    local = mesh.local_shards
+    d, n_proc = len(local), mesh.process_count
+    x0 = blocks[local[0]]
+    b = x0.shape[0] // num_shards
+    rows = [blocks[s].contiguous().reshape(num_shards * b, -1)
+            .view(torch.uint8) for s in local]
+    width = rows[0].shape[1]
+    cuda = any(r.is_cuda for r in rows)
+    send = host_buffer(n_proc * d * d * b * width, cuda)
+    sv = send.view(n_proc, d, d, b, width)
+    for k, r in enumerate(rows):
+        sv[:, k].copy_(r.reshape(n_proc, d, b, width))
+    recv = host_buffer(send.numel(), cuda)
+    dist.all_to_all_single(recv, send)
+    own = send.numel() // n_proc
+    mesh.sent_bytes += send.numel() - own
+    mesh.received_bytes += recv.numel() - own
+    rv = recv.view(n_proc, d, d, b, width)
+    out = [None] * num_shards
+    for k, j in enumerate(local):
+        part = rv[:, :, k].reshape(num_shards * b, width)
+        dev = mesh.devices[j]
+        part = part.to(dev) if dev.type != "cpu" else part.contiguous()
+        out[j] = part.view(x0.dtype).reshape(
+            (num_shards * b,) + tuple(x0.shape[1:]))
+    return out
+
+
 def _tree_all_to_all(mesh, trees: list, num_shards: int) -> list:
-    flat = [tree_flatten(t) for t in trees]
-    spec = flat[0][1]
-    moved = [all_to_all(mesh, [f[0][i] for f in flat], num_shards)
-             for i in range(len(flat[0][0]))]
+    flat = [tree_flatten(t) if t is not None else None for t in trees]
+    leaves, spec = next(f for f in flat if f is not None)
+    moved = [all_to_all(mesh, [f[0][i] if f is not None else None
+                               for f in flat], num_shards)
+             for i in range(len(leaves))]
     return [tree_unflatten(spec, [m[j] for m in moved])
-            for j in range(num_shards)]
+            if flat[j] is not None else None for j in range(num_shards)]
 
 
 def psum_scalar(mesh, values: list) -> list:
     """``lax.psum`` of one scalar tensor a shard: every shard gets the sum
     (added in shard order) on its device."""
-    total = values[0]
-    for v in values[1:]:
-        total = total + v.to(total.device)
-    return [total.to(dev) for dev in mesh.devices]
+    return psum_tree(values, mesh=mesh)
 
 
 def repartition_by_key(mesh, keys: list, payloads: list, valids: list,
@@ -160,15 +203,21 @@ def repartition_by_key(mesh, keys: list, payloads: list, valids: list,
     leaves riding along) and ``valids`` (bool) are lists of S per-shard
     values. Returns ``(keys', payloads', valids', dropped)``, each a list
     of S per-shard values with leading dim ``S * bucket_capacity``: every
-    valid received entry is owned by its shard. ``dropped`` is the GLOBAL
-    count (a 0-d ``int64`` a shard) of entries that overflowed their
-    destination bucket; callers must surface it. Entries keep
-    ``gelly_tpu``'s order: a stable sort by owner within each sender,
-    senders in shard order."""
+    valid received entry is owned by its shard (on a mesh that spans
+    processes, each process passes and gets back its own shards, ``None``
+    elsewhere). ``dropped`` is the GLOBAL count (a 0-d ``int64`` a shard)
+    of entries that overflowed their destination bucket; callers must
+    surface it. Entries keep ``gelly_tpu``'s order: a stable sort by owner
+    within each sender, senders in shard order."""
     sent = [_bucket_one(k, p, v, num_shards, bucket_capacity)
+            if k is not None else None
             for k, p, v in zip(keys, payloads, valids)]
-    dropped = psum_scalar(mesh, [s[3] for s in sent])
-    return (all_to_all(mesh, [s[0] for s in sent], num_shards),
-            _tree_all_to_all(mesh, [s[1] for s in sent], num_shards),
-            all_to_all(mesh, [s[2] for s in sent], num_shards),
+
+    def part(n):
+        return [s[n] if s is not None else None for s in sent]
+
+    dropped = psum_scalar(mesh, part(3))
+    return (all_to_all(mesh, part(0), num_shards),
+            _tree_all_to_all(mesh, part(1), num_shards),
+            all_to_all(mesh, part(2), num_shards),
             dropped)

@@ -37,7 +37,7 @@ from ..obs import bus as obs_bus
 from ..ops.segments import INT_MAX
 from ..ops.unionfind import host_sync
 from . import collectives
-from .mesh import make_mesh, num_shards as _num_shards
+from .mesh import make_mesh, num_shards as _num_shards, require_one_process
 from .partition import (
     all_to_all,
     psum_scalar,
@@ -86,7 +86,8 @@ def _any_global(mesh, masks: list) -> bool:
     """The ``psum(sum(mask)) > 0`` flag of a ``while_loop``: one host
     read."""
     counts = [m.sum(dtype=torch.int64) for m in masks]
-    return bool(host_sync(psum_scalar(mesh, counts)[0] > 0))
+    return bool(host_sync(
+        psum_scalar(mesh, counts)[mesh.local_shards[0]] > 0))
 
 
 def _chase_sharded(mesh, parent_locs: list, x: list, valid: list,
@@ -192,6 +193,7 @@ class ShardedCC:
 
     def __init__(self, vertex_capacity: int, mesh=None):
         self.mesh = mesh if mesh is not None else make_mesh()
+        require_one_process(self.mesh, "ShardedCC")
         self.S = _num_shards(self.mesh)
         self.n = vertex_capacity
         self.per = slots_per_shard(vertex_capacity, self.S)

@@ -69,6 +69,7 @@ class ShardedSnapshotStream:
         self.window_ms = int(window_ms)
         self.direction = direction
         self.mesh = mesh if mesh is not None else mesh_lib.make_mesh()
+        mesh_lib.require_one_process(self.mesh, "ShardedSnapshotStream")
         self.S = mesh_lib.num_shards(self.mesh)
         self.bucket_slack = bucket_slack
         self.window_capacity = window_capacity

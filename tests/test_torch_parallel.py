@@ -66,7 +66,7 @@ def _stacked(xs):
     return np.stack([x.numpy() for x in xs])
 
 
-def test_mesh_construction_and_refusals():
+def test_mesh_construction_and_refusals(monkeypatch):
     m = tmesh.make_mesh(4, devices=[torch.device("cpu")] * 4)
     assert tmesh.num_shards(m) == 4 and m.shape == {"shards": 4}
     assert m.devices == (torch.device("cpu"),) * 4
@@ -80,8 +80,13 @@ def test_mesh_construction_and_refusals():
         # Nothing falls back to the CPU.
         with pytest.raises(RuntimeError, match="no"):
             tmesh.make_mesh()
-    with pytest.raises(NotImplementedError, match="item 8b"):
+    # With no address and no launcher environment, the join raises (no
+    # process group is left behind).
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match="RANK"):
         tmesh.initialize_multihost()
+    assert not torch.distributed.is_initialized()
     assert tmesh.host_info() == {"process_index": 0, "process_count": 1,
                                  "coordinator_address": None}
     out = tmesh.shard_map_fn(m, lambda i, x: x + i)([torch.zeros(2)] * 4)

@@ -926,10 +926,3 @@ def test_checkpoint_failure_accounting_is_exact_under_contention(
     finally:
         sys.setswitchinterval(old)
     assert mgr.consecutive_failures == n_threads * per_thread
-
-
-@pytest.mark.parametrize("knob", ["coordinator", "adopt_state",
-                                  "reshard_source"])
-def test_coordination_is_refused_naming_its_item(knob):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ResilientRunner(_step, [1], np.int64(0), **{knob: object()})

@@ -8,8 +8,8 @@ port, then runs one seeded sequence of seed, stamp, retire, rekey and
 drop operations through both packages' ``Watermarks`` on the same fake
 clock and holds every snapshot, backlog age and retirement histogram
 equal (exact). It also mirrors the tenant engine's submit-stamp
-regression. The file's other tests drive the ingest server or
-coordination, which the port does not have yet.
+regression and the coordinated runner's watermark retirement. The file's
+other tests drive the ingest server, which the port does not have yet.
 """
 
 import json
@@ -254,3 +254,45 @@ def test_tenant_submit_stamp_survives_mid_dispatch_submit():
         snap = bus.watermarks.snapshot()["7"]
         assert snap["pending"] == 3, snap
         assert snap["oldest_position"] == 0
+
+
+# --------------------------------------------------------------------- #
+# coordinated runner: every barrier commit is a durability point
+
+
+def test_coordinated_runner_watermarks_fully_retire(tmp_path):
+    """Every committed barrier epoch retires the e2e ledger, and the end
+    of the stream drains it: with telemetry on, a healthy coordinated run
+    ends with no pending stamp, a backlog age of 0 and one
+    ingress-to-durable sample a chunk."""
+    from gelly_torch.engine.coordination import (
+        CoordinationConfig,
+        Coordinator,
+        HostIdentity,
+    )
+    from gelly_torch.engine.resilience import (
+        ResilienceConfig,
+        ResilientRunner,
+    )
+
+    co = Coordinator(
+        str(tmp_path / "store"), HostIdentity(0, 1),
+        CoordinationConfig(lease_ttl=2.0, poll_s=0.005,
+                           barrier_timeout=10.0, lease_thread=False),
+    )
+    with obs.scope() as bus, obs.record_metrics():
+        r = ResilientRunner(
+            lambda s, c: (s + np.int64(c), None), list(range(10)),
+            np.int64(0), coordinator=co,
+            config=ResilienceConfig(checkpoint_every_chunks=4,
+                                    watchdog_timeout=30.0),
+        )
+        assert int(r.run()) == sum(range(10))
+        assert r.stats["checkpoints"] == 3  # 4, 8, final 10
+        snap = bus.watermarks.snapshot()["stream"]
+        assert snap["pending"] == 0, snap
+        assert snap["base"] == 10
+        assert bus.watermarks.backlog_age("stream") == 0.0
+        h = bus.snapshot()["histograms"]
+        assert h["resilience.e2e_ingress_to_durable_ms"]["count"] == 10
+        assert bus.gauges["engine.backlog_age_s"] == 0.0
