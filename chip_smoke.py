@@ -5,7 +5,8 @@ per-window Merger plan, fused multi-query, windows (event-time,
 lateness, pane rings, TTL), the stream API, the rest of the triangle
 library (bucketed, capped-degree and unpacked dense windows, exact and
 sampled counts), the mesh (four logical shards), the main path traced
-through the obs core and the multi-tenant engine with its QoS plane, on
+through the obs core, the multi-tenant engine with its QoS plane and
+ingest (the sharded readers, the native text parser and the wire), on
 one CUDA card.
 
     python3 chip_smoke.py
@@ -71,7 +72,8 @@ Phases (any failure exits nonzero and prints no result line):
    ``mesh_launches``, the gather's and entry 2's in phase L1 as
    ``multiquery_launches``, the gather's in a traced run of phase M1 as
    ``obs_launches``, the gather's in phase N3's kernel tier as
-   ``tenant_launches``), then ``{"ok": true, "device": ...}`` last.
+   ``tenant_launches``, the gather's in phases P1, P2 and P4 as
+   ``ingest_launches``), then ``{"ok": true, "device": ...}`` last.
 
 The durable phases (checkpoints, exactly-once resume, the resilient
 runner), each checking that the native codec was never disabled:
@@ -270,6 +272,66 @@ N. N1 (``bench.py:bench_tenants``' sweep at its size):
    ``QosController`` parks tenant 0 (lane freed, the parked row
    answering) and unparks it, every tenant equal to N1's.
 
+Ingest (phase P, right after phase N; ``gelly_torch/ingest``, at phase
+4's full width: ``2^24`` slots, its ``2^26`` Zipf edges, seed 17; every
+run's launch counts set to 0 just before it, every dedup-branch count
+made apart from the fold):
+
+P. P1: phase 4's stream written with ``write_binary_edges`` (1 GiB of
+   ``<i8`` pairs in the temporary directory) and read by
+   ``edge_stream_from_sharded_file(path, 2^24, shards=4,
+   chunk_size=2^22)`` into the kernel plan (``connected_components(2^24,
+   merge="gather", ingest_combine=False, fold_backend="kernel")``,
+   ``merge_every=4``, ``source_provider=True``), traced: the final labels
+   equal phase 4's and scipy's, the gather launched 3 times a dedup chunk
+   in the provider's order, one ``compress/gelly-reader_<s>`` track a
+   lane and no ``produce`` span; then phase 4's first ``2^20`` edges as
+   a text edge list: ``utils.native.parse_edge_list_file`` (``g++`` build
+   of ``native/edgelist_parser.cc``) equal to ``parse_edge_list_text``,
+   both timed, and ``read_edge_list`` taking the native parser. P2: an
+   ``IngestClient`` thread sends phase 4's stream to an ``IngestServer``
+   on loopback as raw DATA frames of ``2^21`` edges (a ``2^22``-edge
+   frame would pass ``MAX_PAYLOAD``); ``run_aggregation(kernel plan,
+   srv.chunks(2^22, 2^24), merge_every=8)`` (a bare iterator: the card):
+   every emission equals phase 4's at the same edge count, the gather
+   launched 3 times a dedup frame, and a ``fetch_stats`` on a dedicated
+   connection after the first emission holds non-zero ``ingest.*``
+   counters; prints the wall, edges/s, wire bytes an edge, frames, PAUSE
+   engagements, peak device memory and the host's share (the wall
+   outside the fold and the window close). P3 (``bench.py:bench_ingest``'s
+   compressed wire at full width): the client compresses phase 4's
+   ``2^22``-edge chunks with ``connected_components(2^24,
+   codec="sparse").host_compress`` and sends them as STACKED frames of
+   K = 4; ``run_aggregation(..., srv.compressed_payloads(),
+   precompressed=True, merge_every=4)``, traced: every emission equals
+   phase 4's, no ``compress`` span and one ``stack`` span a unit; prints
+   the wire bytes an edge. P4: a child ``python3 chip_smoke.py
+   --ingest-child <dir>`` serves phase 4's first ``2^24`` edges (8 raw
+   frames of ``2^21``) into the kernel plan with ``auto_ack=False``, a
+   checkpoint and an ack every 2 frames, pausing after each emission; it
+   is SIGKILLed after its first ack and restarted on its checkpoint, and
+   the client resends from the WELCOME position: the labels equal phase
+   4's first emission, the restarted server enqueues exactly the frames
+   past its position, each child's gather launches are 3 a dedup frame it
+   folded; prints the time to recover and its parts (the first child
+   starts with the phase, so its CUDA start overlaps P1-P3). P5: N2's
+   4096 tenants (``cc_tenant_tier(2^12, chunk_capacity=2^10)``, 8 Zipf
+   chunks of ``2^10`` a tenant) from a client process (``python3
+   chip_smoke.py --ingest-client <dir>``) over one ``tenant_streams``
+   connection in single-tenant STACKED frames of 8 through a
+   ``TenantRouter``; the engine drains once the wire has queued every
+   chunk, so its 8 rounds are full, as N2's: every tenant's labels equal
+   N2's; prints the aggregate edges/s, the wire's and
+   ``tenants.round_ms`` beside N2's. Then the checkpoint-gated acks
+   (``auto_ack=False``, ``TenantRouter(checkpoint_acks=True)``, one
+   per-tenant checkpoint at the last window) on the first 64 tenants, a
+   cut: a per-tenant checkpoint took ~20 ms on the card's temporary
+   filesystem, 80 s at 4096: every tenant's acks reach the client and its
+   labels equal N2's. P6: P2's first ``2^23`` edges
+   traced: the ``client_send``, ``wire_recv``, ``staging`` and ``fold``
+   spans share one trace id, and the first fold's parent is the first
+   staging span.
+
 Windows (phase H) and the stream API (phase I), after phase G (I5 after
 phase 6); each timed run prints its wall, edges a second, stage busy
 seconds, kernel launches and peak device memory:
@@ -381,10 +443,11 @@ K. K1: phase 4's stream in ``2^24``-edge chunks (a shard folds ``2^22``
    exact total) and through ``ShardedExactTriangles`` (equal to
    ``exact_triangle_count`` vertex by vertex).
 
-After the checks of each path, one more run of it under ``torch.profiler``
-prints the device's busy time, idle share and the five device ops that
-took the most time (the profiler's cost is in that run's wall, so its
-wall is not the path's).
+Cuts to fit the time limit, each named where it applies: every path's
+profiled rerun under ``torch.profiler`` (the device's busy time and idle
+share a path; the earlier runs' are in PERF.md, and phase M2 still
+profiles the main path's first chunks) was taken out to make room for
+phase P; earlier cuts are in the phases' own lines.
 
 Needs one CUDA card, ``nvcc``, ``g++`` and scipy; imports nothing of JAX.
 The checkpoint and stream files go to the temporary directory and are
@@ -393,6 +456,7 @@ removed at the end of each phase.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -509,6 +573,7 @@ G_TIMED = 1 << 12
 
 
 # The hand kernels' wrappers, each counting its launches in ``.launches``.
+WATCHDOG_S = 1150  # under the 1200 s a run of this script may take
 HAND_KERNELS = ("sorted_window_gather", "wedge_count_matrix",
                 "sparse_insert_edges", "sparse_insert_edges_batched",
                 "matching_step", "hashset_insert", "hashset_contains",
@@ -608,39 +673,6 @@ def triangle_oracle(torch, a, b, device) -> int:
     return int(six) // 6
 
 
-def profiled(torch, fn, cpu: bool = True):
-    """(wall_s, device_busy_s, spans, top) of one run of ``fn`` under
-    ``torch.profiler``: busy is the union of the device's kernel and copy
-    intervals (``None`` when the profiler recorded no device activity),
-    ``top`` the five device ops with the most summed time, as
-    ``(name, seconds, count)``. The profiler's own cost is in the wall.
-    ``cpu=False`` records the device only (a run of ~10^5 launches costs
-    minutes to read back with the host's events)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    activities = [ProfilerActivity.CUDA]
-    if cpu:
-        activities.insert(0, ProfilerActivity.CPU)
-    with profile(activities=activities) as prof:
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    if not spans:
-        return wall, None, 0, []
-    per_op: dict = {}
-    for e in events:
-        t, c = per_op.get(e.name, (0.0, 0))
-        per_op[e.name] = (t + (e.time_range.end - e.time_range.start), c + 1)
-    top = sorted(((name, t * 1e-6, c) for name, (t, c) in per_op.items()),
-                 key=lambda x: -x[1])[:5]
-    return wall, union_length(spans) * 1e-6, len(spans), top
-
-
 def union_length(spans) -> float:
     """Length of the union of sorted ``(start, end)`` intervals."""
     busy, (lo, hi) = 0.0, spans[0]
@@ -651,18 +683,6 @@ def union_length(spans) -> float:
         else:
             hi = max(hi, e)
     return busy + hi - lo
-
-
-def print_profiled(name, wall, busy, spans, top) -> None:
-    if busy is None:
-        print(f"profiled {name}: wall={wall:.4f} s, device time not recorded")
-        return
-    print(f"profiled {name}: wall={wall:.4f} s device_busy={busy:.4f} s "
-          f"({spans} device spans) idle_share={1 - busy / wall:.4f}")
-    for op, t, c in top:
-        if len(op) > 200:  # template arguments: keep both ends
-            op = f"{op[:110]} ... {op[-80:]}"
-        print(f"  top device op {t:.6f} s in {c} spans: {op}")
 
 
 def library_yardstick(torch, m, want, device):
@@ -1324,8 +1344,6 @@ def compact_cc_phase(torch, device, src, dst, oracle) -> None:
               f"wire_bytes/edge={wire / CC_EDGES:.4f} "
               f"(share of run 1's wall: {dt / st['wall_s']:.4f})")
 
-    print_profiled("compact CC path", *profiled(
-        torch, lambda: run(agg, CC_EDGES, pull=False)))
 
 
 def drive(torch, device, agg, source, n, n_events, merge_every, fold_batch,
@@ -1494,8 +1512,6 @@ def degrees_phase(torch, device, src, dst) -> None:
               f"D1 emission {i} != bincount oracle")
     print(f"phase D1: {len(out)} emissions of int64[{D1_N}] equal the "
           f"bincount oracle at their boundaries")
-    print_profiled("phase D1 degrees", *profiled(
-        torch, lambda: d1_run(pull=None)))
     del s1, d1, out, runs
 
     # D2: phase 4's stream, then its first 2^24 edges again as deletions.
@@ -1556,11 +1572,6 @@ def degrees_phase(torch, device, src, dst) -> None:
         del got
     print(f"phase D2: {len(sparse)} emissions of int64[{n}] equal the "
           f"signed bincount oracle; the dense codec and the raw fold agree")
-    print_profiled("phase D2 sparse codec", *profiled(
-        torch, lambda: d2_run(pull=None)))
-    print_profiled("phase D2 raw fold", *profiled(
-        torch, lambda: d2_run(deg.degree_aggregate(n, ingest_combine=False),
-                              pull=None)))
     stop_and_resume(d2_run, sparse, len(sparse),
                     MERGE_EVERY, "phase D2")
     del sparse, runs, want
@@ -1645,8 +1656,6 @@ def degrees_phase(torch, device, src, dst) -> None:
           f"{edges[-1]}, number_of_vertices {verts[-1]}, the degree "
           f"histogram and final_degrees ({len(got)} vertices) equal the "
           f"oracles")
-    print_profiled("phase D3 get_degrees (not pulled)", *profiled(
-        torch, lambda: sum(1 for _ in api_stream().get_degrees())))
     check_native_codecs("phase D")
 
 
@@ -1723,8 +1732,6 @@ def bipartiteness_phase(torch, device, src, dst) -> None:
     check(got == want, f"E1: ok {got} != the double-cover oracle {want}")
     print(f"phase E1: ok {got} equals the double-cover oracle "
           f"({time.perf_counter() - t0:.2f} s)")
-    print_profiled("phase E1 bipartiteness", *profiled(
-        torch, lambda: e1_run(pull=None)))
     del s1, d1, runs, out
 
     # E2: phase 4's stream made bipartite (every edge joins even to odd).
@@ -1777,11 +1784,6 @@ def bipartiteness_phase(torch, device, src, dst) -> None:
               f"E2: the {name}'s final emission differs from the sparse "
               "codec's")
         del got
-    print_profiled("phase E2 sparse codec", *profiled(
-        torch, lambda: e2_run(pull=None)))
-    print_profiled("phase E2 raw fold", *profiled(
-        torch, lambda: e2_run(bp.bipartiteness_check(n, ingest_combine=False),
-                              pull=None)))
     stop_and_resume(e2_run, out, len(out),
                     MERGE_EVERY, "phase E2")
     del out, runs, s2, d2
@@ -1811,8 +1813,6 @@ def bipartiteness_phase(torch, device, src, dst) -> None:
     print(f"phase E3: {e3} edges ({N_EDGES - e3} self-loops dropped), ok at "
           f"the {len(got)} boundaries {got} equals the double-cover oracle "
           f"({time.perf_counter() - t0:.2f} s)")
-    print_profiled("phase E3 sparse codec", *profiled(
-        torch, lambda: e3_run(pull=None)))
     check_native_codecs("phase E")
 
 
@@ -2068,9 +2068,6 @@ def merger_phase(torch, device, src, dst, cc_labels) -> None:
               f"int64[{n}] equal each {'window' if transient else 'prefix'}"
               f"'s bincount")
         del out
-    print_profiled("phase F1 transient Merger plan", *profiled(
-        torch, lambda: drive(torch, device, plan(True), source(), n,
-                             N_EDGES, MERGE_EVERY, 1, None)))
     edges = F1_PRECOMBINE_CHUNKS * CHUNK
     got, st = drive(torch, device, cc.connected_components(
         n, merge="gather", ingest_combine=False, fold_backend="plain"),
@@ -2154,8 +2151,6 @@ def spanner_bench_phase(torch, device, stream_out: dict) -> dict:
           f"accepted {[int(x[4]) for x in out]} per window close, "
           f"deg_overflow {int(last[6])}; every accepted edge an input "
           f"edge; the bench's {F2_SAMPLE}-edge stretch sample passes")
-    print_profiled("phase F2 spanner", *profiled(
-        torch, lambda: run(pull=None)))
     stop_and_resume(run, out, n_windows, 1, "phase F2")
     (ms, info), (pms, _) = timings[1]
     bound, nbytes = gate_bound_ms(info, SPANNER_D)
@@ -2251,8 +2246,6 @@ def spanner_twitter_phase(torch, device, src, dst) -> dict:
           f"a window {levels}, every edge within k^levels), "
           f"{time.perf_counter() - t0:.2f} s")
     del last
-    # No profiled rerun here (cut to fit phases H and I in the time limit;
-    # an earlier idle share over the first two windows is in PERF.md).
     # The emissions stay on the card: phase L holds its fused spanner to
     # them.
     return {"launches": st["launches"][HAND_KERNELS.index(
@@ -2839,7 +2832,8 @@ def drain_timed(torch, device, eng):
 
 
 def tenant_phase(torch, device) -> dict:
-    """Phase N. Returns the gather's launches in N3 and N2's numbers."""
+    """Phase N. Returns the gather's launches in N3 and N2's numbers,
+    streams and final labels (phase P5 sends N2's streams over the wire)."""
     from gelly_torch import obs
     from gelly_torch.engine.qos import QOS_PARKED, QosController, QosPolicy
     from gelly_torch.engine.tenants import MultiTenantEngine
@@ -2966,10 +2960,6 @@ def tenant_phase(torch, device) -> dict:
         check(same(out2[t], want[-1]),
               f"N2: tenant {t} != its single-stream run")
     del eng, out2
-    # One more N2 drain under torch.profiler (the card only): the device's
-    # busy time and idle share over the tier's wall.
-    print_profiled("N2 tenant tier", *profiled(
-        torch, lambda: n2_engine(agg2).drain(), cpu=False))
 
     # N4. N2's tenants through the sparse codec tier, compressed on the
     # submitter's side before the timed window.
@@ -3014,7 +3004,7 @@ def tenant_phase(torch, device) -> dict:
     check(len(snaps4) == len(snaps2) and all(
         torch.equal(a, b) for a, b in zip(snaps2, snaps4)),
         "N4: a window snapshot != N2's")
-    del eng, out4, payloads, snaps2, snaps4, chunks, edges
+    del eng, out4, payloads, snaps2, snaps4, chunks
     torch.cuda.empty_cache()
 
     # N3. The kernel tier: 4 tenants over 2^22 slots in 2^22-edge chunks,
@@ -3228,7 +3218,775 @@ def tenant_phase(torch, device) -> dict:
               f"{N5_TENANTS} tenants' labels equal N1's")
     torch.cuda.empty_cache()
     return {"gather_launches": launches3, "dedup_lane_chunks": dedup3,
-            "n2_wall_s": wall2}
+            "n2_wall_s": wall2, "n2_round_ms": (p50, p99),
+            "n2_edges": edges, "n2_labels": got2}
+
+
+# Phase P: ingest (the sharded readers, the native text parser, the wire
+# into the kernel CC fold, the compressed wire, a SIGKILLed server, the
+# tenant wire, one traced wire run).
+P_FRAME = 1 << 21  # raw wire frame: 2^21 edges, 32 MiB of <i8 pairs
+P_WIRE_CHUNK = CHUNK  # srv.chunks capacity: the dedup fold's class
+P_MERGE_EVERY = 8  # 2^21-edge chunks: phase 4's 2^24-edge windows
+P1_SHARDS = 4
+P1_TEXT_EDGES = 1 << 20
+P3_STACK = 4
+P4_FRAMES = 8  # phase 4's first 2^24 edges
+P4_EVERY = 2  # a checkpoint and an ack every 2 frames
+P4_UNIT_SLEEP_S = 1.0  # the first child's pause after each emission
+P5_ACK_TENANTS = 64  # checkpoint-gated acks: N5's scale
+P6_EDGES = 1 << 23
+
+
+def dedup_frames(torch, device, src, dst, n_edges: int, frame: int,
+                 capacity: int) -> list:
+    """Independently of the fold: whether each ``frame``-edge chunk of
+    ``capacity`` lanes takes the raw plan's dedup branch (capacity >=
+    ``RAW_DEDUP_MIN_CHUNK`` and distinct pairs within the unique cap)."""
+    from gelly_torch.library import connected_components as cc
+
+    cap = max(1 << 20, 3 * (capacity >> 4))
+    flags = []
+    for lo in range(0, n_edges, frame):
+        s = torch.from_numpy(src[lo:lo + frame]).to(device).long()
+        d = torch.from_numpy(dst[lo:lo + frame]).to(device).long()
+        key = (torch.minimum(s, d) << 32) | torch.maximum(s, d)
+        flags.append(capacity >= cc.RAW_DEDUP_MIN_CHUNK
+                     and int(torch.unique(key).numel()) <= cap)
+    return flags
+
+
+def wire_cc_plan():
+    from gelly_torch.library import connected_components as cc
+
+    return cc.connected_components(N_VERTICES, merge="gather",
+                                   ingest_combine=False, fold_backend="kernel")
+
+
+def raw_wire_run(torch, device, src, dst, n_edges: int, tracer=None,
+                 probe_stats: bool = False) -> dict:
+    """Phase 4's first ``n_edges`` edges as raw ``2^21``-edge DATA frames
+    from an ``IngestClient`` thread to an ``IngestServer`` on loopback,
+    folded by ``run_aggregation(kernel plan, srv.chunks(2^22, 2^24),
+    merge_every=8)``; the launch counts set to 0 just before it."""
+    import threading
+
+    from gelly_torch import obs
+    from gelly_torch.engine.aggregation import run_aggregation
+    from gelly_torch.ingest import IngestClient, IngestServer, edge_payload
+    from gelly_torch.obs.status import fetch_stats
+    from gelly_torch.ops import kernels
+
+    agg = wire_cc_plan()
+    errors: list = []
+    with contextlib.ExitStack() as scope:
+        bus = scope.enter_context(obs.scope())
+        if tracer is not None:
+            scope.enter_context(obs.install(tracer))
+        srv = IngestServer(queue_depth=8, stop_on_bye=True).start()
+
+        def feed():
+            try:
+                with IngestClient("127.0.0.1", srv.port,
+                                  send_pause_timeout=300) as cli:
+                    for lo in range(0, n_edges, P_FRAME):
+                        cli.send(edge_payload(src[lo:lo + P_FRAME],
+                                              dst[lo:lo + P_FRAME]))
+                    cli.flush(timeout=300)
+            except BaseException as e:  # noqa: BLE001 - re-raised below
+                errors.append(e)
+                srv.stop()  # ends the consumer's iterator: no hang
+
+        th = threading.Thread(target=feed, name="p-client", daemon=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_launches(kernels)
+        t = time.perf_counter()
+        th.start()
+        res = run_aggregation(agg, srv.chunks(P_WIRE_CHUNK, N_VERTICES),
+                              merge_every=P_MERGE_EVERY)
+        outs, stats = [], None
+        for out in res:
+            outs.append(out.cpu().numpy())
+            if probe_stats and stats is None:
+                # Mid-stream, on a dedicated connection.
+                stats = fetch_stats("127.0.0.1", srv.port, timeout=60)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = kernels.sorted_window_gather.launches
+        th.join(120)
+        srv.stop()
+        counters = dict(bus.counters)
+    check(not errors, f"wire client: {errors[:1]}")
+    busy = res.timer.busy()
+    return {"outs": outs, "wall_s": wall, "launches": launches,
+            "stats": stats, "counters": counters, "busy": busy,
+            "peak": torch.cuda.max_memory_allocated(device)}
+
+
+def ingest_child(directory: str) -> int:
+    """Phase P4's child: an ``IngestServer(auto_ack=False)`` resuming at
+    its checkpoint feeding the kernel CC plan (``merge_every=2``, a
+    checkpoint a window); a thread acks the checkpoint's position. Writes
+    its emissions' (time, chunks, launches) as it goes and, at the end,
+    its final labels and parts."""
+    import itertools
+    import threading
+
+    import torch
+
+    with open(os.path.join(directory, "run.json")) as f:
+        cfg = json.load(f)
+    device = torch.device(cfg["device"])
+    torch.cuda.set_device(device)
+    torch.zeros(1, device=device)
+    torch.cuda.synchronize()
+    t_cuda = time.time()
+    from gelly_torch import obs
+    from gelly_torch.engine.aggregation import run_aggregation
+    from gelly_torch.engine.checkpoint import (
+        CheckpointCorruptError,
+        read_checkpoint_header,
+        save_checkpoint,
+    )
+    from gelly_torch.ingest import IngestServer
+    from gelly_torch.ops import kernels
+
+    ckpt = os.path.join(directory, "ck.npz")
+    resume = os.path.exists(ckpt)
+    pos = int(read_checkpoint_header(ckpt)["position"]) if resume else 0
+    srv = IngestServer(auto_ack=False, resume_seq=pos, queue_depth=4,
+                       stop_on_bye=True).start()
+    tmp = os.path.join(directory, "port.tmp")
+    with open(tmp, "w") as f:
+        f.write(str(srv.port))
+    os.replace(tmp, os.path.join(directory, "port"))
+    t_listen = time.time()
+    stop = threading.Event()
+
+    def acker():
+        while not stop.is_set():
+            if os.path.exists(ckpt):
+                try:
+                    srv.ack(int(read_checkpoint_header(ckpt)["position"]))
+                except (CheckpointCorruptError, OSError):
+                    pass  # mid-replace: the next tick reads the new file
+            time.sleep(0.01)
+
+    th = threading.Thread(target=acker, daemon=True)
+    th.start()
+    # The wire resumed the sequence (resume_seq): placeholders stand for
+    # the folded prefix the engine's resume drops unread.
+    stream = itertools.chain([object()] * pos,
+                             srv.chunks(P_WIRE_CHUNK, N_VERTICES))
+    reset_launches(kernels)
+    records: list = []
+    log = os.path.join(directory, f"child-{os.getpid()}.json")
+    with obs.scope() as bus:
+        res = run_aggregation(wire_cc_plan(), stream, merge_every=P4_EVERY,
+                              checkpoint_path=ckpt, checkpoint_every=1,
+                              resume=resume)
+        last = None
+        try:
+            for out in res:
+                last = out.cpu().numpy()
+                records.append({"t": time.time(),
+                                "chunks": res.stats["chunks"],
+                                "launches":
+                                    kernels.sorted_window_gather.launches})
+                with open(log + ".tmp", "w") as f:
+                    json.dump(records, f)
+                os.replace(log + ".tmp", log)
+                if cfg["sleep_s"]:
+                    time.sleep(cfg["sleep_s"])
+        finally:
+            stop.set()
+            srv.stop()
+        th.join(5)
+        counters = dict(bus.counters)
+    hdr = read_checkpoint_header(ckpt)
+    srv.ack(int(hdr["position"]))
+    busy = res.timer.busy()
+    parts = {
+        "resumed_at": res.stats["resumed_at"],
+        "chunks": res.stats["chunks"],
+        "units": res.stats["units"],
+        "enqueued": counters.get("ingest.chunks_enqueued", 0),
+        "duplicates": counters.get("ingest.frames_duplicate", 0),
+        "launches": kernels.sorted_window_gather.launches,
+        "spawned_at": cfg["spawned_at"],
+        "cuda_at": t_cuda,
+        "listen_at": t_listen,
+        "first_emission_at": records[0]["t"] if records else None,
+        "resume_load_s": busy.get("resume_load"),
+        "checkpoint_s": busy.get("checkpoint"),
+    }
+    save_checkpoint(os.path.join(directory, "final.npz"),
+                    {"labels": last}, position=int(hdr["position"]),
+                    meta=parts)
+    print(json.dumps({"ingest_child": parts}))
+    return 0
+
+
+def ingest_client(directory: str) -> int:
+    """Phase P5's client process (``--ingest-client <dir>``): streams the
+    tenants of ``<dir>/edges.npz`` to the port in ``<dir>/run.json`` over
+    one ``tenant_streams`` connection, each tenant's 8 chunks in one
+    STACKED frame, then flushes and prints its acks as one JSON line."""
+    from gelly_torch.ingest import IngestClient, edge_payload
+
+    with open(os.path.join(directory, "run.json")) as f:
+        cfg = json.load(f)
+    data = np.load(os.path.join(directory, "edges.npz"))
+    src, dst = data["src"], data["dst"]
+    rounds = src.shape[1] // N_CHUNK
+    t = time.perf_counter()
+    with IngestClient("127.0.0.1", cfg["port"], tenant_streams=True,
+                      stack=rounds, send_pause_timeout=300) as cli:
+        for tid in range(cfg["tenants"]):
+            for k in range(rounds):
+                lo, hi = k * N_CHUNK, (k + 1) * N_CHUNK
+                cli.send(edge_payload(src[tid, lo:hi], dst[tid, lo:hi]),
+                         tenant=tid)
+        cli.flush(timeout=600)
+        acked = sum(cli.acked_for(tid) for tid in range(cfg["tenants"]))
+    print(json.dumps({"ingest_client": {
+        "acked": acked, "send_s": time.perf_counter() - t}}))
+    return 0
+
+
+def ingest_phase(torch, device, src, dst, labels, oracle, dedup_flags,
+                 n2: dict) -> dict:
+    """Phase P. Returns the gather's launches in P1, P2 and P4."""
+    import threading
+
+    from gelly_torch import obs
+    from gelly_torch.core import io as tio
+    from gelly_torch.engine.aggregation import run_aggregation
+    from gelly_torch.engine.checkpoint import load_checkpoint
+    from gelly_torch.engine.tenants import MultiTenantEngine
+    from gelly_torch.ingest import (
+        IngestClient,
+        IngestServer,
+        TenantRouter,
+        edge_payload,
+        edge_stream_from_sharded_file,
+        write_binary_edges,
+    )
+    from gelly_torch.ingest.readers import rr_order
+    from gelly_torch.library import connected_components as cc
+    from gelly_torch.ops import kernels
+    from gelly_torch.utils import native
+
+    launches: dict = {}
+    tmp = tempfile.mkdtemp(prefix="gelly-ingest-")
+    p1 = None
+    try:
+        # P4's first server process, started now: its CUDA start overlaps
+        # P1-P3 (only the restarted one's is in the time to recover).
+        d4 = os.path.join(tmp, "p4")
+        os.makedirs(d4)
+        here = os.path.abspath(__file__)
+
+        def spawn(sleep_s):
+            with open(os.path.join(d4, "run.json"), "w") as f:
+                json.dump({"sleep_s": sleep_s, "spawned_at": time.time(),
+                           "device": str(device)}, f)
+            return subprocess.Popen(
+                [sys.executable, here, "--ingest-child", d4],
+                stdout=subprocess.PIPE, text=True)
+
+        def wait_port(p):
+            deadline = time.monotonic() + CHILD_TIMEOUT_S
+            pf = os.path.join(d4, "port")
+            while time.monotonic() < deadline:
+                if p.poll() is not None:
+                    raise RuntimeError(f"P4 child exited rc={p.returncode}")
+                if os.path.exists(pf):
+                    return int(open(pf).read())
+                time.sleep(0.02)
+            raise RuntimeError("P4 child never published its port")
+
+        p1 = spawn(P4_UNIT_SLEEP_S)
+
+        # P1. Sharded readers over phase 4's stream as a binary file.
+        path = os.path.join(tmp, "edges.bin")
+        t0 = time.perf_counter()
+        write_binary_edges(path, src, dst)
+        write_s = time.perf_counter() - t0
+        stream = edge_stream_from_sharded_file(
+            path, N_VERTICES, shards=P1_SHARDS, chunk_size=CHUNK)
+        counts = stream.source.shard_counts()
+        firsts = [sum(counts[:s]) for s in range(P1_SHARDS)]
+        nth = [0] * P1_SHARDS
+        order = []
+        for s in rr_order(counts):  # the provider's unit order (batch 1)
+            order.append(firsts[s] + nth[s])
+            nth[s] += 1
+        check(sorted(order) == list(range(len(dedup_flags))),
+              f"P1: reader chunks {order} are not phase 4's")
+        expect1 = 3 * sum(dedup_flags[g] for g in order)
+        tracer = obs.SpanTracer(capacity=1 << 16, heartbeat_every_s=None)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_launches(kernels)
+        t = time.perf_counter()
+        with obs.scope(), obs.install(tracer):
+            res = stream.aggregate(wire_cc_plan(), merge_every=MERGE_EVERY,
+                                   source_provider=True)
+            outs1 = [x.cpu().numpy() for x in res]
+        torch.cuda.synchronize()
+        wall1 = time.perf_counter() - t
+        launches["P1"] = kernels.sorted_window_gather.launches
+        peak1 = torch.cuda.max_memory_allocated(device)
+        tracks: dict = {}
+        for sp in tracer.spans("compress"):
+            n, busy = tracks.get(sp["thread"], (0, 0.0))
+            tracks[sp["thread"]] = (n + 1, busy + sp["dur"])
+        check(np.array_equal(outs1[-1], labels[-1])
+              and np.array_equal(outs1[-1], oracle),
+              "P1: final labels != phase 4's")
+        check(launches["P1"] == expect1 and launches["P1"] > 0,
+              f"P1: {launches['P1']} gather launches != {expect1} (3 a "
+              f"dedup chunk, in the provider's order)")
+        check(sorted(tracks) == [f"gelly-reader_{s}"
+                                 for s in range(P1_SHARDS)],
+              f"P1: compress tracks {sorted(tracks)}")
+        check(tracer.spans("produce") == [], "P1: a produce span")
+        print(f"phase P1: {N_EDGES} edges from {P1_SHARDS} reader lanes "
+              f"(file {os.path.getsize(path)} B written in {write_s:.2f} s; "
+              f"{filesystem_of(path)}): {N_EDGES / wall1:.1f} edges/s "
+              f"wall={wall1:.4f} s peak_mem={peak1} B "
+              f"gather_launches={launches['P1']} (3 x "
+              f"{expect1 // 3} dedup chunks in the provider's order "
+              f"{order}); final labels equal phase 4's; tracks " + ", ".join(
+                  f"compress/{k}: {n} units {b:.4f} s busy"
+                  for k, (n, b) in sorted(tracks.items())))
+        del outs1, res, stream
+        os.unlink(path)
+        # P1. The native text parser on phase 4's first 2^20 edges.
+        tpath = os.path.join(tmp, "edges.txt")
+        n_text = P1_TEXT_EDGES
+        with open(tpath, "w") as f:
+            f.write("% phase P1\n")
+            f.write("\n".join(f"{a} {b}" for a, b in zip(
+                src[:n_text].tolist(), dst[:n_text].tolist())))
+            f.write("\n")
+        ran_native = native.available("edgelist_parser")
+        t0 = time.perf_counter()
+        ns, nd = native.parse_edge_list_file(tpath)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with open(tpath) as f:
+            ps, pd, _ = tio.parse_edge_list_text(f.read())
+        python_s = time.perf_counter() - t0
+        calls = []
+        real = native.parse_edge_list_file
+
+        def spy(p, want_vals=False):
+            calls.append(p)
+            return real(p, want_vals=want_vals)
+
+        native.parse_edge_list_file = spy
+        try:
+            rs, rd, _ = tio.read_edge_list(tpath)
+        finally:
+            native.parse_edge_list_file = real
+        check(ran_native and calls == [tpath],
+              "P1: read_edge_list did not take the native parser")
+        check(np.array_equal(ns, ps) and np.array_equal(nd, pd)
+              and np.array_equal(rs, ns) and np.array_equal(ns, src[:n_text])
+              and np.array_equal(nd, dst[:n_text]),
+              "P1: the native parse != parse_edge_list_text")
+        print(f"phase P1 parser: {n_text} edges, native "
+              f"parse_edge_list_file {native_s:.4f} s, "
+              f"parse_edge_list_text {python_s:.4f} s "
+              f"(x{python_s / native_s:.1f}); read_edge_list took the native "
+              f"parser: {ran_native and calls == [tpath]}")
+        os.unlink(tpath)
+
+        # P2. The raw wire into the kernel fold, a STATS probe mid-stream.
+        flags2 = dedup_frames(torch, device, src, dst, N_EDGES, P_FRAME,
+                              P_WIRE_CHUNK)
+        r2 = raw_wire_run(torch, device, src, dst, N_EDGES,
+                          probe_stats=True)
+        launches["P2"] = r2["launches"]
+        check(len(r2["outs"]) == len(labels), f"P2: {len(r2['outs'])} "
+              "emissions")
+        for i, (a, b) in enumerate(zip(r2["outs"], labels)):
+            check(a.dtype == b.dtype and np.array_equal(a, b),
+                  f"P2: emission {i} != phase 4's")
+        check(r2["launches"] == 3 * sum(flags2) and r2["launches"] > 0,
+              f"P2: {r2['launches']} gather launches != 3 x {sum(flags2)} "
+              "dedup frames")
+        st = r2["stats"]
+        ing = {k: v for k, v in st["counters"].items()
+               if k.startswith("ingest.")}
+        check(ing.get("ingest.frames_received", 0) > 0
+              and ing.get("ingest.chunks_enqueued", 0) > 0,
+              f"P2: the mid-stream STATS snapshot {ing}")
+        c2, busy2 = r2["counters"], r2["busy"]
+        frames2 = int(c2.get("ingest.data_frames_raw", 0))
+        check(frames2 == N_EDGES // P_FRAME, f"P2: {frames2} frames")
+        device_s = busy2.get("fold_dispatch", 0.0) + busy2.get(
+            "merge_emit", 0.0)
+        print(f"phase P2: {N_EDGES} edges in {frames2} raw frames of "
+              f"{P_FRAME}: {N_EDGES / r2['wall_s']:.1f} edges/s "
+              f"wall={r2['wall_s']:.4f} s wire "
+              f"{c2.get('ingest.bytes_received', 0) / N_EDGES:.4f} B/edge "
+              f"pauses={int(c2.get('ingest.backpressure_engaged', 0))} "
+              f"peak_mem={r2['peak']} B host_share="
+              f"{1 - device_s / r2['wall_s']:.4f} (fold and close "
+              f"{device_s:.4f} s, h2d {busy2.get('h2d', 0.0):.4f} s) "
+              f"gather_launches={r2['launches']} (3 x {sum(flags2)} dedup "
+              f"frames); {len(r2['outs'])} emissions equal phase 4's; "
+              f"mid-stream STATS: " + ", ".join(
+                  f"{k}={int(v)}" for k, v in sorted(ing.items())))
+        del r2
+
+        # P3. The compressed wire: client-side sparse codec, STACKED K=4.
+        agg3 = cc.connected_components(N_VERTICES, codec="sparse")
+        tracer3 = obs.SpanTracer(capacity=1 << 16, heartbeat_every_s=None)
+        errors: list = []
+        compress3 = [0.0]
+        from gelly_torch.core.io import EdgeChunkSource
+        from gelly_torch.core.vertices import IdentityVertexTable
+
+        with obs.scope() as bus3, obs.install(tracer3):
+            srv = IngestServer(queue_depth=16, stop_on_bye=True).start()
+
+            def feed3():
+                try:
+                    with IngestClient("127.0.0.1", srv.port,
+                                      send_pause_timeout=300,
+                                      stack=P3_STACK) as cli:
+                        for c in EdgeChunkSource(
+                                src, dst, chunk_size=CHUNK,
+                                table=IdentityVertexTable(N_VERTICES)):
+                            t_c = time.perf_counter()
+                            p = agg3.host_compress(c)
+                            compress3[0] += time.perf_counter() - t_c
+                            cli.send_compressed(p)
+                        cli.flush(timeout=300)
+                except BaseException as e:  # noqa: BLE001
+                    errors.append(e)
+                    srv.stop()  # ends the consumer's iterator: no hang
+
+            th = threading.Thread(target=feed3, name="p-client", daemon=True)
+            torch.cuda.synchronize()
+            reset_launches(kernels)
+            t = time.perf_counter()
+            th.start()
+            res3 = run_aggregation(agg3, srv.compressed_payloads(),
+                                   precompressed=True,
+                                   merge_every=MERGE_EVERY)
+            outs3 = [x.cpu().numpy() for x in res3]
+            torch.cuda.synchronize()
+            wall3 = time.perf_counter() - t
+            th.join(120)
+            srv.stop()
+            c3 = dict(bus3.counters)
+        check(not errors, f"P3 client: {errors[:1]}")
+        check(len(outs3) == len(labels) and all(
+            np.array_equal(a, b) for a, b in zip(outs3, labels)),
+            "P3: an emission != phase 4's")
+        n_units = res3.stats["units"]
+        check(tracer3.spans("compress") == []
+              and len(tracer3.spans("stack")) == n_units == N_EDGES // CHUNK,
+              f"P3: {len(tracer3.spans('compress'))} compress spans, "
+              f"{len(tracer3.spans('stack'))} stack spans, {n_units} units")
+        print(f"phase P3: {N_EDGES} edges as {N_EDGES // CHUNK} sparse "
+              f"payloads in {int(c3.get('ingest.frames_stacked', 0))} STACKED "
+              f"frames (K={P3_STACK}): {N_EDGES / wall3:.1f} edges/s "
+              f"wall={wall3:.4f} s (client compress {compress3[0]:.4f} s "
+              f"of it) wire {c3.get('ingest.bytes_received', 0) / N_EDGES:.4f}"
+              f" B/edge against the raw 16; 0 compress spans, "
+              f"{len(tracer3.spans('stack'))} stack spans; emissions equal "
+              f"phase 4's; gather_launches="
+              f"{kernels.sorted_window_gather.launches}")
+        del outs3, res3
+
+        # P4. Kill -9 of the server mid-stream, restart, resend.
+        flags4 = dedup_frames(torch, device, src, dst, P4_FRAMES * P_FRAME,
+                              P_FRAME, P_WIRE_CHUNK)
+        frames = [edge_payload(src[lo:lo + P_FRAME], dst[lo:lo + P_FRAME])
+                  for lo in range(0, P4_FRAMES * P_FRAME, P_FRAME)]
+        try:
+            cli = IngestClient("127.0.0.1", wait_port(p1),
+                               send_pause_timeout=300)
+            cli.connect()
+            sent = [0]
+
+            def sender():
+                from gelly_torch.ingest.client import IngestError
+
+                while sent[0] < P4_FRAMES:
+                    try:
+                        cli.send(frames[sent[0]])
+                        sent[0] += 1
+                    except IngestError:
+                        sent[0] += 1  # buffered: reconnect() delivers it
+                        return
+
+            ts = threading.Thread(target=sender, daemon=True)
+            ts.start()
+            deadline = time.monotonic() + CHILD_TIMEOUT_S
+            while time.monotonic() < deadline and cli.acked < P4_EVERY:
+                time.sleep(0.005)
+            check(cli.acked >= P4_EVERY, "P4: no ack before the deadline")
+            t_kill = time.time()
+            os.kill(p1.pid, signal.SIGKILL)
+            check(p1.wait(60) == -signal.SIGKILL, "P4: the kill")
+            acked_before = cli.acked
+            ts.join(60)
+        finally:
+            if p1.poll() is None:
+                p1.kill()
+        logs1 = [f for f in os.listdir(d4) if f.startswith("child-")
+                 and f.endswith(".json")]
+        rec1 = json.load(open(os.path.join(d4, logs1[0])))[-1] if logs1 \
+            else {"chunks": 0, "launches": 0}
+        check(rec1["launches"] == 3 * sum(flags4[:rec1["chunks"]]),
+              f"P4: the killed child launched {rec1['launches']} for "
+              f"{rec1['chunks']} chunks")
+        os.unlink(os.path.join(d4, "port"))
+        p2 = spawn(0.0)
+        try:
+            cli.port = wait_port(p2)
+            t_port = time.time()
+            deadline = time.monotonic() + 60
+            while True:
+                try:
+                    cli.reconnect()
+                    break
+                except OSError:
+                    if time.monotonic() > deadline:
+                        raise
+                    time.sleep(0.05)
+            t_reconnected = time.time()
+            check(cli.acked >= acked_before, "P4: acked work rewound")
+            while sent[0] < P4_FRAMES:
+                cli.send(frames[sent[0]])
+                sent[0] += 1
+            cli.flush(timeout=300)
+            cli.close()
+            out, _ = p2.communicate(timeout=CHILD_TIMEOUT_S)
+            check(p2.returncode == 0, f"P4: the resumed child rc "
+                  f"{p2.returncode}")
+        finally:
+            if p2.poll() is None:
+                p2.kill()
+        final, pos4, parts = load_checkpoint(
+            os.path.join(d4, "final.npz"),
+            like={"labels": np.zeros(N_VERTICES, np.int32)})
+        got4 = np.asarray(final["labels"])
+        resumed = int(parts["resumed_at"])
+        launches["P4"] = rec1["launches"] + int(parts["launches"])
+        check(pos4 == P4_FRAMES and np.array_equal(got4, labels[0]),
+              f"P4: resumed labels (position {pos4}) != phase 4's first "
+              "emission")
+        check(resumed >= P4_EVERY and resumed % P4_EVERY == 0
+              and parts["enqueued"] == P4_FRAMES - resumed
+              and parts["chunks"] == P4_FRAMES,
+              f"P4: the wire ledger folded a chunk twice or lost one: "
+              f"resumed at {resumed}, enqueued {parts['enqueued']}, "
+              f"{parts['chunks']} chunks")
+        check(int(parts["launches"]) == 3 * sum(flags4[resumed:]),
+              f"P4: the resumed child launched {parts['launches']}")
+        recover = parts["first_emission_at"] - t_kill
+        print(f"phase P4: killed after {acked_before} acked frames (the "
+              f"child had folded {rec1['chunks']}), resumed at {resumed} "
+              f"of {P4_FRAMES}, enqueued {int(parts['enqueued'])} frames, "
+              f"{int(parts['duplicates'])} duplicates dropped; labels equal "
+              f"phase 4's first emission; time to recover {recover:.2f} s: "
+              f"spawn to CUDA {parts['cuda_at'] - parts['spawned_at']:.2f} "
+              f"s, CUDA to listening "
+              f"{parts['listen_at'] - parts['cuda_at']:.2f} s, port to "
+              f"reconnect {t_reconnected - t_port:.2f} s, reconnect to "
+              f"first emission "
+              f"{parts['first_emission_at'] - t_reconnected:.2f} s "
+              f"(resume load {parts['resume_load_s']:.4f} s); "
+              f"gather_launches={launches['P4']} ({rec1['launches']} + "
+              f"{parts['launches']})")
+        del frames
+
+        # P5. The tenant wire: N2's 4096 tenants through a TenantRouter,
+        # from a client process (a user's own: it shares no GIL with the
+        # server), then the checkpoint-gated acks on the first 64.
+        from gelly_torch.library.connected_components import cc_tenant_tier
+
+        edges5, want5 = n2["n2_edges"], n2["n2_labels"]
+        rounds = N_EDGES_PER // N_CHUNK
+        agg5, cap5 = cc_tenant_tier(N_SLOTS, chunk_capacity=N_CHUNK)
+        d5 = os.path.join(tmp, "p5")
+        os.makedirs(d5)
+        np.savez(os.path.join(d5, "edges.npz"),
+                 src=np.stack([s for s, _ in edges5]),
+                 dst=np.stack([d for _, d in edges5]))
+        eng = MultiTenantEngine(merge_every=N_MERGE_EVERY, device=device)
+        eng.add_tier("wire", agg5, cap5)
+        for tid in range(N2_TENANTS):
+            eng.admit(tid, "wire")
+        router = TenantRouter(eng, "wire", vertex_capacity=N_SLOTS)
+        with obs.scope() as bus5:
+            srv = IngestServer(tenant_streams=True,
+                               queue_depth=1 << 16).start()
+            router.attach(srv)
+            with open(os.path.join(d5, "run.json"), "w") as f:
+                json.dump({"port": srv.port, "tenants": N2_TENANTS}, f)
+            total5 = N2_TENANTS * N_EDGES_PER
+            t = time.perf_counter()
+            client = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--ingest-client", d5], stdout=subprocess.PIPE, text=True)
+            try:
+                # The scheduler starts once the wire has queued every
+                # chunk: 8 full rounds, as N2's drain. (The client may
+                # exit first: the server acks a frame when it stages it,
+                # before the router has submitted its chunks.)
+                # A slow poll: queue_depth() walks every tenant under the
+                # engine's lock, which the router's submits take too.
+                deadline = time.monotonic() + CHILD_TIMEOUT_S
+                while (time.monotonic() < deadline
+                       and client.poll() in (None, 0)
+                       and eng.queue_depth() < N2_TENANTS * rounds):
+                    time.sleep(0.25)
+                wire_s = time.perf_counter() - t
+                check(eng.queue_depth() == N2_TENANTS * rounds,
+                      f"P5: {eng.queue_depth()} chunks queued "
+                      f"(client rc {client.poll()})")
+                out5, _ = client.communicate(timeout=CHILD_TIMEOUT_S)
+                check(client.returncode == 0,
+                      f"P5: the client process rc {client.returncode}")
+            finally:
+                if client.poll() is None:
+                    client.kill()
+            with obs.record_metrics():
+                t_eng = time.perf_counter()
+                for tid in range(N2_TENANTS):
+                    eng.finish(tid)
+                got5_map, engine_s = drain_timed(torch, device, eng)
+                wall5 = time.perf_counter() - t
+                p50 = bus5.quantile("tenants.round_ms", 0.5)
+                p99 = bus5.quantile("tenants.round_ms", 0.99)
+            srv.stop()
+            router.stop()
+            c5 = dict(bus5.counters)
+        got5 = np.stack([got5_map[tid] for tid in range(N2_TENANTS)])
+        check(got5.dtype == want5.dtype and np.array_equal(got5, want5),
+              "P5: a tenant's labels != N2's")
+        sent5 = json.loads(out5.strip().splitlines()[-1])["ingest_client"]
+        check(sent5["acked"] == N2_TENANTS * rounds,
+              f"P5: the client's acks {sent5['acked']}")
+        n2_p50, n2_p99 = n2["n2_round_ms"]
+        print(f"phase P5: {N2_TENANTS} tenants x {N_EDGES_PER} edges from a "
+              f"client process over one tenant_streams connection in "
+              f"{int(c5.get('ingest.frames_stacked', 0))} single-tenant "
+              f"STACKED frames of {rounds}: {total5 / wall5:.1f} edges/s "
+              f"wall={wall5:.4f} s (the wire queued every chunk in "
+              f"{wire_s:.4f} s: {total5 / wire_s:.1f} edges/s, the client "
+              f"process sending for {sent5['send_s']:.4f} s of it, "
+              f"{c5.get('ingest.bytes_received', 0) / total5:.4f} B/edge; "
+              f"the engine drained in {engine_s:.4f} s) round_ms "
+              f"p50={p50:.3f} p99={p99:.3f} dispatches="
+              f"{eng.stats['dispatches']}; N2 in-process "
+              f"{total5 / n2['n2_wall_s']:.1f} edges/s wall="
+              f"{n2['n2_wall_s']:.4f} s round_ms p50={n2_p50:.3f} "
+              f"p99={n2_p99:.3f}; every tenant equal to N2's")
+        check(eng.stats["dispatches"] == rounds, "P5: dispatches")
+        del eng, got5, got5_map
+        # Checkpoint-gated per-tenant acks on the first P5_ACK_TENANTS
+        # tenants (a cut: a per-tenant checkpoint costs ~20 ms on the
+        # card's temporary filesystem, 80 s at 4096 tenants).
+        n_ack = P5_ACK_TENANTS
+        d5b = os.path.join(tmp, "p5b")
+        os.makedirs(d5b)
+        eng = MultiTenantEngine(merge_every=N_MERGE_EVERY, device=device,
+                                checkpoint_dir=d5b,
+                                checkpoint_every=rounds // N_MERGE_EVERY)
+        eng.add_tier("acks", agg5, cap5)
+        for tid in range(n_ack):
+            eng.admit(tid, "acks")
+        router = TenantRouter(eng, "acks", vertex_capacity=N_SLOTS,
+                              checkpoint_acks=True)
+        with obs.scope():
+            srv = IngestServer(tenant_streams=True, auto_ack=False,
+                               queue_depth=1 << 12).start()
+            router.attach(srv)
+            acks: dict = {}
+            errors = []
+
+            def feed5():
+                try:
+                    with IngestClient("127.0.0.1", srv.port,
+                                      tenant_streams=True, stack=rounds,
+                                      send_pause_timeout=300) as cli5:
+                        for tid in range(n_ack):
+                            s, d = edges5[tid]
+                            for k in range(rounds):
+                                lo, hi = k * N_CHUNK, (k + 1) * N_CHUNK
+                                cli5.send(edge_payload(s[lo:hi], d[lo:hi]),
+                                          tenant=tid)
+                        cli5.flush(timeout=300)
+                        acks.update({tid: cli5.acked_for(tid)
+                                     for tid in range(n_ack)})
+                except BaseException as e:  # noqa: BLE001
+                    errors.append(e)
+
+            th = threading.Thread(target=feed5, name="p-client", daemon=True)
+            t = time.perf_counter()
+            th.start()
+            deadline = time.monotonic() + CHILD_TIMEOUT_S
+            while (time.monotonic() < deadline and not errors
+                   and eng.queue_depth() < n_ack * rounds):
+                time.sleep(0.05)
+            eng.start()
+            try:
+                for tid in range(n_ack):
+                    eng.finish(tid)
+                th.join(CHILD_TIMEOUT_S)
+            finally:
+                eng.stop()
+                srv.stop()
+                router.stop()
+            acks_s = time.perf_counter() - t
+        check(not errors, f"P5 acks client: {errors[:1]}")
+        check(all(acks.get(tid) == rounds for tid in range(n_ack)),
+              "P5: a tenant's checkpoint-gated acks did not reach the client")
+        got5b = np.stack([np.asarray(eng.labels(tid)) for tid in range(n_ack)])
+        check(np.array_equal(got5b, want5[:n_ack]),
+              "P5: a checkpoint-acked tenant's labels != N2's")
+        print(f"phase P5 acks: {n_ack} tenants with auto_ack=False behind "
+              f"TenantRouter(checkpoint_acks=True): every tenant acked at "
+              f"{rounds} after its checkpoint ({len(os.listdir(d5b))} "
+              f"files) in {acks_s:.4f} s; labels equal N2's")
+        del eng
+
+        # P6. One traced wire run: P2's first 2^23 edges.
+        tr = obs.SpanTracer(capacity=1 << 16, heartbeat_every_s=None)
+        r6 = raw_wire_run(torch, device, src, dst, P6_EDGES, tracer=tr)
+        sends, recvs = tr.spans("client_send"), tr.spans("wire_recv")
+        stages, folds = tr.spans("staging"), tr.spans("fold")
+        n6 = P6_EDGES // P_FRAME
+        ids = {s["args"].get("trace")
+               for s in sends + recvs + stages + folds}
+        stage0 = [s for s in stages if s["args"].get("seq") == 0]
+        linked = [f for f in folds if stage0 and f["args"].get("parent")
+                  == stage0[0]["args"]["span"]]
+        check(len(sends) == len(recvs) == len(stages) == len(folds) == n6,
+              f"P6: spans {len(sends)} / {len(recvs)} / {len(stages)} / "
+              f"{len(folds)}")
+        check(ids == {tr.trace_id} and len(linked) == 1,
+              f"P6: trace ids {ids}, {len(linked)} fold linked to seq 0")
+        print(f"phase P6: {P6_EDGES} edges traced: {n6} client_send, "
+              f"wire_recv, staging and fold spans, one trace id "
+              f"{tr.trace_id}, the first fold's parent the first staging "
+              f"span; wall={r6['wall_s']:.4f} s")
+    finally:
+        if p1 is not None and p1.poll() is None:
+            p1.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
 
 
 def bounded_degree_stream(n: int, seed: int):
@@ -3370,8 +4128,6 @@ def spanner_gate_phase(torch, device, f2_stream: dict) -> dict:
           f"(deg_overflow {int(full[6])}); chunk 1 equal to the plain "
           f"re-gate; every accepted edge an input edge; {F4_SAMPLE} sampled "
           f"input edges within k^2 = 9 hops (max {int(hops.max())})")
-    print_profiled("phase F4(ii) spanner codec", *profiled(
-        torch, lambda: codec_run(e2, chunks, pull=None)))
     return result
 
 
@@ -3481,8 +4237,6 @@ def matching_phase(torch, device) -> dict:
     print(f"phase G: device=True equals the host path ({len(diff)} pairs "
           f"differ; integer weights below 2^23 leave no f32/f64 threshold "
           f"window)")
-    print_profiled("phase G device=True", *profiled(
-        torch, lambda: wm.weighted_matching(stream(), device=True).final()))
 
     # The kernel against its plain version: exact on a 2^12-edge prefix
     # (the plain version on CPU tensors of the same inputs: on the card its
@@ -5804,7 +6558,13 @@ def coord_phase(torch, device, src, dst, final_labels, oracle,
 
 
 def main() -> int:
+    import faulthandler
+
     import torch
+
+    # A hang anywhere prints every thread's stack and exits nonzero before
+    # the card's time limit.
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a card only",
@@ -5826,6 +6586,10 @@ def main() -> int:
         return durable_child(sys.argv[2])
     if sys.argv[1:2] == ["--coord-child"]:
         return coord_child(sys.argv[2], int(sys.argv[3]))
+    if sys.argv[1:2] == ["--ingest-child"]:
+        return ingest_child(sys.argv[2])
+    if sys.argv[1:2] == ["--ingest-client"]:
+        return ingest_client(sys.argv[2])
     from gelly_torch.core.io import EdgeChunkSource, TimeCharacteristic
     from gelly_torch.core.stream import edge_stream_from_source
     from gelly_torch.core.vertices import IdentityVertexTable
@@ -5973,8 +6737,6 @@ def main() -> int:
     check(st["launches"] == 3 * dedup_chunks,
           f"{st['launches']} launches != 3 x {dedup_chunks} dedup chunks")
     check(st_plain["launches"] == 0, "the plain backend launched the kernel")
-    print_profiled("CC path fold_backend=kernel",
-                   *profiled(torch, lambda: run_path("kernel")))
 
     # F1. the per-window Merger plan, and host_precombine, on this stream
     mark("F1", t_start)
@@ -6027,6 +6789,14 @@ def main() -> int:
     # N. the tenant engine
     mark("N", t_start)
     tenants = tenant_phase(torch, device)
+
+    # P. ingest: the readers, the parser and the wire into the kernel fold
+    mark("P", t_start)
+    ingest = ingest_phase(torch, device, src, dst, labels, oracle,
+                          dedup_flags, tenants)
+    for key in ("n2_edges", "n2_labels"):
+        tenants.pop(key)
+    torch.cuda.empty_cache()
 
     mark("F4, G", t_start)
     f4 = spanner_gate_phase(torch, device, f2_stream)
@@ -6198,11 +6968,6 @@ def main() -> int:
     check(tri_launches > 0, "the triangle path launched no wedge kernel")
     check(tri_launches == expect,
           f"{tri_launches} wedge launches != {expect} kernel windows")
-    print_profiled("triangle path", *profiled(torch, lambda: torch.stack([
-        c for _, c in tri.window_triangle_counts_batched(
-            tri_stream(), TRI_WINDOW_MS,
-            window_capacity=TRI_WINDOW_CAPACITY, method="auto",
-            batch=TRI_BATCH)]).cpu()))
 
     # I5. SnapshotStream over this stream's windows
     mark("I5", t_start)
@@ -6239,6 +7004,7 @@ def main() -> int:
         "obs_launches": traced["gather_launches"],
         "tenant_launches": tenants["gather_launches"],
         "multihost_launches": coord["gather_launches"],
+        "ingest_launches": ingest,
         "max_abs_err": max(max_abs_err, k14["gather_err"]),
         "ms": kernel_ms,
         "plain_ms": plain_ms,

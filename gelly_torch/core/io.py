@@ -1,7 +1,9 @@
 """Edge-list ingestion: file/array sources producing padded EdgeChunks.
 
-Counterpart of ``gelly_tpu/core/io.py`` (numpy path only: the native text
-parser binding comes with the host-codec slice). Sources are plain Python
+Counterpart of ``gelly_tpu/core/io.py``: :func:`read_edge_list` tries the
+native text parser (``utils/native.parse_edge_list_file``, built with g++
+from ``native/edgelist_parser.cc``) first and falls back to the numpy
+parser when it raises, as ``gelly_tpu``'s does. Sources are plain Python
 iterators of host :class:`~gelly_torch.core.chunk.EdgeChunk`; the engine
 moves each chunk to the stream's device.
 """
@@ -68,8 +70,20 @@ def read_edge_list(
     comment_prefixes: Sequence[str] = ("%", "#"),
     delimiter: str | None = None,
     num_value_cols: int = 0,
+    use_native: bool = True,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray | None]:
-    """Read a whole edge-list file into numpy arrays (host)."""
+    """Read a whole edge-list file into numpy arrays (host): the native
+    parser when ``use_native`` and the fields split on whitespace, else
+    (or when the native parse raises) :func:`parse_edge_list_text`."""
+    if use_native and delimiter is None:
+        try:
+            from ..utils.native import parse_edge_list_file
+
+            if num_value_cols:
+                return parse_edge_list_file(path, want_vals=True)
+            return (*parse_edge_list_file(path), None)
+        except Exception:
+            pass  # fall back to the numpy parser
     with open(path) as f:
         return parse_edge_list_text(
             f.read(), comment_prefixes, delimiter, num_value_cols

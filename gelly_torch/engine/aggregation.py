@@ -43,9 +43,10 @@ its slice of every chunk (or its share of every codec batch) into its
 own locals, and each
 window close merges the shards (butterfly, ``merge_degree`` tree or
 ``merge_stacked`` gather) or, with a plan's ``merge_delta``, gathers only
-the rows the window touched. Pre-compressed streams and source providers
-come with later slices; asking for either raises ``NotImplementedError``
-naming its ROADMAP.md item.
+the rows the window touched. A sharded source provider
+(``source_provider=``, ``ingest/readers.py``) replaces the produce and
+compress leg with its reader lanes, and ``precompressed=True`` folds
+codec payloads a producer compressed (``ingest/``'s wire).
 :func:`edges_fold_adapter` runs a per-edge user fold (the reference's
 ``EdgesFold``).
 
@@ -369,27 +370,6 @@ class WindowedStream(SummaryStream):
         return val
 
 
-# Knobs of gelly_tpu's run_aggregation this slice does not run, with the
-# value that means "off" and the ROADMAP.md item that brings each.
-_NOT_YET = {
-    "source_provider": (None, "queue 1 item 12b (ingest)"),
-    "precompressed": (False, "queue 1 item 12b (ingest)"),
-}
-
-
-def _refuse_later_knobs(knobs: dict) -> None:
-    for key, value in knobs.items():
-        if key not in _NOT_YET:
-            raise TypeError(f"run_aggregation() got an unexpected keyword "
-                            f"argument {key!r}")
-        off, item = _NOT_YET[key]
-        if value != off:
-            raise NotImplementedError(
-                f"run_aggregation({key}=...) is not ported yet: "
-                f"ROADMAP.md {item}"
-            )
-
-
 def _fresh(emission):
     """A transform-less emission must not alias live state."""
     if isinstance(emission, torch.Tensor):
@@ -468,8 +448,12 @@ def _stack_tree(payloads: list):
 
 
 def _host_tensor(x) -> torch.Tensor:
-    return x if isinstance(x, torch.Tensor) else torch.from_numpy(
-        np.ascontiguousarray(x))
+    if isinstance(x, torch.Tensor):
+        return x
+    a = np.ascontiguousarray(x)
+    if not a.flags.writeable:  # e.g. a wire payload's frombuffer view
+        a = a.copy()
+    return torch.from_numpy(a)
 
 
 class PinnedRing:
@@ -582,7 +566,9 @@ def _load_lateness(checkpoint_path: str, position: int) -> dict | None:
 
 
 def _check_window_knobs(agg, window_ms, allowed_lateness, windowed,
-                        ttl_panes, prefetch_depth, h2d_depth) -> None:
+                        ttl_panes, prefetch_depth, h2d_depth,
+                        source_provider=None,
+                        precompressed: bool = False) -> None:
     """The cadence knobs' refusals, with ``gelly_tpu``'s messages."""
     if allowed_lateness and window_ms is None:
         raise ValueError(
@@ -613,6 +599,21 @@ def _check_window_knobs(agg, window_ms, allowed_lateness, windowed,
                 "Merger): its windows are already independent, so a "
                 "pane ring over them has nothing to combine — drop "
                 "windowed= or use a non-transient plan"
+            )
+        if source_provider is not None:
+            raise ValueError(
+                "windowed panes are single-iterator only: sharded "
+                "reader lanes retire units in provider merge order, "
+                "and the pane boundary (merge_every chunks) must land "
+                "on the exactly-once stream order the ring checkpoints"
+            )
+        if precompressed:
+            raise ValueError(
+                "windowed panes refuse precompressed payload streams "
+                "for now: pre-grouped STACKED units may straddle a "
+                "pane boundary, which would fold one frame into two "
+                "panes — feed raw chunks (the engine compresses "
+                "per-pane)"
             )
         if agg.merge_mode == "delta" or agg.merge_delta is not None:
             raise ValueError(
@@ -1059,9 +1060,13 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
                     windowed: int | None = None,
                     ttl_panes: int | None = None,
                     queries=None,
-                    **knobs) -> SummaryStream:
+                    source_provider=None,
+                    precompressed: bool = False) -> SummaryStream:
     """Execute ``agg`` over ``stream`` on ``stream.ctx.device``, or on the
-    shards of ``mesh`` (``parallel.mesh.make_mesh``).
+    shards of ``mesh`` (``parallel.mesh.make_mesh``). A stream with no
+    ``ctx`` (a bare iterator of chunks or payloads, e.g. an
+    ``IngestServer``'s) and no ``mesh`` runs on
+    ``core.device.DEFAULT_DEVICE``, the card.
 
     ``merge_every`` (chunks, default 1) sets the emit cadence. A plan with
     ``fold_accumulates`` that is not ``transient`` runs the accumulate
@@ -1150,15 +1155,29 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
     dicts keyed by query name, live per-query snapshots). A fused plan
     passed as ``agg`` runs the same way.
 
-    Every other knob of ``gelly_tpu``'s ``run_aggregation`` is accepted
-    by name and raises ``NotImplementedError`` (naming its ROADMAP.md
-    item) unless it is left at its "off" value.
+    ``source_provider`` (a :class:`~gelly_torch.ingest.ShardedEdgeSource`,
+    or ``True`` for ``stream.source``) replaces the produce and compress
+    leg: the provider's reader lanes each parse their own byte range and
+    run the engine's stage closure on their own thread
+    (``compress/gelly-reader_<s>`` tracks), handing completed units over
+    in its deterministic merge order. ``merge_every`` mode only, no
+    ordered stacker, no worker knobs; resume maps the recorded position
+    onto per-shard seek offsets.
+
+    ``precompressed=True``: the stream yields the plan's
+    ``host_compress`` payloads (e.g. ``IngestServer.compressed_payloads``)
+    instead of chunks; staging only stacks them (a ``stack`` span and
+    ``ingest_stack`` timer stage, no ``compress``) after the plan's
+    ``codec_payload_check``. A list item of the stream (a STACKED wire
+    frame) is one unit, never split or merged; a checkpoint position
+    inside it folds only its unseen suffix. ``merge_every`` mode only,
+    with no ``host_precombine`` and no ``source_provider``, on a plan
+    whose codec engages.
     """
     from ..core.windows import PaneRing, tumbling_window_events
     from ..utils.metrics import StageTimer
     from ..utils.prefetch import prefetch, prefetch_map
 
-    _refuse_later_knobs(knobs)
     if queries is not None:
         if agg is not None:
             raise ValueError(
@@ -1183,6 +1202,44 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
         merge_every = 1
     if merge_every < 1:
         raise ValueError(f"merge_every must be >= 1, got {merge_every}")
+    if source_provider is True:
+        source_provider = getattr(stream, "source", None)
+        if source_provider is None:
+            raise ValueError(
+                "source_provider=True needs a stream whose .source is a "
+                "sharded provider (edge_stream_from_sharded_file); this "
+                "stream has none"
+            )
+    if source_provider is not None:
+        if not hasattr(source_provider, "stage_units"):
+            raise ValueError(
+                f"source_provider {type(source_provider).__name__} does "
+                "not implement stage_units(stage_fn, batch, start, depth, "
+                "cancel, gauge) — pass a gelly_torch.ingest."
+                "ShardedEdgeSource or an object with that protocol"
+            )
+        if window_ms is not None:
+            raise ValueError(
+                "source_provider is merge_every-only: sharded reader "
+                "lanes have no global arrival order, so timestamp-"
+                "tumbling windows cannot be formed from them"
+            )
+        if agg.stack_ordered:
+            raise ValueError(
+                f"aggregation '{agg.name}' uses an ordered stacker "
+                "(stack_ordered codec session assigning ids in global "
+                "stream order); sharded reader lanes compress "
+                "concurrently with no global order — use the "
+                "single-iterator path or a stateless codec"
+            )
+        if codec_workers is not None or ingest_workers is not None:
+            raise ValueError(
+                "codec_workers/ingest_workers size the prefetch_map "
+                "compress pool, which a source_provider replaces "
+                "entirely — the provider's shard count IS the lane "
+                "count (e.g. ShardedEdgeSource(shards=...)); drop the "
+                "worker knob or the provider"
+            )
     if codec_workers is not None:
         if ingest_workers is not None:
             raise ValueError(
@@ -1216,7 +1273,8 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
     windowed = None if windowed is None else int(windowed)
     ttl_panes = None if ttl_panes is None else int(ttl_panes)
     _check_window_knobs(agg, window_ms, allowed_lateness, windowed,
-                        ttl_panes, prefetch_depth, h2d_depth)
+                        ttl_panes, prefetch_depth, h2d_depth,
+                        source_provider, precompressed)
     if agg.requires_codec and not use_codec:
         raise ValueError(
             f"aggregation '{agg.name}' folds only through its ingest codec, "
@@ -1231,8 +1289,12 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
             f"mesh must be a gelly_torch.parallel.mesh.Mesh, got "
             f"{type(mesh).__name__}")
     require_one_process(mesh, "run_aggregation(mesh=...)")
-    devices = (list(mesh.devices) if mesh is not None
-               else [stream.ctx.device])
+    if mesh is not None:
+        devices = list(mesh.devices)
+    elif hasattr(stream, "ctx"):
+        devices = [stream.ctx.device]
+    else:  # a bare iterator carries no device: the card, as a stream's
+        devices = [resolve_device(DEFAULT_DEVICE)]
     S = len(devices)
     mesh_ = mesh if mesh is not None else Mesh(devices)
     if fused:
@@ -1278,6 +1340,45 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
                 batch = S if merge_every % S == 0 else 1
             if batch % S:
                 use_codec = False  # no aligned batching possible
+    # The precompressed checks come first: a stack_ordered plan must be
+    # named for its ordered session, not for a batch-alignment detail.
+    if precompressed:
+        if window_ms is not None:
+            raise ValueError(
+                "precompressed=True is merge_every-only: codec payloads "
+                "carry no per-edge timestamps to form event-time "
+                "windows from"
+            )
+        if host_precombine is not None:
+            raise ValueError(
+                "host_precombine rewrites raw chunks; a precompressed "
+                "stream carries codec payloads the producer already "
+                "reduced — drop one of the two"
+            )
+        if source_provider is not None:
+            raise ValueError(
+                "source_provider parses raw edge files; a precompressed "
+                "stream already carries codec payloads — drop one of "
+                "the two"
+            )
+        if agg.stack_ordered:
+            raise ValueError(
+                f"aggregation '{agg.name}' uses an ordered stacker "
+                "(stack_ordered): its codec session assigns compact "
+                "ids in global stream order on THIS side, and its "
+                "per-chunk host_compress ships raw edge views — a "
+                "producer cannot meaningfully pre-compress for it; "
+                "use a stateless codec (e.g. codec='sparse') on the "
+                "wire"
+            )
+        if not use_codec:
+            raise ValueError(
+                f"precompressed=True needs a codec-capable plan: "
+                f"'{agg.name}' must supply host_compress + "
+                "fold_compressed (and the payload batch must align "
+                f"with the {S}-shard mesh) so the pre-compressed "
+                "payloads have a fold to land in"
+            )
     if agg.requires_codec and not use_codec:
         raise ValueError(
             f"aggregation '{agg.name}' folds only through its ingest codec, "
@@ -1380,6 +1481,25 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
         bus = obs_bus.get_bus()
         telemetry = obs_bus.telemetry_on()
         wm = bus.watermarks if telemetry else None
+        # Provider unit seqs are lane-interleaved (``local_unit * shards +
+        # shard``), so ``skip_until + seq * batch`` is no consumption
+        # position there: provider-path stamps draw dense positions from
+        # this allocator instead (staging order is consumption order
+        # within the prefetch depth, and every position it hands out is
+        # below the chunk count, so every stamp retires).
+        wm_alloc = None
+        if wm is not None and source_provider is not None:
+            _wm_lock = threading.Lock()
+            _wm_next = [0]
+
+            def wm_alloc() -> int:
+                # skip_until is final (the resume position is loaded)
+                # before any unit is staged.
+                with _wm_lock:
+                    pos = skip_until + _wm_next[0]
+                    _wm_next[0] += 1
+                    return pos
+
         staged_hw = 0  # staged-depth high-water since the last beat
         # Fused plans name the queries riding each fold dispatch.
         fold_attrs = ({"queries": ",".join(q.name for q in fused)}
@@ -1810,19 +1930,81 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
                 np.zeros(0, np.int64), np.zeros(0, np.int64), capacity=1,
                 device=None))
 
+        # The 0-based stream position of each produced unit's first chunk
+        # (written before the unit is yielded, read by stage_unit after):
+        # a pre-grouped unit makes unit sizes variable, so ``skip_until +
+        # seq * batch`` is no position there. The provider path keeps its
+        # wm_alloc counter.
+        unit_base: dict = {}
+
         def produced_units():
+            # Groups of up to ``batch`` chunks, numbered in stream order
+            # (the seq feeds ordered stackers). A LIST item is a pre-grouped
+            # unit (a STACKED wire frame, ``IngestServer.chunk_units`` /
+            # ``compressed_payload_units``) and is its own unit: one fold
+            # dispatch a frame, never re-split or merged with neighbours.
+            idx = 0
             seq = 0
             group: list = []
+            group_lo = 0
             it = iter(stream)
             t_unit = tracer.now() if tracer is not None else 0.0
             if skip_until:
-                # Chunks folded before the checkpoint: dropped unstaged.
+                # Items folded before the checkpoint: dropped unstaged. A
+                # list item the position lands inside is kept (below).
                 with timer("resume_skip"):
-                    for _ in itertools.islice(it, skip_until):
-                        pass
+                    while idx < skip_until:
+                        item = next(it, None)
+                        if item is None:
+                            break
+                        n = len(item) if isinstance(item, list) else 1
+                        if idx + n > skip_until:
+                            it = itertools.chain([item], it)
+                            break
+                        idx += n
             for chunk in it:
+                if isinstance(chunk, list):
+                    # Flush the per-chunk group first: stream order is
+                    # the fold order.
+                    if group:
+                        unit_base[seq] = group_lo
+                        if tracer is not None:
+                            tracer.span("produce", "produce", t_unit,
+                                        unit=seq, chunks=len(group))
+                        yield seq, group
+                        seq += 1
+                        group = []
+                        if tracer is not None:
+                            t_unit = tracer.now()
+                    lo = idx
+                    idx += len(chunk)
+                    if lo < skip_until:
+                        # Mid-frame resume: the wire re-delivers the
+                        # covering frame and only its unseen suffix folds.
+                        chunk = chunk[skip_until - lo:]
+                        lo = skip_until
+                    if len(chunk) > batch:
+                        raise ValueError(
+                            f"stacked unit of {len(chunk)} chunks "
+                            f"exceeds fold_batch {batch} — size the "
+                            "consumer's fold_batch to at least the wire "
+                            "stack size (client stack=K)"
+                        )
+                    unit_base[seq] = lo
+                    if tracer is not None:
+                        tracer.span("produce", "produce", t_unit,
+                                    unit=seq, chunks=len(chunk))
+                    yield seq, chunk
+                    seq += 1
+                    if tracer is not None:
+                        t_unit = tracer.now()
+                    continue
+                idx += 1
+                if not group:
+                    group_lo = idx - 1
                 group.append(chunk)
                 if len(group) == batch:
+                    unit_base[seq] = group_lo
                     if tracer is not None:
                         tracer.span("produce", "produce", t_unit,
                                     unit=seq, chunks=batch)
@@ -1832,33 +2014,52 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
                     if tracer is not None:
                         t_unit = tracer.now()
             if group:
+                unit_base[seq] = group_lo
                 if tracer is not None:
                     tracer.span("produce", "produce", t_unit,
                                 unit=seq, chunks=len(group))
                 yield seq, group
 
+        # Precompressed streams skip host_compress: the unit's staging
+        # lands on a ``stack`` span and timer stage, so a traced run shows
+        # the consumer paid no compress time for bytes shipped compressed.
+        stage_span = "stack" if precompressed else "compress"
+        stage_timer_name = ("ingest_stack" if precompressed
+                            else "ingest_compress")
+
         def stage_unit(unit):
             # The unit's trace context is its seq: the compress span here,
             # the H2D span (buffer slot) and the fold span all carry it.
             seq, group = unit
+            # Popped unconditionally: the map must not grow with the stream.
+            base = unit_base.pop(seq, None)
             if wm is not None:
-                # Ingress stamps at staging time, on the exactly-once
-                # chunk positions the fold and checkpoint will retire.
-                base = skip_until + seq * batch
-                for j in range(len(group)):
-                    wm.stamp("stream", base + j)
+                # Ingress stamps at staging time (both the single-iterator
+                # and the provider paths stage here; first stamp wins, so
+                # a wire-receive stamp is kept), on the exactly-once chunk
+                # positions the fold and checkpoint will retire.
+                if wm_alloc is not None:
+                    for _ in range(len(group)):
+                        wm.stamp("stream", wm_alloc())
+                else:
+                    if base is None:
+                        base = skip_until + seq * batch
+                    for j in range(len(group)):
+                        wm.stamp("stream", base + j)
             try:
                 faults.inject("codec")
                 t0 = tracer.now() if tracer is not None else 0.0
-                with timer("ingest_compress"):
+                with timer(stage_timer_name):
                     parts = _stage(seq, group)
                 k = len(group)
                 edges = None
                 if tracer is not None:
-                    edges = _group_edges(group)
+                    # Payloads carry no valid mask: edge attribution is a
+                    # chunk-path extra the compressed wire forgoes.
+                    edges = None if precompressed else _group_edges(group)
                     tracer.span(
-                        "compress",
-                        f"compress/{threading.current_thread().name}",
+                        stage_span,
+                        f"{stage_span}/{threading.current_thread().name}",
                         t0, unit=seq, chunks=k, edges=edges,
                         payload_bytes=_payload_nbytes(parts),
                         queue_depth=bus.gauges.get(
@@ -1875,7 +2076,17 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
         def _stage(seq, group):
             k = len(group)
             if use_codec:
-                payloads = [agg.host_compress(c) for c in group]
+                if precompressed:
+                    # Producer-compressed payloads ride as received; the
+                    # plan's id range check runs on each (an out-of-range
+                    # id raises here, never in a device scatter). Wire
+                    # payloads are read-only views: the stackers copy.
+                    payloads = [tree_map(np.asarray, p) for p in group]
+                    if agg.codec_payload_check is not None:
+                        for p in payloads:
+                            agg.codec_payload_check(p)
+                else:
+                    payloads = [agg.host_compress(c) for c in group]
                 payloads += [identity_payload] * (batch - k)
                 if agg.stack_payloads is None:
                     stacked = _stack_tree(payloads)
@@ -1922,12 +2133,22 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
                 "pipeline.staged_depth", d)
             h2d_gauge = lambda d: bus.gauge(  # noqa: E731
                 "pipeline.h2d_depth", d)
-        staged = prefetch_map(
-            stage_unit, produced_units(), depth=prefetch_depth,
-            workers=ingest_workers, cancel=pipe_cancel,
-            on_cancel=(release if agg.stack_ordered
-                       and agg.on_stage_error is not None else None),
-            gauge=staged_gauge)
+        if source_provider is not None:
+            # Sharded reader lanes: parse and stage run on the provider's
+            # threads with the engine's own stage closure, so codec, batch
+            # and precombine semantics are the single-iterator path's and
+            # the compress spans land on gelly-reader_<s> tracks.
+            staged = source_provider.stage_units(
+                stage_unit, batch=batch, start=skip_until,
+                depth=prefetch_depth, cancel=pipe_cancel,
+                gauge=staged_gauge)
+        else:
+            staged = prefetch_map(
+                stage_unit, produced_units(), depth=prefetch_depth,
+                workers=ingest_workers, cancel=pipe_cancel,
+                on_cancel=(release if agg.stack_ordered
+                           and agg.on_stage_error is not None else None),
+                gauge=staged_gauge)
         transferred = map(h2d_unit, staged)
         if h2d_depth > 0:
             transferred = prefetch(transferred, depth=h2d_depth,

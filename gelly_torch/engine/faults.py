@@ -9,7 +9,7 @@ call :func:`inject`:
 
 - ``"native"``            — entry of a ctypes call into a native library
 - ``"codec"``             — a codec worker staging a unit (host compress)
-- ``"ingest"``            — the ingest subsystem (not ported yet)
+- ``"ingest"``            — the ingest subsystem's own boundaries
 - ``"h2d"``               — host→device staging of a chunk or unit
 - ``"step"``              — the fold ``step(state, chunk)`` dispatch
 - ``"source"``            — the chunk source / prefetch worker

@@ -1699,10 +1699,15 @@ class MultiTenantEngine:
                 else:
                     batch.global_ = batch.plan.flatten(batch.global_)
             with self._lock:
+                # Ready tenants only: admit() sets a tenant's manager
+                # before it widens the stack to the tenant's lane, and a
+                # window closing in between would slice past the stack
+                # (gelly_tpu's clamping gather saves another lane's state
+                # there).
                 members = [
                     (t, t.consumed) for t in self._tenants.values()
                     if t.tier == tier.name and t.manager is not None
-                    and t.lane >= 0
+                    and t.lane >= 0 and t.ready
                 ]
             saved: list = []
             for t, position in members:

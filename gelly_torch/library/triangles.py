@@ -62,7 +62,7 @@ from typing import Iterator, NamedTuple
 import numpy as np
 import torch
 
-from ..core.device import to_numpy
+from ..core.device import DEFAULT_DEVICE, resolve_device, to_numpy
 from ..ops import kernels, segments, threefry
 from ..ops.rowtable import put_where_
 from ..ops.segments import INT_MAX
@@ -958,7 +958,9 @@ class TriangleCounts(NamedTuple):
     n_seen: torch.Tensor  # i32[] edges consumed (arrival-index base)
 
 
-def fresh_triangle_counts(capacity: int, device="cpu") -> TriangleCounts:
+def fresh_triangle_counts(capacity: int,
+                          device=DEFAULT_DEVICE) -> TriangleCounts:
+    device = resolve_device(device)
     return TriangleCounts(
         adj=torch.full((capacity, capacity), INT_MAX, dtype=torch.int32,
                        device=device),
@@ -1190,7 +1192,10 @@ class SparseTriangleCounts(NamedTuple):
 
 
 def fresh_sparse_triangle_counts(capacity: int, max_degree: int,
-                                 device="cpu") -> SparseTriangleCounts:
+                                 device=DEFAULT_DEVICE
+                                 ) -> SparseTriangleCounts:
+    device = resolve_device(device)
+
     def full(shape, v, dtype):
         return torch.full(shape, v, dtype=dtype, device=device)
 

@@ -56,15 +56,8 @@ def fetch_stats(host: str, port: int, timeout: float = 5.0,
     decoded JSON dict, or — with ``fmt="prometheus"`` — the raw
     Prometheus text exposition rendered by
     :func:`gelly_torch.obs.slo.prometheus_text` (a scrape bridge pipes
-    this straight into a textfile collector). The wire it speaks comes
-    with ROADMAP.md queue 1 item 12b (ingest); until then this raises."""
-    try:
-        from ..ingest import wire
-    except ImportError as e:
-        raise NotImplementedError(
-            "fetch_stats needs gelly_torch.ingest, which is not ported yet: "
-            "ROADMAP.md queue 1 item 12b"
-        ) from e
+    this straight into a textfile collector)."""
+    from ..ingest import wire
 
     if fmt not in ("json", "prometheus"):
         raise ValueError(f"fmt must be 'json' or 'prometheus', got {fmt!r}")

@@ -8,7 +8,9 @@ the fused unit segment codec (:func:`cc_unit_forest_segments`,
 bipartiteness plan and the degree-delta codecs, all from
 ``native/chunk_combiner.cc``; the host spanner fold
 (:func:`spanner_chunk_fold`, ``native/spanner.cc``) and the greedy
-matching fold (:func:`matching_chunk_fold`, ``native/matching.cc``).
+matching fold (:func:`matching_chunk_fold`, ``native/matching.cc``) and
+the text edge-list parser (:func:`parse_edge_list_file`,
+``native/edgelist_parser.cc``) behind ``core/io.read_edge_list``.
 
 The port builds each source itself, at first use, with ``g++ -O3 -shared
 -fPIC`` into ``gelly_torch/_build/lib<stem>.so``: the build is
@@ -151,6 +153,28 @@ def _load_lib(stem: str) -> ctypes.CDLL:
         return lib
 
 
+def _load_parser() -> ctypes.CDLL:
+    lib = _load_lib("edgelist_parser")
+    if not getattr(lib, "_sigs_set", False):
+        lib.parse_edge_list.restype = ctypes.c_int
+        lib.parse_edge_list.argtypes = [
+            ctypes.c_char_p,
+            ctypes.POINTER(ctypes.POINTER(ctypes.c_int64)),
+            ctypes.POINTER(ctypes.POINTER(ctypes.c_int64)),
+            ctypes.POINTER(ctypes.POINTER(ctypes.c_double)),
+            ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int64),
+        ]
+        lib.free_edge_buffers.restype = None
+        lib.free_edge_buffers.argtypes = [
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_double),
+        ]
+        lib._sigs_set = True
+    return lib
+
+
 def _load_combiner() -> ctypes.CDLL:
     lib = _load_lib("chunk_combiner")
     if not getattr(lib, "_sigs_set", False):
@@ -271,6 +295,7 @@ def available(stem: str) -> bool:
             "chunk_combiner": _load_combiner,
             "matching": _load_matching,
             "spanner": _load_spanner,
+            "edgelist_parser": _load_parser,
         }[stem]
         try:
             loader()
@@ -811,3 +836,40 @@ def matching_chunk_fold(src: np.ndarray, dst: np.ndarray, w: np.ndarray,
         k = count.value
         return ev_type[:k], ev_a[:k], ev_b[:k], ev_w[:k]
     return None
+
+
+def parse_edge_list_file(path: str, want_vals: bool = False):
+    """(src[i64], dst[i64][, val[f64]]) numpy arrays from an edge-list file
+    (``%``/``#`` comments and malformed lines skipped, a missing value
+    column read as 1.0: ``core/io.parse_edge_list_text``'s dialect)."""
+    _inject("edgelist_parser")
+    lib = _load_parser()
+    src_p = ctypes.POINTER(ctypes.c_int64)()
+    dst_p = ctypes.POINTER(ctypes.c_int64)()
+    val_p = ctypes.POINTER(ctypes.c_double)()
+    n = ctypes.c_int64()
+    rc = lib.parse_edge_list(
+        path.encode(), ctypes.byref(src_p), ctypes.byref(dst_p),
+        ctypes.byref(val_p), 1 if want_vals else 0, ctypes.byref(n),
+    )
+    if rc == 1:
+        raise FileNotFoundError(path)
+    if rc != 0:
+        raise _stamp(
+            MemoryError(f"native parser failed with code {rc}"),
+            "edgelist_parser",
+        )
+    count = n.value
+    try:
+        src = np.ctypeslib.as_array(src_p, (count,)).copy() if count else \
+            np.empty(0, np.int64)
+        dst = np.ctypeslib.as_array(dst_p, (count,)).copy() if count else \
+            np.empty(0, np.int64)
+        if want_vals:
+            val = np.ctypeslib.as_array(val_p, (count,)).copy() if count \
+                else np.empty(0, np.float64)
+    finally:
+        lib.free_edge_buffers(src_p, dst_p, val_p if want_vals else None)
+    if want_vals:
+        return src, dst, val
+    return src, dst

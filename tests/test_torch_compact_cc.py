@@ -778,10 +778,23 @@ def test_engine_knob_validation():
         stream.aggregate(agg, codec_workers=2, ingest_workers=2)
     with pytest.raises(ValueError, match="h2d_depth"):
         stream.aggregate(agg, h2d_depth=-1)
-    for knob, value in (("precompressed", True),
-                        ("source_provider", True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            stream.aggregate(agg, **{knob: value})
+    # precompressed= and source_provider= are ported: they refuse what
+    # gelly_tpu refuses, with its texts (the compact plan's ordered
+    # session; a stream with no sharded source).
+    compact = PLANS["compact-segments"](tcc, N)
+    for knob, plan, match in (
+            ("precompressed", compact, "ordered stacker"),
+            ("source_provider", agg, "does not implement stage_units")):
+        texts = []
+        for mod, st in ((tcc, stream), (jcc, _jstream(src, dst))):
+            p = plan if mod is tcc else PLANS["compact-segments" if knob
+                                              == "precompressed"
+                                              else "sparse"](jcc, N)
+            with pytest.raises(ValueError, match=match) as info:
+                st.aggregate(p, **{knob: True}).result()
+            texts.append(str(info.value).replace("gelly_torch", "gelly_X")
+                         .replace("gelly_tpu", "gelly_X"))
+        assert texts[0] == texts[1]
     # mesh= is ported: it takes a gelly_torch mesh.
     with pytest.raises(TypeError, match="Mesh"):
         stream.aggregate(agg, mesh=object())

@@ -802,6 +802,38 @@ def test_fold_spans_carry_per_query_attribution(tmp_path):
         assert key(tracer, stage) == key(j_tracer, stage), stage
 
 
+def test_fused_through_the_sharded_source_provider(tmp_path):
+    """The fused plan rides the sharded byte-range readers: one staging
+    pass a chunk feeds every query, equal to each query's standalone run
+    through the same provider and to gelly_tpu's fused run."""
+    path = tmp_path / "edges.txt"
+    path.write_text("".join(f"{a} {b}\n" for a, b in _adversarial_edges()))
+    out = {}
+    for pkg in ("j", "t"):
+        mod = __import__("gelly_torch.ingest" if pkg == "t"
+                         else "gelly_tpu.ingest", fromlist=["x"])
+        kw = {"device": "cpu"} if pkg == "t" else {}
+        mesh = (jmesh.make_mesh(1) if pkg == "j"
+                else tmesh.make_mesh(1, devices=["cpu"]))
+
+        def provider_stream(mod=mod, kw=kw):
+            return mod.edge_stream_from_sharded_file(
+                str(path), vertex_capacity=N_V, shards=2, chunk_size=CHUNK,
+                **kw)
+
+        b = B[pkg]
+        queries = [b["cc"](N_V), b["degrees"](N_V)]
+        fused = b["run"](None, provider_stream(), queries=queries,
+                         merge_every=2, mesh=mesh,
+                         source_provider=True).result()
+        for q in queries:
+            want = b["run"](q.agg, provider_stream(), merge_every=2,
+                            mesh=mesh, source_provider=True).result()
+            _same(want, fused[q.name], f"{pkg}:{q.name}")
+        out[pkg] = fused
+    _same(out["j"], out["t"], "fused")
+
+
 def test_stream_aggregate_with_queries():
     for p in "jt":
         out = _stream(p).aggregate(None, queries=[B[p]["cc"](N_V)],

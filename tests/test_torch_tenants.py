@@ -1522,3 +1522,181 @@ def test_serving_stress_submitters_and_queriers():
     for t in range(n_t):
         want = _oracle(_stream(800 + t, n_edges=192), cc, merge_every=2)
         assert eng.labels(t).tobytes() == want.tobytes(), t
+
+
+# --------------------------------------------------------------------- #
+# wire routing (the ingest front end, mirrored): a TenantRouter over the
+# port's engine, fed by port and gelly_tpu clients
+
+
+_WIRE_CLIENTS = pytest.mark.parametrize("client", ["torch", "tpu"])
+
+
+def _wire_pkg(name):
+    from _torch_wire import pkg
+
+    return pkg(name)
+
+
+def _route(client, tids, edges, compressed, agg, cap):
+    from gelly_torch.ingest import IngestServer, TenantRouter
+
+    from _torch_wire import host_chunk, wait
+
+    C = _wire_pkg(client)
+    eng = _engine(merge_every=1).start()
+    router = TenantRouter(eng, "small", vertex_capacity=N_V)
+    eng.add_tier("small", agg, cap, compressed=compressed)
+    servers, clients = [], []
+    try:
+        for t in tids:
+            s = IngestServer(port=0).start()
+            router.attach(s)
+            servers.append(s)
+            clients.append((t, C.IngestClient("127.0.0.1", s.port,
+                                              connect_timeout=5.0)
+                            .connect()))
+        for t, c in clients:
+            for i in range(0, 64, 16):
+                src, dst = edges[t][i:i + 16, 0], edges[t][i:i + 16, 1]
+                if compressed:
+                    # The client compresses before send with its own
+                    # package's codec: the payload bytes are the same.
+                    ccod = C.cc.cc_tenant_tier(
+                        N_V, chunk_capacity=16, compressed=True,
+                        codec="sparse")[0]
+                    p = {k: np.asarray(v) for k, v in ccod.host_compress(
+                        host_chunk(C, src, dst, 16)).items()}
+                    p["tenant"] = np.array([t], np.int64)
+                    c.send_compressed(p)
+                else:
+                    p = C.edge_payload(src, dst)
+                    p["tenant"] = np.array([t], np.int64)
+                    c.send(p)
+            c.flush(timeout=30)
+
+        def folded():
+            try:
+                return eng.queue_depth() == 0 and all(
+                    eng.position(t) >= 4 for t in tids)
+            except KeyError:
+                return False  # auto-admission not seen yet
+
+        assert wait(folded, 30, 0.05)
+        for t in tids:
+            eng.finish(t)
+        assert wait(lambda: all(eng.snapshot_window(t) > 0 for t in tids),
+                    10, 0.05)
+        return {t: _host(eng.labels(t)) for t in tids}
+    finally:
+        for _t, c in clients:
+            c.close(flush_timeout=None)
+        eng.stop()
+        for s in servers:
+            s.stop()
+        router.stop()
+
+
+def _single_stream_labels(edges, pkg):
+    plan = _cc_plan(pkg=pkg)
+    kw = {} if pkg == "j" else {"device": "cpu"}
+    table = JIdentity(N_V) if pkg == "j" else TIdentity(N_V)
+    edges_fn = j_edges if pkg == "j" else t_edges
+    st = edges_fn([(int(a), int(b)) for a, b in edges], vertex_capacity=N_V,
+                  chunk_size=16, table=table, **kw)
+    return _host(st.aggregate(plan, merge_every=1).result())
+
+
+@pytest.mark.ingest
+@_WIRE_CLIENTS
+def test_tenant_router_routes_compressed_streams(client):
+    """Clients compress before send (DATA_COMPRESSED with a tenant tag);
+    the router submits the payloads into the compressed tier and the
+    labels equal the single-stream oracle of both packages."""
+    agg, cap = cc_tenant_tier(N_V, chunk_capacity=16, compressed=True,
+                              codec="sparse")
+    edges = {t: np.random.default_rng(200 + t).integers(0, N_V, (64, 2))
+             for t in (3, 4)}
+    got = _route(client, (3, 4), edges, True, agg, cap)
+    for t in (3, 4):
+        want = _single_stream_labels(edges[t], "j")
+        assert got[t].tobytes() == want.tobytes()
+        assert _single_stream_labels(edges[t], "t").tobytes() == \
+            want.tobytes()
+
+
+@pytest.mark.ingest
+@_WIRE_CLIENTS
+def test_tenant_router_routes_n_client_streams(client):
+    agg, cap = cc_tenant_tier(N_V, chunk_capacity=16)
+    edges = {t: np.random.default_rng(t).integers(0, N_V, (64, 2))
+             for t in (7, 9)}
+    got = _route(client, (7, 9), edges, False, agg, cap)
+    for t in (7, 9):
+        want = _single_stream_labels(edges[t], "j")
+        assert got[t].tobytes() == want.tobytes()
+
+
+@pytest.mark.ingest
+def test_tenant_router_unroutable_payloads_counted():
+    from gelly_torch.ingest import IngestClient, IngestServer, TenantRouter
+    from gelly_torch.ingest.client import edge_payload
+
+    from _torch_wire import wait
+
+    agg, cap = cc_tenant_tier(N_V, chunk_capacity=16)
+    with obs_bus.scope() as bus:
+        eng = _engine(merge_every=1).start()
+        eng.add_tier("small", agg, cap)
+        router = TenantRouter(eng, "small", vertex_capacity=N_V,
+                              auto_admit=False)
+        s = IngestServer(port=0).start()
+        router.attach(s)
+        try:
+            c = IngestClient("127.0.0.1", s.port).connect()
+            p = edge_payload(np.array([1, 2]), np.array([3, 4]))
+            p["tenant"] = np.array([42], np.int64)  # never admitted
+            c.send(p)
+            c.flush(timeout=10)
+            assert wait(lambda: bus.counters.get(
+                "ingest.chunks_unroutable", 0) >= 1, 10, 0.02)
+            with pytest.raises(KeyError):
+                eng.position(42)
+            c.close(flush_timeout=None)
+        finally:
+            eng.stop()
+            s.stop()
+            router.stop()
+
+
+def test_window_close_during_admission_checkpoints_ready_tenants_only(
+        tmp_path, monkeypatch):
+    """A window closing between ``admit``'s manager setup and its lane
+    widening used to slice past the stack and kill the scheduler
+    (``gelly_tpu``'s clamping slice saves another lane's state there): the
+    checkpoint now covers ready tenants only, and the new tenant's first
+    checkpoint holds its own lane."""
+    agg, cap = cc_tenant_tier(N_V, chunk_capacity=16)
+    eng = _engine(merge_every=1, checkpoint_dir=str(tmp_path),
+                  checkpoint_every=1, resume=True)
+    eng.add_tier("small", agg, cap)
+    eng.admit(0, "small")
+    tier = eng._tiers["small"]
+    load = CheckpointManager.load_latest
+    closed = []
+
+    def load_latest(self, *a, **kw):
+        # admit() reads a resume checkpoint after it sets the tenant's
+        # manager and before it widens the stack: a window closes here.
+        if self.prefix == "t1":
+            eng._checkpoint_tier(tier)
+            closed.append(tier.batch.lanes)
+        return load(self, *a, **kw)
+
+    monkeypatch.setattr(CheckpointManager, "load_latest", load_latest)
+    assert eng.admit(1, "small") == 1
+    assert closed == [1]  # the stack was one lane wide at the close
+    assert list(tmp_path.glob("t0-*.npz"))
+    assert not list(tmp_path.glob("t1-*.npz"))
+    eng._checkpoint_tier(tier)
+    assert list(tmp_path.glob("t1-*.npz"))

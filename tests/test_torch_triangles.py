@@ -491,3 +491,30 @@ def test_prefetch_map_external_cancel_unblocks_parked_consumer():
     assert not consumer.is_alive()
     assert got == [0]
     release.set()
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+def test_fresh_counts_default_to_the_card(sparse):
+    """The exact-count constructors put their state on ``DEFAULT_DEVICE``
+    (the card) unless the caller asks for the CPU, as ``gelly_tpu``'s put
+    theirs on its default device: on a machine without a card a call with
+    no ``device`` raises the port's no-card error, and ``device="cpu"``
+    equals ``gelly_tpu``'s zero state."""
+    if sparse:
+        def make(mod, **kw):
+            return mod.fresh_sparse_triangle_counts(24, 8, **kw)
+    else:
+        def make(mod, **kw):
+            return mod.fresh_triangle_counts(24, **kw)
+    if torch.cuda.is_available():
+        assert make(ttri).counts.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA device by default"):
+            make(ttri)
+    got, want = make(ttri, device="cpu"), make(jtri)
+    assert got._fields == want._fields
+    for name, t, j in zip(got._fields, got, want):
+        j = np.asarray(j)
+        assert t.device.type == "cpu", name
+        assert t.numpy().dtype == j.dtype, name
+        assert t.numpy().tobytes() == j.tobytes(), name

@@ -65,7 +65,7 @@ def _assert_state_equal(tstate, jstate):
 def test_dense_state_after_every_chunk_equals_jax(n_v, size, cap, seed):
     src, dst = _edges(n_v, 600, seed)
     jstate = jtri.fresh_triangle_counts(n_v)
-    tstate = ttri.fresh_triangle_counts(n_v)
+    tstate = ttri.fresh_triangle_counts(n_v, device="cpu")
     _assert_state_equal(tstate, jstate)
     for jc, tc in _chunks(src, dst, size, cap):
         jstate = jtri._exact_step(jstate, jc)
@@ -79,8 +79,8 @@ def test_exact_step_equals_scan_oracle(seed):
     # The slab step against the literal per-edge scan, in the port and
     # against JAX's scan.
     src, dst = _edges(24, 300, seed)
-    a = ttri.fresh_triangle_counts(24)
-    b = ttri.fresh_triangle_counts(24)
+    a = ttri.fresh_triangle_counts(24, device="cpu")
+    b = ttri.fresh_triangle_counts(24, device="cpu")
     j = jtri.fresh_triangle_counts(24)
     for jc, tc in _chunks(src, dst, 64):
         a = ttri._exact_step(a, tc)
@@ -93,7 +93,7 @@ def test_exact_step_equals_scan_oracle(seed):
 def test_exact_step_leaves_its_input_unchanged():
     src, dst = _edges(16, 64, 4)
     (_, tc), = list(_chunks(src, dst, 64))
-    s0 = ttri.fresh_triangle_counts(16)
+    s0 = ttri.fresh_triangle_counts(16, device="cpu")
     s1 = ttri._exact_step(s0, tc)
     assert int(s0.n_seen) == 0 and bool((s0.adj == ttri.INT_MAX).all())
     assert int(s1.n_seen) > 0
@@ -178,7 +178,7 @@ def test_sparse_state_after_every_chunk_equals_jax(n_v, max_degree, size,
     src, dst = _edges(n_v, 500, seed)
     slab = max(8, (1 << 22) // max_degree ** 2)
     jstate = jtri.fresh_sparse_triangle_counts(n_v, max_degree)
-    tstate = ttri.fresh_sparse_triangle_counts(n_v, max_degree)
+    tstate = ttri.fresh_sparse_triangle_counts(n_v, max_degree, device="cpu")
     _assert_state_equal(tstate, jstate)
     for jc, tc in _chunks(src, dst, size):
         jstate = _j_sparse_step(jstate, jc, max_degree, slab)
@@ -191,7 +191,7 @@ def test_sparse_state_after_every_chunk_equals_jax(n_v, max_degree, size,
 def test_sparse_step_small_slabs_equal_jax(slab):
     src, dst = _edges(40, 300, 5)
     jstate = jtri.fresh_sparse_triangle_counts(40, 16)
-    tstate = ttri.fresh_sparse_triangle_counts(40, 16)
+    tstate = ttri.fresh_sparse_triangle_counts(40, 16, device="cpu")
     for jc, tc in _chunks(src, dst, 48):
         jstate = _j_sparse_step(jstate, jc, 16, slab)
         tstate = ttri._sparse_exact_step(tstate, tc, 16, slab)
@@ -204,7 +204,7 @@ def test_sparse_overflow_counts_dropped_inserts_like_jax():
     src = np.zeros(20, np.int32)
     dst = np.arange(1, 21, dtype=np.int32)
     jstate = jtri.fresh_sparse_triangle_counts(32, 4)
-    tstate = ttri.fresh_sparse_triangle_counts(32, 4)
+    tstate = ttri.fresh_sparse_triangle_counts(32, 4, device="cpu")
     for jc, tc in _chunks(src, dst, 8):
         jstate = _j_sparse_step(jstate, jc, 4, 8)
         tstate = ttri._sparse_exact_step(tstate, tc, 4, 8)
@@ -281,9 +281,10 @@ def test_sparse_resume_from_jax_state(split):
 
 def test_rebased_states_equal_jax():
     src, dst = _edges(24, 200, 17)
-    jd, td = jtri.fresh_triangle_counts(24), ttri.fresh_triangle_counts(24)
+    jd = jtri.fresh_triangle_counts(24)
+    td = ttri.fresh_triangle_counts(24, device="cpu")
     js = jtri.fresh_sparse_triangle_counts(24, 24)
-    ts = ttri.fresh_sparse_triangle_counts(24, 24)
+    ts = ttri.fresh_sparse_triangle_counts(24, 24, device="cpu")
     for jc, tc in _chunks(src, dst, 64):
         jd, td = jtri._exact_step(jd, jc), ttri._exact_step(td, tc)
         js = _j_sparse_step(js, jc, 24, 8)
