@@ -5,9 +5,9 @@ per-window Merger plan, fused multi-query, windows (event-time,
 lateness, pane rings, TTL), the stream API, the rest of the triangle
 library (bucketed, capped-degree and unpacked dense windows, exact and
 sampled counts), the mesh (four logical shards), the main path traced
-through the obs core, the multi-tenant engine with its QoS plane and
-ingest (the sharded readers, the native text parser and the wire), on
-one CUDA card.
+through the obs core, the multi-tenant engine with its QoS plane,
+ingest (the sharded readers, the native text parser and the wire) and
+the example CLIs, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -73,7 +73,9 @@ Phases (any failure exits nonzero and prints no result line):
    ``multiquery_launches``, the gather's in a traced run of phase M1 as
    ``obs_launches``, the gather's in phase N3's kernel tier as
    ``tenant_launches``, the gather's in phases P1, P2 and P4 as
-   ``ingest_launches``), then ``{"ok": true, "device": ...}`` last.
+   ``ingest_launches``, the gather's and the wedge kernel's in phase Q's
+   CLI runs as ``cli_launches``), then ``{"ok": true, "device": ...}``
+   last.
 
 The durable phases (checkpoints, exactly-once resume, the resilient
 runner), each checking that the native codec was never disabled:
@@ -332,13 +334,47 @@ P. P1: phase 4's stream written with ``write_binary_edges`` (1 GiB of
    spans share one trace id, and the first fold's parent is the first
    staging span.
 
+The example CLIs (phase Q, right after phase P; ``gelly_torch/examples/``
+called in process through ``main(args)``, stdout captured, at each
+CLI's own width; launch counts set to 0 just before each run):
+
+Q. Q1: every CLI's ``main([--device=cuda])`` on its built-in data, its
+   stdout equal line for line to the same call with ``--device=cpu``
+   (``# `` and ``Runtime:`` lines left out); ``tests/test_clis.py``'s
+   goldens (the CC odd/even components, ``(2,399) (3,799) (2,1199)``,
+   ``(1,2)``, ``total weight:``, ``--queries=cc,degrees,bipartiteness``)
+   and the ``--stats`` / ``--queries`` refusals. Q2: ``2^21`` Zipf edges
+   over ``2^16`` ids (seed 17) written as a text edge file, then
+   ``connected_components <file> 16`` (the CLI's ``2^16`` slots, its
+   4096-edge file chunks), again with ``--shards=4`` and with
+   ``--queries=cc,degrees,bipartiteness``: components equal to scipy,
+   the top degrees to ``bincount``; prints each wall and edges/s and the
+   gather's launches (``fold_backend="auto"`` resolves to the plain
+   fold). Q3: ``2^21`` Zipf edges over 4096 ids with ``ts = arange`` as
+   a text file, ``window_triangles <file> 16384`` (128 windows of
+   ``2^14`` edges, the most the CLI's default window buffer holds; each
+   dense enough that ``method="auto"`` picks the wedge kernel): every
+   window's count equal to scipy's, at least one wedge launch a window.
+   Q4: ``connected_components --serve=PORT`` on a thread of this process
+   on the card and ``--connect`` on Q2's file in a child process
+   (``python3 chip_smoke.py --cli-client``, started before Q1 so that
+   its start overlaps Q1-Q3; it takes each run's arguments on its
+   stdin and answers with the CLI's stdout and whether it created a
+   CUDA context), raw, then ``--compressed --stack=4``: the components
+   equal Q2's and the client created no CUDA context. Q5: ``--checkpoint-dir`` with a checkpoint
+   every 128 chunks, a non-retried fault injected at the 258th fold (two
+   checkpoints on disk), then the same command again: it resumes
+   (``# resumed from``), folds fewer chunks, and its components equal
+   Q2's.
+
 Windows (phase H) and the stream API (phase I), after phase G (I5 after
 phase 6); each timed run prints its wall, edges a second, stage busy
 seconds, kernel launches and peak device memory:
 
 H. H1: phase 4's stream in ``2^18``-edge chunks through
    ``connected_components(2^24, merge="gather", codec="dense",
-   windowed=W)``, ``merge_every=2`` (128 panes), W = 4 and 64: three
+   windowed=W)``, ``merge_every=2``, W = 64 over the whole stream (128
+   panes) and W = 4 over its first ``2^25`` edges (64 panes): three
    emissions each (the W-th, one mid-stream, the last) equal the labels
    of exactly their window's edges (scipy, or phase 4's emission for a
    prefix), the snapshot handle tracks every close; prints the pane
@@ -447,7 +483,8 @@ Cuts to fit the time limit, each named where it applies: every path's
 profiled rerun under ``torch.profiler`` (the device's busy time and idle
 share a path; the earlier runs' are in PERF.md, and phase M2 still
 profiles the main path's first chunks) was taken out to make room for
-phase P; earlier cuts are in the phases' own lines.
+phase P; H1's W = 4 ring run was cut to half of phase 4's stream to
+make room for phase Q; earlier cuts are in the phases' own lines.
 
 Needs one CUDA card, ``nvcc``, ``g++`` and scipy; imports nothing of JAX.
 The checkpoint and stream files go to the temporary directory and are
@@ -573,7 +610,10 @@ G_TIMED = 1 << 12
 
 
 # The hand kernels' wrappers, each counting its launches in ``.launches``.
-WATCHDOG_S = 1150  # under the 1200 s a run of this script may take
+# Under the 1200 s a run of this script may take, with time left to dump
+# the stacks. 1150 s until PR 16: a run on a card host ~22% slower than
+# the others reached it in phase K5-K6.
+WATCHDOG_S = 1180
 HAND_KERNELS = ("sorted_window_gather", "wedge_count_matrix",
                 "sparse_insert_edges", "sparse_insert_edges_batched",
                 "matching_step", "hashset_insert", "hashset_contains",
@@ -4287,6 +4327,10 @@ def matching_phase(torch, device) -> dict:
 H_CHUNK = 1 << 18  # pane chunks: phase 4's stream re-chunked
 H1_MERGE_EVERY = 2  # 128 panes
 H1_WINDOWS = (4, 64)
+# Edges a ring run folds: W = 4 over the first half of phase 4's stream
+# (64 panes, 60 of them evicting; a depth cut of 128 panes, ~10 s, for
+# phase Q), W = 64 over all of it.
+H1_EDGES = {4: 1 << 25, 64: 1 << 26}
 H2_BLOCK = 1 << 20
 H2_DRIFT = 1 << 16
 H2_CHUNKS = 128  # a depth cut of 256: still 9.2M slots > the capacity
@@ -4362,7 +4406,8 @@ def window_of(i: int, w: int, pane_edges: int, n_edges: int):
 
 
 def pane_ring_phase(torch, device, src, dst, labels4) -> None:
-    """H1: the pane ring at bench_windows' W values, full size. A window
+    """H1: the pane ring at bench_windows' W values, at full width (W = 4
+    over half the stream, ``H1_EDGES``). A window
     that is one of phase 4's prefixes is held to phase 4's emission
     (equal to the plain backend's, the last to scipy), the others to
     scipy."""
@@ -4374,7 +4419,6 @@ def pane_ring_phase(torch, device, src, dst, labels4) -> None:
     cc = importlib.import_module("gelly_torch.library.connected_components")
     n = N_VERTICES
     pane_edges = H_CHUNK * H1_MERGE_EVERY
-    panes = N_EDGES // pane_edges
 
     def source(lo=0, hi=N_EDGES):
         return EdgeChunkSource(src[lo:hi], dst[lo:hi], chunk_size=H_CHUNK,
@@ -4382,12 +4426,14 @@ def pane_ring_phase(torch, device, src, dst, labels4) -> None:
 
     rows = {}
     for w in H1_WINDOWS:
+        n_edges = H1_EDGES[w]
+        panes = n_edges // pane_edges
         picks = {w - 1, (w - 1 + panes - 1) // 2, panes - 1}
         kept, st = ring_run(
             torch, device,
             cc.connected_components(n, merge="gather", codec="dense",
                                     windowed=w),
-            source(), n, N_EDGES, H1_MERGE_EVERY, picks)
+            source(0, n_edges), n, n_edges, H1_MERGE_EVERY, picks)
         report_run(f"phase H1 ring W={w}", st)
         check_native_codecs(f"phase H1 W={w}")
         check(st["closes"] == panes == st["stats"]["windows.panes_closed"],
@@ -4397,7 +4443,7 @@ def pane_ring_phase(torch, device, src, dst, labels4) -> None:
         combines = st["stats"]["windows.combine_dispatches"] / panes
         t0 = time.perf_counter()
         for i in sorted(picks):
-            lo, hi = window_of(i, w, pane_edges, N_EDGES)
+            lo, hi = window_of(i, w, pane_edges, n_edges)
             got = kept[i].cpu().numpy()
             check(got.dtype == np.int32 and got.shape == (n,),
                   f"H1 W={w} emission {i}: {got.dtype} {got.shape}")
@@ -4411,7 +4457,7 @@ def pane_ring_phase(torch, device, src, dst, labels4) -> None:
         del kept
         # bench_windows' yardstick: one close by a full replay of the
         # window's W panes (the plan without the ring, one emission).
-        hi = min(w * pane_edges, N_EDGES)
+        hi = min(w * pane_edges, n_edges)
         _, rst = drive(torch, device,
                        cc.connected_components(n, merge="gather",
                                                codec="dense"),
@@ -6557,6 +6603,401 @@ def coord_phase(torch, device, src, dst, final_labels, oracle,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# --------------------------------------------------------------------- #
+# phase Q: the example CLIs on the card
+
+# The CLIs' own widths (gelly_torch/examples/): connected_components folds
+# 2^16 slots, window_triangles 2^12; files are read in 4096-edge chunks.
+# Depth cuts: Q2's 2^24 edges took 15.9 s a run (1.06 M edges/s: the
+# CLI's 4096-edge chunks), which over Q2-Q5's seven passes would have
+# taken the phase past 150 s, and 2^22 edges 62-86 s, with `total` then
+# at 948 s and past the watchdog (1150 s then); the window CLI's default
+# buffer holds 2^14 edges a window, so Q3 runs 2^21 edges as 128 windows.
+Q_N = 1 << 16
+Q_EDGES = 1 << 21
+Q_MERGE = 16
+Q_TRI_N = 1 << 12
+Q_TRI_EDGES = 1 << 21
+Q_TRI_WINDOW = 1 << 14  # ms, with ts = arange: 2^14 edges a window
+Q_CKPT_MERGE = 128  # Q5: a checkpoint every 128 file chunks (2^19 edges)
+Q_CKPT_CRASH = 2 * Q_CKPT_MERGE + 1  # the fold that fails, after 2 of them
+Q_CLIENT_TIMEOUT_S = 300
+Q_CLIS = ("bipartiteness_check", "broadcast_triangle_count",
+          "centralized_weighted_matching", "connected_components",
+          "degree_aggregate", "degree_distribution", "exact_triangle_count",
+          "incidence_sampling_triangle_count",
+          "iterative_connected_components", "spanner_example",
+          "window_triangles")
+
+
+def write_text_edges(path: str, cols) -> None:
+    """Non-negative integer columns as one text line an edge (right-aligned
+    fields), gathered from a byte table of every value's text: no Python
+    loop over the edges or the values."""
+    parts = []
+    for c in cols:
+        top = int(c.max())
+        w = len(str(top))
+        v = np.arange(top + 1)
+        table = np.full((top + 1, w + 1), ord(" "), np.uint8)
+        for k in range(w - 1, -1, -1):
+            table[:, k] = np.where((v > 0) | (k == w - 1),
+                                   v % 10 + ord("0"), ord(" "))
+            v = v // 10
+        parts.append(table[c])
+    buf = np.concatenate(parts, axis=1)
+    buf[:, -1] = ord("\n")
+    buf.tofile(path)
+
+
+def run_cli(name: str, args) -> tuple[str, float]:
+    """``gelly_torch.examples.<name>.main(args)`` in process: (stdout,
+    wall seconds)."""
+    import importlib
+    import io
+
+    mod = importlib.import_module(f"gelly_torch.examples.{name}")
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        mod.main(list(args))
+    return buf.getvalue(), time.perf_counter() - t
+
+
+def held_lines(out: str) -> list:
+    """The lines a card run and a CPU run must agree on."""
+    return [ln for ln in out.splitlines()
+            if not ln.startswith(("# ", "Runtime:"))]
+
+
+def cli_labels(out: str, n: int, prefix: str = "") -> np.ndarray:
+    """Labels from the CC CLI's ``root: [members]`` lines (identity ids:
+    each member's label is its component's smallest id; -1 unseen)."""
+    labels = np.full(n, -1, np.int32)
+    for ln in out.splitlines():
+        if ln.startswith("#") or not ln.startswith(prefix):
+            continue
+        root, members = ln[len(prefix):].split(": ", 1)
+        ids = np.asarray(json.loads(members), np.int64)
+        labels[ids] = int(root)
+    return labels
+
+
+class PortWatch:
+    """A stdout that keeps what is written and sets ``ready`` once the CC
+    CLI's ``--serve`` line names its port (printed after the server
+    listens)."""
+
+    def __init__(self):
+        import io
+        import threading
+
+        self.buf = io.StringIO()
+        self.ready = threading.Event()
+
+    def write(self, text: str) -> int:
+        n = self.buf.write(text)
+        if "server on port " in self.buf.getvalue():
+            self.ready.set()
+        return n
+
+    def flush(self) -> None:
+        pass
+
+    def port(self) -> int:
+        text = self.buf.getvalue()
+        return int(text.split("server on port ", 1)[1].split(";", 1)[0])
+
+
+def cli_client() -> int:
+    """Phase Q4's client process (``--cli-client``): reads one JSON list
+    of CC CLI arguments a line from its standard input, runs the CLI's
+    ``--connect`` path on each and answers each with one JSON line (the
+    CLI's stdout, or the error, and whether a CUDA context exists). It
+    ends at the end of its input. Phase Q starts it before Q1, so that
+    its start (Python and torch, ~7 s) overlaps Q1-Q3."""
+    import io
+    import traceback
+
+    import torch
+
+    from gelly_torch.examples.connected_components import main as cc_main
+
+    for line in sys.stdin:
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                cc_main(json.loads(line))
+            reply = {"out": buf.getvalue()}
+        except BaseException:  # noqa: BLE001 - sent back to the phase
+            reply = {"err": traceback.format_exc()}
+        reply["cuda"] = torch.cuda.is_initialized()
+        sys.stdout.write(json.dumps(reply) + "\n")
+        sys.stdout.flush()
+    return 0
+
+
+def start_cli_client(here: str, err):
+    """The ``--cli-client`` child, its stderr to the file ``err``."""
+    return subprocess.Popen(
+        [sys.executable, os.path.join(here, "chip_smoke.py"), "--cli-client"],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err,
+        text=True)
+
+
+def client_stderr(err) -> str:
+    err.flush()
+    err.seek(0)
+    return err.read().decode(errors="replace")[-2000:]
+
+
+def wire_run(client, err, dev: str, path: str, extra_serve, extra_client):
+    """Phase Q4: ``--serve=0`` on a thread of this process on the card,
+    ``--connect`` sent to the running client process. Returns (server
+    stdout, the client's reply, wall seconds)."""
+    import select
+    import threading
+
+    from gelly_torch.examples.connected_components import main as cc_main
+
+    watch = PortWatch()
+    box: dict = {}
+
+    def serve():
+        try:
+            with contextlib.redirect_stdout(watch):
+                cc_main(["--serve=0", dev, path, str(Q_MERGE)] + extra_serve)
+        except BaseException as e:  # re-raised below
+            box["err"] = e
+            watch.ready.set()
+
+    t = time.perf_counter()
+    th = threading.Thread(target=serve, daemon=True)
+    th.start()
+    check(watch.ready.wait(120), "Q4: the --serve CLI never listened")
+    if "err" in box:
+        raise box["err"]
+    client.stdin.write(json.dumps([f"--connect=127.0.0.1:{watch.port()}",
+                                   path] + extra_client) + "\n")
+    client.stdin.flush()
+    answered, _, _ = select.select([client.stdout], [], [],
+                                   Q_CLIENT_TIMEOUT_S)
+    line = client.stdout.readline() if answered else ""
+    check(line, f"Q4: no answer from the client process (rc "
+                f"{client.poll()}): {client_stderr(err)}")
+    reply = json.loads(line)
+    th.join(Q_CLIENT_TIMEOUT_S)
+    wall = time.perf_counter() - t
+    check("err" not in reply, f"Q4 client: {reply.get('err')}")
+    check(not th.is_alive(), "Q4: the server did not end at the BYE")
+    if "err" in box:
+        raise box["err"]
+    return watch.buf.getvalue(), reply, wall
+
+
+def cli_phase(torch, device) -> dict:
+    """Phase Q. Returns the gather's and the wedge kernel's launches in
+    the CLI runs."""
+    err = tempfile.TemporaryFile()
+    client = start_cli_client(os.path.dirname(os.path.abspath(__file__)),
+                              err)
+    try:
+        return cli_runs(device, client, err)
+    finally:
+        if client.poll() is None:
+            client.stdin.close()
+            try:
+                client.wait(60)
+            except subprocess.TimeoutExpired:
+                client.kill()
+                client.wait()
+        err.close()
+
+
+def cli_runs(device, client, err) -> dict:
+    """Phase Q's runs, with Q4's client process already started."""
+    from gelly_torch.ops import kernels
+
+    dev = f"--device={device.type}"
+    launches = {"gather": {}, "wedge": {}}
+
+    # Q1: every CLI on its built-in data, on the card and on the CPU.
+    t1 = time.perf_counter()
+    for name in Q_CLIS:
+        out, wall = run_cli(name, [dev])
+        cpu, _ = run_cli(name, ["--device=cpu"])
+        check(held_lines(out) and held_lines(out) == held_lines(cpu),
+              f"Q1 {name}: card stdout != CPU stdout:\n{out}\n{cpu}")
+        print(f"phase Q1 {name}: {len(held_lines(out))} lines equal to the "
+              f"CPU run's, {wall:.3f} s on the card")
+    goldens = (
+        ("window_triangles", [], ("(2,399)", "(3,799)", "(2,1199)")),
+        ("degree_distribution", [], ("(1,2)",)),
+        ("centralized_weighted_matching", [], ("total weight:",)),
+        ("connected_components", ["--queries=cc,degrees,bipartiteness"],
+         ("cc 1: [1, 3, 5", "cc 2: [2, 4, 6", "degrees top:",
+          "bipartiteness: ok")),
+    )
+    for name, args, want in goldens:
+        out, _ = run_cli(name, args + [dev])
+        check(all(w in out for w in want), f"Q1 {name} golden: {out}")
+    out, _ = run_cli("connected_components", [dev])
+    check(out.startswith("1: [1, 3, 5") and "\n2: [2, 4, 6" in out
+          and out.count("\n") == 2, f"Q1 CC golden: {out}")
+    for args, match in ((["--stats"], "pair it with --serve"),
+                        (["--queries=cc", "--checkpoint-dir=/tmp/x"],
+                         "single-query"),
+                        (["--queries=nope"], "unknown --queries")):
+        try:
+            run_cli("connected_components", args + [dev])
+        except SystemExit as e:
+            check(match in str(e), f"Q1 refusal {args}: {e}")
+        else:
+            check(False, f"Q1: {args} did not refuse")
+    from gelly_torch import obs
+
+    check(not obs.recording(), "Q1: the --stats refusal turned recording on")
+    print(f"phase Q1: goldens and refusals held in "
+          f"{time.perf_counter() - t1:.2f} s")
+
+    tmp = tempfile.mkdtemp(prefix="gelly_q_")
+    try:
+        # Q2: CC at the CLI's full width.
+        t0 = time.perf_counter()
+        src, dst = synth_edges(Q_EDGES, Q_N, SEED)
+        path = os.path.join(tmp, "edges.txt")
+        write_text_edges(path, (src, dst))
+        print(f"phase Q2 file: {Q_EDGES} Zipf edges over {Q_N} ids, "
+              f"{os.path.getsize(path)} B of text in "
+              f"{time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        oracle = scipy_oracle(src, dst, Q_N)
+        deg = np.bincount(src, minlength=Q_N) + np.bincount(dst,
+                                                           minlength=Q_N)
+        print(f"phase Q2 oracle: scipy and bincount in "
+              f"{time.perf_counter() - t0:.2f} s")
+        runs = (("plain", []), ("shards=4", ["--shards=4"]),
+                ("queries", ["--queries=cc,degrees,bipartiteness"]))
+        for what, extra in runs:
+            reset_launches(kernels)
+            out, wall = run_cli("connected_components",
+                                [path, str(Q_MERGE), dev] + extra)
+            launches["gather"][f"Q2 {what}"] = \
+                kernels.sorted_window_gather.launches
+            prefix = "cc " if what == "queries" else ""
+            check(np.array_equal(cli_labels(out, Q_N, prefix), oracle),
+                  f"Q2 {what}: components != scipy")
+            if what == "queries":
+                top = json.loads(out.split("degrees top: ", 1)[1]
+                                 .split("\n", 1)[0].replace("(", "[")
+                                 .replace(")", "]"))
+                check(len(top) == 5
+                      and all(deg[v] == d for v, d in top)
+                      and [d for _, d in top]
+                      == sorted(deg.tolist(), reverse=True)[:5],
+                      f"Q2 degrees top {top} != bincount")
+                check("bipartiteness: " in out, "Q2: no bipartiteness line")
+            print(f"phase Q2 {what}: wall {wall:.4f} s, "
+                  f"{Q_EDGES / wall:.1f} edges/s, components equal to "
+                  f"scipy{', top degrees to bincount' if prefix else ''}, "
+                  f"gather launches {kernels.sorted_window_gather.launches}")
+        del src, dst, deg
+
+        # Q3: window_triangles at its full width.
+        t0 = time.perf_counter()
+        tsrc, tdst = synth_edges(Q_TRI_EDGES, Q_TRI_N, SEED)
+        n_win = Q_TRI_EDGES // Q_TRI_WINDOW
+        tpath = os.path.join(tmp, "timed.txt")
+        write_text_edges(tpath, (tsrc, tdst, np.arange(Q_TRI_EDGES)))
+        want, _ = window_oracles(tsrc, tdst, Q_TRI_N, Q_TRI_WINDOW, n_win)
+        print(f"phase Q3 file and oracle: {Q_TRI_EDGES} Zipf edges over "
+              f"{Q_TRI_N} ids, {n_win} windows of {Q_TRI_WINDOW} ms, "
+              f"in {time.perf_counter() - t0:.2f} s")
+        reset_launches(kernels)
+        out, wall = run_cli("window_triangles",
+                            [tpath, str(Q_TRI_WINDOW), dev])
+        wl = kernels.wedge_count_matrix.launches
+        launches["wedge"]["Q3"] = wl
+        got = [tuple(int(x) for x in ln.strip("()").split(","))
+               for ln in held_lines(out)]
+        check(got == [(c, (w + 1) * Q_TRI_WINDOW - 1)
+                      for w, c in enumerate(want)],
+              f"Q3: window counts {got[:8]}... != scipy {want[:8]}...")
+        if device.type == "cuda":
+            check(wl >= n_win, f"Q3: {wl} wedge launches for {n_win} "
+                  "windows")
+        print(f"phase Q3: {n_win} windows equal to scipy "
+              f"({sum(want)} triangles), wall {wall:.4f} s, "
+              f"{Q_TRI_EDGES / wall:.1f} edges/s, wedge launches {wl}")
+        del tsrc, tdst
+
+        # Q4: the wire, raw, then compressed and stacked.
+        for what, serve_x, client_x in (
+                ("raw", [], []),
+                ("compressed stack=4", ["--compressed"],
+                 ["--compressed", "--stack=4"])):
+            reset_launches(kernels)
+            server, reply, wall = wire_run(client, err, dev, path, serve_x,
+                                           client_x)
+            launches["gather"][f"Q4 {what}"] = \
+                kernels.sorted_window_gather.launches
+            check(np.array_equal(cli_labels(server, Q_N), oracle),
+                  f"Q4 {what}: components != Q2's")
+            check(reply["cuda"] is False,
+                  f"Q4 {what}: the client created a CUDA context")
+            acked = [ln for ln in reply["out"].splitlines() if "acked" in ln]
+            print(f"phase Q4 {what}: wall {wall:.4f} s (server start to the "
+                  f"client's answer; the client process started before "
+                  f"Q1), {Q_EDGES / wall:.1f} edges/s, components equal "
+                  f"to Q2's, no CUDA context in the client; "
+                  f"{acked[0][2:] if acked else ''}")
+        client.stdin.close()
+        check(client.wait(60) == 0,
+              f"Q4: the client process exited {client.returncode}: "
+              f"{client_stderr(err)}")
+
+        # Q5: --checkpoint-dir, a crash after the first checkpoints, a
+        # resume.
+        from gelly_torch.engine import faults
+
+        ckpt = os.path.join(tmp, "ckpt")
+        args = [path, str(Q_CKPT_MERGE), f"--checkpoint-dir={ckpt}", dev]
+        plan = faults.FaultPlan([faults.Fault("step", at=Q_CKPT_CRASH,
+                                              retryable=False)])
+        t0 = time.perf_counter()
+        try:
+            with faults.install(plan):
+                run_cli("connected_components", args)
+        except faults.FaultInjected:
+            pass
+        else:
+            check(False, "Q5: the injected crash did not end the run")
+        crash_s = time.perf_counter() - t0
+        kept = sorted(os.listdir(ckpt))
+        check(kept, "Q5: no checkpoint before the crash")
+        counter = faults.FaultPlan([])
+        reset_launches(kernels)
+        with faults.install(counter):
+            out, wall = run_cli("connected_components", args)
+        launches["gather"]["Q5 resume"] = \
+            kernels.sorted_window_gather.launches
+        steps = counter.calls("step")
+        check("# resumed from " in out, f"Q5: the rerun did not resume:\n"
+              f"{out[:500]}")
+        check(steps < Q_EDGES // 4096, f"Q5: the rerun folded {steps} chunks")
+        check(np.array_equal(cli_labels(out, Q_N), oracle),
+              "Q5: resumed components != Q2's")
+        print(f"phase Q5: crashed at fold {Q_CKPT_CRASH} after "
+              f"{crash_s:.2f} s with {len(kept)} checkpoint(s) kept; the "
+              f"rerun resumed, folded {steps} of {Q_EDGES // 4096} chunks "
+              f"in {wall:.4f} s, components equal to Q2's")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase Q launches: gather {launches['gather']}, wedge "
+          f"{launches['wedge']}")
+    return launches
+
+
 def main() -> int:
     import faulthandler
 
@@ -6566,6 +7007,9 @@ def main() -> int:
     # the card's time limit.
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
 
+    if sys.argv[1:2] == ["--cli-client"]:
+        # Phase Q4's host-only client: it must not touch the card.
+        return cli_client()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a card only",
               file=sys.stderr)
@@ -6798,6 +7242,11 @@ def main() -> int:
         tenants.pop(key)
     torch.cuda.empty_cache()
 
+    # Q. the example CLIs (gelly_torch/examples/) on the card
+    mark("Q", t_start)
+    clis = cli_phase(torch, device)
+    torch.cuda.empty_cache()
+
     mark("F4, G", t_start)
     f4 = spanner_gate_phase(torch, device, f2_stream)
     del f2_stream
@@ -7005,6 +7454,7 @@ def main() -> int:
         "tenant_launches": tenants["gather_launches"],
         "multihost_launches": coord["gather_launches"],
         "ingest_launches": ingest,
+        "cli_launches": clis["gather"],
         "max_abs_err": max(max_abs_err, k14["gather_err"]),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -7017,6 +7467,7 @@ def main() -> int:
         "source": "gelly_torch/csrc/wedge_count_matrix.cu",
         "replaces": "gelly_tpu/ops/pallas_kernels.py:69",
         "launches": tri_launches,
+        "cli_launches": clis["wedge"],
         "max_abs_err": max(w_err, dense_err),
         "ms": wedge_ms,
         "plain_ms": wedge_plain_ms,

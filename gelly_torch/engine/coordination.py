@@ -466,10 +466,19 @@ class CheckpointStore:
         for e in self.list_epochs():
             if e < committed - (keep - 1):
                 try:
-                    # The committed epoch and everything above it (one
-                    # may be mid-write) are never touched, so a torn
-                    # in-flight epoch can never orphan the rotation.
-                    shutil.rmtree(self.epoch_dir(e))
+                    # Vetted EO004 exception: the newest-artifact
+                    # validation happened at the COMMIT point, not here
+                    # — ``committed`` is the manifest epoch published by
+                    # CheckpointStore.commit after the all-votes-in
+                    # guard (the PI001 gate) and shard presence is
+                    # re-verified by validate_manifest on every resume.
+                    # Only epochs strictly below committed-(keep-1) are
+                    # deleted; the committed epoch and everything above
+                    # it (one may be mid-write) are never touched, so a
+                    # torn in-flight epoch can never orphan the
+                    # rotation.
+                    shutil.rmtree(  # graphlint: disable=EO004
+                        self.epoch_dir(e))
                 except OSError:
                     pass
 

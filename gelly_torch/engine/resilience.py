@@ -166,6 +166,11 @@ class Counters(dict):
         with self._lock:
             self[key] = self.get(key, 0) + by
 
+    def set(self, key: str, value) -> None:
+        """Store ``value`` under the lock :meth:`bump` takes."""
+        with self._lock:
+            self[key] = value
+
 
 class Watchdog:
     """Run a call with a wall-clock bound, on a disposable daemon thread.
@@ -331,7 +336,12 @@ class CheckpointManager:
         while True:
             try:
                 faults_mod.inject("checkpoint_write", path=path)
-                header = save_checkpoint(
+                # Vetted exception to the daemon-durability rule: this
+                # write is atomic (tmp + fsync + rename) and _rotate
+                # validates the newest file before pruning its fallbacks,
+                # so a daemon killed mid-write can only lose the newest
+                # snapshot — never leave zero valid checkpoints.
+                header = save_checkpoint(  # graphlint: disable=RC006
                     path, host, position=position, meta=meta
                 )
                 break
@@ -354,7 +364,7 @@ class CheckpointManager:
                 time.sleep(self.retry.delay(attempt - 1, self._rng))
         self.stats.bump("checkpoint_writes")
         self.stats.bump("checkpoint_bytes", os.path.getsize(path))
-        self.stats["checkpoint_write_s"] = time.perf_counter() - t0
+        self.stats.set("checkpoint_write_s", time.perf_counter() - t0)
         # Durability currency on the bus: bytes written and write latency
         # are what the checkpoint cadence trades against fold throughput.
         obs_bus.publish_checkpoint(obs_bus.get_bus(), "resilience", path,

@@ -14,9 +14,11 @@ the text edge-list parser (:func:`parse_edge_list_file`,
 
 The port builds each source itself, at first use, with ``g++ -O3 -shared
 -fPIC`` into ``gelly_torch/_build/lib<stem>.so``: the build is
-rebuilt when the source is newer, runs under a thread lock and a file lock
-(concurrent processes build once), writes to a temporary name that
-``os.replace`` moves into place, and never writes into ``native/``. Every
+rebuilt when the source is newer, runs under a file lock (concurrent
+threads and processes build once), writes to a temporary name that
+``os.replace`` moves into place, and never writes into ``native/``
+(``GELLY_NATIVE_SANITIZE=asan|ubsan`` builds ``lib<stem>.<mode>.so``
+there for the sanitizer lane). Every
 call releases the GIL (ctypes), so codec workers on a thread pool run in
 parallel. A missing compiler makes :func:`available` report False and the
 codec plans fall back to their numpy codecs.
@@ -119,8 +121,33 @@ def _stamp(exc: BaseException, stem: str) -> BaseException:
     return exc
 
 
-def library_path(stem: str) -> str:
-    return os.path.join(BUILD_DIR, f"lib{stem}.so")
+# Sanitizer lane (``gelly_torch/analysis/sanitize.py``):
+# GELLY_NATIVE_SANITIZE=asan|ubsan builds every native component
+# instrumented, under its own name (``lib<stem>.<mode>.so``) so the plain
+# library never carries a sanitizer runtime dependency. Loading one needs
+# the runtime in LD_PRELOAD, which the lane's subprocess sets up; without
+# it the dlopen fails and available() reports the component unavailable.
+_SANITIZE_FLAGS = {
+    "asan": ("-g", "-fsanitize=address", "-fno-omit-frame-pointer"),
+    "ubsan": ("-g", "-fsanitize=undefined", "-fno-sanitize-recover=undefined"),
+}
+
+
+def _sanitize_mode() -> str:
+    """Active GELLY_NATIVE_SANITIZE mode ('' = off). Unknown values raise:
+    silently building an uninstrumented library would defeat the lane."""
+    mode = os.environ.get("GELLY_NATIVE_SANITIZE", "").strip().lower()
+    if mode and mode not in _SANITIZE_FLAGS:
+        raise ValueError(
+            f"GELLY_NATIVE_SANITIZE={mode!r}: expected one of "
+            f"{sorted(_SANITIZE_FLAGS)} or unset"
+        )
+    return mode
+
+
+def library_path(stem: str, mode: str = "") -> str:
+    suffix = f".{mode}" if mode else ""
+    return os.path.join(BUILD_DIR, f"lib{stem}{suffix}.so")
 
 
 def _stale(src: str, so: str) -> bool:
@@ -129,28 +156,41 @@ def _stale(src: str, so: str) -> bool:
     )
 
 
+def _build(stem: str, mode: str) -> str:
+    """Compile ``native/<stem>.cc`` into ``gelly_torch/_build/`` when it is
+    newer than the library. The file lock alone serializes builders: an
+    flock is held by an open file description, so threads of one process
+    wait on it as other processes do, and no module lock is held across
+    the compiler."""
+    src = os.path.join(NATIVE_DIR, f"{stem}.cc")
+    so = library_path(stem, mode)
+    if _stale(src, so):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        with open(os.path.join(BUILD_DIR, f"lib{stem}.lock"), "w") as lk:
+            fcntl.flock(lk, fcntl.LOCK_EX)
+            if _stale(src, so):  # another builder may have finished it
+                tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
+                cmd = ["g++", "-O3", "-shared", "-fPIC",
+                       *_SANITIZE_FLAGS.get(mode, ()), "-o", tmp, src]
+                subprocess.run(cmd, check=True, capture_output=True)
+                os.replace(tmp, so)
+    return so
+
+
 def _load_lib(stem: str) -> ctypes.CDLL:
-    """Compile ``native/<stem>.cc`` into ``gelly_torch/_build/`` (mtime
-    fresh, under a lock) and dlopen it."""
+    """Build ``native/<stem>.cc`` if stale and dlopen it once a process
+    (a sanitized build under GELLY_NATIVE_SANITIZE)."""
+    mode = _sanitize_mode()
+    key = f"{stem}.{mode}" if mode else stem
     with _lock:
-        if stem in _libs:
-            return _libs[stem]
-        src = os.path.join(NATIVE_DIR, f"{stem}.cc")
-        so = library_path(stem)
-        if _stale(src, so):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            with open(os.path.join(BUILD_DIR, f"lib{stem}.lock"), "w") as lk:
-                fcntl.flock(lk, fcntl.LOCK_EX)
-                if _stale(src, so):  # another process may have built it
-                    tmp = f"{so}.{os.getpid()}.tmp"
-                    subprocess.run(
-                        ["g++", "-O3", "-shared", "-fPIC", "-o", tmp, src],
-                        check=True, capture_output=True,
-                    )
-                    os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
-        _libs[stem] = lib
+        lib = _libs.get(key)
+    if lib is not None:
         return lib
+    so = _build(stem, mode)
+    with _lock:
+        if key not in _libs:
+            _libs[key] = ctypes.CDLL(so)
+        return _libs[key]
 
 
 def _load_parser() -> ctypes.CDLL:

@@ -538,9 +538,18 @@ def test_overload_sheds_parked_tenant_and_bounds_backlog():
             assert _wait(lambda: eng.position("victim") == 2
                          and eng.position("other") == 2)
             _park_victim(bus, eng, ages)
+            # Hold the QoS pass off for the burst: a pass landing between
+            # two submits sheds the victim at 4 queued chunks, not 6.
+            with eng._lock:
+                eng._qos_next_eval = float("inf")
             for ch in vic[2:8]:  # 6 queued > shed_queue_depth=3
                 eng.submit("victim", ch)
-            assert _wait(lambda: eng.qos_state("victim") == QOS_SHED)
+            with eng._lock:
+                eng._qos_next_eval = 0.0
+            # The ladder turns SHED inside the pass before the pass drops
+            # the queue and emits; its shed gauge is published after both.
+            assert _wait(lambda: eng.qos_state("victim") == QOS_SHED
+                         and bus.gauges.get("qos.shed_tenants") == 1)
             assert bus.counters["qos.shed"] == 1
             assert bus.counters["qos.chunks_dropped"] == 6
             assert eng.queue_depth("victim") == 0
