@@ -74,7 +74,9 @@ Phases (any failure exits nonzero and prints no result line):
    ``obs_launches``, the gather's in phase N3's kernel tier as
    ``tenant_launches``, the gather's in phases P1, P2 and P4 as
    ``ingest_launches``, the gather's and the wedge kernel's in phase Q's
-   CLI runs as ``cli_launches``), then ``{"ok": true, "device": ...}``
+   CLI runs as ``cli_launches``, the gather's and the sampler's a
+   process across processes as ``multihost_launches``: O1's a host and
+   O3's (a) / (e) a process), then ``{"ok": true, "device": ...}``
    last.
 
 The durable phases (checkpoints, exactly-once resume, the resilient
@@ -102,6 +104,42 @@ C. (after phase 4) ``ResilientRunner`` over phase 4's raw stream with
    ``checkpoint_write``: 2 retries, a forest bit-identical to the
    uninterrupted chunk loop's (whose labels equal phase 4's), and the
    gather's launches counted.
+
+The mesh across processes (phase O, after phase B; children
+``python3 chip_smoke.py --coord-child <dir> <process>`` joined over
+loopback gloo on ``cuda:0``; a failed check in any child exits it 1 and
+fails the phase):
+
+O. O1: two hosts each fold their half of phase 4's chunks through a
+   coordinated ``ResilientRunner`` (a barrier every 2 chunks), then a
+   cross-process butterfly: every host's merged labels equal phase 4's
+   and scipy's, the gather launched 3 times a dedup chunk a host. O2: the
+   leader is killed after the first manifest; the survivor exits nonzero
+   within its lease bound; both resume and reach O1's forests. O3: 4
+   processes x 2 logical shards (an 8-shard mesh) fold phase 4's first
+   ``2^24`` edges; the butterfly and the hierarchical merge (degree 4)
+   equal scipy's components; the keyed exchange conserves every shard's
+   multiset. Then, in the same processes, each check printing a
+   process's wall, edges a second, bytes through gloo, host syncs, peak
+   device memory and its shards, every replicated value held equal
+   across the 4 processes by its digest: (a) ``run_aggregation(mesh=)``
+   of the raw plan on those edges in ``2^22``-edge chunks (a shard's
+   slice ``2^19`` lanes, the dedup threshold set to it), 2 windows, with
+   ``fold_backend="kernel"`` and ``"plain"`` each under the replicated
+   and the delta merge: equal emissions, the last scipy's, the gather
+   launched 3 times a dedup shard-chunk of the process's own shards
+   (counted apart) and equal to its plain version at a shard's shapes;
+   (b) the compact plan (``2^20``-edge chunks, ``merge_every=8``): (a)'s
+   emissions; (c) ``ShardedCC`` over two folds of ``2^17`` pairs:
+   scipy's labels; (d) ``ShardedDegrees`` (``auto``) over ``2^22`` edges
+   and the deletion of their first ``2^20``: the signed ``bincount``; (e)
+   on J4's stream made in the child: the sharded sampler (every local
+   instance's state the unsharded run's, the estimate the single
+   controller's, the kernel launched once a local shard a chunk and
+   equal to its plain version at a shard's shape),
+   ``sharded_window_triangles`` (one window: scipy's count) and
+   ``ShardedExactTriangles`` on J4's first ``2^14`` edges (scipy's
+   ``diag(A³) / 2``).
 
 The degree and bipartiteness paths (after phase B, on the native degree and
 parity codecs, never disabled; neither launches a hand kernel, counted;
@@ -173,7 +211,8 @@ F. F1: a user-written transient aggregation with no ``fold_accumulates``
    edge for edge, and to the dense plan's plain per-edge fold; (ii) the
    ingest codec, ``spanner(2^20, 3, max_degree=16, ingest_combine=True,
    payload_cap=2^15)`` over F2's stream with 2 codec workers, each
-   chunk-local spanner re-gated through entry 1: the first chunk equal to
+   chunk-local spanner re-gated through entry 1: the first ``2^18``
+   edges' run (a depth cut of the first ``2^19``-edge chunk) equal to
    the plain re-gate, every accepted edge an input edge, 2000 sampled
    input edges within ``k^2 = 9`` hops;
 G. ``bench.py:bench_matching`` (BASELINE #5, no cut): the ratings fixture
@@ -373,7 +412,8 @@ seconds, kernel launches and peak device memory:
 
 H. H1: phase 4's stream in ``2^18``-edge chunks through
    ``connected_components(2^24, merge="gather", codec="dense",
-   windowed=W)``, ``merge_every=2``, W = 64 over the whole stream (128
+   windowed=W)``, ``merge_every=2``, W = 64 over the first ``3 x 2^24``
+   edges (96 panes; a depth cut of 128
    panes) and W = 4 over its first ``2^25`` edges (64 panes): three
    emissions each (the W-th, one mid-stream, the last) equal the labels
    of exactly their window's edges (scipy, or phase 4's emission for a
@@ -596,6 +636,9 @@ F4_SEED = 5
 F4_CODEC_CAP = 1 << 15
 F4_CODEC_WORKERS = 2  # each holds 2^20 x 128 i32 of chunk-local rows
 F4_SAMPLE = 2000
+# F4(ii)'s plain re-gate on CPU tensors takes ~10 s for the first
+# 2^19-edge chunk: a depth cut to 2^18 edges, for phase O3's checks.
+F4_REGATE_EDGES = 1 << 18
 
 # Phase G (matching, bench.py:bench_matching's call, no cut): the ratings
 # fixture tiled with a fresh permutation of its 4096 ids a repetition, to
@@ -4140,18 +4183,19 @@ def spanner_gate_phase(torch, device, f2_stream: dict) -> dict:
         print(f"  F4(ii) payload {i + 1}: {info['lanes']} lanes, "
               f"{info['live']} live, {info['accepted']} accepted, entry 1 "
               f"{ms:.4f} ms")
-    (first,), _ = codec_run(F2_CHUNK, 1)
-    # The plain re-gate of the first chunk runs on CPU tensors (the same
+    (first,), _ = codec_run(F4_REGATE_EDGES, 1)
+    # The plain re-gate of the first edges runs on CPU tensors (the same
     # host codec and payload): on the card its per-edge launches cost about
     # 2 ms an edge, almost all of it host-side dispatch.
     t = time.perf_counter()
-    res = edge_stream_from_source(codec_source(F2_CHUNK), n2,
+    res = edge_stream_from_source(codec_source(F4_REGATE_EDGES), n2,
                                   device="cpu").aggregate(
         codec_plan(), merge_every=1, codec_workers=F4_CODEC_WORKERS)
     first_plain, = [spanner_pull(x) for x in res]
-    print(f"phase F4(ii) plain re-gate of chunk 1 on CPU tensors: "
-          f"{time.perf_counter() - t:.4f} s")
-    check(same(first, first_plain), "F4(ii): entry 1 != plain, chunk 1")
+    print(f"phase F4(ii) plain re-gate of the first {F4_REGATE_EDGES} "
+          f"edges on CPU tensors: {time.perf_counter() - t:.4f} s")
+    check(same(first, first_plain),
+          f"F4(ii): entry 1 != plain, first {F4_REGATE_EDGES} edges")
     m = int(full[4])
     check(not bool(full[5]), "F4(ii): the edge list overflowed")
     keys = input_keys(torch, s2, d2, n2, device)
@@ -4165,8 +4209,8 @@ def spanner_gate_phase(torch, device, f2_stream: dict) -> dict:
           f"F4(ii): stretch > k^2 = 9 on {int((hops > 9).sum())} sampled "
           "edges")
     print(f"phase F4(ii): {m} accepted over {chunks} payloads "
-          f"(deg_overflow {int(full[6])}); chunk 1 equal to the plain "
-          f"re-gate; every accepted edge an input edge; {F4_SAMPLE} sampled "
+          f"(deg_overflow {int(full[6])}); the first {F4_REGATE_EDGES} "
+          f"edges equal to the plain re-gate; every accepted edge an input edge; {F4_SAMPLE} sampled "
           f"input edges within k^2 = 9 hops (max {int(hops.max())})")
     return result
 
@@ -4329,8 +4373,9 @@ H1_MERGE_EVERY = 2  # 128 panes
 H1_WINDOWS = (4, 64)
 # Edges a ring run folds: W = 4 over the first half of phase 4's stream
 # (64 panes, 60 of them evicting; a depth cut of 128 panes, ~10 s, for
-# phase Q), W = 64 over all of it.
-H1_EDGES = {4: 1 << 25, 64: 1 << 26}
+# phase Q), W = 64 over its first three quarters (96 panes, 32 of them
+# evicting; a depth cut of 128 panes, ~5 s, for phase O3's checks).
+H1_EDGES = {4: 1 << 25, 64: 3 << 24}
 H2_BLOCK = 1 << 20
 H2_DRIFT = 1 << 16
 H2_CHUNKS = 128  # a depth cut of 256: still 9.2M slots > the capacity
@@ -6138,6 +6183,27 @@ O3_SHARDS = 2  # logical shards a process: 8 on the card
 O3_EDGES = 1 << 24
 O3_EXCHANGE = 1 << 20  # keyed-exchange entries a shard
 O3_DEGREE = 4  # = O3_PROCS: the hierarchical leader hop crosses processes
+# O3's engine checks (a)-(e), in the same 4 processes after the merges.
+# (a) and (b) fold O3_EDGES in 2^22-edge chunks (2^19 lanes a shard),
+# 2^23-edge windows: 2 emissions.
+O3_CHUNK = CHUNK
+O3_MERGE_EVERY = 2
+O3_COMPACT_CHUNK = 1 << 20
+O3_COMPACT_MERGE = 8  # and fold_batch 8: a multiple of the 8 shards
+# Depth cuts (PERF.md section 4): loopback gloo moves 0.2-0.4 GB/s, and
+# every ShardedCC lookup level sends each shard's whole bucket through it.
+O3_CC_PAIRS = 1 << 17  # (c): two folds, labels() after each
+O3_DEG_EDGES = 1 << 22  # (d): one chunk, then deletions of its first 2^20
+O3_DEG_DELETES = 1 << 20
+# (e): ShardedExactTriangles on J4's first 2^14 edges in 4 chunks: its
+# row fetch moves [edges, max degree] rows, about 1 GB at J4's 2^17-edge
+# chunk (max degree 3566) and 65 MB at 2^14 edges (1239).
+O3_EXACT_EDGES = 1 << 14
+O3_EXACT_CHUNK = 1 << 12
+O3_PLAIN_LANES = 1 << 6  # (e): the sampler's plain check at a shard's shape
+# (e): J4's Zipf hub holds about a quarter of a chunk's endpoints, more
+# than the default 2x fair share of 8 shards' buckets (K6's 4 fit).
+O3_WINDOW_SLACK = 4.0
 
 
 def free_port() -> int:
@@ -6352,7 +6418,334 @@ def merge_child(torch, device, directory: str, pid: int, cfg: dict) -> dict:
     out["exchange"] = {"wall_s": wall, "entries": L * S,
                        "sent_bytes": mesh.sent_bytes - sent,
                        "received_bytes": mesh.received_bytes - received}
+    del k2, p2, v2, keys, pays, valids
+    torch.cuda.empty_cache()
+    out["engine"] = engine_checks(torch, device, mesh,
+                                  np.ascontiguousarray(src),
+                                  np.ascontiguousarray(dst))
     return out
+
+
+def digest(a) -> str:
+    """A short hash of an array's dtype, shape and bytes: the parent holds
+    a replicated value equal across the processes by it."""
+    import hashlib
+
+    a = np.ascontiguousarray(a)
+    h = hashlib.blake2b(digest_size=16)
+    h.update(f"{a.dtype}{a.shape}".encode())
+    h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def engine_checks(torch, device, mesh, src, dst) -> dict:
+    """O3's checks (a)-(e) of the engine and the sharded library on the
+    8-shard mesh of 4 processes, in every process: the same global stream
+    and arguments, each process folding its own shards. Every replicated
+    value is reported by its digest; the parent holds them equal across
+    the processes and to its oracles."""
+    from gelly_torch.core.io import EdgeChunkSource
+    from gelly_torch.core.stream import edge_stream_from_source
+    from gelly_torch.core.vertices import IdentityVertexTable
+    from gelly_torch.library import connected_components as cc
+    from gelly_torch.library import degrees as deg
+    from gelly_torch.library import triangles as tri
+    from gelly_torch.library.sharded_triangles import ShardedExactTriangles
+    from gelly_torch.ops import kernels, unionfind
+    from gelly_torch.parallel import mesh as mesh_lib
+    from gelly_torch.parallel.partition import split_chunk
+    from gelly_torch.parallel.sharded_cc import ShardedCC
+
+    n, S = N_VERTICES, mesh.num_shards
+    local = mesh.local_shards
+    out: dict = {"local_shards": list(local)}
+
+    def timed(name, n_events, fn):
+        sent, received = mesh.sent_bytes, mesh.received_bytes
+        mesh_lib.barrier(mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_launches(kernels)
+        unionfind.host_sync.count = 0
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        out[name] = {
+            "wall_s": wall, "edges": n_events,
+            "edges_per_s": n_events / wall,
+            "sent_bytes": mesh.sent_bytes - sent,
+            "received_bytes": mesh.received_bytes - received,
+            "host_syncs": unionfind.host_sync.count,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(device),
+            "launches": dict(zip(HAND_KERNELS, launch_counts(kernels)))}
+        return res
+
+    def raw_stream(chunk=O3_CHUNK):
+        return edge_stream_from_source(EdgeChunkSource(
+            src, dst, chunk_size=chunk, table=IdentityVertexTable(n)), n,
+            device=device)
+
+    # (a) The raw plan. A shard's slice of a 2^22-edge chunk is 2^19
+    # lanes: the fold's dedup threshold (read at fold time) is set to it,
+    # so every slice takes the dedup fold and, with the kernel backend,
+    # the gather. Each process counts its own dedup shard-chunks.
+    cc.RAW_DEDUP_MIN_CHUNK = O3_CHUNK // S
+    dedup = 0
+    for c in EdgeChunkSource(src, dst, chunk_size=O3_CHUNK,
+                             table=IdentityVertexTable(n)):
+        parts = split_chunk(c, S)
+        for d in local:
+            p = parts[d].to(device)
+            cap = max(1 << 20, 3 * (p.capacity >> 4))
+            key = ((torch.minimum(p.src, p.dst).long() << 32)
+                   | torch.maximum(p.src, p.dst).long())[p.valid]
+            distinct = int(torch.unique(key).numel())
+            dedup += (p.capacity >= cc.RAW_DEDUP_MIN_CHUNK
+                      and distinct <= min(cap, p.capacity))
+    n_windows = -(-src.shape[0] // (O3_CHUNK * O3_MERGE_EVERY))
+    check(dedup == len(local) * -(-src.shape[0] // O3_CHUNK),
+          f"(a): {dedup} of this process's shard-chunks take the dedup "
+          "fold, not all")
+    emissions = {}
+    for backend in ("kernel", "plain"):
+        for mode in ("replicated", "delta"):
+            name = f"a_{backend}_{mode}"
+
+            def raw(backend=backend, mode=mode):
+                agg = cc.connected_components(
+                    n, ingest_combine=False, fold_backend=backend,
+                    merge_mode=mode)
+                res = raw_stream().aggregate(agg, mesh=mesh,
+                                             merge_every=O3_MERGE_EVERY)
+                return [e.cpu().numpy() for e in res], res.stats
+
+            got, stats = timed(name, src.shape[0], raw)
+            check(len(got) == n_windows, f"({name}): {len(got)} emissions")
+            check(stats["merge_modes"][mode] == n_windows,
+                  f"({name}): merge_modes {stats['merge_modes']}")
+            gathers = 3 * dedup if backend == "kernel" else 0
+            check(out[name]["launches"]["sorted_window_gather"] == gathers,
+                  f"({name}): {out[name]['launches']} launches, expected "
+                  f"{gathers} gathers (3 x {dedup} dedup shard-chunks)")
+            out[name].update(merge_modes=stats["merge_modes"],
+                             h2d_bytes=stats["h2d_bytes"],
+                             digests=[digest(e) for e in got])
+            emissions[name] = got
+    want = emissions["a_plain_replicated"]
+    for name, got in emissions.items():
+        check(all(np.array_equal(x, y) for x, y in zip(got, want)),
+              f"({name}): emissions != the plain replicated run's")
+    out["a_dedup_shard_chunks"] = dedup
+    # The gather at a shard's shapes: the final forest as the table, this
+    # process's first shard's slice of the first chunk as the indices.
+    c0 = next(iter(EdgeChunkSource(src, dst, chunk_size=O3_CHUNK,
+                                   table=IdentityVertexTable(n))))
+    p0 = split_chunk(c0, S)[local[0]].to(device)
+    table = torch.from_numpy(np.where(want[-1] >= 0, want[-1],
+                                      np.arange(n, dtype=np.int32))
+                             ).to(device)
+    uu, _, live, _ = unionfind._dedup_pairs(p0.src, p0.dst, p0.valid,
+                                            p0.capacity)
+    sidx = torch.where(live, uu, n - 1).contiguous()
+    g_kernel = kernels.sorted_window_gather(table, sidx)
+    g_plain = kernels.sorted_window_gather_plain(table, sidx)
+    out["gather_err"] = int((g_kernel.long() - g_plain.long()).abs().max())
+    check(torch.equal(g_kernel, g_plain), "(a): sorted_window_gather != "
+          f"its plain version at a shard's shape (L={sidx.shape[0]})")
+    del c0, p0, table, uu, live, sidx, g_kernel, g_plain
+    cc.RAW_DEDUP_MIN_CHUNK = 1 << 22
+
+    # (b) The compact plan at the same window boundaries.
+    def compact():
+        agg = cc.connected_components(n, merge="gather", codec="compact",
+                                      compact_capacity=CC_COMPACT,
+                                      merge_mode="delta")
+        res = raw_stream(O3_COMPACT_CHUNK).aggregate(
+            agg, mesh=mesh, merge_every=O3_COMPACT_MERGE,
+            fold_batch=O3_COMPACT_MERGE, codec_workers=2)
+        return [e.cpu().numpy() for e in res], res.stats
+
+    got, stats = timed("b_compact", src.shape[0], compact)
+    check(len(got) == len(want) and all(
+        np.array_equal(x, y) for x, y in zip(got, want)),
+          "(b): the compact plan's emissions != (a)'s")
+    out["b_compact"].update(merge_modes=stats["merge_modes"],
+                            h2d_bytes=stats["h2d_bytes"],
+                            digests=[digest(e) for e in got])
+    del got, want, emissions
+    torch.cuda.empty_cache()
+
+    # (c) ShardedCC: two folds of O3_CC_PAIRS pairs, labels() after each.
+    def sharded_cc():
+        k3 = ShardedCC(n, mesh=mesh)
+        labs = []
+        for i in range(2):
+            lo = i * O3_CC_PAIRS
+            k3.fold(src[lo:lo + O3_CC_PAIRS], dst[lo:lo + O3_CC_PAIRS])
+            labs.append(k3.labels())
+        return labs, dict(k3.stats)
+
+    labs, st = timed("c_sharded_cc", 2 * O3_CC_PAIRS, sharded_cc)
+    check(st["dropped"] == 0, f"(c): dropped {st['dropped']}")
+    out["c_sharded_cc"].update(stats=st, digests=[digest(x) for x in labs])
+    del labs
+
+    # (d) ShardedDegrees with deletions: the signed bincount.
+    s2 = np.concatenate([src[:O3_DEG_EDGES], src[:O3_DEG_DELETES]])
+    d2 = np.concatenate([dst[:O3_DEG_EDGES], dst[:O3_DEG_DELETES]])
+    ev = np.concatenate([np.zeros(O3_DEG_EDGES, np.int8),
+                         np.ones(O3_DEG_DELETES, np.int8)])
+
+    def degrees():
+        sd = deg.sharded_degrees(edge_stream_from_source(EdgeChunkSource(
+            s2, d2, events=ev, chunk_size=CHUNK,
+            table=IdentityVertexTable(n)), n, device=device), mesh=mesh,
+            mode="auto")
+        return sd.final_degrees(), dict(sd.stats)
+
+    got, st = timed("d_degrees", s2.shape[0], degrees)
+    final = (signed_degrees(s2[:O3_DEG_EDGES], d2[:O3_DEG_EDGES], 1, n)
+             - signed_degrees(s2[O3_DEG_EDGES:], d2[O3_DEG_EDGES:], 1, n))
+    touched = np.zeros(n, bool)
+    touched[s2] = True
+    touched[d2] = True
+    keys = np.fromiter(got.keys(), np.int64, len(got))
+    vals = np.fromiter(got.values(), np.int64, len(got))
+    order = np.argsort(keys)
+    check(np.array_equal(keys[order], np.nonzero(touched)[0])
+          and np.array_equal(vals[order], final[touched]),
+          "(d): degrees != the signed bincount")
+    check(st["dropped"] == 0, f"(d): dropped {st['dropped']}")
+    out["d_degrees"].update(stats=st, digests=[digest(keys[order]),
+                                               digest(vals[order])])
+    del s2, d2, ev, got, keys, vals, final, touched
+
+    # (e) The sampler, the window count and the exact counts on J4's
+    # stream, made here from its seed.
+    jsrc, jdst = synth_edges(J4_EDGES, J4_N, SEED)
+
+    def j4_stream(a=jsrc, b=jdst, chunk=J4_CHUNK):
+        return event_stream(a, b, J4_N, chunk, device)
+
+    def sampler():
+        runs = list(tri.sharded_sampler_run(j4_stream(), J6_SAMPLES, mesh,
+                                            seed=J6_SEED))
+        return runs[-1][0], [e for _, e in runs]
+
+    states, est = timed("e_sampler", J4_EDGES, sampler)
+    n_chunks = -(-J4_EDGES // J4_CHUNK)
+    check(out["e_sampler"]["launches"]["sampler_step"]
+          == len(local) * n_chunks,
+          f"(e): {out['e_sampler']['launches']} sampler launches != "
+          f"{len(local)} local shards x {n_chunks} chunks")
+    ref_stream = j4_stream()
+    ref = tri._fresh_sampler(J6_SAMPLES, J6_SEED, device)
+    for c in ref_stream:
+        ref = tri._sampler_step(ref, c.to_fields(
+            device, ("src", "dst", "valid")), ref_stream.ctx.table.num_vertices)
+    per = J6_SAMPLES // S
+    for d in local:
+        for f, a, b in zip(tri.SamplerState._fields, states[d], ref):
+            b = b[d * per:(d + 1) * per] if b.dim() else b
+            check(torch.equal(a, b), f"(e): shard {d}'s {f} != the "
+                  "unsharded sampler's")
+    single = tri.sharded_sampler_estimate(tri._shard_sampler(
+        ref, mesh_lib.Mesh([device] * S)))
+    check(est[-1] == single, f"(e): estimate {est[-1]} != the single "
+          f"controller's {single}")
+    out["e_sampler"].update(estimates=est)
+    shard0 = tuple(tri._shard_sampler(tri._fresh_sampler(
+        J6_SAMPLES, J6_SEED, device), mesh)[local[0]])
+    lanes = [torch.from_numpy(x[:O3_PLAIN_LANES]).to(device) for x in (
+        jsrc, jdst, np.ones(O3_PLAIN_LANES, bool))]
+    n_v = int(max(jsrc[:J4_CHUNK].max(), jdst[:J4_CHUNK].max())) + 1
+    got = kernels.sampler_step(shard0, *lanes, n_v)
+    want = kernels.sampler_step_plain(shard0, *lanes, n_v)
+    for f, a, b in zip(tri.SamplerState._fields, got, want):
+        check(torch.equal(a, b), f"(e): sampler_step != plain at a shard's "
+              f"shape, field {f}")
+    del states, ref, shard0, got, want
+    ab = simple_edges(jsrc, jdst, J4_N)
+    whole = triangles_scipy(*ab, J4_N)
+    counts = timed("e_window_triangles", J4_EDGES, lambda: [
+        (w, int(c)) for w, c in tri.sharded_window_triangles(
+            j4_stream(), K6_WINDOW, window_capacity=2 * K6_WINDOW,
+            mesh=mesh, bucket_slack=O3_WINDOW_SLACK)])
+    check(counts == [(0, whole)], f"(e): sharded_window_triangles {counts} "
+          f"!= the exact {whole}")
+    out["e_window_triangles"].update(counts=counts)
+    es, ed = jsrc[:O3_EXACT_EDGES], jdst[:O3_EXACT_EDGES]
+    ab = simple_edges(es, ed, J4_N)
+    total, per_v = per_vertex_triangles(
+        vertex_triangles_scipy(*ab, J4_N, "ends"),
+        vertex_triangles_scipy(*ab, J4_N, "middle"))
+    d_max = int((np.bincount(ab[0], minlength=J4_N)
+                 + np.bincount(ab[1], minlength=J4_N)).max())
+    got = timed("e_exact", O3_EXACT_EDGES, lambda: ShardedExactTriangles(
+        j4_stream(es, ed, O3_EXACT_CHUNK), max_degree=d_max,
+        mesh=mesh).run()
+        .final_counts())
+    nz = np.nonzero(per_v)[0]
+    check(got.get(-1) == total and len(got) == 1 + nz.size
+          and all(got[int(v)] == int(per_v[v]) for v in nz),
+          f"(e): ShardedExactTriangles != the exact oracle ({got.get(-1)} / "
+          f"{total})")
+    out["e_exact"].update(total=total, max_degree=d_max)
+    return out
+
+
+O3_CHECKS = ("a_kernel_replicated", "a_kernel_delta", "a_plain_replicated",
+             "a_plain_delta", "b_compact", "c_sharded_cc", "d_degrees",
+             "e_sampler", "e_window_triangles", "e_exact")
+
+
+def o3_engine_report(src, dst, oracle3, engines: list) -> dict:
+    """Phase O3's checks (a)-(e) in the parent: every replicated value
+    (by digest) equal across the processes, (a)'s last emission scipy's,
+    (c)'s labels scipy's of its pairs; one line a check and process."""
+    for name in O3_CHECKS:
+        for pid, e in enumerate(engines):
+            r = e[name]
+            print(f"phase O3 ({name}) process {pid} shards "
+                  f"{e['local_shards']}: wall={r['wall_s']:.4f} s "
+                  f"({r['edges_per_s']:.1f} edges/s); gloo "
+                  f"{r['sent_bytes']} B sent / {r['received_bytes']} B "
+                  f"received; host_syncs={r['host_syncs']}; peak_mem="
+                  f"{r['peak_mem_bytes']} B; launches="
+                  f"{ {k: v for k, v in r['launches'].items() if v} }"
+                  + (f"; merge_modes={r['merge_modes']} h2d_bytes="
+                     f"{r['h2d_bytes']}" if "merge_modes" in r else ""))
+        first = {k: v for k, v in engines[0][name].items()
+                 if k in ("digests", "estimates", "counts", "total",
+                          "merge_modes", "stats")}
+        for pid, e in enumerate(engines[1:], 1):
+            mine = {k: e[name][k] for k in first}
+            check(mine == first, f"phase O3 ({name}): process {pid}'s "
+                  f"replicated values != process 0's")
+    a_last = engines[0]["a_plain_replicated"]["digests"][-1]
+    check(a_last == digest(oracle3),
+          "phase O3 (a): the last emission != scipy's components")
+    pairs = 2 * O3_CC_PAIRS
+    check(engines[0]["c_sharded_cc"]["digests"][-1]
+          == digest(scipy_oracle(src[:pairs], dst[:pairs], N_VERTICES)),
+          "phase O3 (c): ShardedCC's labels != scipy's of its pairs")
+    print(f"phase O3 (a)-(e): every emission, label array, degree, count "
+          f"and estimate equal in all {len(engines)} processes; (a) kernel "
+          f"= plain, replicated = delta, the last scipy's; (b) = (a) at "
+          f"every boundary; (c) scipy's on {pairs} pairs; the gather "
+          f"launched 3 x "
+          f"{[e['a_dedup_shard_chunks'] for e in engines]} dedup "
+          f"shard-chunks a kernel run; estimates "
+          f"{engines[0]['e_sampler']['estimates']}")
+    return {"o3_gather_launches": [
+                e["a_kernel_replicated"]["launches"]["sorted_window_gather"]
+                + e["a_kernel_delta"]["launches"]["sorted_window_gather"]
+                for e in engines],
+            "o3_sampler_launches": [
+                e["e_sampler"]["launches"]["sampler_step"]
+                for e in engines],
+            "o3_gather_err": max(e["gather_err"] for e in engines)}
 
 
 def coord_child(directory: str, pid: int) -> int:
@@ -6592,9 +6985,10 @@ def coord_phase(torch, device, src, dst, final_labels, oracle,
               f"hierarchical (degree {O3_DEGREE}) labels equal scipy's "
               f"components; the exchange "
               f"conserved every shard's multiset, striped, 0 dropped")
+        engine = o3_engine_report(src, dst, oracle3, [r["engine"] for r in o3])
         print(f"phase O total {time.perf_counter() - t_phase:.2f} s "
               f"(loopback gloo through host memory on one card)")
-        return {"gather_launches": [r["launches"] for r in o1]}
+        return {"gather_launches": [r["launches"] for r in o1], **engine}
     finally:
         for p in procs:
             if p.poll() is None:
@@ -7452,10 +7846,13 @@ def main() -> int:
         "multiquery_launches": mq["gather_launches"],
         "obs_launches": traced["gather_launches"],
         "tenant_launches": tenants["gather_launches"],
-        "multihost_launches": coord["gather_launches"],
+        "multihost_launches": {
+            "o1_hosts": coord["gather_launches"],
+            "o3_processes": coord["o3_gather_launches"]},
         "ingest_launches": ingest,
         "cli_launches": clis["gather"],
-        "max_abs_err": max(max_abs_err, k14["gather_err"]),
+        "max_abs_err": max(max_abs_err, k14["gather_err"],
+                           coord["o3_gather_err"]),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
@@ -7577,6 +7974,8 @@ def main() -> int:
         "replaces": "gelly_tpu/library/triangles.py:1421",
         "launches": j["j6"]["launches"],
         "mesh_launches": k56["sampler_launches"],
+        "multihost_launches": {
+            "o3_processes": coord["o3_sampler_launches"]},
         "max_abs_err": 0,
         "ms": j["j6"]["ms"],
         "plain_ms": j["j6"]["plain_ms"],

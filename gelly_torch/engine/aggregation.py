@@ -125,10 +125,13 @@ class SummaryAggregation:
       gathered rows stay within ``merge_delta_auto_rows``);
     - ``merge_dirty_count(local) -> 0-d int`` — one shard's dirty rows
       (the engine takes the max over the shards to size the bucket);
-    - ``merge_delta(base, locals_, bucket) -> summary`` — compact each
-      shard's dirty rows to ``bucket`` lanes, gather them to ``base``'s
-      device and apply them to the carried global ``base``: the
-      cross-shard merge and the Merger combine in one step.
+    - ``merge_delta(base, locals_, bucket[, mesh]) -> summary`` —
+      compact each shard's dirty rows to ``bucket`` lanes, gather them to
+      ``base``'s device and apply them to the carried global ``base``:
+      the cross-shard merge and the Merger combine in one step. On a mesh
+      that spans processes the engine passes ``mesh`` (``locals_`` holds
+      ``None`` at other processes' shards) and the rows are all-gathered
+      (``collectives.gather_delta``).
 
     The ingest codec (both of the first two must be set to engage):
 
@@ -701,10 +704,12 @@ def _shard_rows(tree, num_shards: int) -> list:
     return out
 
 
-def _split_stacked(stacked: EdgeChunk, num_shards: int) -> list:
+def _split_stacked(stacked: EdgeChunk, num_shards: int,
+                   local=None) -> list:
     """A host-stacked raw unit ``[K, C]`` split per shard to ``[K,
     ceil(C/S)]`` rows (each row padded with invalid lanes, as
-    ``split_chunk`` pads one chunk)."""
+    ``split_chunk`` pads one chunk); with ``local``, only those shards'
+    rows (``None`` at the others)."""
     out = [[] for _ in range(num_shards)]
     for f in stacked:
         f = np.asarray(f)
@@ -715,8 +720,9 @@ def _split_stacked(stacked: EdgeChunk, num_shards: int) -> list:
             f = np.concatenate([f, pad], axis=1)
         f = f.reshape((k, num_shards, per) + f.shape[2:])
         for i in range(num_shards):
-            out[i].append(np.ascontiguousarray(f[:, i]))
-    return [EdgeChunk(*fs) for fs in out]
+            if local is None or i in local:
+                out[i].append(np.ascontiguousarray(f[:, i]))
+    return [EdgeChunk(*fs) if fs else None for fs in out]
 
 
 # ---------------------------------------------------------------------- #
@@ -1146,6 +1152,19 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
     counted in ``stats["merge_modes"]``). Checkpoints hold the global
     summary, as ``gelly_tpu``'s do.
 
+    On a mesh that spans processes (``parallel.mesh.initialize_multihost``)
+    every process runs this same call over the same global stream, as
+    every ``jax.distributed`` controller runs one SPMD program: each
+    splits every chunk or codec batch exactly as the single controller
+    does, but stages, copies and folds only the shards it holds
+    (``mesh.local_shards``; ``stats["h2d_bytes"]`` counts its own). The
+    merged global summary is shard 0's merge, broadcast to every process
+    (a delta merge all-gathers the dirty rows and applies them in every
+    process); each emission, ``merge_modes`` and the dirty-row count are
+    the single controller's in every process. Process 0 writes the
+    checkpoint (byte for byte the single controller's file) while the
+    others wait at a group barrier, and every process resumes from it.
+
     ``queries=[...]`` (with ``agg=None``) fuses the queries into one
     plan (:func:`~gelly_torch.engine.multiquery.fuse`): each chunk is
     staged and copied once and every query folds it in the one fused
@@ -1281,14 +1300,14 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
             "but it supplies no host_compress/fold_compressed pair"
         )
     from ..parallel import collectives
-    from ..parallel.mesh import Mesh, require_one_process
+    from ..parallel import mesh as mesh_lib
+    from ..parallel.mesh import Mesh
     from ..parallel.partition import split_chunk
 
     if mesh is not None and not isinstance(mesh, Mesh):
         raise TypeError(
             f"mesh must be a gelly_torch.parallel.mesh.Mesh, got "
             f"{type(mesh).__name__}")
-    require_one_process(mesh, "run_aggregation(mesh=...)")
     if mesh is not None:
         devices = list(mesh.devices)
     elif hasattr(stream, "ctx"):
@@ -1297,6 +1316,11 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
         devices = [resolve_device(DEFAULT_DEVICE)]
     S = len(devices)
     mesh_ = mesh if mesh is not None else Mesh(devices)
+    # Across processes: the shards this process holds, and whether it
+    # writes the checkpoint (process 0; the others wait at a barrier).
+    local = frozenset(mesh_.local_shards)
+    multi = mesh_.process_count > 1
+    writer = mesh_.process_index == 0
     if fused:
         if window_ms is not None:
             raise ValueError(
@@ -1387,7 +1411,7 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
             f"batch with the {S}-shard mesh (make merge_every a "
             "multiple of the shard count)"
         )
-    device = devices[0]
+    device = devices[mesh_.local_shards[0]]
     if device_fields is None:
         device_fields = agg.device_fields
     skip = frozenset()
@@ -1440,30 +1464,44 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
         fold_unit = agg.fold
 
     def fresh_locals() -> list:
-        return [agg.init(d) for d in devices]
+        return [agg.init(d) if d is not None else None for d in devices]
 
     def merge_locals(locals_: list, copy: bool = False):
         """The window's summary: the one shard's locals, or the shards'
-        merge (``gelly_tpu``'s shard-0 result), on ``device``."""
+        merge (``gelly_tpu``'s shard-0 result), on ``device``; across
+        processes shard 0's result is broadcast to every process."""
         if S == 1:
             return locals_[0]
         if copy:  # a checkpoint reads the live locals again
-            locals_ = [_clone_tree(l) for l in locals_]
+            locals_ = [_clone_tree(l) if l is not None else None
+                       for l in locals_]
         if agg.merge_degree is not None:
-            return collectives.hierarchical_merge(
+            merged = collectives.hierarchical_merge(
                 agg.combine, locals_, S, min(agg.merge_degree, S),
                 mesh_)[0]
-        if agg.merge_stacked is not None:
-            return collectives.gather_merge(
+        elif agg.merge_stacked is not None:
+            merged = collectives.gather_merge(
                 agg.merge_stacked, locals_, mesh_, keep=(0,))[0]
-        return collectives.butterfly_merge(
-            agg.combine, locals_, S, mesh_, keep=(0,))[0]
+        else:
+            merged = collectives.butterfly_merge(
+                agg.combine, locals_, S, mesh_, keep=(0,))[0]
+        return mesh_lib.broadcast_tree(mesh_, merged, 0, device)
 
     def shard_payloads(stacked) -> list:
-        return [stacked] if S == 1 else _shard_rows(stacked, S)
+        if S == 1:
+            return [stacked]
+        return [p if i in local else None
+                for i, p in enumerate(_shard_rows(stacked, S))]
 
     def shard_chunk(chunk) -> list:
-        return [chunk] if S == 1 else split_chunk(chunk, S)
+        if S == 1:
+            return [chunk]
+        return [p if i in local else None
+                for i, p in enumerate(split_chunk(chunk, S))]
+
+    def fold_shards(fold, locals_: list, units: list) -> list:
+        return [fold(l, u) if l is not None else None
+                for l, u in zip(locals_, units)]
 
     def gen():
         # The codec's run state is reset first and rebuilt from the loaded
@@ -1644,7 +1682,7 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
                 else:
                     # Right after a close the locals hold no edge.
                     snap = glob
-                if allowed_lateness and "export" in lat_handle:
+                if allowed_lateness and "export" in lat_handle and writer:
                     # The sidecar first: the pair is matched by position.
                     st = lat_handle["export"]()
                     save_checkpoint(
@@ -1654,11 +1692,15 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
                               "closed_upto": st["closed_upto"],
                               "max_ts": st["max_ts"]})
                 t_wall = time.perf_counter()
-                save_checkpoint(checkpoint_path, snap,
-                                position=chunks_consumed, meta=meta)
+                if writer:
+                    save_checkpoint(checkpoint_path, snap,
+                                    position=chunks_consumed, meta=meta)
+                # The other processes read the file only once it is
+                # whole: every process leaves the barrier after the write.
+                mesh_lib.barrier(mesh_)
                 ck_bytes = obs_bus.publish_checkpoint(
                     bus, "engine", checkpoint_path, t0=t_wall)
-                if allowed_lateness:
+                if allowed_lateness and writer:
                     # Older sidecars are no resume's pair any more.
                     keep = f"{checkpoint_path}.lateness.{chunks_consumed}"
                     for old in _glob.glob(
@@ -1706,16 +1748,18 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
             if delta_armed:
                 # The measured decision: the largest shard's dirty count
                 # sizes the gather bucket (one scalar read a close).
-                count = int(torch.stack([
-                    agg.merge_dirty_count(l).to(device) for l in locals_
-                ]).max())
+                count = mesh_lib.global_max(mesh_, [
+                    agg.merge_dirty_count(l) if l is not None else None
+                    for l in locals_])
                 bus.gauge("engine.window_dirty_rows", count)
                 bucket = max(DELTA_MERGE_MIN_BUCKET,
                              1 << max(0, count - 1).bit_length())
                 limit = agg.merge_delta_auto_rows
                 if agg.merge_mode == "delta" or (
                         limit is not None and S * bucket <= limit):
-                    merged = agg.merge_delta(glob, locals_, bucket)
+                    merged = (agg.merge_delta(glob, locals_, bucket,
+                                              mesh=mesh_) if multi
+                              else agg.merge_delta(glob, locals_, bucket))
                     stats["merge_modes"]["delta"] += 1
                     bus.inc("engine.dirty_rows_gathered", S * bucket)
                     mode = "delta"
@@ -1795,14 +1839,18 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
 
         close_fn = close_pane if windowed is not None else close_window
         # One staging ring a shard, each copying to its shard's device.
-        consumers = [torch.cuda.current_stream(d) if d.type == "cuda"
-                     else None for d in devices]
-        rings = [PinnedRing(d, h2d_depth + 1, c)
+        # Across processes, only this process's shards have a ring.
+        consumers = [torch.cuda.current_stream(d)
+                     if d is not None and d.type == "cuda" else None
+                     for d in devices]
+        rings = [PinnedRing(d, h2d_depth + 1, c) if d is not None else None
                  for d, c in zip(devices, consumers)]
 
         def put_shards(parts, fields_skip):
-            out = [ring.put(p, fields_skip) for ring, p in zip(rings, parts)]
-            stats["h2d_bytes"] = sum(r.bytes for r in rings)
+            out = [ring.put(p, fields_skip) if ring is not None
+                   else (None, None) for ring, p in zip(rings, parts)]
+            stats["h2d_bytes"] = sum(r.bytes for r in rings
+                                     if r is not None)
             return [d for d, _ in out], [e for _, e in out]
 
         def wait_copies(events):
@@ -1895,15 +1943,14 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
                             t0 = tracer.now()
                         t_h = time.perf_counter() if telemetry else 0.0
                         with timer("fold_dispatch"):
-                            locals_ = [agg.fold_compressed(l, u)
-                                       for l, u in zip(locals_, units)]
+                            locals_ = fold_shards(agg.fold_compressed,
+                                                  locals_, units)
                     else:
                         units = to_device(shard_chunk(chunk), skip)
                         t0 = tracer.now() if tracer is not None else 0.0
                         t_h = time.perf_counter() if telemetry else 0.0
                         with timer("fold_dispatch"):
-                            locals_ = [agg.fold(l, u)
-                                       for l, u in zip(locals_, units)]
+                            locals_ = fold_shards(agg.fold, locals_, units)
                     if telemetry:
                         bus.observe("engine.fold_dispatch_ms",
                                     (time.perf_counter() - t_h) * 1e3)
@@ -2103,7 +2150,8 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
             zero = EdgeChunk(*(np.zeros_like(f) for f in rows[0]))
             rows += [zero] * (batch - k)
             stacked = EdgeChunk(*(np.stack(fs) for fs in zip(*rows)))
-            return [stacked] if S == 1 else _split_stacked(stacked, S)
+            return [stacked] if S == 1 else _split_stacked(stacked, S,
+                                                           local)
 
         def h2d_unit(staged):
             parts, k, seq, edges = staged
@@ -2175,8 +2223,7 @@ def run_aggregation(agg: SummaryAggregation, stream, mesh=None,
                 t_h = time.perf_counter() if telemetry else 0.0
                 with timer("fold_dispatch"):
                     wait_copies(events)
-                    locals_ = [fold_unit(l, u)
-                               for l, u in zip(locals_, units)]
+                    locals_ = fold_shards(fold_unit, locals_, units)
                 del units
                 dirty = True
                 # Last-retired-chunk rule: a chunk counts toward the

@@ -418,16 +418,17 @@ def connected_components_compact(
         return _dirty(local).sum(dtype=torch.int32)
 
     def merge_delta(base: CCCompactSummary, locals_: list,
-                    bucket: int) -> CCCompactSummary:
+                    bucket: int, mesh=None) -> CCCompactSummary:
         # The dirty-delta mesh merge in cid space: every shard's touched
         # (cid, croot, vertex_of) rows; croot rows are union edges, and a
         # cid's vertex is recorded by exactly one row, so a max-scatter
         # reproduces the decode tables' elementwise-max merge.
         rows = [collectives.compact_delta(
             _dirty(l), {"r": l.croot, "v": l.vertex_of}, bucket)
-            for l in locals_]
+            if l is not None else None for l in locals_]
         gs, gv = collectives.gather_delta(
-            [r[0] for r in rows], [r[1] for r in rows], base.croot.device)
+            [r and r[0] for r in rows], [r and r[1] for r in rows],
+            base.croot.device, mesh)
         ok = gs >= 0
         croot = unionfind.union_pairs_rooted(
             base.croot, torch.where(ok, gs, 0), torch.where(ok, gv["r"], 0),
@@ -1056,12 +1057,13 @@ def _cc_merge_delta(n: int):
     def merge_dirty_count(local: CCSummary) -> torch.Tensor:
         return dirty(local).sum(dtype=torch.int32)
 
-    def merge_delta(base: CCSummary, locals_: list,
-                    bucket: int) -> CCSummary:
+    def merge_delta(base: CCSummary, locals_: list, bucket: int,
+                    mesh=None) -> CCSummary:
         rows = [collectives.compact_delta(dirty(l), l.parent, bucket)
-                for l in locals_]
+                if l is not None else None for l in locals_]
         gs, gv = collectives.gather_delta(
-            [r[0] for r in rows], [r[1] for r in rows], base.parent.device)
+            [r and r[0] for r in rows], [r and r[1] for r in rows],
+            base.parent.device, mesh)
         ok = gs >= 0
         si = torch.where(ok, gs, 0)
         parent = unionfind.union_pairs_rooted(

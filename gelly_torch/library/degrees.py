@@ -333,6 +333,12 @@ class ShardedDegrees:
 
     Drops are read every 8 chunks (one host read a chunk then), as
     ``gelly_tpu`` checks them.
+
+    On a mesh that spans processes every process iterates the same
+    stream: each folds its own shards' stripes, the drop counts are the
+    exchange's global sums (the same in every process, so every process
+    replays the same chunks), and :meth:`final_degrees` all-gathers the
+    stripes, so every process returns the single controller's dict.
     """
 
     def __init__(self, stream, mesh=None, count_out=True, count_in=True,
@@ -344,7 +350,6 @@ class ShardedDegrees:
                 f"mode must be auto/exchange/broadcast, got {mode}")
         self.stream = stream
         self.mesh = mesh if mesh is not None else mesh_lib.make_mesh()
-        mesh_lib.require_one_process(self.mesh, "ShardedDegrees")
         self.count_out = count_out
         self.count_in = count_in
         self.mode = mode
@@ -360,6 +365,9 @@ class ShardedDegrees:
         S = len(deg)
         out = []
         for me, (d, dev) in enumerate(zip(deg, self.mesh.devices)):
+            if dev is None:  # another process's shard
+                out.append(None)
+                continue
             c = chunk.to_fields(dev, ("src", "dst", "event", "valid"))
             delta = torch.where(c.event == 1, -1, 1).to(torch.int64)
             for on, ends in ((self.count_out, c.src),
@@ -382,6 +390,11 @@ class ShardedDegrees:
         keys, deltas, valids = [], [], []
         for part, dev in zip(partition.split_chunk(chunk, S),
                              self.mesh.devices):
+            if dev is None:  # another process's shard
+                keys.append(None)
+                deltas.append(None)
+                valids.append(None)
+                continue
             c = part.to_fields(dev, ("src", "dst", "event", "valid"))
             delta = torch.where(c.event == 1, -1, 1).to(torch.int64)
             k, dd, vv = [], [], []
@@ -396,18 +409,22 @@ class ShardedDegrees:
             keys.append(torch.cat(k))
             deltas.append(torch.cat(dd))
             valids.append(torch.cat(vv))
+        first = self.mesh.local_shards[0]
         cap = partition.default_bucket_capacity(
-            keys[0].shape[0], S, self.bucket_slack)
+            keys[first].shape[0], S, self.bucket_slack)
         key_r, dd_r, valid_r, dropped = partition.repartition_by_key(
             self.mesh, keys, deltas, valids, S, cap)
         out = []
         for d, k, dd, v, dr in zip(deg, key_r, dd_r, valid_r, dropped):
+            if d is None:
+                out.append(None)
+                continue
             applied = segments.masked_scatter_add(
                 d, partition.to_local_slot(k, S), dd, v)
             # An overflowing chunk is left UNAPPLIED on every shard (the
             # count is global): auto replays it, strict mode raises.
             out.append(torch.where(dr == 0, applied, d))
-        return out, dropped[0]
+        return out, dropped[first]
 
     def final_degrees(self) -> dict[int, int]:
         from ..parallel import partition
@@ -416,7 +433,7 @@ class ShardedDegrees:
         S = len(self.mesh.devices)
         mode = self.mode
         deg = [torch.zeros(self.per_shard, dtype=torch.int64, device=dev)
-               for dev in self.mesh.devices]
+               if dev is not None else None for dev in self.mesh.devices]
         seen = np.zeros((n,), bool)
         pending: list = []  # (chunk, dropped) awaiting the drop check
         self.stats["fallback_chunks"] = 0
@@ -459,9 +476,12 @@ class ShardedDegrees:
             if i % 8 == 7:
                 check_drops()
         check_drops()
-        # De-stripe the shard-concatenated state to global slot order.
+        # De-stripe the shard-concatenated state to global slot order
+        # (every process's stripes, gathered in shard order).
+        from ..parallel.mesh import all_gather_shards
+
         out = partition.unstripe(
-            torch.cat([d.cpu() for d in deg]).numpy(), S)
+            torch.cat(all_gather_shards(self.mesh, deg)).numpy(), S)
         slots = np.nonzero(seen)[0]
         raw = self.stream.ctx.decode(slots)
         return {int(r): int(out[s]) for s, r in zip(slots, raw)}

@@ -913,11 +913,14 @@ def sharded_window_triangles(stream, window_ms: int,
     The direction-ALL keyed exchange
     (:class:`~gelly_torch.parallel.sharded_window.ShardedSnapshotStream`)
     puts each group vertex's window neighbourhood on its owner shard.
-    Each shard scatters a ``uint8`` partial adjacency; the partials are
-    summed across the shards (``gelly_tpu``'s ``psum``); then each shard
-    counts the wedges closed by its owned canonical edges (the gather
-    method, slabbed) and the counts are summed. Exact parity with
-    :func:`window_triangles`."""
+    ``gelly_tpu`` sums each shard's ``uint8`` partial adjacency
+    (``psum``); the port all-gathers the shards' window edges instead and
+    scatters them into one adjacency (its nonzeros are the sum's, all the
+    count reads), so a mesh that spans processes moves edges, not ``n x
+    n`` partials. Each shard counts the wedges closed by its owned
+    canonical edges (the gather method, slabbed) and the counts are
+    summed across every process: each yields the same count, on its
+    first shard's device. Exact parity with :func:`window_triangles`."""
     from ..parallel import mesh as mesh_lib
     from ..parallel.sharded_window import ShardedSnapshotStream
 
@@ -925,24 +928,21 @@ def sharded_window_triangles(stream, window_ms: int,
     m = mesh if mesh is not None else mesh_lib.make_mesh()
     snap = ShardedSnapshotStream(stream, window_ms, "all", window_capacity,
                                  m, bucket_slack)
-    dev0 = m.devices[0]
+    dev0 = mesh_lib.local_device(m)
 
     def gen():
         for w, views in snap.views():
-            parts = []
-            for v in views:
-                part = torch.zeros((n, n), dtype=torch.uint8,
-                                   device=v.key.device)
-                ok = v.valid
-                part[v.key[ok].long(), v.nbr[ok].long()] = 1
-                parts.append(part)
-            total = parts[0].clone()
-            for p in parts[1:]:
-                total += p.to(total.device)
+            edges = mesh_lib.all_gather_shards(m, [
+                (v.key[v.valid], v.nbr[v.valid]) if v is not None else None
+                for v in views], dev0)
+            full = torch.zeros((n, n), dtype=torch.uint8, device=dev0)
+            for k, nb in edges:
+                full[k.long(), nb.long()] = 1
             counts = [_wedge_count_slabbed(
-                (total.to(v.key.device) > 0), v.key, v.nbr, v.valid, n
-            ).to(dev0) for v in views]
-            yield w, torch.stack(counts).sum()
+                (full.to(v.key.device) > 0), v.key, v.nbr, v.valid, n)
+                if v is not None else None for v in views]
+            yield w, torch.tensor(mesh_lib.global_sum(m, counts),
+                                  dtype=torch.int64, device=dev0)
 
     return gen()
 
@@ -1428,31 +1428,51 @@ def sampler_estimate(state: SamplerState, num_vertices=None) -> float:
 def _shard_sampler(state: SamplerState, mesh) -> list:
     """The instance axis split into S contiguous blocks, one a shard
     (``gelly_tpu``'s ``device_put_sharded_leading``); ``edge_count`` is
-    replicated."""
+    replicated. Across processes, this process's blocks only."""
     S = len(mesh.devices)
     per = state.src.shape[0] // S
     out = []
     for i, dev in enumerate(mesh.devices):
+        if dev is None:
+            out.append(None)
+            continue
         out.append(SamplerState(*(
             (f[i * per:(i + 1) * per] if f.dim() else f).to(dev, copy=True)
             for f in state)))
     return out
 
 
-def sharded_sampler_estimate(states: list, num_vertices=None) -> float:
+def _sampler_partial(st: SamplerState, num_vertices) -> torch.Tensor:
+    """One shard's ``float32`` partial sum of :func:`sampler_estimate`."""
+    beta = (st.src_found & st.trg_found).to(torch.float32)
+    v = (st.v_at if num_vertices is None
+         else torch.full_like(st.v_at, num_vertices))
+    return (beta * (v - 2).clamp(min=0).to(torch.float32)).sum()
+
+
+def sharded_sampler_estimate(states: list, num_vertices=None,
+                             mesh=None) -> float:
     """:func:`sampler_estimate` over a sharded instance axis: each shard's
     ``float32`` partial sum, added in shard order (``gelly_tpu``'s
-    ``psum``; its grouping may differ in the last bits)."""
-    dev = states[0].src.device
+    ``psum``; its grouping may differ in the last bits). On a mesh that
+    spans processes (``None`` at other processes' shards) the partials
+    and instance counts are all-gathered first and added in the same
+    shard order, so every process gets the single controller's value bit
+    for bit."""
+    mine = next(st for st in states if st is not None)
+    dev = mine.src.device
+    parts = [(_sampler_partial(st, num_vertices),
+              torch.tensor(st.src.shape[0])) if st is not None else None
+             for st in states]
+    if mesh is not None and mesh.process_count > 1:
+        from ..parallel.mesh import all_gather_shards
+
+        parts = all_gather_shards(mesh, parts, dev)
     scaled = torch.zeros((), dtype=torch.float32, device=dev)
-    for st in states:
-        beta = (st.src_found & st.trg_found).to(torch.float32)
-        v = (st.v_at if num_vertices is None
-             else torch.full_like(st.v_at, num_vertices))
-        scaled = scaled + (beta * (v - 2).clamp(min=0).to(
-            torch.float32)).sum().to(dev)
-    s = sum(st.src.shape[0] for st in states)
-    return float(scaled / s * states[0].edge_count.to(dev, torch.float32))
+    for p, _ in parts:
+        scaled = scaled + p.to(dev)
+    s = sum(int(k) for _, k in parts)
+    return float(scaled / s * mine.edge_count.to(dev, torch.float32))
 
 
 def sharded_sampler_run(stream, num_samples: int, mesh,
@@ -1461,23 +1481,26 @@ def sharded_sampler_run(stream, num_samples: int, mesh,
     """``(per-shard states, estimate)`` after each chunk of the sharded
     sampler: every shard advances its instances over the whole chunk
     (edges replicated, ``BroadcastTriangleCount.java:41-45``) with the
-    sampler kernel."""
-    from ..parallel.mesh import require_one_process
+    sampler kernel. On a mesh that spans processes every process reads
+    the same stream and advances its own shards' instances (``None`` at
+    the others); the estimate is the single controller's in every
+    process."""
+    from ..parallel.mesh import local_device
 
-    require_one_process(mesh, "sharded_sampler_run")
     S = len(mesh.devices)
     if num_samples % S:
         raise ValueError(
             f"num_samples {num_samples} not divisible by {S} shards"
         )
     states = _shard_sampler(
-        _fresh_sampler(num_samples, seed, mesh.devices[0]), mesh)
+        _fresh_sampler(num_samples, seed, local_device(mesh)), mesh)
     for c in stream:
         v = (num_vertices if num_vertices is not None
              else stream.ctx.table.num_vertices)
         states = [_sampler_step(st, c.to_fields(dev, _STEP_FIELDS), v)
+                  if dev is not None else None
                   for st, dev in zip(states, mesh.devices)]
-        yield states, sharded_sampler_estimate(states, num_vertices)
+        yield states, sharded_sampler_estimate(states, num_vertices, mesh)
 
 
 def sampled_triangle_count(stream, num_samples: int,

@@ -42,7 +42,7 @@ from typing import Callable, Iterable
 import torch
 
 from ..engine.checkpoint import tree_flatten, tree_map, tree_unflatten
-from .mesh import tree_to
+from .mesh import all_gather_shards, tree_to
 
 
 def _check_pow2(num_shards: int, what: str) -> None:
@@ -322,10 +322,18 @@ def compact_delta(dirty: torch.Tensor, values, bucket: int):
     return idx, tree_map(take, values), d32.sum()
 
 
-def gather_delta(slots: list, vals: list, device):
+def gather_delta(slots: list, vals: list, device, mesh=None):
     """Every shard's compacted delta rows, concatenated in shard order on
     ``device``: ``(slots[S*bucket], vals[S*bucket, ...])`` with the
-    ``-1``-padded lanes kept (callers mask on ``slots >= 0``)."""
+    ``-1``-padded lanes kept (callers mask on ``slots >= 0``). On a mesh
+    that spans processes (``None`` at other processes' shards) the rows
+    are all-gathered first, so every process gets every shard's rows."""
+    if mesh is not None and mesh.process_count > 1:
+        got = all_gather_shards(mesh, [
+            None if s is None else (s, v) for s, v in zip(slots, vals)],
+            device)
+        slots, vals = [g[0] for g in got], [g[1] for g in got]
+
     def cat(xs):
         return torch.cat([x.to(device) for x in xs])
 

@@ -37,9 +37,16 @@ it brings) is the same in every process. On such a mesh:
   moved.
 
 Every process takes part in each collective call, in the same order, as
-in a ``shard_map`` program. The engine and the sharded library drive
-every shard from one process, so they refuse a mesh that spans processes
-(:func:`require_one_process`, ROADMAP.md item 8d).
+in a ``shard_map`` program. The engine (``run_aggregation(mesh=)``) and
+the sharded library run as one global program in every process: each
+process passes the same global stream and arguments, stages, copies and
+folds only the shards it holds, and reads every global quantity through
+one collective (:func:`all_gather_shards`, :func:`global_sum`,
+:func:`global_max`, :func:`broadcast_tree`), so a replicated value (an
+emission, a merged summary, a drop count) is the same in every process
+and equals the single controller's. The tenant engine schedules its
+rounds from wall clocks that differ between processes, so it still
+refuses such a mesh (:func:`require_one_process`, ROADMAP.md item 8e).
 """
 
 from __future__ import annotations
@@ -50,7 +57,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from ..engine.checkpoint import tree_map
+from ..engine.checkpoint import tree_flatten, tree_map, tree_unflatten
 
 SHARD_AXIS = "shards"
 
@@ -63,8 +70,10 @@ _COORDINATOR_ADDRESS: str | None = None
 # raises after this long instead of hanging the run.
 PROCESS_GROUP_TIMEOUT = datetime.timedelta(seconds=120)
 
-_MULTIHOST_ITEM = ("ROADMAP.md queue 1 item 8d (the engine and the sharded "
-                   "library over a mesh that spans processes)")
+_MULTIHOST_ITEM = ("ROADMAP.md queue 1 item 8e (the tenant engine over a "
+                   "mesh that spans processes: its rounds follow QoS "
+                   "decisions made on each process's wall clock, and "
+                   "need a round plan agreed across processes)")
 
 
 class Mesh:
@@ -105,8 +114,8 @@ class Mesh:
 
 
 def require_one_process(mesh, what: str) -> None:
-    """Refuse a mesh that spans processes for ``what``, which drives every
-    shard from this process."""
+    """Refuse a mesh that spans processes for ``what`` (the tenant
+    engine, whose rounds are not one program across processes)."""
     if mesh is not None and mesh.process_count > 1:
         raise NotImplementedError(
             f"{what} on a mesh that spans processes is not ported yet: "
@@ -275,3 +284,153 @@ def device_put_replicated(mesh: Mesh, tree) -> list:
     """One copy of ``tree`` on every local shard's device."""
     return [tree_to(tree, d) if d is not None else None
             for d in mesh.devices]
+
+
+# ---------------------------------------------------------------------- #
+# global reads on a mesh that spans processes: each is one collective,
+# called by every process in the same order; on a one-process mesh they
+# touch no process group.
+
+
+def local_device(mesh: Mesh) -> torch.device:
+    """The device of this process's first shard: where its replicated
+    values live."""
+    return mesh.devices[mesh.local_shards[0]]
+
+
+def _leaf_meta(x):
+    if isinstance(x, torch.Tensor):
+        return ("t", tuple(x.shape), x.dtype)
+    return ("o", x)
+
+
+def _pack_leaves(leaves: list) -> torch.Tensor:
+    parts = [x.detach().contiguous().reshape(-1).view(torch.uint8).cpu()
+             for x in leaves if isinstance(x, torch.Tensor)]
+    if not parts:
+        return torch.zeros(0, dtype=torch.uint8)
+    return torch.cat(parts)
+
+
+def _unpack_leaves(buf: torch.Tensor, metas: list, device) -> list:
+    out, off = [], 0
+    for m in metas:
+        if m[0] == "o":
+            out.append(m[1])
+            continue
+        _, shape, dtype = m
+        n = int(np.prod(shape, dtype=np.int64)) * torch.empty(
+            (), dtype=dtype).element_size()
+        part = buf[off:off + n].clone().view(dtype).reshape(shape)
+        out.append(part if device is None or torch.device(device).type ==
+                   "cpu" else part.to(device))
+        off += n
+    return out
+
+
+def all_gather_shards(mesh: Mesh, values: list, device=None) -> list:
+    """Every shard's value (a tensor or a tree), in shard order, in every
+    process: the ``all_gather`` of a ``P("shards")`` value. ``values`` is
+    the list of S with ``None`` at other processes' shards; the result
+    holds all S, on ``device`` (default: the CPU). One collective of the
+    leaves' shapes and one of their bytes across processes."""
+    if mesh.process_count == 1:
+        return [tree_map(lambda x: _to(x, torch.device(device or "cpu")), v)
+                for v in values]
+    import torch.distributed as dist
+
+    local = [(i, tree_flatten(values[i])) for i in mesh.local_shards]
+    mine = [(i, spec, [_leaf_meta(x) for x in leaves])
+            for i, (leaves, spec) in local]
+    buf = torch.cat([_pack_leaves(leaves) for _, (leaves, _) in local])
+    metas: list = [None] * mesh.process_count
+    dist.all_gather_object(metas, (mine, int(buf.numel())))
+    width = max(n for _, n in metas)
+    send = torch.zeros(width, dtype=torch.uint8)
+    send[:buf.numel()] = buf
+    recv = [torch.empty(width, dtype=torch.uint8)
+            for _ in range(mesh.process_count)]
+    dist.all_gather(recv, send)
+    mesh.sent_bytes += width * (mesh.process_count - 1)
+    mesh.received_bytes += width * (mesh.process_count - 1)
+    out: list = [None] * mesh.num_shards
+    for p, (shards, _) in enumerate(metas):
+        off = 0
+        for i, spec, lm in shards:
+            n = sum(int(np.prod(m[1], dtype=np.int64))
+                    * torch.empty((), dtype=m[2]).element_size()
+                    for m in lm if m[0] == "t")
+            out[i] = tree_unflatten(spec, _unpack_leaves(
+                recv[p][off:off + n], lm, device))
+            off += n
+    return out
+
+
+def _reduce_processes(mesh: Mesh, value: int, op: str) -> int:
+    if mesh.process_count == 1:
+        return value
+    import torch.distributed as dist
+
+    t = torch.tensor([value], dtype=torch.int64)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX if op == "max"
+                    else dist.ReduceOp.SUM)
+    return int(t[0])
+
+
+def global_sum(mesh: Mesh, values: list) -> int:
+    """The integer sum of one scalar a shard over every shard of every
+    process (``None`` at other processes' shards): one host read of the
+    local shards, then one ``all_reduce``."""
+    local = sum(int(values[i]) for i in mesh.local_shards)
+    return _reduce_processes(mesh, local, "sum")
+
+
+def global_max(mesh: Mesh, values: list) -> int:
+    """The integer max of one scalar a shard over every shard of every
+    process (see :func:`global_sum`)."""
+    local = max(int(values[i]) for i in mesh.local_shards)
+    return _reduce_processes(mesh, local, "max")
+
+
+def global_any(mesh: Mesh, flag: bool) -> bool:
+    """Whether ``flag`` holds in any process."""
+    return bool(_reduce_processes(mesh, int(bool(flag)), "max"))
+
+
+def broadcast_tree(mesh: Mesh, tree, src_shard: int = 0, device=None):
+    """The value ``tree`` of the process holding ``src_shard``, in every
+    process, on ``device`` (default: this process's first shard's): a
+    replicated value read from one shard (``gelly_tpu``'s ``P()`` output).
+    The holder passes its value, the others anything (it is ignored); the
+    holder keeps its own tree as it is."""
+    if mesh.process_count == 1:
+        return tree
+    import torch.distributed as dist
+
+    src = mesh.processes[src_shard]
+    dev = device if device is not None else local_device(mesh)
+    if mesh.process_index == src:
+        leaves, spec = tree_flatten(tree)
+        buf = _pack_leaves(leaves)
+        head = [(spec, [_leaf_meta(x) for x in leaves], int(buf.numel()))]
+    else:
+        head = [None]
+    dist.broadcast_object_list(head, src=src)
+    spec, metas, n = head[0]
+    if mesh.process_index != src:
+        buf = torch.empty(n, dtype=torch.uint8)
+    dist.broadcast(buf, src=src)
+    if mesh.process_index == src:
+        mesh.sent_bytes += n * (mesh.process_count - 1)
+        return tree
+    mesh.received_bytes += n
+    return tree_unflatten(spec, _unpack_leaves(buf, metas, dev))
+
+
+def barrier(mesh: Mesh) -> None:
+    """Every process of the mesh waits for the others (none on a
+    one-process mesh)."""
+    if mesh.process_count > 1:
+        import torch.distributed as dist
+
+        dist.barrier()

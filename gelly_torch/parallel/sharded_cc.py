@@ -26,6 +26,12 @@ read of the global flag (counted by ``unionfind.host_sync``; ``stats``
 counts the hook rounds and chase levels). Emission (:meth:`ShardedCC.
 labels`) pulls only the dirty rows and resolves them against host root
 and seen caches of the previous emission.
+
+On a mesh that spans processes every process calls ``fold`` and
+``labels`` with the same global batch: each holds, routes and hooks its
+own shards' state (``None`` at the others), each round's flag is one
+reduction across processes, and ``labels`` all-gathers the dirty rows,
+so every process gets the single controller's labels and ``stats``.
 """
 
 from __future__ import annotations
@@ -37,7 +43,14 @@ from ..obs import bus as obs_bus
 from ..ops.segments import INT_MAX
 from ..ops.unionfind import host_sync
 from . import collectives
-from .mesh import make_mesh, num_shards as _num_shards, require_one_process
+from .mesh import (
+    all_gather_shards,
+    global_max,
+    global_sum,
+    make_mesh,
+    num_shards as _num_shards,
+    shard_map_fn,
+)
 from .partition import (
     all_to_all,
     psum_scalar,
@@ -64,28 +77,33 @@ def sharded_lookup(mesh, state_locs: list, slots: list, valids: list,
     ``answered`` is False where the query was invalid or overflowed a
     bucket (counted in the global ``dropped``): such lanes keep value 0
     and the caller retries next round."""
-    Ls = [s.shape[0] for s in slots]
-    idx = [torch.arange(L, dtype=torch.int32, device=s.device)
-           for L, s in zip(Ls, slots)]
+    idx = _each(mesh, lambda s: torch.arange(
+        s.shape[0], dtype=torch.int32, device=s.device), slots)
     k, home, ok, dropped = repartition_by_key(
         mesh, slots, idx, valids, num_shards, bucket_capacity)
-    vals = [torch.where(o, st[to_local_slot(kk, num_shards).long()],
-                        torch.zeros((), dtype=st.dtype, device=st.device))
-            for st, kk, o in zip(state_locs, k, ok)]
+    vals = _each(mesh, lambda st, kk, o: torch.where(
+        o, st[to_local_slot(kk, num_shards).long()],
+        torch.zeros((), dtype=st.dtype, device=st.device)), state_locs, k, ok)
     vals_h = all_to_all(mesh, vals, num_shards)
     idx_h = all_to_all(mesh, home, num_shards)
     ok_h = all_to_all(mesh, ok, num_shards)
-    out = [_scatter_set(L, i, o, v)
-           for L, i, o, v in zip(Ls, idx_h, ok_h, vals_h)]
-    answered = [_scatter_set(L, i, o, torch.ones_like(o))
-                for L, i, o in zip(Ls, idx_h, ok_h)]
+    out = _each(mesh, lambda s, i, o, v: _scatter_set(s.shape[0], i, o, v),
+                slots, idx_h, ok_h, vals_h)
+    answered = _each(mesh, lambda s, i, o: _scatter_set(
+        s.shape[0], i, o, torch.ones_like(o)), slots, idx_h, ok_h)
     return out, answered, dropped
+
+
+def _each(mesh, fn, *lists) -> list:
+    """``fn`` of every shard this process holds (its entries of
+    ``lists``), ``None`` at the others."""
+    return shard_map_fn(mesh, lambda _, *args: fn(*args))(*lists)
 
 
 def _any_global(mesh, masks: list) -> bool:
     """The ``psum(sum(mask)) > 0`` flag of a ``while_loop``: one host
     read."""
-    counts = [m.sum(dtype=torch.int64) for m in masks]
+    counts = _each(mesh, lambda m: m.sum(dtype=torch.int64), masks)
     return bool(host_sync(
         psum_scalar(mesh, counts)[mesh.local_shards[0]] > 0))
 
@@ -95,24 +113,23 @@ def _chase_sharded(mesh, parent_locs: list, x: list, valid: list,
     """Distributed pointer chase of global slots ``x`` to TRUE roots, one
     :func:`sharded_lookup` a level. An unanswered (overflowed) lookup
     leaves its lane pending for the next level."""
-    settled = [~v for v in valid]
+    first = mesh.local_shards[0]
+    settled = _each(mesh, lambda v: ~v, valid)
     drops = 0
     pending = _any_global(mesh, valid)
     while pending:
-        ask = [v & ~s for v, s in zip(valid, settled)]
+        ask = _each(mesh, lambda v, s: v & ~s, valid, settled)
         nxt, answered, d = sharded_lookup(
             mesh, parent_locs, x, ask, num_shards, bucket_capacity)
-        new_x = []
-        for i in range(num_shards):
-            moved = answered[i] & (nxt[i] != x[i])
-            settled[i] = settled[i] | (answered[i] & (nxt[i] == x[i]))
-            new_x.append(torch.where(moved, nxt[i], x[i]))
-        x = new_x
-        drops = drops + d[0]
+        settled = _each(mesh, lambda s, a, n, xx: s | (a & (n == xx)),
+                        settled, answered, nxt, x)
+        x = _each(mesh, lambda a, n, xx: torch.where(a & (n != xx), n, xx),
+                  answered, nxt, x)
+        drops = drops + d[first]
         if stats is not None:
             stats["chase_levels"] += 1
         pending = _any_global(
-            mesh, [v & ~s for v, s in zip(valid, settled)])
+            mesh, _each(mesh, lambda v, s: v & ~s, valid, settled))
     return x, drops
 
 
@@ -120,14 +137,14 @@ def _mark_hits(mesh, endpoints: list, ok: list, num_shards: int,
                bucket_capacity: int, per: int) -> list:
     """Owned-slot hit masks of a routed endpoint batch."""
     k, _, got, _ = repartition_by_key(
-        mesh, endpoints, [torch.zeros_like(e) for e in endpoints], ok,
+        mesh, endpoints, _each(mesh, torch.zeros_like, endpoints), ok,
         num_shards, bucket_capacity)
-    hits = []
-    for kk, g in zip(k, got):
+    def hit_mask(kk, g):
         hit = torch.zeros(per + 1, dtype=torch.bool, device=kk.device)
         hit[torch.where(g, to_local_slot(kk, num_shards), per).long()] = True
-        hits.append(hit[:per])
-    return hits
+        return hit[:per]
+
+    return _each(mesh, hit_mask, k, got)
 
 
 def _fold_pairs(mesh, parent_locs, seen_locs, dirty_locs, a, b, ok,
@@ -136,14 +153,15 @@ def _fold_pairs(mesh, parent_locs, seen_locs, dirty_locs, a, b, ok,
     ``_fold_pairs_body``); returns the new per-shard state and the global
     drop count."""
     S = num_shards
-    per = parent_locs[0].shape[0]
+    first = mesh.local_shards[0]
+    per = parent_locs[first].shape[0]
     # Mark seen at the owners; newly seen slots are also dirty, so a
     # never-hooked singleton reaches the host seen cache.
     for endpoint in (a, b):
         hits = _mark_hits(mesh, endpoint, ok, S, bucket_capacity, per)
-        dirty_locs = [d | (h & ~s)
-                      for d, h, s in zip(dirty_locs, hits, seen_locs)]
-        seen_locs = [s | h for s, h in zip(seen_locs, hits)]
+        dirty_locs = _each(mesh, lambda d, h, s: d | (h & ~s),
+                           dirty_locs, hits, seen_locs)
+        seen_locs = _each(mesh, lambda s, h: s | h, seen_locs, hits)
     p_locs = list(parent_locs)
     drops = 0
     live_any = True
@@ -152,15 +170,15 @@ def _fold_pairs(mesh, parent_locs, seen_locs, dirty_locs, a, b, ok,
                                 stats)
         rb, d2 = _chase_sharded(mesh, p_locs, b, ok, S, bucket_capacity,
                                 stats)
-        lo = [torch.minimum(x, y) for x, y in zip(ra, rb)]
-        hi = [torch.maximum(x, y) for x, y in zip(ra, rb)]
-        live = [o & (l != h) for o, l, h in zip(ok, lo, hi)]
+        lo = _each(mesh, torch.minimum, ra, rb)
+        hi = _each(mesh, torch.maximum, ra, rb)
+        live = _each(mesh, lambda o, l, h: o & (l != h), ok, lo, hi)
         # Hook root-to-root at hi's owner, masked to self-roots: never
         # overwrite a real parent edge from an earlier fold.
         k, lo_r, got, d3 = repartition_by_key(
             mesh, hi, lo, live, S, bucket_capacity)
-        new_p = []
-        for me in range(S):
+        new_p = [None] * S
+        for me in mesh.local_shards:
             p = p_locs[me]
             loc = torch.where(got[me], to_local_slot(k[me], S), per).long()
             upd = torch.full((per + 1,), INT_MAX, dtype=torch.int32,
@@ -172,9 +190,9 @@ def _fold_pairs(mesh, parent_locs, seen_locs, dirty_locs, a, b, ok,
                    * S + me)
             p2 = torch.where(p == own, torch.minimum(p, upd), p)
             dirty_locs[me] = dirty_locs[me] | (p2 != p)
-            new_p.append(p2)
+            new_p[me] = p2
         p_locs = new_p
-        drops = drops + d1 + d2 + d3[0]
+        drops = drops + d1 + d2 + d3[first]
         if stats is not None:
             stats["rounds"] += 1
         live_any = _any_global(mesh, live)
@@ -193,7 +211,6 @@ class ShardedCC:
 
     def __init__(self, vertex_capacity: int, mesh=None):
         self.mesh = mesh if mesh is not None else make_mesh()
-        require_one_process(self.mesh, "ShardedCC")
         self.S = _num_shards(self.mesh)
         self.n = vertex_capacity
         self.per = slots_per_shard(vertex_capacity, self.S)
@@ -201,11 +218,15 @@ class ShardedCC:
                       "emissions_dense": 0, "emissions_sparse": 0}
         S, per = self.S, self.per
         # Striped init: shard d's local slot j is global slot j*S + d.
+        # Across processes: this process's shards only (None elsewhere).
         self.parent = [torch.arange(per, dtype=torch.int32, device=dev) * S
-                       + d for d, dev in enumerate(self.mesh.devices)]
+                       + d if dev is not None else None
+                       for d, dev in enumerate(self.mesh.devices)]
         self.seen = [torch.zeros(per, dtype=torch.bool, device=dev)
+                     if dev is not None else None
                      for dev in self.mesh.devices]
         self.dirty = [torch.zeros(per, dtype=torch.bool, device=dev)
+                      if dev is not None else None
                       for dev in self.mesh.devices]
         # Host caches as of the last emission: flat roots and seen marks.
         self._rootcache = np.arange(vertex_capacity, dtype=np.int32)
@@ -244,7 +265,8 @@ class ShardedCC:
 
         def shards(x):
             x = torch.from_numpy(np.ascontiguousarray(x.reshape(S, L)))
-            return [x[i].to(dev) for i, dev in enumerate(self.mesh.devices)]
+            return [x[i].to(dev) if dev is not None else None
+                    for i, dev in enumerate(self.mesh.devices)]
 
         (self.parent, self.seen, self.dirty, drops) = _fold_pairs(
             self.mesh, self.parent, self.seen, self.dirty, shards(a),
@@ -256,11 +278,12 @@ class ShardedCC:
         ``bucket`` lanes on its device: only those rows cross to the
         host."""
         self.pull_buckets.add(bucket)
-        gs, vs = [], []
-        for me, (p, d) in enumerate(zip(self.parent, self.dirty)):
-            slots, vals, _ = collectives.compact_delta(d, p, bucket)
-            gs.append(torch.where(slots >= 0, slots * self.S + me, -1))
-            vs.append(vals)
+        gs, vs = [None] * self.S, [None] * self.S
+        for me in self.mesh.local_shards:
+            slots, vals, _ = collectives.compact_delta(
+                self.dirty[me], self.parent[me], bucket)
+            gs[me] = torch.where(slots >= 0, slots * self.S + me, -1)
+            vs[me] = vals
         return gs, vs
 
     def labels(self) -> np.ndarray:
@@ -269,21 +292,24 @@ class ShardedCC:
         delta chains among themselves against the host root cache, and
         map every slot's cached root through them (the one O(capacity)
         step, the output's size)."""
-        S = self.S
-        counts = torch.stack([d.sum(dtype=torch.int32).cpu()
-                              for d in self.dirty]).numpy()
-        mx = int(counts.max()) if counts.size else 0
+        S, mesh = self.S, self.mesh
+        counts = [d.sum(dtype=torch.int32) if d is not None else None
+                  for d in self.dirty]
+        mx = global_max(mesh, counts)
         # Per-window dirty-row gauges: labels() moves dirty rows, not
         # capacity, and these make that cost visible per window close.
         bus = obs_bus.get_bus()
-        bus.gauge("sharded_cc.window_dirty_rows", int(counts.sum()))
+        bus.gauge("sharded_cc.window_dirty_rows", global_sum(mesh, counts))
         bus.gauge("sharded_cc.window_dirty_max_shard", mx)
         bucket = max(64, 1 << max(0, mx - 1).bit_length())
         if S * bucket * 2 >= self.n:
             # Dense delta: the full pull moves fewer bytes than S padded
-            # buckets would.
-            par = torch.stack([p.cpu() for p in self.parent]).numpy()
-            dirty = torch.stack([d.cpu() for d in self.dirty]).numpy()
+            # buckets would (across processes, an all-gather of both).
+            rows = all_gather_shards(mesh, [
+                (p, d) if p is not None else None
+                for p, d in zip(self.parent, self.dirty)])
+            par = torch.stack([r[0] for r in rows]).numpy()
+            dirty = torch.stack([r[1] for r in rows]).numpy()
             sg, sl = np.nonzero(dirty)
             g = (sl * S + sg).astype(np.int32)
             pv = par[sg, sl]
@@ -291,8 +317,10 @@ class ShardedCC:
             bus.inc("sharded_cc.emissions_dense")
         else:
             gs, vals = self._pull_delta(bucket)
-            gs = torch.cat([x.cpu() for x in gs]).numpy()
-            pv = torch.cat([x.cpu() for x in vals]).numpy()
+            rows = all_gather_shards(mesh, [
+                (g, v) if g is not None else None for g, v in zip(gs, vals)])
+            gs = torch.cat([r[0] for r in rows]).numpy()
+            pv = torch.cat([r[1] for r in rows]).numpy()
             okm = gs >= 0
             g = gs[okm].astype(np.int32)
             pv = pv[okm]
@@ -316,7 +344,8 @@ class ShardedCC:
         flat = tmp[rc]
         self._rootcache = flat
         if g.size:
-            self.dirty = [torch.zeros_like(d) for d in self.dirty]
+            self.dirty = [torch.zeros_like(d) if d is not None else None
+                          for d in self.dirty]
         return np.where(self._seencache, flat, -1).astype(np.int32)
 
     def per_device_state_bytes(self) -> int:

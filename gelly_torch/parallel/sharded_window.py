@@ -14,6 +14,12 @@ distributed keyed window operator (``slice().keyBy(NeighborKeySelector)``,
   the close sorts once by group vertex and aggregates over its runs.
 
 Exchange or buffer overflow is counted and raised, never silent.
+
+On a mesh that spans processes every process iterates the same stream
+and holds its own shards' buffers and views (``None`` at the others);
+the drop count is the exchange's global sum, a buffer overflow is read
+across processes, and the concatenated window results are all-gathered,
+so every process yields the single controller's results.
 """
 
 from __future__ import annotations
@@ -69,7 +75,6 @@ class ShardedSnapshotStream:
         self.window_ms = int(window_ms)
         self.direction = direction
         self.mesh = mesh if mesh is not None else mesh_lib.make_mesh()
-        mesh_lib.require_one_process(self.mesh, "ShardedSnapshotStream")
         self.S = mesh_lib.num_shards(self.mesh)
         self.bucket_slack = bucket_slack
         self.window_capacity = window_capacity
@@ -102,13 +107,21 @@ class ShardedSnapshotStream:
         drop count of the exchange (a tensor)."""
         S = self.S
         parts = [p.to_fields(dev, ("src", "dst", "val", "valid"))
+                 if dev is not None else None
                  for p, dev in zip(partition.split_chunk(chunk, S),
                                    self.mesh.devices)]
+
+        def field(get):
+            return [get(p) if p is not None else None for p in parts]
+
         key_r, pay_r, valid_r, dropped = partition.repartition_by_key(
-            self.mesh, [p.src for p in parts],
-            [(p.dst, p.val) for p in parts], [p.valid for p in parts],
+            self.mesh, field(lambda p: p.src),
+            field(lambda p: (p.dst, p.val)), field(lambda p: p.valid),
             S, bucket)
-        for b, k, (nb, v), ok in zip(bufs, key_r, pay_r, valid_r):
+        for b, k, pay, ok in zip(bufs, key_r, pay_r, valid_r):
+            if b is None:  # another process's shard
+                continue
+            nb, v = pay
             # Received entries compacted to the front (valid first,
             # stable), then written at fill; a start past cap - block is
             # clamped as dynamic_update_slice clamps it, and recorded.
@@ -124,11 +137,14 @@ class ShardedSnapshotStream:
             b.val[sl] = v[order].to(b.val.dtype)
             b.valid[sl] = ok[order]
             b.fill += n_recv
-        return dropped[0]
+        return dropped[self.mesh.local_shards[0]]
 
     def _views(self, bufs: list) -> list:
         views = []
         for b in bufs:
+            if b is None:
+                views.append(None)
+                continue
             sk, so, snbr, sval = segments.sort_by_key(
                 b.key, b.valid, b.nbr, b.val)
             starts = segments.segment_starts(sk, so)
@@ -155,6 +171,7 @@ class ShardedSnapshotStream:
             bucket, block, cap_local = plan
             if bufs is None:
                 bufs = [_Buffer(cap_local, val_dtype, val_shape, dev)
+                        if dev is not None else None
                         for dev in self.mesh.devices]
                 dropped = 0
             if kind == "close":
@@ -165,8 +182,12 @@ class ShardedSnapshotStream:
                         f"{dropped} edges overflowed the keyed-exchange "
                         f"buckets; raise bucket_slack (no silent drops)"
                     )
-                if any(b.clamped for b in bufs):
-                    fills = max(b.fill for b in bufs)
+                mine = [b for b in bufs if b is not None]
+                if mesh_lib.global_any(self.mesh,
+                                       any(b.clamped for b in mine)):
+                    fills = mesh_lib.global_max(
+                        self.mesh, [b.fill if b is not None else None
+                                    for b in bufs])
                     raise ValueError(
                         f"sharded window buffer overflow (device fill "
                         f"{fills} vs capacity {cap_local}); "
@@ -180,8 +201,11 @@ class ShardedSnapshotStream:
                                              cap_local)
 
     def _gather(self, parts: list) -> torch.Tensor:
-        dev = self.mesh.devices[0]
-        return torch.cat([p.to(dev) for p in parts])
+        """Per-shard results concatenated in shard order on this
+        process's first shard's device (every shard's, across
+        processes)."""
+        return torch.cat(mesh_lib.all_gather_shards(
+            self.mesh, parts, mesh_lib.local_device(self.mesh)))
 
     def reduce_on_edges(self, reduce_fn: Callable) -> Iterator[WindowUpdate]:
         """Mesh form of ``SnapshotStream.reduceOnEdges``
@@ -191,11 +215,11 @@ class ShardedSnapshotStream:
         def gen():
             for w, views in self._windows():
                 scanned = [_segmented_scan(v.starts, v.val, reduce_fn)
-                           for v in views]
+                           if v is not None else None for v in views]
                 yield WindowUpdate(
-                    w, self._gather([v.key for v in views]),
+                    w, self._gather(_keys(views)),
                     self._gather(scanned),
-                    self._gather([v.ends() for v in views]))
+                    self._gather(_ends(views)))
 
         return gen()
 
@@ -210,14 +234,16 @@ class ShardedSnapshotStream:
         def gen():
             for w, views in self._windows():
                 folded = [tree_flatten(fold_view(v, initial_value, fold_fn))
-                          for v in views]
-                spec = folded[0][1]
-                leaves = [self._gather([f[0][i] for f in folded])
-                          for i in range(len(folded[0][0]))]
+                          if v is not None else None for v in views]
+                spec = next(f for f in folded if f is not None)[1]
+                n_leaves = len(next(f for f in folded if f is not None)[0])
+                leaves = [self._gather([f[0][i] if f is not None else None
+                                        for f in folded])
+                          for i in range(n_leaves)]
                 yield WindowUpdate(
-                    w, self._gather([v.key for v in views]),
+                    w, self._gather(_keys(views)),
                     tree_unflatten(spec, leaves),
-                    self._gather([v.ends() for v in views]))
+                    self._gather(_ends(views)))
 
         return gen()
 
@@ -225,20 +251,34 @@ class ShardedSnapshotStream:
         """Mesh form of ``SnapshotStream.applyOnNeighbors``: ``apply_fn
         (view)`` a shard on its local sorted view; yields ``(window,
         outputs)``, the per-shard outputs stacked on the first shard's
-        device when they are tensors (else a list)."""
+        device when they are tensors (else a list); across processes every
+        shard's output, gathered in shard order."""
         def gen():
             for w, views in self._windows():
-                outs = [apply_fn(v) for v in views]
-                if all(isinstance(o, torch.Tensor) for o in outs):
-                    outs = torch.stack([o.to(self.mesh.devices[0])
-                                        for o in outs])
+                outs = [apply_fn(v) if v is not None else None
+                        for v in views]
+                mine = [o for o in outs if o is not None]
+                if all(isinstance(o, torch.Tensor) for o in mine):
+                    outs = torch.stack(mesh_lib.all_gather_shards(
+                        self.mesh, outs, mesh_lib.local_device(self.mesh)))
+                elif self.mesh.process_count > 1:
+                    outs = mesh_lib.all_gather_shards(self.mesh, outs)
                 yield w, outs
 
         return gen()
 
     def views(self) -> Iterator[tuple[int, list]]:
-        """Raw ``(window, per-shard sorted views)`` — the escape hatch."""
+        """Raw ``(window, per-shard sorted views)`` — the escape hatch
+        (``None`` at other processes' shards)."""
         return self._windows()
+
+
+def _keys(views: list) -> list:
+    return [v.key if v is not None else None for v in views]
+
+
+def _ends(views: list) -> list:
+    return [v.ends() if v is not None else None for v in views]
 
 
 def sharded_slice(stream, window_ms: int, direction: str = "out",

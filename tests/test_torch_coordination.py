@@ -304,10 +304,17 @@ def test_reattempted_epoch_converges_over_stale_records(tmp_path):
         store.write_intent(2, h, pos, run_id=run_id)
         store.write_prepared(2, h, pos, run_id=run_id)
     out = {}
+    # The hosts restart together (the protocol's restart-time
+    # coordination): each scrubs its own leftovers before any host
+    # barriers. A thread started late on a loaded box would otherwise
+    # read as a host that restarted long after its peer, whose stale
+    # intent the peer's barrier takes as fresh.
+    restarted = threading.Barrier(2)
 
     def body(k):
         co = Coordinator(str(tmp_path), HostIdentity(k, 2), _cfg())
         _, pos, _ = co.recover(like={"x": np.zeros(4, dtype=np.int64)})
+        restarted.wait(timeout=30)
         epoch, agreed = co.agree_position(pos + 4)
         man2 = co.publish(
             epoch, {"x": np.arange(4, dtype=np.int64)}, agreed
