@@ -406,6 +406,30 @@ Q. Q1: every CLI's ``main([--device=cuda])`` on its built-in data, its
    (``# resumed from``), folds fewer chunks, and its components equal
    Q2's.
 
+The sync audit (phase R, right after phase 4, on phase 4's stream):
+
+R. R1: ``python -m gelly_torch.analysis --all gelly_torch`` in a child
+   process on the card host (no JAX there), started at phase R and
+   joined before the result lines (it runs on a host core beside the
+   phases between): exit 0, JAX absent from its modules; prints its
+   wall. R2: under
+   ``torch.cuda.set_sync_debug_mode("warn")``, phase 4's first 4 chunks
+   of ``2^22`` edges (``2^24`` slots) through the raw CC plan (plain and
+   kernel backends), the compact plan, the degree plan and the
+   bipartiteness plan (``merge_every`` = 4), and one round of a
+   64-tenant CC tier (``cc_tenant_tier(2^12, chunk_capacity=2^10)``, one
+   chunk a tenant): every synchronizing operation the card reports is
+   recorded at its innermost ``gelly_torch/`` frame (``warnings``'
+   hook walks ``traceback.extract_stack()``). Prints, for each plan, the
+   syncs seen beside the ``host_sync.count`` delta, and each line with
+   its count and class (``counted``: inside ``host_sync``; ``scope``:
+   inside a device scope of ``gelly_torch.analysis.jitlint``, with the
+   rule its justified suppression names; ``host``: outside every scope). Fails on a sync
+   inside a device scope whose line carries neither, and when a plan's
+   emission differs from its reference: phase 4's first emission (the
+   CC plans), ``np.bincount`` (degrees), the same run with the debug
+   mode off (bipartiteness, the tenant round).
+
 Windows (phase H) and the stream API (phase I), after phase G (I5 after
 phase 6); each timed run prints its wall, edges a second, stage busy
 seconds, kernel launches and peak device memory:
@@ -656,6 +680,10 @@ G_TIMED = 1 << 12
 # Under the 1200 s a run of this script may take, with time left to dump
 # the stacks. 1150 s until PR 16: a run on a card host ~22% slower than
 # the others reached it in phase K5-K6.
+# Phase R (sync audit): phase 4's first chunks, and one tenant round.
+R_CHUNKS = 4
+R_TENANTS = 64
+
 WATCHDOG_S = 1180
 HAND_KERNELS = ("sorted_window_gather", "wedge_count_matrix",
                 "sparse_insert_edges", "sparse_insert_edges_batched",
@@ -2838,6 +2866,257 @@ N5_TENANTS = 64
 N5_SUBMITTERS = 4
 
 
+# Child processes started in the background, stopped on any exit.
+_CHILDREN: list = []
+
+
+def analysis_gate_start():
+    """Phase R1: the analysis gate over the port, in a child process on
+    this host (which has no JAX), started here and joined by
+    :func:`analysis_gate_finish`; it runs on a host core beside the card
+    phases that follow."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import sys, time\n"
+            "t = time.perf_counter()\n"
+            "from gelly_torch.analysis.__main__ import main\n"
+            "rc = main(['--all', 'gelly_torch'])\n"
+            "assert 'jax' not in sys.modules, 'jax imported'\n"
+            "assert 'gelly_tpu' not in sys.modules, 'gelly_tpu imported'\n"
+            "print(f'gate wall {time.perf_counter() - t:.2f} s')\n"
+            "sys.exit(rc)\n")
+    out = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=here,
+                            stdout=out, stderr=subprocess.STDOUT, text=True)
+    _CHILDREN.append(proc)
+    return proc, out
+
+
+def analysis_gate_finish(gate) -> None:
+    proc, out = gate
+    try:
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out.seek(0)
+    text = out.read()
+    out.close()
+    lines = text.strip().splitlines()
+    wall = next((ln for ln in lines if ln.startswith("gate wall")),
+                "gate wall not printed")
+    print(f"phase R1: python -m gelly_torch.analysis --all gelly_torch "
+          f"rc={rc} {wall} (in a child process beside phases R2-Q; "
+          f"{next((ln for ln in lines if ln.startswith('analysis')), '')})")
+    check(rc == 0, "phase R1: the analysis gate failed on the card host:\n"
+          + text[-4000:])
+
+
+class SyncRecorder:
+    """Records every synchronizing operation the card reports under
+    ``torch.cuda.set_sync_debug_mode("warn")`` at its innermost
+    ``gelly_torch/`` frame, and whether ``host_sync`` was on the stack."""
+
+    def __init__(self, torch, pkg_dir: str):
+        self.torch = torch
+        self.pkg = pkg_dir + os.sep
+        self.sites: dict = {}  # (path, line, function) -> count
+        self.counted = 0
+        self.total = 0
+
+    def _show(self, message, category, filename, lineno, file=None,
+              line=None):
+        import traceback
+
+        if "synchroniz" not in str(message):
+            return self._prev(message, category, filename, lineno, file,
+                              line)
+        frames = [f for f in traceback.extract_stack()
+                  if f.filename.startswith(self.pkg)]
+        self.total += 1
+        if any(f.name == "host_sync"
+               and f.filename.endswith(os.path.join("ops", "unionfind.py"))
+               for f in frames):
+            self.counted += 1
+            key = ("counted", 0, "host_sync")
+        elif frames:
+            f = frames[-1]
+            key = (f.filename, f.lineno, f.name)
+        else:
+            key = ("outside gelly_torch", 0, "")
+        self.sites[key] = self.sites.get(key, 0) + 1
+
+    def __enter__(self):
+        import warnings
+
+        self._cw = warnings.catch_warnings()
+        self._cw.__enter__()
+        warnings.simplefilter("always")
+        self._prev = warnings.showwarning
+        warnings.showwarning = self._show
+        self.torch.cuda.synchronize()
+        self.torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.set_sync_debug_mode("default")
+        self._cw.__exit__(*exc)
+        return False
+
+
+def _justified_gl(line: str) -> str | None:
+    """The GL001-GL003 rule a justified ``# graphlint: disable=`` on
+    ``line`` names, or None."""
+    import re
+
+    m = re.search(r"#\s*graphlint:\s*disable=([A-Za-z0-9,\s]+?)\s*--\s*\S",
+                  line)
+    if not m:
+        return None
+    ids = [x.strip().upper() for x in m.group(1).split(",")]
+    hit = [i for i in ids if i in ("GL001", "GL002", "GL003", "ALL")]
+    return hit[0] if hit else None
+
+
+def sync_audit_phase(torch, device, src, dst, labels0) -> dict:
+    """Phase R2: each plan over phase 4's first ``R_CHUNKS`` chunks (and
+    one 64-tenant round) under the sync debug mode; every reported sync
+    inside a device scope must be counted or carry a justified
+    suppression. The CC plans' emission must equal phase 4's first
+    (``labels0``), the degrees a ``bincount``, the others the same run
+    with the mode off. Returns ``{plan: (syncs, host_sync delta)}``."""
+    from gelly_torch.analysis import jitlint
+    from gelly_torch.core.io import EdgeChunkSource
+    from gelly_torch.core.vertices import IdentityVertexTable
+    from gelly_torch.engine.tenants import MultiTenantEngine
+    from gelly_torch.library import bipartiteness as bp
+    from gelly_torch.library import connected_components as cc
+    from gelly_torch.library import degrees as deg
+    from gelly_torch.ops import kernels, unionfind
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    pkg = os.path.join(here, "gelly_torch")
+    n_edges = R_CHUNKS * CHUNK
+    s4, d4 = src[:n_edges], dst[:n_edges]
+    check(R_CHUNKS == MERGE_EVERY, "R2 reads phase 4's first emission")
+    degrees = [(np.bincount(s4, minlength=N_VERTICES)
+                + np.bincount(d4, minlength=N_VERTICES)).astype(np.int64)]
+
+    def stream_run(make_agg):
+        def run():
+            stream = edge_stream_from_source(
+                EdgeChunkSource(s4, d4, chunk_size=CHUNK,
+                                table=IdentityVertexTable(N_VERTICES)),
+                N_VERTICES, device=device)
+            out = list(stream.aggregate(make_agg(), merge_every=MERGE_EVERY))
+            return [to_host(torch, x) for x in out]
+        return run
+
+    def tenant_run():
+        eng = MultiTenantEngine(merge_every=N_MERGE_EVERY, device=device)
+        agg, cap = cc.cc_tenant_tier(N_SLOTS, chunk_capacity=N_CHUNK)
+        eng.add_tier("audit", agg, cap)
+        for t in range(R_TENANTS):
+            s, d = bench_tenant_edges(t)
+            eng.admit(t, "audit", chunks=tenant_chunks(
+                s[:N_CHUNK], d[:N_CHUNK], N_SLOTS, N_CHUNK))
+        out = eng.drain()
+        return {k: to_host(torch, v) for k, v in sorted(out.items())}
+
+    from gelly_torch.core.stream import edge_stream_from_source
+
+    # (name, run, what its emissions must equal: None for the same run
+    # with the debug mode off)
+    plans = (
+        ("raw CC plain", stream_run(lambda: cc.connected_components(
+            N_VERTICES, merge="gather", ingest_combine=False,
+            fold_backend="plain")), [labels0]),
+        ("raw CC kernel", stream_run(lambda: cc.connected_components(
+            N_VERTICES, merge="gather", ingest_combine=False,
+            fold_backend="kernel")), [labels0]),
+        ("compact", stream_run(lambda: cc.connected_components(
+            N_VERTICES, merge="gather", codec="compact",
+            compact_capacity=CC_COMPACT)), [labels0]),
+        ("degrees", stream_run(lambda: deg.degree_aggregate(N_VERTICES)),
+         degrees),
+        ("bipartiteness", stream_run(
+            lambda: bp.bipartiteness_check(N_VERTICES)), None),
+        (f"tenants x{R_TENANTS}", tenant_run, None),
+    )
+    t = time.perf_counter()
+    spans = jitlint.device_scopes(here, [pkg])
+    scope_s = time.perf_counter() - t
+    unreported = []
+    result = {}
+    for name, run, want in plans:
+        if want is None:
+            want = run()  # the same run, the debug mode off
+        torch.cuda.synchronize()
+        unionfind.host_sync.count = 0
+        reset_launches(kernels)
+        with SyncRecorder(torch, pkg) as rec:
+            got = run()
+        torch.cuda.synchronize()
+        check(same_host(got, want),
+              f"phase R2 {name}: emissions differ from the reference")
+        delta = unionfind.host_sync.count
+        result[name] = (rec.total, delta)
+        print(f"phase R2 {name}: syncs={rec.total} counted={rec.counted} "
+              f"host_sync.count={delta} uncounted={rec.total - rec.counted}")
+        for (path, line, fn), n in sorted(rec.sites.items(),
+                                          key=lambda kv: -kv[1]):
+            if path in ("counted", "outside gelly_torch"):
+                print(f"  {path}: {n}")
+                continue
+            rel = os.path.relpath(path, here)
+            inside = [sp for sp in spans.get(path, ())
+                      if sp[0] <= line <= sp[1]]
+            if not inside:
+                print(f"  {rel}:{line} ({fn}) host x{n}")
+                continue
+            with open(path) as f:
+                text = f.read().splitlines()[line - 1]
+            rule = _justified_gl(text)
+            scope = inside[-1][2]
+            print(f"  {rel}:{line} ({fn}) scope {scope!r} "
+                  f"{rule or 'UNREPORTED'} x{n}")
+            if rule is None:
+                unreported.append(f"{rel}:{line} ({name}, scope {scope!r})")
+    print(f"phase R2: device scopes of {len(spans)} modules in "
+          f"{scope_s:.2f} s; {len(unreported)} unreported sync lines")
+    check(not unreported, "phase R2: syncs inside device scopes that the "
+          "analysis reports nothing at: " + ", ".join(unreported))
+    return result
+
+
+def same_host(a, b) -> bool:
+    """Equal host emissions: arrays (dtype included), scalars, and lists,
+    tuples and dicts of them."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(same_host(a[k], b[k]) for k in a))
+    if isinstance(a, (tuple, list)):
+        return (isinstance(b, (tuple, list)) and len(a) == len(b)
+                and all(same_host(x, y) for x, y in zip(a, b)))
+    if isinstance(a, np.ndarray):
+        return (isinstance(b, np.ndarray) and a.dtype == b.dtype
+                and np.array_equal(a, b))
+    return a == b
+
+
+def to_host(torch, x):
+    """An emission on the host (tensors to numpy, trees walked)."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy()
+    if isinstance(x, dict):
+        return {k: to_host(torch, v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(to_host(torch, v) for v in x) \
+            if not hasattr(x, "_fields") else type(x)(
+                *(to_host(torch, v) for v in x))
+    return x
+
+
 def tenant_chunks(src, dst, n: int, chunk: int) -> list:
     """Identity-slot host chunks of one tenant's stream."""
     from gelly_torch.core.chunk import make_chunk
@@ -3438,6 +3717,10 @@ def ingest_child(directory: str) -> int:
     ckpt = os.path.join(directory, "ck.npz")
     resume = os.path.exists(ckpt)
     pos = int(read_checkpoint_header(ckpt)["position"]) if resume else 0
+    # The bus is scoped before the server listens: the client may send,
+    # and the server enqueue, before the engine starts.
+    scope = contextlib.ExitStack()
+    bus = scope.enter_context(obs.scope())
     srv = IngestServer(auto_ack=False, resume_seq=pos, queue_depth=4,
                        stop_on_bye=True).start()
     tmp = os.path.join(directory, "port.tmp")
@@ -3465,7 +3748,7 @@ def ingest_child(directory: str) -> int:
     reset_launches(kernels)
     records: list = []
     log = os.path.join(directory, f"child-{os.getpid()}.json")
-    with obs.scope() as bus:
+    with scope:
         res = run_aggregation(wire_cc_plan(), stream, merge_every=P4_EVERY,
                               checkpoint_path=ckpt, checkpoint_every=1,
                               resume=resume)
@@ -7576,6 +7859,11 @@ def main() -> int:
           f"{st['launches']} launches != 3 x {dedup_chunks} dedup chunks")
     check(st_plain["launches"] == 0, "the plain backend launched the kernel")
 
+    # R. the sync audit on this stream's first chunks; R1 joins at the end
+    mark("R", t_start)
+    gate = analysis_gate_start()
+    sync_audit_phase(torch, device, src, dst, labels[0])
+
     # F1. the per-window Merger plan, and host_precombine, on this stream
     mark("F1", t_start)
     merger_phase(torch, device, src, dst,
@@ -7836,6 +8124,8 @@ def main() -> int:
 
     # 8. result lines
     mark("8", t_start)
+    # R1's gate, started at phase R, joined before the result lines.
+    analysis_gate_finish(gate)
     print(json.dumps({"kernels": [{
         "name": "sorted_window_gather",
         "route": "cuda",
@@ -7992,4 +8282,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        for child in _CHILDREN:
+            if child.poll() is None:
+                child.kill()
+                child.wait()

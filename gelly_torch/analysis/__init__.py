@@ -6,14 +6,22 @@ hand-written CUDA kernels bound the same way (``csrc/*.cu`` +
 ``ops/_build.SIGNATURES``), and a threaded engine (codec workers, H2D
 threads, checkpoint writers, lease beats, ingest servers). Each fails
 silently: an ``argtypes`` declaration drifting from its ``extern "C"``
-signature corrupts memory instead of raising, and a lock missed on a
-shared attribute races without failing a test. This package is the
-correctness floor under both, with ``gelly_tpu``'s tool and rule ids
-and no JAX import:
+signature corrupts memory instead of raising, a lock missed on a
+shared attribute races without failing a test, and a host sync or an
+unsynchronized timing in a plan's fold passes the CPU tests and only
+shows on the card. This package is the correctness floor under all
+three, with ``gelly_tpu``'s tool and rule ids and no JAX import:
 
 - :mod:`gelly_torch.analysis.abi` — every ``extern "C"`` declaration in
   ``native/*.cc`` against ``utils/native.py``'s bindings, and in
   ``csrc/*.cu`` against ``ops/_build.SIGNATURES`` (``AB0xx``);
+- :mod:`gelly_torch.analysis.jitlint` — hazards inside ``jax.jit``
+  functions (a JAX module) or inside the port's device scopes (host
+  syncs outside ``host_sync``, Python branches on tensors, in-place plan
+  entries, unsynchronized host timings) (``GL0xx``);
+- :mod:`gelly_torch.analysis.plancheck` — plan-cache keys, donation and
+  in-place aliasing, masked-lane selects and the refusal matrix
+  (``PCxxx``);
 - :mod:`gelly_torch.analysis.racecheck` — thread roots, shared-attribute
   and lock-discipline rules (``RC0xx``), lock-order cycles, and the
   protocol invariants of ``engine/coordination.py`` (``PI0xx``);
@@ -32,13 +40,13 @@ and no JAX import:
   ``native/*.cc`` and a smoke run of every host codec fold.
 
 Run everything with ``python -m gelly_torch.analysis`` (or one tool:
-``abi|racecheck|contracts|liveness|suppressions [paths]``); the exit
-code is non-zero iff any unsuppressed finding exists. The package root
-is a parameter: every tool defaults to ``gelly_torch/`` and, pointed at
-``gelly_tpu/``, reproduces that package's own findings. ``gelly_tpu``'s
-jit-hazard (``GLxxx``) and compiled-plan (``PCxxx``) families check
-``jax.jit`` programs the port does not have; their PyTorch counterparts
-are ROADMAP item 12d.
+``abi|jitlint|racecheck|contracts|plancheck|liveness|suppressions
+[paths]``); the exit code is non-zero iff any unsuppressed finding
+exists. The package root is a parameter: every tool defaults to
+``gelly_torch/`` and, pointed at ``gelly_tpu/``, reproduces that
+package's own findings (jitlint and plancheck read a JAX module as
+``gelly_tpu``'s tools do, a module of the port in the PyTorch
+vocabulary).
 """
 
 from __future__ import annotations
@@ -50,7 +58,7 @@ import os
 def collect_python_files(paths) -> list:
     """Expand files/dirs into the sorted, de-duplicated absolute ``.py``
     path list every lint tool walks (``__pycache__`` skipped) — ONE
-    collection rule for racecheck, contracts and liveness, so a future
+    collection rule for every lint tool, so a future
     fix (symlink cycles, encoding filters) lands in one place."""
     files: list = []
     for p in paths:

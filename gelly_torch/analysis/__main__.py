@@ -6,7 +6,9 @@ Unified exit-code contract for every analysis tool of the port:
     python -m gelly_torch.analysis --all            # same, explicit
     python -m gelly_torch.analysis racecheck PATH…  # one tool, optional paths
     python -m gelly_torch.analysis contracts PATH…
+    python -m gelly_torch.analysis plancheck PATH…
     python -m gelly_torch.analysis liveness PATH…
+    python -m gelly_torch.analysis jitlint PATH…
     python -m gelly_torch.analysis abi
     python -m gelly_torch.analysis suppressions   # audit the disables
 
@@ -20,9 +22,11 @@ argument when it is a package with ``utils/native.py``, else
 (``DIR/utils/native.py``) and, where the package has them, the kernel
 bindings (``DIR/ops/_build.py`` against ``DIR/csrc/*.cu``). Pointed at
 ``gelly_tpu/`` the tools reproduce that package's own findings.
-``jitlint`` and ``plancheck`` are ``gelly_tpu``'s tools for ``jax.jit``
-programs; asking for them exits 2 (their PyTorch counterparts are
-ROADMAP item 12d). Nothing here imports JAX.
+``jitlint`` and ``plancheck`` read each module in the vocabulary of its
+imports: a module that imports ``jax`` as ``gelly_tpu``'s tools read it,
+one that imports ``torch`` in the PyTorch vocabulary (device scopes,
+host syncs, in-place plan entries; see ``jitlint.py`` and
+``plancheck.py``). Nothing here imports JAX.
 
 Every tool shares ONE parsed-AST cache per invocation
 (``analysis/loader.py``): an unparseable file is a loud per-file
@@ -30,8 +34,9 @@ Every tool shares ONE parsed-AST cache per invocation
 
 ``--changed[=REF]`` lints only files that differ vs a git ref (default
 ``HEAD``) plus untracked files. Tools whose rules are whole-package
-(racecheck lock cycles, the OB glossary) still LOAD the full lint set
-but only REPORT findings anchored in changed files.
+(racecheck lock cycles, the OB glossary, the plancheck PC4xx matrix)
+still LOAD the full lint set but only REPORT findings anchored in changed
+files; jitlint's rules are per-file, so it lints only the changed ones.
 
 ``--format=json`` emits one machine-readable object for CI,
 ``--format=github`` one workflow annotation per finding, and
@@ -56,11 +61,13 @@ import os
 import subprocess
 import sys
 
-from . import Finding
+from . import Finding, collect_python_files
 from . import abi as abi_mod
 from . import contracts as contracts_mod
+from . import jitlint as jitlint_mod
 from . import liveness as liveness_mod
 from . import loader as loader_mod
+from . import plancheck as plancheck_mod
 from . import racecheck as racecheck_mod
 from . import sanitize as sanitize_mod
 from . import suppressions as suppressions_mod
@@ -68,22 +75,14 @@ from . import suppressions as suppressions_mod
 _REPO_ROOT = os.path.abspath(
     os.path.join(os.path.dirname(__file__), "..", ".."))
 
-TOOLS = ("abi", "racecheck", "contracts", "liveness")
-
-#: gelly_tpu's tools for jax.jit programs, which the port does not run.
-RESERVED_TOOLS = ("jitlint", "plancheck")
-_RESERVED_MESSAGE = (
-    "{tool} checks jax.jit, donation and vmap programs, which gelly_torch "
-    "has none of; its PyTorch counterpart (host syncs in plan folds, host "
-    "clocks around unsynchronized launches, snapshots aliasing in-place "
-    "state, the plan caches' keys) is ROADMAP item 12d, not yet ported"
-)
+TOOLS = ("abi", "jitlint", "racecheck", "contracts", "plancheck",
+         "liveness")
 
 # "suppressions" is a subcommand but NOT a member of TOOLS: in --all it
 # rides along as warnings that never flip the exit code, so the finding
 # gate and the hygiene gate stay independently readable (CI gates on
 # the dedicated lane).
-SUBCOMMANDS = TOOLS + ("all", "suppressions") + RESERVED_TOOLS
+SUBCOMMANDS = TOOLS + ("all", "suppressions")
 
 _AB_RULES = (
     ("AB001", "native function has no ctypes binding"),
@@ -99,6 +98,11 @@ def _list_rules() -> str:
     lines = ["ABI cross-checker (analysis/abi.py):"]
     for rid, desc in _AB_RULES:
         lines.append(f"  {rid}  {desc}")
+    lines.append("jit-hazard / device-scope linter (analysis/jitlint.py), "
+                 "suppress with `# graphlint: disable=GLxxx`:")
+    for rid, (summary, _hint) in sorted(jitlint_mod.RULES.items()):
+        lines.append(f"  {rid}  {summary} "
+                     f"(torch: {jitlint_mod.TORCH_RULES[rid]})")
     lines.append("race detector + protocol invariants "
                  "(analysis/racecheck.py), suppress with "
                  "`# graphlint: disable=RCxxx` / `PIxxx`:")
@@ -108,6 +112,10 @@ def _list_rules() -> str:
                  "suppress with `# graphlint: disable=EOxxx` / `WPxxx` / "
                  "`OBxxx`:")
     for rid, (summary, _hint) in sorted(contracts_mod.RULES.items()):
+        lines.append(f"  {rid}  {summary}")
+    lines.append("compiled-plan contract checker (analysis/plancheck.py), "
+                 "suppress with `# graphlint: disable=PCxxx`:")
+    for rid, (summary, _hint) in sorted(plancheck_mod.RULES.items()):
         lines.append(f"  {rid}  {summary}")
     lines.append("liveness & progress checker (analysis/liveness.py), "
                  "suppress with `# graphlint: disable=LVxxx`:")
@@ -122,8 +130,6 @@ def _list_rules() -> str:
     lines.append(f"  {loader_mod.SRC_RULE}  {loader_mod.SRC_SUMMARY} "
                  "(syntax error / non-UTF8 / zero-byte; emitted by every "
                  "covering tool, not suppressible)")
-    lines.append("reserved, not run (ROADMAP item 12d): "
-                 + " ".join(suppressions_mod.RESERVED_RULES))
     lines.append("sanitizer lane (analysis/sanitize.py): "
                  "--sanitize asan|ubsan, env GELLY_NATIVE_SANITIZE")
     return "\n".join(lines)
@@ -134,8 +140,8 @@ def _rule_metadata() -> list:
     SARIF ``tool.driver.rules`` array (and the machine-readable twin of
     ``--list-rules``)."""
     rules: dict = {rid: (desc, "") for rid, desc in _AB_RULES}
-    for mod in (racecheck_mod, contracts_mod, liveness_mod,
-                suppressions_mod):
+    for mod in (jitlint_mod, racecheck_mod, contracts_mod,
+                plancheck_mod, liveness_mod, suppressions_mod):
         rules.update(mod.RULES)
     rules[loader_mod.SRC_RULE] = (loader_mod.SRC_SUMMARY,
                                   loader_mod.SRC_HINT)
@@ -292,28 +298,27 @@ def main(argv=None) -> int:
             argv.pop(i)
         break  # first positional decides either way
 
-    if tool in RESERVED_TOOLS:
-        print(_RESERVED_MESSAGE.format(tool=tool), file=sys.stderr)
-        return 2
-
     ap = argparse.ArgumentParser(
         prog="python -m gelly_torch.analysis",
         description="static analysis of the port: ABI cross-check of "
                     "native/*.cc and csrc/*.cu against their ctypes "
-                    "bindings, concurrency race/protocol-invariant "
-                    "check, durability/wire/observability contract "
-                    "check, liveness/progress check, suppression audit, "
-                    "optional native sanitizer smoke lane. "
-                    "Subcommands: abi | racecheck | contracts | liveness "
-                    "| suppressions | all (default all).",
+                    "bindings, jit-hazard / device-scope lint, "
+                    "concurrency race/protocol-invariant check, "
+                    "durability/wire/observability contract check, "
+                    "compiled-plan contract check, liveness/progress "
+                    "check, suppression audit, optional native sanitizer "
+                    "smoke lane. Subcommands: abi | jitlint | racecheck "
+                    "| contracts | plancheck | liveness | suppressions | "
+                    "all (default all).",
     )
     ap.add_argument("paths", nargs="*",
-                    help="files/dirs to lint (racecheck + contracts + "
-                         "liveness; default the package)")
+                    help="files/dirs to lint (jitlint + racecheck + "
+                         "contracts + plancheck + liveness; default the "
+                         "package)")
     ap.add_argument("--all", action="store_true",
-                    help="run every tool (abi+racecheck+contracts+"
-                         "liveness) — the default when no subcommand is "
-                         "given")
+                    help="run every tool (abi+jitlint+racecheck+"
+                         "contracts+plancheck+liveness) — the default when "
+                         "no subcommand is given")
     ap.add_argument("--root", default=_REPO_ROOT,
                     help="repo root (default: the checkout this package "
                          "lives in)")
@@ -334,10 +339,14 @@ def main(argv=None) -> int:
                          "positional paths)")
     ap.add_argument("--skip-abi", action="store_true",
                     help="skip the ABI cross-checker")
+    ap.add_argument("--skip-jitlint", action="store_true",
+                    help="skip the jit-hazard / device-scope linter")
     ap.add_argument("--skip-racecheck", action="store_true",
                     help="skip the concurrency race detector")
     ap.add_argument("--skip-contracts", action="store_true",
                     help="skip the durability-contract checker")
+    ap.add_argument("--skip-plancheck", action="store_true",
+                    help="skip the compiled-plan contract checker")
     ap.add_argument("--skip-liveness", action="store_true",
                     help="skip the liveness & progress checker")
     ap.add_argument("--changed", nargs="?", const="HEAD", default=None,
@@ -385,10 +394,14 @@ def main(argv=None) -> int:
         run = {t: False for t in TOOLS}
     if args.skip_abi:
         run["abi"] = False
+    if args.skip_jitlint:
+        run["jitlint"] = False
     if args.skip_racecheck:
         run["racecheck"] = False
     if args.skip_contracts:
         run["contracts"] = False
+    if args.skip_plancheck:
+        run["plancheck"] = False
     if args.skip_liveness:
         run["liveness"] = False
 
@@ -399,6 +412,12 @@ def main(argv=None) -> int:
     # One parsed-AST cache per invocation: every tool below reads the
     # same tree objects, so --all parses each file once.
     cache = loader_mod.SourceCache()
+    # jitlint's rules are per-file, so --changed narrows its INPUT; the
+    # whole-package tools keep the full lint set and are post-filtered.
+    jit_inputs = lint_paths
+    if changed is not None:
+        jit_inputs = [f for f in collect_python_files(lint_paths)
+                      if f in changed]
 
     per_tool: dict[str, list[Finding]] = {}
     if run["abi"]:
@@ -407,11 +426,17 @@ def main(argv=None) -> int:
         if os.path.isfile(kernel_build) and os.path.isdir(csrc_dir):
             per_tool["abi"] += abi_mod.cross_check_kernels(
                 csrc_dir, kernel_build, cache=cache)
+    if run["jitlint"]:
+        per_tool["jitlint"] = jitlint_mod.lint_paths(root, jit_inputs,
+                                                     cache=cache)
     if run["racecheck"]:
         per_tool["racecheck"] = racecheck_mod.lint_paths(root, lint_paths,
                                                          cache=cache)
     if run["contracts"]:
         per_tool["contracts"] = contracts_mod.lint_paths(root, lint_paths,
+                                                         cache=cache)
+    if run["plancheck"]:
+        per_tool["plancheck"] = plancheck_mod.lint_paths(root, lint_paths,
                                                          cache=cache)
     if run["liveness"]:
         per_tool["liveness"] = liveness_mod.lint_paths(root, lint_paths,

@@ -18,9 +18,7 @@ silently masks FUTURE findings on that line). This module audits both::
   anchor line. Detected by re-running every suppression-aware tool
   with directives ignored (:func:`ignoring_suppressions` flips the
   shared :func:`astutil.suppressed` gate) and diffing the directive
-  inventory against the raw findings. The jit-hazard (``GL``) and
-  compiled-plan (``PC``) families are reserved, not run (ROADMAP item
-  12d): a directive naming one is known but never staleness-checked.
+  inventory against the raw findings.
 - ``SUP003`` a directive naming a rule id no tool defines (typo'd
   ``RC09`` keeps the real finding alive AND reads as vetted).
 
@@ -66,20 +64,8 @@ _MIN_JUSTIFICATION_WORDS = 3
 #: Rule-id prefixes whose tools honor ``# graphlint: disable=`` — the
 #: families SUP002 can verify by re-running the owning tool. (AB/SRC
 #: findings ignore suppression comments entirely, so a directive naming
-#: them is caught by SUP003/SUP001 but never staleness-checked; so are
-#: the reserved GL/PC ids below, whose tools the port does not run.)
-_SUPPRESSIBLE_PREFIXES = ("RC", "PI", "EO", "WP", "OB", "LV")
-
-#: The jit-hazard (GLxxx) and compiled-plan (PCxxx) rule ids of the
-#: JAX package's jitlint and plancheck. They check ``jax.jit``, donation
-#: and ``vmap`` programs, which the port has none of; their PyTorch
-#: counterparts are ROADMAP item 12d. Known here so a directive naming
-#: one is not an unknown id (SUP003).
-RESERVED_RULES = (
-    tuple(f"GL00{i}" for i in range(1, 8))
-    + ("PC101", "PC102", "PC103", "PC201", "PC202", "PC203", "PC301",
-       "PC302", "PC401", "PC402")
-)
+#: them is caught by SUP003/SUP001 but never staleness-checked.)
+_SUPPRESSIBLE_PREFIXES = ("GL", "RC", "PI", "EO", "WP", "OB", "PC", "LV")
 
 
 @contextlib.contextmanager
@@ -96,10 +82,10 @@ def ignoring_suppressions():
 
 
 def _known_rules() -> set:
-    from . import contracts, liveness, loader, racecheck
+    from . import contracts, jitlint, liveness, loader, plancheck, racecheck
 
-    known = {"ALL"} | set(RESERVED_RULES)
-    for mod in (racecheck, contracts, liveness):
+    known = {"ALL"}
+    for mod in (jitlint, racecheck, contracts, plancheck, liveness):
         known |= set(mod.RULES)
     known |= set(RULES)
     known |= {f"AB00{i}" for i in range(1, 7)}
@@ -167,11 +153,11 @@ def _raw_findings(package_root: str, paths, cache) -> set:
     """(abspath, line, rule) of every finding the suppression-aware
     tools report when directives are ignored — the live-anchor set
     SUP002 diffs the inventory against."""
-    from . import contracts, liveness, racecheck
+    from . import contracts, jitlint, liveness, plancheck, racecheck
 
     raw: set = set()
     with ignoring_suppressions():
-        for mod in (racecheck, contracts, liveness):
+        for mod in (jitlint, racecheck, contracts, plancheck, liveness):
             for f in mod.lint_paths(package_root, paths, cache=cache):
                 raw.add((os.path.abspath(f.path), f.line, f.rule))
     return raw

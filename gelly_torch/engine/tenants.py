@@ -1390,7 +1390,7 @@ class MultiTenantEngine:
                 # Per-round latency (stack + H2D + fold): the signal a
                 # fair-share scheduler budgets rounds against.
                 bus.observe("tenants.round_ms",
-                            (_time.perf_counter() - t_h) * 1e3)
+                            (_time.perf_counter() - t_h) * 1e3)  # graphlint: disable=GL007 -- tenants.round_ms times the round's dispatch
             with self._lock:
                 for t in took:
                     t.consumed += 1

@@ -370,8 +370,8 @@ def test_tip_clean_gate_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "analysis clean (abi, racecheck, contracts, liveness, " \
-        "suppressions-audit)" in proc.stdout
+    assert "analysis clean (abi, jitlint, racecheck, contracts, " \
+        "plancheck, liveness, suppressions-audit)" in proc.stdout
 
 
 def test_cli_suppressions_lane_clean_on_the_port(capsys):
@@ -379,10 +379,44 @@ def test_cli_suppressions_lane_clean_on_the_port(capsys):
 
 
 @pytest.mark.parametrize("tool", ["jitlint", "plancheck"])
-def test_cli_refuses_the_jax_tools(tool, capsys):
-    assert analysis_main([tool]) == 2
-    err = capsys.readouterr().err
-    assert tool in err and "item 12d" in err
+def test_cli_runs_the_jit_tools_clean_on_the_port(tool, capsys):
+    assert analysis_main([tool, TORCH_PKG, "--root", REPO]) == 0
+    out = capsys.readouterr().out
+    assert f"{tool}: 0 finding(s)" in out
+    assert f"analysis clean ({tool})" in out
+
+
+@pytest.mark.parametrize("tool,rule", [("jitlint", "GL003"),
+                                       ("plancheck", "PC202")])
+def test_cli_runs_the_jit_tools_on_a_torch_fixture(tmp_path, tool, rule,
+                                                   capsys):
+    src = {
+        "GL003": textwrap.dedent("""\
+            import torch
+            from gelly_torch.engine.aggregation import SummaryAggregation
+
+
+            def fold(s, chunk):
+                n = int(chunk.valid.sum())
+                return s + n
+
+
+            agg = SummaryAggregation(init=None, fold=fold, combine=None)
+        """),
+        "PC202": textwrap.dedent("""\
+            import torch
+
+
+            def step(batch, state, chunk, out):
+                out.result = batch.plan.fold(state, chunk)
+                return state
+        """),
+    }[rule]
+    p = tmp_path / "fixture_mod.py"
+    p.write_text(src)
+    rc = analysis_main([tool, str(p), "--root", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert rc == 1 and rule in out
 
 
 def test_cli_exit_code_and_json_on_findings(tmp_path, capsys):
@@ -398,11 +432,18 @@ def test_cli_exit_code_and_json_on_findings(tmp_path, capsys):
     assert out["tools"]["racecheck"]["count"] >= 1
 
 
-def test_suppression_audit_knows_the_reserved_families(tmp_path):
+@pytest.mark.parametrize("rule", ["GL001", "PC101"])
+def test_suppression_audit_flags_a_stale_jit_directive(tmp_path, rule):
+    # GL and PC are live rule families now: a directive whose rule does
+    # not fire at its line is stale (SUP002), as for every other family.
     p = tmp_path / "m.py"
-    p.write_text("x = 1  # graphlint: disable=GL001 -- kept for the "
-                 "JAX twin of this line\n")
-    assert suppressions.audit(str(tmp_path), [str(p)]) == []
+    p.write_text("import torch\n"
+                 f"x = 1  # graphlint: disable={rule} -- nothing fires "
+                 "on this line\n")
+    [f] = suppressions.audit(str(tmp_path), [str(p)])
+    assert f.rule == "SUP002" and rule in f.message
+    tpu = tpu_suppressions.audit(str(tmp_path), [str(p)])
+    assert _norm([f], tmp_path) == _norm(tpu, tmp_path)
 
 
 # --------------------------------------------------------------------- #

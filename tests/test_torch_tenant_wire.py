@@ -423,9 +423,15 @@ def _routed(s, c, edges, tenant, stack, corrupt):
             assert left[0] == 0
 
             def folded():
+                # position() counts a chunk when its fold is dispatched;
+                # its window's snapshot is published after the fold, so
+                # the labels are read only once the snapshot covers the
+                # last window (merge_every=1: one window a chunk).
                 try:
                     return (eng.position(tenant) >= len(edges) // 16
-                            and eng.queue_depth() == 0)
+                            and eng.queue_depth() == 0
+                            and eng.snapshot_window(tenant)
+                            >= len(edges) // 16)
                 except KeyError:
                     return False  # auto-admission not seen yet
 
