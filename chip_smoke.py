@@ -67,7 +67,9 @@ Phases (any failure exits nonzero and prints no result line):
    The path launches neither hand-written kernel (counted);
 8. a ``{"kernels": [...]}`` line (the two Pallas counterparts, the
    three gate and matching kernels, the two hash-set entries, the row
-   insert and the sampler step, each with the JAX function it replaces,
+   insert, the sampler step and the k = 2 fold (its launches in F2, F3,
+   L1 and L4 as ``phase_launches``), each with the JAX function it
+   replaces,
    the gather's and the sampler's launches on the mesh as
    ``mesh_launches``, the gather's and entry 2's in phase L1 as
    ``multiquery_launches``, the gather's in a traced run of phase M1 as
@@ -194,13 +196,17 @@ F. F1: a user-written transient aggregation with no ``fold_accumulates``
    ``2^20`` slots (seed 31) in ``2^19``-edge chunks through
    ``sparse_spanner(2^20, 2, 16, max_edges=2^21, gate_batch=2^14)``,
    ``merge_every=1``: the combine's kernel (entry 2 of
-   ``csrc/spanner_gate.cu``) at every close, every emission equal to the
-   same run with the combine's plain version, every accepted edge an
+   ``csrc/spanner_gate.cu``) at every close and the k = 2 fold's
+   (``csrc/spanner_fold_k2.cu``) on every chunk, every emission equal to
+   the same run with the combine's plain version, in which every chunk's
+   fold is held to the plain fold on every field, every accepted edge an
    input edge, the bench's 500-edge stretch sample, and a stop after the
    3rd emission with a fresh plan resuming from the window-2 checkpoint.
    F3: phase 4's stream through ``sparse_spanner(2^24, 2, 16,
    gate_batch=2^14)`` in ``2^22``-edge chunks, ``merge_every=4``: the
-   plain combine equal on the first two windows (a depth cut), every
+   fold kernel on every chunk, the first chunk's summary equal to the
+   plain fold's on every field and the second timed (kernel and plain);
+   the plain combine equal on the first two windows (a depth cut), every
    accepted edge an input edge, and 10^4 sampled input edges within 2
    hops or, past that, within ``k`` a gate level (the window's fold and
    each close that re-gated the summary holding its edges; the
@@ -236,7 +242,8 @@ L. L1: ``run_aggregation(None, stream, queries=[cc_query(2^24,
    F3's emissions: the same plan), each freed once compared; the gather
    launched 3 times a dedup chunk and entry 2 of ``csrc/spanner_gate.cu``
    at each of the spanner's merge windows and each emission's
-   merge-on-read (counted); the fused wall and H2D bytes beside the sum of
+   merge-on-read, the k = 2 fold kernel once a chunk (counted); the fused
+   wall and H2D bytes beside the sum of
    the four standalone runs'. L2: the trio ``cc_query``,
    ``degrees_query``, ``bipartiteness_query`` with ``compressed=True,
    codec="sparse"``, ``fold_batch=4``: the shared compress stage took
@@ -247,7 +254,7 @@ L. L1: ``run_aggregation(None, stream, queries=[cc_query(2^24,
    L4: L1's quartet checkpointed every second window (a 3.7 GB write
    each) and stopped once the window-2 checkpoint is on disk (after the
    3rd emission), then a fresh plan resuming from it: windows 3 and 4
-   equal L1's.
+   equal L1's, both runs folding through the k = 2 fold kernel.
 
 The traced main path (phase M, right after phase L; the obs core of
 ``gelly_torch/obs`` and ``utils.metrics.trace``):
@@ -460,8 +467,12 @@ H. H1: phase 4's stream in ``2^18``-edge chunks through
 I. I1: ``distinct(device=True)`` on the first ``2^23`` edges: masks
    equal the host path and a numpy first-occurrence oracle,
    ``hashset_contains`` true on every key and false on ``2^20`` absent
-   ones (equal to its plain version at that shape); the insert kernel
-   against its plain version on a random prefilled table. I2: the
+   ones (equal to its plain version at that shape); the first chunk's
+   insert (entry 1 of ``csrc/hashset.cu``: parallel walks that settle in
+   the scan's layout) equal to its plain version; the insert kernel
+   against its plain version on a random prefilled table and on an
+   adversarial one (``2^16`` keys homed in 4096 slots of a ``2^20``-slot
+   table filled to 0.6, lanes ``i`` and ``i + 2^15`` one key). I2: the
    transforms on a ``2^22``-edge prefix equal numpy. I3:
    ``IterativeCCStream`` over phase 4's stream: every label in its slot's
    scipy component (the reference leaves some roots stale; counted). I4:
@@ -688,7 +699,10 @@ WATCHDOG_S = 1180
 HAND_KERNELS = ("sorted_window_gather", "wedge_count_matrix",
                 "sparse_insert_edges", "sparse_insert_edges_batched",
                 "matching_step", "hashset_insert", "hashset_contains",
-                "row_insert_chunk", "sampler_step")
+                "row_insert_chunk", "sampler_step", "sparse_fold_chunk_k2")
+# The sparse spanner summary's fields, in the kernel wrappers' order.
+SPANNER_FIELDS = ("nbr", "deg", "deg_overflow", "esrc", "edst", "n",
+                  "overflow")
 NO_LAUNCHES = (0,) * len(HAND_KERNELS)
 
 
@@ -2013,6 +2027,105 @@ def gate_bound_ms(info: dict, max_degree: int) -> tuple[float, int]:
     return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
 
 
+def fold_work(torch, state, lanes, after, sub: int) -> dict:
+    """The work one k = 2 fold call's data needed: its lanes, live lanes,
+    accepted edges, and ``rows``, the distinct endpoints of live lanes
+    summed over the sub-batches (each sub-batch's gate reads each of its
+    rows once, as the rows stand at its start)."""
+    u, v, ok = lanes
+    live = ok & (u != v)
+    j = torch.arange(u.shape[0], device=u.device) // sub
+    base = j[live] * state[0].shape[0]
+    ends = torch.cat([base + u[live].long(), base + v[live].long()])
+    return {"lanes": u.shape[0], "live": int(live.sum()),
+            "rows": int(torch.unique(ends).numel()),
+            "accepted": int(after[5]) - int(state[5])}
+
+
+def fold_bound_ms(info: dict, max_degree: int) -> tuple[float, int]:
+    """(ms, bytes): the least time the card could take for one k = 2 fold
+    call, from the bytes its data needs: each lane read once (9 B), each
+    distinct live endpoint's row once a sub-batch (``4 D`` B), and each
+    accepted edge's writes (two row slots, two fill counts, two list
+    entries: 24 B)."""
+    nbytes = (9 * info["lanes"] + 4 * max_degree * info["rows"]
+              + 24 * info["accepted"])
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+class FoldCheck:
+    """Stand-in for ``kernels.sparse_fold_chunk_k2`` while it is installed
+    there: runs the wrapper (counted in its own ``launches``, reset like
+    the others) and times each call with CUDA events. The first ``check``
+    calls (every call when None) also keep copies of the summary before
+    and after the call and of its lanes; :meth:`verify`, after the run,
+    runs the plain fold on the copies from before (host clock) and holds
+    every field of the summary to the kernel's, bit for bit."""
+
+    def __init__(self, torch, kernels, what: str, check=None):
+        self.torch, self.kernels, self.what = torch, kernels, what
+        self.impl = kernels.sparse_fold_chunk_k2
+        self.check = check
+        self.launches = 0
+        self.calls = []  # (start, end) events of each call
+        self.kept = []  # (before, lanes, max_degree and sub, after)
+        self.max_abs_err = 0
+
+    def __call__(self, *args):
+        torch = self.torch
+        keep = self.check is None or len(self.calls) < self.check
+        if keep:
+            before = [x.clone() for x in args[:10]]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        launches = self.impl.launches
+        start.record()
+        self.impl(*args)
+        end.record()
+        self.launches += self.impl.launches - launches
+        self.calls.append((start, end))
+        if keep:
+            self.kept.append((before[:7], before[7:], args[10:],
+                              [x.clone() for x in args[:7]]))
+
+    def verify(self) -> list:
+        """``(ms, plain_ms, work)`` of each checked call, in call order."""
+        torch = self.torch
+        torch.cuda.synchronize()
+        out = []
+        for i, (state, lanes, rest, after) in enumerate(self.kept):
+            work = fold_work(torch, state, lanes, after, rest[1])
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            self.kernels.sparse_fold_chunk_k2_plain(*state, *lanes, *rest)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t) * 1e3
+            for name, a, b in zip(SPANNER_FIELDS, after, state):
+                err = int((a.long() - b.long()).abs().max()) \
+                    if a.numel() else 0
+                self.max_abs_err = max(self.max_abs_err, err)
+                check(torch.equal(a, b), f"{self.what}: sparse_fold_chunk_k2"
+                                         f"'s {name} != its plain version "
+                                         f"on chunk {i}")
+            start, end = self.calls[i]
+            out.append((start.elapsed_time(end), plain_ms, work))
+        self.kept = []
+        return out
+
+    def timings(self) -> list:
+        """Kernel ms of each call."""
+        self.torch.cuda.synchronize()
+        return [start.elapsed_time(end) for start, end in self.calls]
+
+    def __enter__(self):
+        setattr(self.kernels, "sparse_fold_chunk_k2", self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.kernels, "sparse_fold_chunk_k2", self.impl)
+        return False
+
+
 def spanner_pull(summary):
     return tuple(x.cpu().numpy() for x in summary)
 
@@ -2219,16 +2332,27 @@ def spanner_bench_phase(torch, device, stream_out: dict) -> dict:
             src, dst, chunk_size=F2_CHUNK, table=IdentityVertexTable(n)),
             n, e, 1, 1, pull, **knobs)
 
-    n_windows = e // F2_CHUNK
+    n_windows = e // F2_CHUNK  # one chunk a window
+    folds = {"sparse_fold_chunk_k2": n_windows}
     with GateTimer(torch, kernels, "sparse_insert_edges_batched",
                    kernels.sparse_insert_edges_batched) as gate:
         out, st = run()
     report_run("phase F2 spanner (bench_spanner)", st,
-               expect={"sparse_insert_edges_batched": n_windows})
+               expect={"sparse_insert_edges_batched": n_windows, **folds})
+    # The plain combine, and every chunk's fold held to its plain version.
     with GateTimer(torch, kernels, "sparse_insert_edges_batched",
-                   kernels.sparse_insert_edges_batched_plain) as plain:
+                   kernels.sparse_insert_edges_batched_plain) as plain, \
+            FoldCheck(torch, kernels, "F2") as fold:
         plain_out, pst = run()
-    report_run("phase F2 spanner, plain combine", pst)
+    report_run("phase F2 spanner, plain combine, every fold checked", pst,
+               expect=folds)
+    checked = fold.verify()
+    check(len(checked) == n_windows, f"F2: {len(checked)} folds checked")
+    print(f"  F2 folds: {len(checked)} chunks of {F2_CHUNK} lanes through "
+          f"csrc/spanner_fold_k2.cu, every summary field equal to the "
+          f"plain fold's (max_abs_err {fold.max_abs_err}); kernel ms "
+          f"{[round(m, 4) for m, _, _ in checked]}, plain ms (host clock) "
+          f"{[round(p, 2) for _, p, _ in checked]}")
     check(len(out) == len(plain_out) == n_windows,
           f"F2: {len(out)} / {len(plain_out)} emissions")
     for i, (a, b) in enumerate(zip(out, plain_out)):
@@ -2268,7 +2392,9 @@ def spanner_bench_phase(torch, device, stream_out: dict) -> dict:
     print(f"  F2 close 2: entry 2 {ms:.4f} ms, plain {pms:.4f} ms, bound "
           f"{bound:.6f} ms ({nbytes} B)")
     return {"ms": ms, "plain_ms": pms, "bound_ms": bound,
-            "bound_bytes": nbytes}
+            "bound_bytes": nbytes, "fold_launches": st["launches"][
+                HAND_KERNELS.index("sparse_fold_chunk_k2")],
+            "fold_checked": len(checked), "fold_err": fold.max_abs_err}
 
 
 def spanner_twitter_phase(torch, device, src, dst) -> dict:
@@ -2293,11 +2419,15 @@ def spanner_twitter_phase(torch, device, src, dst) -> dict:
             n, N_EDGES, MERGE_EVERY, 1, pull, **knobs)
 
     n_windows = N_EDGES // (MERGE_EVERY * CHUNK)
+    n_chunks = N_EDGES // CHUNK
     with GateTimer(torch, kernels, "sparse_insert_edges_batched",
-                   kernels.sparse_insert_edges_batched, capture=1) as gate:
+                   kernels.sparse_insert_edges_batched, capture=1) as gate, \
+            FoldCheck(torch, kernels, "F3", check=2) as folds:
         out, st = run()
     report_run("phase F3 spanner at Twitter scale", st,
-               expect={"sparse_insert_edges_batched": n_windows})
+               expect={"sparse_insert_edges_batched": n_windows,
+                       "sparse_fold_chunk_k2": n_chunks})
+    fold = fold_report_f3(folds)
     timings = gate.timings()
     check(len(out) == n_windows, f"F3: {len(out)} emissions")
     for i, (ms, info) in enumerate(timings):
@@ -2307,7 +2437,7 @@ def spanner_twitter_phase(torch, device, src, dst) -> dict:
               f"{bound:.6f} ms ({nbytes} B)")
     # The plain combine on close 2's summaries, the donor cut short.
     args = gate.captured
-    gate.captured = None
+    gate.captured = gate.captured_out = None
     cut = torch.tensor(min(F3_PLAIN_DONOR, timings[1][1]["n_valid"]),
                        dtype=torch.int32, device=device)
     results = []
@@ -2361,7 +2491,32 @@ def spanner_twitter_phase(torch, device, src, dst) -> dict:
     # them.
     return {"launches": st["launches"][HAND_KERNELS.index(
         "sparse_insert_edges_batched")], "out": out,
-        "wall_s": st["wall_s"], "h2d_bytes": st["h2d_bytes"]}
+        "wall_s": st["wall_s"], "h2d_bytes": st["h2d_bytes"],
+        "fold_launches": st["launches"][HAND_KERNELS.index(
+            "sparse_fold_chunk_k2")], **fold}
+
+
+def fold_report_f3(folds) -> dict:
+    """F3's fold: chunks 1 and 2 held to the plain fold on every field;
+    chunk 2's kernel time (CUDA events, in the run; chunk 1 also pays the
+    kernel's first launch), the plain fold's on the same inputs (host
+    clock), its bound and its chain of sub-batches."""
+    (_, _, _), (ms, plain_ms, info) = folds.verify()
+    times = folds.timings()
+    bound, nbytes = fold_bound_ms(info, SPANNER_D)
+    chain = -(-info["lanes"] // SPANNER_SUB)
+    print(f"  F3 folds: chunks 1 and 2 equal to the plain fold on every "
+          f"field (max_abs_err {folds.max_abs_err}); chunk 2: kernel "
+          f"{ms:.4f} ms (CUDA events), plain {plain_ms:.2f} ms (host clock), "
+          f"{info['lanes']} lanes, {info['live']} live, {info['rows']} "
+          f"distinct live endpoints over its sub-batches, "
+          f"{info['accepted']} accepted, bound {bound:.6f} ms ({nbytes} B), "
+          f"a chain of {chain} dependent sub-batches; kernel ms a chunk "
+          f"{[round(m, 4) for m in times]}")
+    return {"fold_ms": ms, "fold_plain_ms": plain_ms, "fold_bound_ms": bound,
+            "fold_bound_bytes": nbytes, "fold_rows": info["rows"],
+            "fold_chain": chain, "fold_err": folds.max_abs_err,
+            "fold_chunk_ms": times}
 
 # Phase L (fused multi-query, after F3, on phase 4's stream and chunks): the
 # library quartet through run_aggregation(queries=...) at full width. L1:
@@ -2422,8 +2577,8 @@ def multiquery_phase(torch, device, src, dst, labels, cc_run, dedup_chunks,
     """Phase L. ``labels`` and ``cc_run`` are phase 4's kernel run (host
     labels a window, its stats), ``f3`` F3's run: its emissions on the
     card (``"out"``, taken and freed here as they are compared), wall and
-    H2D bytes. Returns the gather's and entry 2's launches in L1, and
-    L2's emissions (on the card) and wall."""
+    H2D bytes. Returns the gather's and entry 2's launches in L1, the k = 2
+    fold's in L1 and L4, and L2's emissions (on the card) and wall."""
     from gelly_torch.engine.checkpoint import read_checkpoint_header
     from gelly_torch.parallel.mesh import make_mesh
 
@@ -2450,7 +2605,8 @@ def multiquery_phase(torch, device, src, dst, labels, cc_run, dedup_chunks,
     merges = n_chunks // MERGE_EVERY + n_windows
     report_run("phase L1 fused quartet", st,
                expect={"sorted_window_gather": 3 * dedup_chunks,
-                       "sparse_insert_edges_batched": merges})
+                       "sparse_insert_edges_batched": merges,
+                       "sparse_fold_chunk_k2": n_chunks})
     check(len(out) == n_windows and all(
         sorted(e) == ["bipartiteness", "cc", "degrees", "spanner"]
         for e in out), f"L1: {len(out)} emissions")
@@ -2485,6 +2641,11 @@ def multiquery_phase(torch, device, src, dst, labels, cc_run, dedup_chunks,
         check(st_res["stats"]["resumed_at"] == 2 * MERGE_EVERY,
               f"L4: resumed at {st_res['stats']['resumed_at']}")
         check(len(got) == n_windows - 2, f"L4: {len(got)} emissions")
+        fold_at = HAND_KERNELS.index("sparse_fold_chunk_k2")
+        l4_folds = {"stop": st_stop["launches"][fold_at],
+                    "resume": st_res["launches"][fold_at]}
+        check(l4_folds["stop"] > 0 and l4_folds["resume"] > 0,
+              f"L4: the spanner folded without the kernel: {l4_folds}")
         for i, (g, w) in enumerate(zip(got, out[2:])):
             check(cc_equal(g["cc"], i + 2), f"L4 window {i + 3}: cc")
             for name in ("degrees", "bipartiteness", "spanner"):
@@ -2500,7 +2661,8 @@ def multiquery_phase(torch, device, src, dst, labels, cc_run, dedup_chunks,
               f"{2 * MERGE_EVERY}: load={busy['resume_load']:.4f} s "
               f"skip={busy['resume_skip']:.4f} s, call to first emission "
               f"{st_res['first_emission_s']:.4f} s, wall="
-              f"{st_res['wall_s']:.4f} s; windows 3-{n_windows} equal L1's")
+              f"{st_res['wall_s']:.4f} s; windows 3-{n_windows} equal L1's; "
+              f"k = 2 fold launches {l4_folds}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2540,7 +2702,9 @@ def multiquery_phase(torch, device, src, dst, labels, cc_run, dedup_chunks,
           f"equal to its standalone run")
     result = {"gather_launches": st["launches"][HAND_KERNELS.index(
         "sorted_window_gather")], "merge_launches": st["launches"][
-        HAND_KERNELS.index("sparse_insert_edges_batched")]}
+        HAND_KERNELS.index("sparse_insert_edges_batched")],
+        "fold_launches": {"L1": st["launches"][HAND_KERNELS.index(
+            "sparse_fold_chunk_k2")], "L4": l4_folds}}
 
     # L2. The shared sparse codec: one multi-query payload a chunk.
     out2, st2 = fused(codec_trio(), fold_batch=L_FOLD_BATCH)
@@ -4672,7 +4836,7 @@ H4_BLOCK = 1 << 20
 H4_SEED = 23
 H5_W = 8
 H5_MERGE_EVERY = 4  # 64 panes
-I1_EDGES = 1 << 23  # a depth cut of 2^26: one thread walks the keys
+I1_EDGES = 1 << 23  # a depth cut of 2^26
 I1_ABSENT = 1 << 20
 I2_PREFIX = 1 << 22
 I2_CHUNK = 1 << 20
@@ -4686,6 +4850,12 @@ I5_FOLD_WINDOWS = 4
 HASH_PLAIN_KEYS = 1 << 16
 HASH_PLAIN_CAP = 1 << 17
 HASH_PLAIN_FILL = 1 << 15
+# The insert's adversarial case: keys homed in a few slots of a table
+# filled to 0.6, each key at lanes i and i + HASH_ADV_KEYS / 2.
+HASH_ADV_CAP = 1 << 20
+HASH_ADV_LOAD = 0.6
+HASH_ADV_KEYS = 1 << 16
+HASH_ADV_HOMES = 4096
 
 
 def ring_run(torch, device, agg, source, n, n_events, merge_every, picks,
@@ -5134,10 +5304,17 @@ def distinct_phase(torch, device, src, dst) -> dict:
                                  "plain version on the first chunk")
     n_new = int(want[2].sum())
     i_bound_ms, i_bound_b = hash_bound(CHUNK, n_new)
+    # The same insert again after one call that warms it (the caching
+    # allocator then holds its work area), mean of 5, beside the path's
+    # own first and second calls.
+    i_ms = time_ms(torch, lambda: kernels.hashset_insert(*args), device,
+                   reps=5, warmup=1)
     print(f"phase I1 first chunk: {CHUNK} keys into {args[0].shape[0]} "
           f"slots, {n_new} new; table, count and is_new equal the plain "
-          f"version; kernel_ms={ms[0]:.6f} plain_ms={i_plain_ms:.6f} (host "
-          f"clock) bound_ms={i_bound_ms:.6f} ({i_bound_b} B)")
+          f"version; kernel_ms={i_ms:.6f} (warm; the path's calls "
+          f"{ms[0]:.6f} and {ms[1]:.6f}) "
+          f"plain_ms={i_plain_ms:.6f} (host clock) bound_ms="
+          f"{i_bound_ms:.6f} ({i_bound_b} B)")
     del args, got, want
     # The contains kernel at the path's shape, against its plain version.
     q = torch.cat([present, absent])
@@ -5152,7 +5329,8 @@ def distinct_phase(torch, device, src, dst) -> dict:
     cb = q.shape[0] * (8 + 1 + 8)
     return {"insert_launches": counts["hashset_insert"],
             "contains_launches": counts["hashset_contains"],
-            "chunk_ms": chunk_ms, "insert_ms": ms[0],
+            "chunk_ms": chunk_ms, "path_first_ms": ms[0],
+            "path_second_ms": ms[1], "insert_ms": i_ms,
             "insert_plain_ms": i_plain_ms, "insert_bound_ms": i_bound_ms,
             "contains_ms": c_ms,
             "contains_plain_ms": c_plain_ms,
@@ -5196,7 +5374,68 @@ def hash_kernel_phase(torch, device) -> dict:
           f"{plain_ms:.6f} (host clock) bound_ms={bound_ms:.6f} ({bound_b} "
           f"B) chain floor: {int(valid.sum())} dependent probes")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "max_abs_err": err}
+            "max_abs_err": err,
+            "adversarial": hash_adversarial_case(torch, device)}
+
+
+def hash_adversarial_case(torch, device) -> dict:
+    """The insert kernel against its plain version where parallel walks
+    meet most: HASH_ADV_KEYS keys whose homes are HASH_ADV_HOMES slots of
+    a HASH_ADV_CAP-slot table filled to HASH_ADV_LOAD (runs of new keys
+    through the filled clusters), lane i + HASH_ADV_KEYS / 2 repeating
+    lane i, a few dead lanes."""
+    from gelly_torch.ops import kernels
+
+    g = np.random.default_rng(SEED + 1)
+    cap, half = HASH_ADV_CAP, HASH_ADV_KEYS // 2
+    is_home = np.zeros(cap, bool)
+    is_home[g.choice(cap, HASH_ADV_HOMES, replace=False)] = True
+    found = np.zeros(0, np.int64)
+    while found.size < half:  # keys below 2^40 that hash to the homes
+        cand = g.integers(0, 1 << 40, 1 << 24, dtype=np.int64)
+        found = np.unique(np.concatenate([
+            found, cand[is_home[kernels._hash_np(cand, cap - 1)]]]))
+    keys = g.permutation(found)[:half]
+    keys = torch.from_numpy(np.concatenate([keys, keys]))
+    valid = torch.from_numpy(g.random(HASH_ADV_KEYS) < 0.99)
+    # The filled table (keys from 2^40 up, none of the chunk's), built on
+    # the card; both versions start from it.
+    fill = int(HASH_ADV_LOAD * cap)
+    pre = torch.from_numpy(g.choice(1 << 40, fill, replace=False)
+                           + (1 << 40)).to(device)
+    table, count, _ = kernels.hashset_insert(
+        torch.full((cap,), kernels.HASH_EMPTY, dtype=torch.int64,
+                   device=device),
+        torch.zeros((), dtype=torch.int32, device=device), pre,
+        torch.ones(fill, dtype=torch.bool, device=device))
+    args = [table, count, keys.to(device), valid.to(device)]
+    got = kernels.hashset_insert(*args)
+    torch.cuda.synchronize()
+    host = [x.cpu() for x in args]
+    t = time.perf_counter()
+    want = kernels.hashset_insert_plain(*host)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    for a, b, what in zip(got, want, ("table", "count", "is_new")):
+        check(torch.equal(a.cpu(), b), f"hashset_insert's {what} != its "
+                                       "plain version on the adversarial "
+                                       "case")
+    ms = time_ms(torch, lambda: kernels.hashset_insert(*args), device,
+                 reps=5, warmup=1)
+    # How far the chunk's keys settled from their homes.
+    t_np = want[0].numpy()
+    mine = np.flatnonzero((t_np >= 0) & (t_np < (1 << 40)))
+    dist = (mine - kernels._hash_np(t_np[mine], cap - 1)) & (cap - 1)
+    n_new = int(want[2].sum())
+    bound_ms, bound_b = hash_bound(HASH_ADV_KEYS, n_new)
+    print(f"kernel hashset_insert adversarial: {HASH_ADV_KEYS} keys homed "
+          f"in {HASH_ADV_HOMES} slots of {cap} filled to {HASH_ADV_LOAD}, "
+          f"lanes i and i + {half} one key: {n_new} new, table, count and "
+          f"is_new equal the plain version's; probe distance of the new "
+          f"keys mean {float(dist.mean()):.2f} max {int(dist.max())}; "
+          f"kernel_ms={ms:.6f} plain_ms={plain_ms:.2f} (host clock) "
+          f"bound_ms={bound_ms:.6f} ({bound_b} B)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "new": n_new, "max_probe": int(dist.max())}
 
 
 def transforms_phase(torch, device, src, dst) -> None:
@@ -8225,11 +8464,18 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,
         "path_chunk_ms": i1["chunk_ms"],
-        "timed_on": f"I1's first {CHUNK}-key chunk, one launch",
+        "path_first_ms": i1["path_first_ms"],
+        "path_second_ms": i1["path_second_ms"],
+        "timed_on": f"I1's first {CHUNK}-key chunk, again after one warm-up "
+                    f"call, mean of 5",
         "random_state": {"ms": hk["ms"], "plain_ms": hk["plain_ms"],
                          "bound_ms": hk["bound_ms"],
                          "on": f"{HASH_PLAIN_KEYS} keys into a "
                                f"{HASH_PLAIN_CAP}-slot table"},
+        "adversarial": {**hk["adversarial"],
+                        "on": f"{HASH_ADV_KEYS} keys homed in "
+                              f"{HASH_ADV_HOMES} slots of a {HASH_ADV_CAP}"
+                              f"-slot table at load {HASH_ADV_LOAD}"},
     }, {
         "name": "hashset_contains",
         "route": "cuda",
@@ -8273,6 +8519,26 @@ def main() -> int:
         "bound_by": j["j6"]["bound_by"],
         "library_ms": None,
         "timed_on": f"J6's first {J6_PLAIN_LANES} lanes, S={J6_SAMPLES}",
+    }, {
+        "name": "sparse_fold_chunk_k2",
+        "route": "cuda",
+        "source": "gelly_torch/csrc/spanner_fold_k2.cu",
+        "replaces": "gelly_tpu/library/spanner.py:213",
+        "launches": f3["fold_launches"],
+        "phase_launches": {"F2": f2["fold_launches"],
+                           "F3": f3["fold_launches"],
+                           **mq["fold_launches"]},
+        "max_abs_err": max(f2["fold_err"], f3["fold_err"]),
+        "ms": f3["fold_ms"],
+        "plain_ms": f3["fold_plain_ms"],
+        "bound_ms": f3["fold_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "bound_bytes": f3["fold_bound_bytes"],
+        "bound_rows": f3["fold_rows"],
+        "chain": f3["fold_chain"],
+        "path_chunk_ms": f3["fold_chunk_ms"],
+        "timed_on": f"F3's second {CHUNK}-lane chunk, one call",
     }]}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -293,6 +293,8 @@ DEVICE_SCOPES: dict[tuple[str, str], str] = {
         "library/spanner.py:_sparse_insert_edges",
     ("kernels.py", "sparse_insert_edges_batched"):
         "library/spanner.py:_sparse_insert_edges_batched",
+    ("kernels.py", "sparse_fold_chunk_k2"):
+        "library/spanner.py:_sparse_fold_chunk_k2",
     ("kernels.py", "matching_step"): "library/matching.py:_matching_step",
     ("kernels.py", "hashset_insert"): "ops/hashset.py:insert_chunk",
     ("kernels.py", "hashset_contains"): "ops/hashset.py:contains_chunk",
@@ -348,6 +350,7 @@ IN_PLACE_ENTRIES: frozenset = frozenset({
     ("spanner.py", "_sparse_insert_edges_batched"),
     ("kernels.py", "sparse_insert_edges"),
     ("kernels.py", "sparse_insert_edges_batched"),
+    ("kernels.py", "sparse_fold_chunk_k2"),
     ("*", "plan.fold"),
     ("*", "plan.fold_codec"),
     ("*", "plan.merger"),

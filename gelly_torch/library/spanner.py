@@ -18,9 +18,9 @@ order (so checkpoints flatten alike):
   (:func:`gelly_torch.ops.kernels.sparse_insert_edges` for the per-edge
   fold and the ingest codec's re-gate,
   :func:`~gelly_torch.ops.kernels.sparse_insert_edges_batched` for the
-  combine), bit for bit ``gelly_tpu``'s ``lax.scan`` and
-  ``lax.while_loop``; the ``gate_batch`` fold
-  (:func:`_sparse_fold_chunk_k2`) is vectorised plain PyTorch.
+  combine, :func:`~gelly_torch.ops.kernels.sparse_fold_chunk_k2` for
+  the ``gate_batch`` fold :func:`_sparse_fold_chunk_k2`), bit for bit
+  ``gelly_tpu``'s ``lax.scan`` and ``lax.while_loop``.
 
 Where ``gelly_tpu`` returns new arrays, the folds and combines here update
 the summary they are given in place and return it (a Twitter-scale sparse
@@ -148,39 +148,11 @@ def _sparse_fold_chunk_k2(s: SparseSpannerSummary, src, dst, valid,
     ``sub``-lane sub-batches, each gated against the adjacency including
     every earlier sub-batch's acceptances; a sub-batch accepts all its
     gate-passers at once (exact duplicates deduped by the ``int64`` key
-    ``min * N + max``). Vectorised plain PyTorch; updates ``s`` in place
-    and returns it."""
-    D = max_degree
-    B = src.shape[0]
-    pad = (-B) % sub
-    u_all = torch.nn.functional.pad(src, (0, pad))
-    v_all = torch.nn.functional.pad(dst, (0, pad))
-    ok_all = torch.nn.functional.pad(valid, (0, pad))
-    n_cap = s.nbr.shape[0]
-    nbr, deg, over = s.nbr, s.deg, s.deg_overflow.clone()
-    minus = torch.full((), -1, dtype=torch.int64, device=src.device)
-    for lo in range(0, B + pad, sub):
-        uu, vv = u_all[lo:lo + sub], v_all[lo:lo + sub]
-        live = ok_all[lo:lo + sub] & (uu != vv)
-        ru = nbr[uu.long()]  # [sub, D]
-        rv = nbr[vv.long()]
-        direct = (ru == vv[:, None]).any(dim=1)
-        common = ((ru[:, :, None] == rv[:, None, :])
-                  & (ru[:, :, None] >= 0)).flatten(1).any(dim=1)
-        take = live & ~(direct | common)
-        a_ = torch.minimum(uu, vv).long()
-        b_ = torch.maximum(uu, vv).long()
-        key = torch.where(take, a_ * n_cap + b_, minus)
-        skey, sidx = torch.sort(key, stable=True)
-        first = skey != torch.roll(skey, 1)
-        first[0] = True
-        first &= skey >= 0
-        take = torch.zeros_like(take).scatter(0, sidx, first)
-        for a, b in ((uu, vv), (vv, uu)):
-            nbr, deg, over = row_append_batch(nbr, deg, over, a, b, take, D)
-        kernels.append_edges_plain(s.esrc, s.edst, s.n, s.overflow, uu, vv,
-                                   take)
-    s.deg_overflow.copy_(over)
+    ``min * N + max``). The hand kernel ``csrc/spanner_fold_k2.cu`` on the
+    card, its plain version on the CPU; updates ``s`` in place and returns
+    it."""
+    kernels.sparse_fold_chunk_k2(*_fields(s), src, dst, valid, max_degree,
+                                 sub)
     return s
 
 

@@ -62,7 +62,18 @@ SIGNATURES = {
         "spanner_gate_smem_limit": ([], ctypes.c_int),
         "spanner_gate_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
+    "spanner_fold_k2": {
+        "spanner_fold_k2_launch": (
+            [_P] * 11 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                         ctypes.c_int, ctypes.c_int, _P],
+            ctypes.c_int),
+        "spanner_fold_k2_scratch_ints": (
+            [ctypes.c_longlong], ctypes.c_longlong),
+        "spanner_fold_k2_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
     "hashset": {
+        "hashset_insert_work_ints": (
+            [ctypes.c_longlong, ctypes.c_int], ctypes.c_longlong),
         "hashset_insert_launch": (
             [_P] * 5 + [ctypes.c_longlong, ctypes.c_int, _P, _P],
             ctypes.c_int),

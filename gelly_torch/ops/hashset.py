@@ -4,9 +4,10 @@ Counterpart of ``gelly_tpu/ops/hashset.py``: the reference's per-key
 ``HashSet`` state of ``DistinctEdgeMapper`` (``M/SimpleEdgeStream.java:
 309-323``) as a fixed-capacity linear-probing table on the device. A
 chunk's insert keeps chunk order (exact first-wins semantics); on CUDA it
-is one launch of the hand kernel ``csrc/hashset.cu``
-(:func:`~gelly_torch.ops.kernels.hashset_insert`), on the CPU its plain
-version. The table's layout is bit for bit the reference's.
+is the hand kernel ``csrc/hashset.cu``
+(:func:`~gelly_torch.ops.kernels.hashset_insert`: the keys walk in
+parallel and settle where the in-order scan puts them), on the CPU its
+plain version. The table's layout is bit for bit the reference's.
 
 Key contract: any ``int64`` except :data:`EMPTY` (int64 min), the free-slot
 sentinel. In-repo callers pack non-negative (src, dst) slot pairs.

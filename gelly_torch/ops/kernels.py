@@ -25,8 +25,11 @@ and of the XLA device loops that eager PyTorch cannot run as written
   the wrappers of the two entries of ``csrc/spanner_gate.cu``, replacing
   ``gelly_tpu/library/spanner.py``'s ``_sparse_insert_edges`` (a
   per-edge ``lax.scan``) and ``_sparse_insert_edges_batched`` (the
-  combine's ``lax.while_loop`` of 64-candidate batches); they update the
-  sparse spanner summary's tensors in place;
+  combine's ``lax.while_loop`` of 64-candidate batches), and
+  :func:`sparse_fold_chunk_k2`, the wrapper of ``csrc/spanner_fold_k2.cu``,
+  replacing ``_sparse_fold_chunk_k2`` (the ``gate_batch`` fold's
+  ``lax.scan`` of sub-batches); they update the sparse spanner summary's
+  tensors in place;
 - :func:`matching_step` — the wrapper of ``csrc/matching_step.cu``,
   replacing ``gelly_tpu/library/matching.py``'s ``_matching_step``.
 
@@ -650,6 +653,107 @@ sparse_insert_edges_batched.launches = 0
 
 
 # ------------------------------------------------------------------ #
+# The k = 2 chunk fold (csrc/spanner_fold_k2.cu)
+
+def sparse_fold_chunk_k2_plain(nbr, deg, dover, esrc, edst, n, overflow,
+                               src, dst, valid, max_degree: int,
+                               sub: int) -> None:
+    """Plain PyTorch version of :func:`sparse_fold_chunk_k2`: the chunk in
+    ``sub``-lane sub-batches, each gated against the rows as they stand at
+    its start (direct neighbour or a shared entry), deduplicated by the
+    ``int64`` key ``min * N + max`` (first lane kept), then two
+    ``row_append_batch`` passes and the edge-list append; no host sync."""
+    D = max_degree
+    B = src.shape[0]
+    pad = (-B) % sub
+    u_all = torch.nn.functional.pad(src, (0, pad))
+    v_all = torch.nn.functional.pad(dst, (0, pad))
+    ok_all = torch.nn.functional.pad(valid, (0, pad))
+    n_cap = nbr.shape[0]
+    over = dover.clone()
+    minus = torch.full((), -1, dtype=torch.int64, device=src.device)
+    for lo in range(0, B + pad, sub):
+        uu, vv = u_all[lo:lo + sub], v_all[lo:lo + sub]
+        live = ok_all[lo:lo + sub] & (uu != vv)
+        ru = nbr[uu.long()]  # [sub, D]
+        rv = nbr[vv.long()]
+        direct = (ru == vv[:, None]).any(dim=1)
+        common = ((ru[:, :, None] == rv[:, None, :])
+                  & (ru[:, :, None] >= 0)).flatten(1).any(dim=1)
+        take = live & ~(direct | common)
+        a_ = torch.minimum(uu, vv).long()
+        b_ = torch.maximum(uu, vv).long()
+        key = torch.where(take, a_ * n_cap + b_, minus)
+        skey, sidx = torch.sort(key, stable=True)
+        first = skey != torch.roll(skey, 1)
+        first[0] = True
+        first &= skey >= 0
+        take = torch.zeros_like(take).scatter(0, sidx, first)
+        for a, b in ((uu, vv), (vv, uu)):
+            nbr, deg, over = row_append_batch(nbr, deg, over, a, b, take, D)
+        append_edges_plain(esrc, edst, n, overflow, uu, vv, take)
+    dover.copy_(over)
+
+
+def sparse_fold_chunk_k2(nbr, deg, dover, esrc, edst, n, overflow, src,
+                         dst, valid, max_degree: int, sub: int) -> None:
+    """Fold a chunk's lanes ``(src, dst, valid)`` into a sparse spanner
+    summary given field by field (as in :func:`sparse_insert_edges`,
+    updated in place) with the closed-form distance-2 gate, ``sub`` lanes
+    at a time: ``gelly_tpu``'s ``_sparse_fold_chunk_k2`` bit for bit. Each
+    sub-batch gates its live lanes against the rows as they stand at its
+    start (rejected: ``dst`` in the row of ``src``, or the two rows share
+    an entry ``>= 0``), keeps the first lane of each unordered pair, then
+    appends ``src -> dst`` for every kept lane and ``dst -> src`` after
+    them (an append to a row in lane order; one past ``max_degree``
+    counted in ``dover``), and the kept lanes to the edge list in lane
+    order. Rows must hold ``-1`` past their fill count, as every summary
+    does.
+
+    On CPU tensors it runs :func:`sparse_fold_chunk_k2_plain`; on CUDA
+    tensors it launches ``csrc/spanner_fold_k2.cu`` (one cooperative
+    launch walks every sub-batch; counted once a call in
+    ``sparse_fold_chunk_k2.launches``) or raises."""
+    _check_spanner_state(nbr, deg, dover, esrc, edst, n, overflow,
+                         max_degree)
+    _check_lanes(nbr.device, src=src, dst=dst, valid=valid)
+    if sub < 1:
+        raise ValueError(f"sub must be positive, got {sub}")
+    if nbr.device.type == "cpu":
+        return sparse_fold_chunk_k2_plain(
+            nbr, deg, dover, esrc, edst, n, overflow, src, dst, valid,
+            max_degree, sub)
+    if nbr.device.type != "cuda":
+        raise ValueError(f"the k = 2 fold runs on CPU or CUDA, got "
+                         f"{nbr.device}")
+    B = src.shape[0]
+    if B == 0:
+        return None
+    span = min(sub, B)
+    from . import _build
+
+    lib = _build.load("spanner_fold_k2")
+    scratch = torch.empty(lib.spanner_fold_k2_scratch_ints(span),
+                          dtype=torch.int32, device=nbr.device)
+    with torch.cuda.device(nbr.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.spanner_fold_k2_launch(
+            nbr.data_ptr(), deg.data_ptr(), dover.data_ptr(),
+            esrc.data_ptr(), edst.data_ptr(), n.data_ptr(),
+            overflow.data_ptr(), src.data_ptr(), dst.data_ptr(),
+            valid.data_ptr(), scratch.data_ptr(), B, nbr.shape[0],
+            esrc.shape[0], max_degree, span, stream)
+    if rc:
+        msg = lib.spanner_fold_k2_error_string(rc).decode()
+        raise RuntimeError(f"spanner_fold_k2 launch failed: {msg}")
+    sparse_fold_chunk_k2.launches += 1
+    return None
+
+
+sparse_fold_chunk_k2.launches = 0
+
+
+# ------------------------------------------------------------------ #
 # The matching fold (csrc/matching_step.cu)
 
 
@@ -815,8 +919,9 @@ def hashset_insert(table, count, keys, valid):
     The layout, ``count`` and ``is_new`` are bit for bit the reference's.
 
     On CPU tensors it runs :func:`hashset_insert_plain`; on CUDA tensors it
-    launches entry 1 of ``csrc/hashset.cu`` on a copy of the table
-    (counted in ``hashset_insert.launches``) or raises."""
+    launches entry 1 of ``csrc/hashset.cu`` on a copy of the table (the
+    keys walk in parallel and settle in the scan's layout; counted once a
+    call in ``hashset_insert.launches``) or raises."""
     cap = _check_hash_table(table, count)
     _check_keys(table.device, keys, valid)
     if table.device.type == "cpu":
@@ -830,16 +935,19 @@ def hashset_insert(table, count, keys, valid):
                          device=table.device)
     if keys.shape[0] == 0:
         return table, count, is_new
-    status = torch.zeros((), dtype=torch.int32, device=table.device)
     from . import _build
 
     lib = _build.load("hashset")
+    # The launch's work area; its first word is the full-table flag.
+    work = torch.empty(lib.hashset_insert_work_ints(keys.shape[0], cap),
+                       dtype=torch.int32, device=table.device)
+    status = work[0]
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.hashset_insert_launch(
             table.data_ptr(), count.data_ptr(), keys.data_ptr(),
             valid.data_ptr(), is_new.data_ptr(), keys.shape[0], cap,
-            status.data_ptr(), stream)
+            work.data_ptr(), stream)
     if rc:
         msg = lib.hashset_error_string(rc).decode()
         raise RuntimeError(f"hashset_insert launch failed: {msg}")

@@ -1,6 +1,7 @@
 """gelly_torch on the card: each CUDA kernel vs its plain version (the
-gather, the wedge kernel, both entries of the spanner gate and the
-matching fold, on random states and on their edge cases); the CC (raw,
+gather, the wedge kernel, both entries of the spanner gate, the k = 2
+chunk fold, the matching fold and the hash set's parallel insert, on
+random states and on their edge cases); the CC (raw,
 compact and sparse plans), window-triangle, degree and bipartiteness
 (raw, dense and sparse plans) paths, the spanner plans, the matching and
 the stream API on CUDA vs the same paths on the CPU; the engine's pinned
@@ -601,6 +602,47 @@ def test_sparse_insert_edges_batched_equals_plain(cuda_device, case, batch):
     assert _equal(got, want)
 
 
+# (n, D, E, lanes, sub, fill, valid share): the k = 2 fold's cases — sub
+# of 1, one that does not divide the chunk, one larger than it, full rows,
+# an edge list that overflows, dead lanes, the card's shapes.
+_FOLD_CASES = {
+    "random": (200, 4, 2000, 3000, 64, 0.3, 0.9),
+    "sub-1": (64, 4, 400, 300, 1, 0.3, 0.9),
+    "sub-not-dividing": (128, 6, 1000, 2000, 300, 0.2, 0.95),
+    "sub-larger": (128, 4, 1000, 700, 5000, 0.2, 0.95),
+    "full-rows": (50, 2, 4000, 3000, 256, 1.0, 1.0),
+    "list-overflow": (100, 4, 8, 3000, 128, 0.0, 1.0),
+    "all-invalid": (64, 4, 64, 1000, 64, 0.3, 0.0),
+    "empty": (64, 4, 64, 0, 64, 0.3, 1.0),
+    "card-shape": (1 << 16, 16, 1 << 18, 1 << 17, 1 << 14, 0.3, 1.0),
+    "card-wide-sub": (1 << 16, 16, 1 << 18, 1 << 17, 1 << 17, 0.0, 1.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_FOLD_CASES))
+def test_sparse_fold_chunk_k2_equals_plain(cuda_device, case):
+    n, D, E, L, sub, fill, share = _FOLD_CASES[case]
+    rng = np.random.default_rng(len(case) * 13 + L)
+    st = _gate_state(rng, n, D, E, fill, preload=min(E, 5))
+    src = (rng.zipf(1.4, L) % n).astype(np.int32)
+    dst = rng.integers(0, n, L).astype(np.int32)
+    if L >= 200:  # duplicate pairs, some reversed, and self-loops
+        src[100:150], dst[100:150] = src[:50], dst[:50]
+        src[150:200], dst[150:200] = dst[:50], src[:50]
+        dst[::37] = src[::37]
+    valid = rng.random(L) < share
+    lanes = [torch.from_numpy(x) for x in (src, dst, valid)]
+    want = _on(st, "cpu")
+    kernels.sparse_fold_chunk_k2(*want, *lanes, D, sub)
+    got = _on(st, cuda_device)
+    before = kernels.sparse_fold_chunk_k2.launches
+    kernels.sparse_fold_chunk_k2(*got, *(x.to(cuda_device) for x in lanes),
+                                 D, sub)
+    torch.cuda.synchronize()
+    assert kernels.sparse_fold_chunk_k2.launches == before + (L > 0)
+    assert _equal(got, want)
+
+
 def test_spanner_gate_refuses_what_it_cannot_take(cuda_device):
     st = _on(_gate_state(np.random.default_rng(0), 16, 4, 8), cuda_device)
     lanes = [torch.zeros(4, dtype=torch.int32, device=cuda_device)] * 2 + [
@@ -717,7 +759,19 @@ def test_spanner_checkpoint_resumes_on_card(cuda_device, tmp_path):
 # the hash set (csrc/hashset.cu) and the row insert (csrc/row_insert.cu)
 
 
-def _hash_case(cap, n, seed, hi, fill=0):
+def _homed_keys(cap, homes, count, rng):
+    """``count`` distinct keys below 2^40 whose home slots are ``homes``."""
+    is_home = np.zeros(cap, bool)
+    is_home[homes] = True
+    found = np.zeros(0, np.int64)
+    while found.size < count:
+        cand = rng.integers(0, 1 << 40, 1 << 20, dtype=np.int64)
+        found = np.unique(np.concatenate([
+            found, cand[is_home[kernels._hash_np(cand, cap - 1)]]]))
+    return rng.permutation(found)[:count]
+
+
+def _hash_case(cap, n, seed, hi, fill=0, homes=0):
     g = np.random.default_rng(seed)
     table = np.full(cap, kernels.HASH_EMPTY, np.int64)
     count = 0
@@ -727,20 +781,43 @@ def _hash_case(cap, n, seed, hi, fill=0):
             torch.from_numpy(table), torch.zeros((), dtype=torch.int32),
             torch.from_numpy(pre), torch.ones(fill, dtype=torch.bool))
         table, count = t.numpy(), int(c)
-    keys = g.integers(0, hi, n).astype(np.int64)
-    keys[g.random(n) < 0.25] = keys[0]  # in-chunk duplicates
+    if homes:
+        # Runs of new keys with a few homes through the filled table
+        # (parallel walks meet there), lanes i and i + n / 2 one key, the
+        # sentinel key, a home at the last slot (probes wrap).
+        home_slots = g.choice(cap, homes, replace=False)
+        home_slots[0] = cap - 1
+        half = _homed_keys(cap, home_slots, n // 2, g)
+        keys = np.concatenate([half, half])
+        keys[g.random(n) < 0.01] = kernels.HASH_EMPTY
+    else:
+        keys = g.integers(0, hi, n).astype(np.int64)
+        keys[g.random(n) < 0.25] = keys[0]  # in-chunk duplicates
     valid = g.random(n) < 0.9
     return (torch.from_numpy(table), torch.tensor(count, dtype=torch.int32),
             torch.from_numpy(keys), torch.from_numpy(valid))
 
 
-@pytest.mark.parametrize("cap,n,seed,hi,fill", [
-    (16, 10, 0, 40, 0), (1 << 10, 600, 1, 5000, 0),
-    (1 << 12, 2000, 2, 1 << 40, 2000), (64, 40, 3, 200, 20),
-    (1 << 16, 1 << 14, 4, 1 << 20, 1 << 15), (1 << 8, 1 << 10, 5, 120, 0),
-])
-def test_hashset_insert_equals_plain(cuda_device, cap, n, seed, hi, fill):
-    table, count, keys, valid = _hash_case(cap, n, seed, hi, fill)
+# (cap, n, seed, hi, fill, homes): random keys below hi (homes 0), or
+# homed keys below 2^40 clustered in `homes` slots.
+_HASH_CASES = [
+    (16, 10, 0, 40, 0, 0), (1 << 10, 600, 1, 5000, 0, 0),
+    (1 << 12, 2000, 2, 1 << 40, 2000, 0), (64, 40, 3, 200, 20, 0),
+    (1 << 16, 1 << 14, 4, 1 << 20, 1 << 15, 0),
+    (1 << 8, 1 << 10, 5, 120, 0, 0),
+    (1 << 12, 1 << 10, 6, 1 << 40, 2457, 16),
+    (1 << 16, 1 << 13, 7, 1 << 40, 39321, 512),
+    (1 << 10, 1 << 8, 8, 1 << 40, 307, 2),
+    (1 << 14, 1 << 12, 9, 1 << 40, 0, 256),
+]
+
+
+@pytest.mark.parametrize("cap,n,seed,hi,fill,homes", _HASH_CASES, ids=[
+    "-".join(map(str, c[:5])) + (f"-homes{c[5]}" if c[5] else "")
+    for c in _HASH_CASES])
+def test_hashset_insert_equals_plain(cuda_device, cap, n, seed, hi, fill,
+                                     homes):
+    table, count, keys, valid = _hash_case(cap, n, seed, hi, fill, homes)
     before = kernels.hashset_insert.launches
     got = kernels.hashset_insert(table.to(cuda_device),
                                  count.to(cuda_device),
@@ -756,19 +833,50 @@ def test_hashset_insert_equals_plain(cuda_device, cap, n, seed, hi, fill):
     found = kernels.hashset_contains(t_dev, q.to(cuda_device))
     assert torch.equal(found.cpu(), kernels.hashset_contains_plain(want[0],
                                                                    q))
-    assert found[:n][valid.to(cuda_device)].all()
+    live = valid & (keys != kernels.HASH_EMPTY)  # the sentinel is not kept
+    assert found[:n][live.to(cuda_device)].all()
     assert not found[n:].any()
 
 
-def test_hashset_full_table_raises_on_card(cuda_device):
-    table = torch.full((4,), kernels.HASH_EMPTY, dtype=torch.int64,
-                       device=cuda_device)
-    count = torch.zeros((), dtype=torch.int32, device=cuda_device)
-    keys = torch.arange(5, dtype=torch.int64, device=cuda_device)
-    with pytest.raises(RuntimeError, match="hash set full"):
-        kernels.hashset_insert(table, count, keys,
-                               torch.ones(5, dtype=torch.bool,
-                                          device=cuda_device))
+@pytest.mark.parametrize("case", ["cap-4-keys-5", "over-by-one",
+                                  "sentinel-at-full", "exactly-full",
+                                  "sentinel-before-full"])
+def test_hashset_full_table_raises_on_card(cuda_device, case):
+    # The kernel raises where the reference's scan finds the table full,
+    # and only there: a chunk that fills it exactly, or a sentinel lane
+    # before the fill, is inserted as the reference inserts it.
+    if case == "cap-4-keys-5":
+        cap, pre, keys = 4, np.zeros(0, np.int64), np.arange(5)
+    else:
+        cap = 16
+        rng = np.random.default_rng(len(case))
+        pre = rng.choice(1 << 20, 10, replace=False).astype(np.int64)
+        fresh = rng.choice(np.arange(1 << 21, 1 << 22), 7, replace=False)
+        keys = {"over-by-one": fresh,
+                "exactly-full": fresh[:6],
+                "sentinel-at-full": np.concatenate([fresh[:6],
+                                                    [kernels.HASH_EMPTY]]),
+                "sentinel-before-full": np.concatenate(
+                    [[kernels.HASH_EMPTY], fresh[:6]]),
+                }[case]
+    keys = keys.astype(np.int64)
+    table, count, _ = kernels.hashset_insert_plain(
+        torch.full((cap,), kernels.HASH_EMPTY, dtype=torch.int64),
+        torch.zeros((), dtype=torch.int32), torch.from_numpy(pre),
+        torch.ones(pre.size, dtype=torch.bool))
+    args = [table, count, torch.from_numpy(keys),
+            torch.ones(keys.size, dtype=torch.bool)]
+    on_card = [x.to(cuda_device) for x in args]
+    if case in ("cap-4-keys-5", "over-by-one", "sentinel-at-full"):
+        for fn, a in ((kernels.hashset_insert_plain, args),
+                      (kernels.hashset_insert, on_card)):
+            with pytest.raises(RuntimeError, match="hash set full"):
+                fn(*a)
+        return
+    want = kernels.hashset_insert_plain(*args)
+    got = kernels.hashset_insert(*on_card)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
 
 
 def test_device_hashset_and_distinct_on_card(cuda_device):
