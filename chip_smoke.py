@@ -2027,6 +2027,16 @@ def gate_bound_ms(info: dict, max_degree: int) -> tuple[float, int]:
     return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
 
 
+def gate_us(ms: float, info: dict, batch: int) -> float:
+    """Microseconds a unit of a gate call's chain: a batch of the donor
+    (entry 2, ``batch`` candidates) or a live lane (entry 1)."""
+    if "n_valid" in info:
+        units = -(-info["n_valid"] // batch)
+    else:
+        units = info["live"]
+    return ms * 1e3 / units if units else 0.0
+
+
 def fold_work(torch, state, lanes, after, sub: int) -> dict:
     """The work one k = 2 fold call's data needed: its lanes, live lanes,
     accepted edges, and ``rows``, the distinct endpoints of live lanes
@@ -2360,7 +2370,8 @@ def spanner_bench_phase(torch, device, stream_out: dict) -> dict:
     timings = list(zip(gate.timings(), plain.timings()))
     for (ms, info), (pms, _) in timings:
         print(f"  F2 combine: donor {info['n_valid']} edges, "
-              f"{info['accepted']} accepted, kernel {ms:.4f} ms, "
+              f"{info['accepted']} accepted, kernel {ms:.4f} ms "
+              f"({gate_us(ms, info, kernels.GATE_BATCH):.3f} us a batch), "
               f"plain {pms:.4f} ms")
     last = out[-1]
     m = int(last[4])
@@ -2389,9 +2400,10 @@ def spanner_bench_phase(torch, device, stream_out: dict) -> dict:
     stop_and_resume(run, out, n_windows, 1, "phase F2")
     (ms, info), (pms, _) = timings[1]
     bound, nbytes = gate_bound_ms(info, SPANNER_D)
-    print(f"  F2 close 2: entry 2 {ms:.4f} ms, plain {pms:.4f} ms, bound "
-          f"{bound:.6f} ms ({nbytes} B)")
-    return {"ms": ms, "plain_ms": pms, "bound_ms": bound,
+    us = gate_us(ms, info, kernels.GATE_BATCH)
+    print(f"  F2 close 2: entry 2 {ms:.4f} ms ({us:.3f} us a batch), plain "
+          f"{pms:.4f} ms, bound {bound:.6f} ms ({nbytes} B)")
+    return {"ms": ms, "plain_ms": pms, "bound_ms": bound, "us_batch": us,
             "bound_bytes": nbytes, "fold_launches": st["launches"][
                 HAND_KERNELS.index("sparse_fold_chunk_k2")],
             "fold_checked": len(checked), "fold_err": fold.max_abs_err}
@@ -2433,8 +2445,9 @@ def spanner_twitter_phase(torch, device, src, dst) -> dict:
     for i, (ms, info) in enumerate(timings):
         bound, nbytes = gate_bound_ms(info, SPANNER_D)
         print(f"  F3 close {i + 1}: combine donor {info['n_valid']} edges, "
-              f"{info['accepted']} accepted, kernel {ms:.4f} ms, bound "
-              f"{bound:.6f} ms ({nbytes} B)")
+              f"{info['accepted']} accepted, kernel {ms:.4f} ms "
+              f"({gate_us(ms, info, kernels.GATE_BATCH):.3f} us a batch), "
+              f"bound {bound:.6f} ms ({nbytes} B)")
     # The plain combine on close 2's summaries, the donor cut short.
     args = gate.captured
     gate.captured = gate.captured_out = None
@@ -2454,6 +2467,8 @@ def spanner_twitter_phase(torch, device, src, dst) -> dict:
           "F3: close 2's combine, donor cut, kernel != plain")
     print(f"  F3 close 2, donor cut to {int(cut)} edges: kernel "
           f"{ms:.4f} ms, plain {pms:.4f} ms (host clock), summaries equal")
+    closes = [(ms_, gate_us(ms_, info, kernels.GATE_BATCH))
+              for ms_, info in timings[1:]]
     del args, results, got, want
     last = out[-1]
     m = int(last.n)
@@ -2492,6 +2507,8 @@ def spanner_twitter_phase(torch, device, src, dst) -> dict:
     return {"launches": st["launches"][HAND_KERNELS.index(
         "sparse_insert_edges_batched")], "out": out,
         "wall_s": st["wall_s"], "h2d_bytes": st["h2d_bytes"],
+        "close_ms": [m for m, _ in closes],
+        "close_us_batch": [u for _, u in closes],
         "fold_launches": st["launches"][HAND_KERNELS.index(
             "sparse_fold_chunk_k2")], **fold}
 
@@ -4590,13 +4607,14 @@ def spanner_gate_phase(torch, device, f2_stream: dict) -> dict:
           and np.array_equal(dense[2][:m], got[3][:m]),
           "F4(i): the dense plan != the sparse gate")
     bound, nbytes = gate_bound_ms(info, SPANNER_D)
+    us = gate_us(ms, info, 0)
     print(f"phase F4(i): {e} edges of max degree {int(deg.max())} over {n} "
           f"slots, k=3: {m} accepted, equal to the plain gate, the native "
           f"host spanner and the dense plan, edge for edge; entry 1 "
-          f"{ms:.4f} ms (plain {pms:.4f} ms, bound {bound:.6f} ms for "
-          f"{nbytes} B)")
+          f"{ms:.4f} ms ({us:.3f} us a live edge; plain {pms:.4f} ms, "
+          f"bound {bound:.6f} ms for {nbytes} B)")
     result = {"ms": ms, "plain_ms": pms, "bound_ms": bound,
-              "bound_bytes": nbytes}
+              "bound_bytes": nbytes, "us_edge": us}
 
     # (ii) the codec on F2's stream.
     s2, d2 = f2_stream["src"], f2_stream["dst"]
@@ -4626,10 +4644,13 @@ def spanner_gate_phase(torch, device, f2_stream: dict) -> dict:
                        "sparse_insert_edges_batched": 1})
     result["launches"] = st["launches"][HAND_KERNELS.index(
         "sparse_insert_edges")]
+    result["payload_us_edge"] = []
     for i, (ms, info) in enumerate(gate.timings()):
+        us = gate_us(ms, info, 0)
+        result["payload_us_edge"].append(us)
         print(f"  F4(ii) payload {i + 1}: {info['lanes']} lanes, "
               f"{info['live']} live, {info['accepted']} accepted, entry 1 "
-              f"{ms:.4f} ms")
+              f"{ms:.4f} ms ({us:.3f} us a live edge)")
     (first,), _ = codec_run(F4_REGATE_EDGES, 1)
     # The plain re-gate of the first edges runs on CPU tensors (the same
     # host codec and payload): on the card its per-edge launches cost about
@@ -8422,6 +8443,8 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,
         "bound_bytes": f4["bound_bytes"],
+        "us_per_live_edge": {"F4(i)": f4["us_edge"],
+                             "F4(ii) payloads": f4["payload_us_edge"]},
         "timed_on": "F4(i), one launch",
     }, {
         "name": "sparse_insert_edges_batched",
@@ -8437,6 +8460,9 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,
         "bound_bytes": f2["bound_bytes"],
+        "us_per_batch": {"F2 close 2": f2["us_batch"],
+                         "F3 closes 2-4": f3["close_us_batch"]},
+        "f3_close_ms": f3["close_ms"],
         "timed_on": "F2 window close 2",
     }, {
         "name": "matching_step",

@@ -59,6 +59,7 @@ SIGNATURES = {
             ctypes.c_int),
         "spanner_gate_smem_bytes": (
             [ctypes.c_int] * 5, ctypes.c_int),
+        "spanner_gate_groups": ([ctypes.c_int] * 4, ctypes.c_int),
         "spanner_gate_smem_limit": ([], ctypes.c_int),
         "spanner_gate_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },

@@ -370,8 +370,6 @@ def blocked_gather(table: torch.Tensor, idx: torch.Tensor, *,
 # Candidates a batch of the combine's insert gates at once (gelly_tpu's
 # default for _sparse_insert_edges_batched).
 GATE_BATCH = 64
-# Warps of one entry-2 launch, at most (one block).
-GATE_MAX_WARPS = 32
 
 
 def unique_fill(x: torch.Tensor, size: int, fill: int) -> torch.Tensor:
@@ -523,7 +521,7 @@ def sparse_insert_edges(nbr, deg, dover, esrc, edst, n, overflow, src, dst,
         return sparse_insert_edges_plain(
             nbr, deg, dover, esrc, edst, n, overflow, src, dst, valid, k,
             max_degree, frontier_cap)
-    lib = _gate_library(nbr, max_degree, frontier_cap, k, 0, 0)
+    lib, _ = _gate_library(nbr, max_degree, frontier_cap, k, 0)
     if src.shape[0] == 0:
         return None
     with torch.cuda.device(nbr.device):
@@ -545,9 +543,11 @@ sparse_insert_edges.launches = 0
 
 
 def _gate_library(nbr, max_degree: int, frontier_cap: int, k: int,
-                  batch: int, warps: int) -> ctypes.CDLL:
-    """The loaded gate library, after checking the device and that one
-    launch's shared memory fits the card (entry 1 when ``batch`` is 0)."""
+                  batch: int) -> tuple[ctypes.CDLL, int]:
+    """The loaded gate library and the groups of one launch: 1 for entry
+    1 (``batch`` 0), whose block is one group; for entry 2 the warps of
+    each block, a warp a candidate. Checks the device and that a block's
+    shared memory fits the card."""
     if nbr.device.type != "cuda":
         raise ValueError(f"the spanner gates run on CPU or CUDA, got "
                          f"{nbr.device}")
@@ -557,27 +557,16 @@ def _gate_library(nbr, max_degree: int, frontier_cap: int, k: int,
     from . import _build
 
     lib = _build.load("spanner_gate")
+    groups = 1 if batch == 0 else lib.spanner_gate_groups(
+        max_degree, frontier_cap, k, batch)
     need = lib.spanner_gate_smem_bytes(max_degree, frontier_cap, k, batch,
-                                       warps)
-    if need > lib.spanner_gate_smem_limit():
+                                       max(groups, 1))
+    if groups == 0 or need > lib.spanner_gate_smem_limit():
         raise ValueError(
             f"the spanner gate needs {need} B of shared memory for "
             f"max_degree={max_degree}, frontier_cap={frontier_cap}, k={k}, "
             f"more than the card's {lib.spanner_gate_smem_limit()} B")
-    return lib
-
-
-def gate_warps(lib, max_degree: int, frontier_cap: int, k: int,
-               batch: int = GATE_BATCH) -> int:
-    """Warps of one entry-2 launch: as many as its shared memory holds,
-    at most one per candidate and :data:`GATE_MAX_WARPS` (0 when not one
-    fits)."""
-    limit = lib.spanner_gate_smem_limit()
-    for w in range(min(GATE_MAX_WARPS, batch), 0, -1):
-        if lib.spanner_gate_smem_bytes(max_degree, frontier_cap, k, batch,
-                                       w) <= limit:
-            return w
-    return 0
+    return lib, groups
 
 
 def sparse_insert_edges_batched_plain(nbr, deg, dover, esrc, edst, n,
@@ -612,8 +601,9 @@ def sparse_insert_edges_batched(nbr, deg, dover, esrc, edst, n, overflow,
     ``n_valid`` is a 0-d ``int32`` tensor (the donor's count).
 
     On CPU tensors it runs :func:`sparse_insert_edges_batched_plain`; on
-    CUDA tensors it launches entry 2 of ``csrc/spanner_gate.cu`` (one
-    block, the whole loop, ``n_valid`` read on the device; counted in
+    CUDA tensors it launches entry 2 of ``csrc/spanner_gate.cu`` (a
+    cluster of four blocks, a warp a candidate, the whole loop,
+    ``n_valid`` read on the device; counted in
     ``sparse_insert_edges_batched.launches``) or raises."""
     _check_spanner_state(nbr, deg, dover, esrc, edst, n, overflow,
                          max_degree)
@@ -629,8 +619,7 @@ def sparse_insert_edges_batched(nbr, deg, dover, esrc, edst, n, overflow,
         return sparse_insert_edges_batched_plain(
             nbr, deg, dover, esrc, edst, n, overflow, csrc, cdst, n_valid,
             k, max_degree, frontier_cap, batch)
-    lib = _gate_library(nbr, max_degree, frontier_cap, k, batch, 1)
-    warps = gate_warps(lib, max_degree, frontier_cap, k, batch)
+    lib, groups = _gate_library(nbr, max_degree, frontier_cap, k, batch)
     if csrc.shape[0] == 0:
         return None
     with torch.cuda.device(nbr.device):
@@ -640,7 +629,7 @@ def sparse_insert_edges_batched(nbr, deg, dover, esrc, edst, n, overflow,
             esrc.data_ptr(), edst.data_ptr(), n.data_ptr(),
             overflow.data_ptr(), csrc.data_ptr(), cdst.data_ptr(),
             n_valid.data_ptr(), csrc.shape[0], nbr.shape[0], esrc.shape[0],
-            k, max_degree, frontier_cap, batch, warps, stream)
+            k, max_degree, frontier_cap, batch, groups, stream)
     if rc:
         msg = lib.spanner_gate_error_string(rc).decode()
         raise RuntimeError(

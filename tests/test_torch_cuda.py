@@ -28,6 +28,8 @@ from gelly_torch.library import connected_components as tcc
 from gelly_torch.library import triangles as ttri
 from gelly_torch.ops import kernels
 
+import _spanner_gate_cases as gate_cases
+
 pytestmark = pytest.mark.cuda
 
 
@@ -576,7 +578,7 @@ def test_sparse_insert_edges_equals_plain(cuda_device, case):
 
 
 @pytest.mark.parametrize("case", sorted(_GATE_CASES))
-@pytest.mark.parametrize("batch", [64, 7])
+@pytest.mark.parametrize("batch", [64, 7, 1])
 def test_sparse_insert_edges_batched_equals_plain(cuda_device, case, batch):
     n, D, F, k, E, L, fill, share = _GATE_CASES[case]
     rng = np.random.default_rng(len(case) * 17 + L + batch)
@@ -599,6 +601,64 @@ def test_sparse_insert_edges_batched_equals_plain(cuda_device, case, batch):
         F, batch)
     torch.cuda.synchronize()
     assert kernels.sparse_insert_edges_batched.launches == before + 1
+    assert _equal(got, want)
+
+
+def _gate_entry(device, fields, src, dst, k, D, F, batch):
+    """Entry 1 (``batch`` 0) or entry 2 on ``fields`` moved to ``device``;
+    returns the summary's fields and the launches the call counted."""
+    st = _on(fields, device)
+    lanes = [torch.from_numpy(x).to(device) for x in (src, dst)]
+    if batch == 0:
+        fn = kernels.sparse_insert_edges
+        args = (*lanes, torch.ones(src.shape[0], dtype=torch.bool,
+                                   device=device), k, D, F)
+    else:
+        fn = kernels.sparse_insert_edges_batched
+        args = (*lanes, torch.tensor(src.shape[0], dtype=torch.int32,
+                                     device=device), k, D, F, batch)
+    before = fn.launches
+    fn(*st, *args)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return st, fn.launches - before
+
+
+@pytest.mark.parametrize("name", sorted(gate_cases.CASES))
+@pytest.mark.parametrize("batch", [0, 64, 7, 1])
+def test_spanner_gate_edge_cases_equal_plain(cuda_device, name, batch):
+    """Each path of the gate (``tests/_spanner_gate_cases.py``) through
+    entry 1 (batch 0) and entry 2: every summary field equal to the plain
+    version's."""
+    case = gate_cases.CASES[name]
+    fields = gate_cases.case_state(case)
+    src, dst = gate_cases.case_lanes(case)
+    k, D, F = case["k"], case["D"], case["F"]
+    want, _ = _gate_entry(torch.device("cpu"), fields, src, dst, k, D, F,
+                          batch)
+    got, launches = _gate_entry(cuda_device, fields, src, dst, k, D, F,
+                                batch)
+    assert launches == 1
+    assert _equal(got, want)
+
+
+def test_sparse_insert_edges_batched_f3_shape_equals_plain(cuda_device):
+    """Entry 2 at the Twitter-scale spanner's shape (n = 2^20, D = 16,
+    F = 64, k = 2, batch 64) on a 2^16-edge Zipf donor over Zipf rows:
+    hub rows full, repeats across rows, the last round's dedup. The plain
+    version runs on the card too (on the CPU it takes minutes)."""
+    n, D, F, k, E, L = 1 << 20, 16, 64, 2, 1 << 17, 1 << 16
+    fields = gate_cases.card_shape_state(n, D, E, seed=20)
+    rng = np.random.default_rng(21)
+    src = (rng.zipf(1.3, L) % n).astype(np.int32)
+    dst = (rng.zipf(1.3, L) % n).astype(np.int32)
+    want = _on(fields, cuda_device)
+    donor = [torch.from_numpy(x).to(cuda_device) for x in (src, dst)]
+    nv = torch.tensor(L, dtype=torch.int32, device=cuda_device)
+    kernels.sparse_insert_edges_batched_plain(*want, *donor, nv, k, D, F, 64)
+    got, launches = _gate_entry(cuda_device, fields, src, dst, k, D, F, 64)
+    assert launches == 1
+    assert int(want[5]) > 1000 and int(want[2]) > 0  # takes, full rows
     assert _equal(got, want)
 
 

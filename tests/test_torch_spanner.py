@@ -6,7 +6,10 @@ built by folding seeded streams through ``gelly_tpu``, then carried over
 with ``convert``): the dense and capped-degree gates, the per-edge and
 batched inserts (frontier truncation binding, full rows, edge-list
 overflow, every ``n_valid`` case), the ``gate_batch`` fold, the row
-appends. Then both plans through the engine's Merger plan (dense, sparse
+appends. A numpy model of ``csrc/spanner_gate.cu``'s decomposition (set
+frontier, threshold select, rank test, batch ranks from counts) is held
+to ``gelly_tpu`` on ``tests/_spanner_gate_cases.py``'s hand-built states,
+each driving the gate path it names, and on folded states. Then both plans through the engine's Merger plan (dense, sparse
 general k, ``gate_batch``, the ingest codec with the native binding and
 its ``payload_cap`` error), every emission equal to ``gelly_tpu``'s;
 Merger checkpoints of the spanner across the packages; the native host
@@ -42,6 +45,7 @@ from gelly_tpu.ops import rowtable as jrow
 from gelly_tpu.parallel.mesh import make_mesh
 from gelly_tpu.utils import native as jnative
 
+import _spanner_gate_cases as gate_cases
 from _torch_native import load_jax_native
 
 tsp = importlib.import_module("gelly_torch.library.spanner")
@@ -233,6 +237,256 @@ def test_row_insert_equals_jax(dedupe):
     for x, y in ((tn, jn), (td, jd), (to, jo)):
         assert np.array_equal(x.numpy(), np.asarray(y))
     assert to.shape == ()
+
+
+# ---------------------------------------------------------------------- #
+# A numpy model of csrc/spanner_gate.cu's decomposition, held to gelly_tpu:
+# the frontier as a set (a multiset while it has at most F raw ids), the
+# bitwise threshold select, the last round's rank test with and without
+# dedup, and the batched append's ranks counted from the batch.
+
+_j_within = jax.jit(jax.vmap(jsp._within_k_sparse,
+                             in_axes=(None, 0, 0, None, None)),
+                    static_argnums=(3, 4))
+
+
+def _model_select(ids, F: int, nbits: int) -> int:
+    """The F-th smallest of the distinct ``ids``, one bit at a time from
+    the top, by counts only (the kernel's group sums)."""
+    prefix, remaining = 0, F
+    for b in range(nbits - 1, -1, -1):
+        same_high = (ids >> (b + 1)) == (prefix >> (b + 1))
+        zeros = int(np.sum(same_high & (((ids >> b) & 1) == 0)))
+        if zeros < remaining:
+            remaining -= zeros
+            prefix |= 1 << b
+    return prefix
+
+
+def _model_gate(nbr, u: int, v: int, k: int, F: int, paths: set) -> bool:
+    """``dist(u, v) <= k`` as the kernel decides it (``u != v``, both in
+    range), adding the name of each path it takes to ``paths``."""
+    n = nbr.shape[0]
+    if k == 0:
+        return False
+    front = np.array([u], np.int64)
+    for r in range(k):
+        rows = nbr[front].reshape(-1).astype(np.int64)
+        raw = np.concatenate([front, rows[(rows >= 0) & (rows < n)]])
+        if r == k - 1:
+            if not (raw == v).any():
+                paths.add("last-miss")
+                return False
+            below = raw[raw < v]
+            if below.size < F:
+                paths.add("last-raw")
+                return True
+            paths.add("last-dedup")
+            return np.unique(below).size < F
+        if raw.size <= F:
+            paths.add("keep")
+            front = raw
+            continue
+        ids = np.unique(raw)
+        if ids.size <= F:
+            paths.add("dedup")
+            front = ids
+            continue
+        paths.add("select")
+        t = _model_select(ids, F, (n - 1).bit_length())
+        assert t == np.sort(ids)[F - 1]
+        front = ids[ids <= t]
+    raise AssertionError("unreachable")
+
+
+def _live(u, v, n: int) -> bool:
+    return u != v and 0 <= u < n and 0 <= v < n
+
+
+def _model_insert(fields, src, dst, valid, k: int, D: int, F: int,
+                  paths: set):
+    """Entry 1: gate and insert the lanes one at a time."""
+    nbr, deg, esrc, edst = (np.array(fields[i]) for i in (0, 1, 3, 4))
+    dover, acc, over = int(fields[2]), int(fields[5]), bool(fields[6])
+    n = nbr.shape[0]
+    for u, v, ok in zip(src.tolist(), dst.tolist(), valid.tolist()):
+        if not ok or not _live(u, v, n) or _model_gate(nbr, u, v, k, F,
+                                                       paths):
+            continue
+        for a, b in ((u, v), (v, u)):
+            if deg[a] < D:
+                nbr[a, deg[a]] = b
+                deg[a] += 1
+            else:
+                dover += 1
+        if acc < esrc.shape[0]:
+            esrc[acc], edst[acc] = u, v
+        else:
+            over = True
+        acc += 1
+    return [nbr, deg, np.int32(dover), esrc, edst, np.int32(acc),
+            np.bool_(over)]
+
+
+def _model_batched(fields, csrc, cdst, n_valid: int, k: int, D: int, F: int,
+                   B: int, paths: set):
+    """Entry 2: each batch gated against the rows at its start; then every
+    taken candidate's slots from the fill counts read at the batch's start
+    and counts over the batch: its rank among earlier takes of the same
+    row in each pass, and, for its second endpoint's row, every take of
+    the batch whose first endpoint that row is (pass 1 lands first)."""
+    nbr, deg, esrc, edst = (np.array(fields[i]) for i in (0, 1, 3, 4))
+    dover, acc, over = int(fields[2]), int(fields[5]), bool(fields[6])
+    n = nbr.shape[0]
+    nv = min(int(n_valid), csrc.shape[0])
+    for start in range(0, nv, B):
+        cu = csrc[start:min(start + B, nv)].astype(np.int64)
+        cv = cdst[start:min(start + B, nv)].astype(np.int64)
+        take = np.array([_live(a, b, n) and not _model_gate(
+            nbr, a, b, k, F, paths) for a, b in zip(cu, cv)], bool)
+        d0 = deg.copy()
+        for c in np.flatnonzero(take).tolist():
+            a, b = cu[c], cv[c]
+            earlier = take[:c]
+            r1 = int(np.sum(earlier & (cu[:c] == a)))
+            r2 = int(np.sum(earlier & (cv[:c] == b)))
+            pass1 = int(np.sum(take & (cu == b)))
+            slot = d0[a] + r1
+            if slot < D:
+                nbr[a, slot] = b
+                deg[a] += 1
+            else:
+                dover += 1
+            slot = d0[b] + max(0, min(pass1, D - d0[b])) + r2
+            if slot < D:
+                nbr[b, slot] = a
+                deg[b] += 1
+            else:
+                dover += 1
+            pos = acc + int(np.sum(earlier))
+            if pos < esrc.shape[0]:
+                esrc[pos], edst[pos] = a, b
+            else:
+                over = True
+        acc += int(take.sum())
+    return [nbr, deg, np.int32(dover), esrc, edst, np.int32(acc),
+            np.bool_(over)]
+
+
+# The kernel's field order (``library/spanner.py:_fields``).
+_FIELDS = ("nbr", "deg", "deg_overflow", "esrc", "edst", "n", "overflow")
+
+
+def _j_summary(fields):
+    return jsp.SparseSpannerSummary(**{
+        name: jnp.asarray(f) for name, f in zip(_FIELDS, fields)})
+
+
+def _same_fields(got, want):
+    for name, a in zip(_FIELDS, got):
+        b = np.asarray(getattr(want, name))
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert np.array_equal(a, b), name
+
+
+@pytest.mark.parametrize("name", sorted(gate_cases.CASES))
+def test_gate_model_equals_jax_on_edge_cases(name):
+    case = gate_cases.CASES[name]
+    F, k = case["F"], case["k"]
+    nbr = gate_cases.case_state(case)[0]
+    src, dst = gate_cases.case_lanes(case)
+    live = src != dst
+    want = np.asarray(_j_within(jnp.asarray(nbr), src[live], dst[live], k,
+                                F))
+    paths: set = set()
+    got = [_model_gate(nbr, a, b, k, F, paths)
+           for a, b in zip(src[live].tolist(), dst[live].tolist())]
+    assert got == want.tolist()
+    assert case["paths"] <= paths <= set(gate_cases.GATE_PATHS), paths
+
+
+@pytest.mark.parametrize("n,D,F,k,E", SHAPES + [(48, 4, 16, 0, 400),
+                                                (48, 4, 5, 1, 400),
+                                                (64, 6, 4, 2, 400)])
+def test_gate_model_equals_jax_on_folded_states(n, D, F, k, E):
+    s = _folded(n, D, E, max(k, 1), F, seed=n + D + F)
+    rng = np.random.default_rng(k + F)
+    u = rng.integers(0, n, 200).astype(np.int32)
+    v = rng.integers(0, n, 200).astype(np.int32)
+    v[:20] = np.asarray(s.nbr)[u[:20], 0]  # direct neighbours
+    keep = (u != v) & (v >= 0)
+    u, v = u[keep], v[keep]
+    want = np.asarray(_j_within(s.nbr, u, v, k, F))
+    nbr = np.asarray(s.nbr)
+    paths: set = set()
+    got = [_model_gate(nbr, a, b, k, F, paths)
+           for a, b in zip(u.tolist(), v.tolist())]
+    assert got == want.tolist()
+    if k >= 1:
+        assert paths & {"last-raw", "last-dedup"}, paths
+
+
+@pytest.mark.parametrize("name", sorted(gate_cases.CASES))
+@pytest.mark.parametrize("entry", ["per-edge", "batch-64", "batch-7",
+                                   "batch-1"])
+def test_insert_models_equal_jax_on_edge_cases(name, entry):
+    """The model of either entry, and the port's plain version, equal
+    gelly_tpu's functions on every summary field."""
+    case = gate_cases.CASES[name]
+    D, F, k = case["D"], case["F"], case["k"]
+    fields = gate_cases.case_state(case)
+    src, dst = gate_cases.case_lanes(case)
+    paths: set = set()
+    if entry == "per-edge":
+        valid = np.ones(src.shape[0], bool)
+        want = _j_insert(_j_summary(fields), src, dst, valid, k, D, F)
+        got = _model_insert(fields, src, dst, valid, k, D, F, paths)
+        port = tsp._sparse_insert_edges(_to_t(_j_summary(fields)),
+                                        *_t(src, dst, valid), k, D, F)
+    else:
+        B = int(entry.split("-")[1])
+        nv = np.int32(src.shape[0])
+        want = _j_batched(_j_summary(fields), src, dst, nv, k, D, F, B)
+        got = _model_batched(fields, src, dst, nv, k, D, F, B, paths)
+        port = tsp._sparse_insert_edges_batched(
+            _to_t(_j_summary(fields)), *_t(src, dst, nv), k, D, F, B)
+    _same_fields(got, want)
+    _same(port, want)
+
+
+def test_batched_edge_cases_bind():
+    """The batch cases do what their names say on gelly_tpu itself: row 5
+    takes one append and drops four, the batch keeps (1, 3) that a one-edge batch
+    drops, and one batch takes the same pair three times."""
+    def run(name, B):
+        case = gate_cases.CASES[name]
+        src, dst = gate_cases.case_lanes(case)
+        return _j_batched(_j_summary(gate_cases.case_state(case)), src, dst,
+                          np.int32(src.shape[0]), case["k"], case["D"],
+                          case["F"], B)
+
+    fill = run("rows-fill-in-batch", 64)
+    assert int(fill.deg[5]) == 4 and int(fill.deg_overflow) == 4
+    wide = run("endpoint-appended-earlier", 64)
+    narrow = run("endpoint-appended-earlier", 1)
+    assert int(wide.n) == 5 and int(narrow.n) < 5
+    twice = run("same-pair-twice", 64)
+    assert int(twice.n) == 5  # pass 1's appends to row 4, then pass 2's
+    assert np.asarray(twice.nbr)[4].tolist() == [5, 5, 6, 5]
+    assert bool(run("list-overflow", 64).overflow)
+
+
+@pytest.mark.parametrize("B", [64, 7])
+@pytest.mark.parametrize("n,D,F,k,E", SHAPES)
+def test_batched_model_equals_jax_on_folded_states(n, D, F, k, E, B):
+    big = _folded(n, D, E, k, F, seed=11)
+    small = _folded(n, D, E, k, F, seed=12, L=150)
+    want = _j_batched(big, small.esrc, small.edst, small.n, k, D, F, B)
+    fields = [np.asarray(getattr(big, name)) for name in _FIELDS]
+    got = _model_batched(fields, np.asarray(small.esrc),
+                         np.asarray(small.edst), int(small.n), k, D, F, B,
+                         set())
+    _same_fields(got, want)
 
 
 def test_dense_functions_equal_jax():
