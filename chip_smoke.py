@@ -68,8 +68,9 @@ Phases (any failure exits nonzero and prints no result line):
 8. a ``{"kernels": [...]}`` line (the two Pallas counterparts, the
    three gate and matching kernels, the two hash-set entries, the row
    insert, the sampler step and the k = 2 fold (its launches in F2, F3,
-   L1 and L4 as ``phase_launches``), each with the JAX function it
-   replaces,
+   L1 and L4 as ``phase_launches``; its µs and grid barriers a
+   sub-batch on F3's second chunk, its chain floor there, F2's chunk
+   times), each with the JAX function it replaces,
    the gather's and the sampler's launches on the mesh as
    ``mesh_launches``, the gather's and entry 2's in phase L1 as
    ``multiquery_launches``, the gather's in a traced run of phase M1 as
@@ -204,8 +205,10 @@ F. F1: a user-written transient aggregation with no ``fold_accumulates``
    3rd emission with a fresh plan resuming from the window-2 checkpoint.
    F3: phase 4's stream through ``sparse_spanner(2^24, 2, 16,
    gate_batch=2^14)`` in ``2^22``-edge chunks, ``merge_every=4``: the
-   fold kernel on every chunk, the first chunk's summary equal to the
-   plain fold's on every field and the second timed (kernel and plain);
+   fold kernel on every chunk, the first two chunks' summaries equal to
+   the plain fold's on every field and the second timed (kernel, plain,
+   and the chain floor: the kernel's launch shape running only its grid
+   barriers and one dependent row read a lane, on the same lanes);
    the plain combine equal on the first two windows (a depth cut), every
    accepted edge an input edge, and 10^4 sampled input edges within 2
    hops or, past that, within ``k`` a gate level (the window's fold and
@@ -2068,9 +2071,12 @@ class FoldCheck:
     there: runs the wrapper (counted in its own ``launches``, reset like
     the others) and times each call with CUDA events. The first ``check``
     calls (every call when None) also keep copies of the summary before
-    and after the call and of its lanes; :meth:`verify`, after the run,
-    runs the plain fold on the copies from before (host clock) and holds
-    every field of the summary to the kernel's, bit for bit."""
+    and after the call and of its lanes, and the grid barriers the call's
+    kernel met. The wrapper leaves its counts (``launches``, ``barriers``)
+    on the name ``kernels.sparse_fold_chunk_k2``, which is this stand-in
+    while it is installed. :meth:`verify`, after the run, runs the plain
+    fold on the copies from before (host clock) and holds every field of
+    the summary to the kernel's, bit for bit."""
 
     def __init__(self, torch, kernels, what: str, check=None):
         self.torch, self.kernels, self.what = torch, kernels, what
@@ -2078,7 +2084,9 @@ class FoldCheck:
         self.check = check
         self.launches = 0
         self.calls = []  # (start, end) events of each call
-        self.kept = []  # (before, lanes, max_degree and sub, after)
+        self.host_ms = []  # the host's time in each call (perf_counter)
+        self.kept = []  # (before, lanes, max_degree and sub, after,
+        # the barriers met)
         self.max_abs_err = 0
 
     def __call__(self, *args):
@@ -2089,21 +2097,26 @@ class FoldCheck:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         launches = self.impl.launches
+        self.barriers = None
         start.record()
+        t = time.perf_counter()
         self.impl(*args)
+        self.host_ms.append((time.perf_counter() - t) * 1e3)
         end.record()
         self.launches += self.impl.launches - launches
         self.calls.append((start, end))
         if keep:
             self.kept.append((before[:7], before[7:], args[10:],
-                              [x.clone() for x in args[:7]]))
+                              [x.clone() for x in args[:7]],
+                              self.barriers))
 
     def verify(self) -> list:
-        """``(ms, plain_ms, work)`` of each checked call, in call order."""
+        """``(ms, plain_ms, work, grid barriers met)`` of each checked
+        call, in call order."""
         torch = self.torch
         torch.cuda.synchronize()
         out = []
-        for i, (state, lanes, rest, after) in enumerate(self.kept):
+        for i, (state, lanes, rest, after, met) in enumerate(self.kept):
             work = fold_work(torch, state, lanes, after, rest[1])
             torch.cuda.synchronize()
             t = time.perf_counter()
@@ -2118,7 +2131,8 @@ class FoldCheck:
                                          f"'s {name} != its plain version "
                                          f"on chunk {i}")
             start, end = self.calls[i]
-            out.append((start.elapsed_time(end), plain_ms, work))
+            out.append((start.elapsed_time(end), plain_ms, work,
+                        None if met is None else int(met)))
         self.kept = []
         return out
 
@@ -2361,8 +2375,10 @@ def spanner_bench_phase(torch, device, stream_out: dict) -> dict:
     print(f"  F2 folds: {len(checked)} chunks of {F2_CHUNK} lanes through "
           f"csrc/spanner_fold_k2.cu, every summary field equal to the "
           f"plain fold's (max_abs_err {fold.max_abs_err}); kernel ms "
-          f"{[round(m, 4) for m, _, _ in checked]}, plain ms (host clock) "
-          f"{[round(p, 2) for _, p, _ in checked]}")
+          f"{[round(m, 4) for m, *_ in checked]}, plain ms (host clock) "
+          f"{[round(p, 2) for _, p, *_ in checked]}, grid barriers met "
+          f"{[b for *_, b in checked]} for "
+          f"{-(-F2_CHUNK // SPANNER_SUB)} sub-batches a chunk")
     check(len(out) == len(plain_out) == n_windows,
           f"F2: {len(out)} / {len(plain_out)} emissions")
     for i, (a, b) in enumerate(zip(out, plain_out)):
@@ -2406,7 +2422,10 @@ def spanner_bench_phase(torch, device, stream_out: dict) -> dict:
     return {"ms": ms, "plain_ms": pms, "bound_ms": bound, "us_batch": us,
             "bound_bytes": nbytes, "fold_launches": st["launches"][
                 HAND_KERNELS.index("sparse_fold_chunk_k2")],
-            "fold_checked": len(checked), "fold_err": fold.max_abs_err}
+            "fold_checked": len(checked), "fold_err": fold.max_abs_err,
+            "fold_chunk_ms": [m for m, *_ in checked],
+            "fold_barriers": [b for *_, b in checked],
+            "fold_chain": -(-F2_CHUNK // SPANNER_SUB)}
 
 
 def spanner_twitter_phase(torch, device, src, dst) -> dict:
@@ -2439,7 +2458,7 @@ def spanner_twitter_phase(torch, device, src, dst) -> dict:
     report_run("phase F3 spanner at Twitter scale", st,
                expect={"sparse_insert_edges_batched": n_windows,
                        "sparse_fold_chunk_k2": n_chunks})
-    fold = fold_report_f3(folds)
+    fold = fold_report_f3(torch, folds)
     timings = gate.timings()
     check(len(out) == n_windows, f"F3: {len(out)} emissions")
     for i, (ms, info) in enumerate(timings):
@@ -2509,31 +2528,90 @@ def spanner_twitter_phase(torch, device, src, dst) -> dict:
         "wall_s": st["wall_s"], "h2d_bytes": st["h2d_bytes"],
         "close_ms": [m for m, _ in closes],
         "close_us_batch": [u for _, u in closes],
+        "fold_dispatch_s": st["busy"].get("fold_dispatch", 0.0),
         "fold_launches": st["launches"][HAND_KERNELS.index(
             "sparse_fold_chunk_k2")], **fold}
 
 
-def fold_report_f3(folds) -> dict:
+def fold_chain_floor(torch, kernels, nbr, src, max_degree: int,
+                     sub: int) -> float:
+    """ms of the k = 2 fold's chain floor on these lanes,
+    ``kernels.sparse_fold_chunk_k2_floor`` (the fold's launch shape, only
+    its barriers and one dependent row read a lane a sub-batch), the
+    mean of :data:`FOLD_REPS` launches after one warm-up (CUDA
+    events)."""
+    kernels.sparse_fold_chunk_k2_floor(nbr, src, max_degree, sub)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(FOLD_REPS):
+        kernels.sparse_fold_chunk_k2_floor(nbr, src, max_degree, sub)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / FOLD_REPS
+
+
+def fold_warm_ms(torch, kernels, state, lanes, rest) -> float:
+    """ms of one k = 2 fold call on a copy of ``state`` (CUDA events),
+    the mean of :data:`FOLD_REPS` calls after a warm-up, each started on
+    an idle card with its scratch cached."""
+    ms = []
+    for _ in range(FOLD_REPS + 1):
+        copy = [x.clone() for x in state]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        kernels.sparse_fold_chunk_k2(*copy, *lanes, *rest)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        del copy
+    return sum(ms[1:]) / FOLD_REPS
+
+
+FOLD_REPS = 5
+
+
+def fold_report_f3(torch, folds) -> dict:
     """F3's fold: chunks 1 and 2 held to the plain fold on every field;
-    chunk 2's kernel time (CUDA events, in the run; chunk 1 also pays the
-    kernel's first launch), the plain fold's on the same inputs (host
-    clock), its bound and its chain of sub-batches."""
-    (_, _, _), (ms, plain_ms, info) = folds.verify()
+    chunk 2's kernel time (CUDA events: its one call in the run, and again
+    on its inputs, warm), its µs a sub-batch and the grid barriers its
+    call in the run met, the chain floor on chunk 2's lanes and summary,
+    the plain fold's time on the same inputs (host clock), its bound and
+    its chain of sub-batches."""
+    from gelly_torch.ops import kernels
+
+    state, lanes, rest, _, _ = folds.kept[1]
+    floor_ms = fold_chain_floor(torch, kernels, state[0], lanes[0], *rest)
+    warm_ms = fold_warm_ms(torch, kernels, state, lanes, rest)
+    _, (ms, plain_ms, info, barriers) = folds.verify()
     times = folds.timings()
     bound, nbytes = fold_bound_ms(info, SPANNER_D)
     chain = -(-info["lanes"] // SPANNER_SUB)
     print(f"  F3 folds: chunks 1 and 2 equal to the plain fold on every "
           f"field (max_abs_err {folds.max_abs_err}); chunk 2: kernel "
-          f"{ms:.4f} ms (CUDA events), plain {plain_ms:.2f} ms (host clock), "
+          f"{ms:.4f} ms in the run (CUDA events, one call; "
+          f"{ms * 1e3 / chain:.3f} us a sub-batch; {barriers} grid "
+          f"barriers met for {chain} sub-batches), {warm_ms:.4f} ms warm "
+          f"(again on its inputs, mean of {FOLD_REPS}; "
+          f"{warm_ms * 1e3 / chain:.3f} us a sub-batch), chain floor "
+          f"{floor_ms:.4f} ms ({floor_ms * 1e3 / chain:.3f} us a sub-batch: "
+          f"barriers and one dependent row read), plain {plain_ms:.2f} ms "
+          f"(host clock), "
           f"{info['lanes']} lanes, {info['live']} live, {info['rows']} "
           f"distinct live endpoints over its sub-batches, "
           f"{info['accepted']} accepted, bound {bound:.6f} ms ({nbytes} B), "
           f"a chain of {chain} dependent sub-batches; kernel ms a chunk "
-          f"{[round(m, 4) for m in times]}")
-    return {"fold_ms": ms, "fold_plain_ms": plain_ms, "fold_bound_ms": bound,
+          f"{[round(m, 4) for m in times]}, the host's ms in each call "
+          f"{[round(m, 4) for m in folds.host_ms]}")
+    return {"fold_ms": ms, "fold_warm_ms": warm_ms,
+            "fold_plain_ms": plain_ms, "fold_bound_ms": bound,
             "fold_bound_bytes": nbytes, "fold_rows": info["rows"],
             "fold_chain": chain, "fold_err": folds.max_abs_err,
-            "fold_chunk_ms": times}
+            "fold_chunk_ms": times, "fold_host_ms": folds.host_ms,
+            "fold_floor_ms": floor_ms,
+            "fold_barriers": barriers}
 
 # Phase L (fused multi-query, after F3, on phase 4's stream and chunks): the
 # library quartet through run_aggregation(queries=...) at full width. L1:
@@ -8563,8 +8641,23 @@ def main() -> int:
         "bound_bytes": f3["fold_bound_bytes"],
         "bound_rows": f3["fold_rows"],
         "chain": f3["fold_chain"],
+        "us_per_sub_batch": f3["fold_ms"] * 1e3 / f3["fold_chain"],
+        "grid_barriers": f3["fold_barriers"],
+        "grid_barriers_per_sub_batch": f3["fold_barriers"] / f3["fold_chain"],
+        "warm_ms": f3["fold_warm_ms"],
+        "warm_us_per_sub_batch": f3["fold_warm_ms"] * 1e3 / f3["fold_chain"],
+        "chain_floor_ms": f3["fold_floor_ms"],
         "path_chunk_ms": f3["fold_chunk_ms"],
-        "timed_on": f"F3's second {CHUNK}-lane chunk, one call",
+        "path_chunk_host_ms": f3["fold_host_ms"],
+        "f3_fold_dispatch_s": f3["fold_dispatch_s"],
+        "f2_chunk_ms": f2["fold_chunk_ms"],
+        "f2_us_per_sub_batch": [m * 1e3 / f2["fold_chain"]
+                                for m in f2["fold_chunk_ms"]],
+        "f2_grid_barriers": f2["fold_barriers"],
+        "timed_on": f"F3's second {CHUNK}-lane chunk, its one call in the "
+                    f"run (grid barriers met in that call; warm_ms: again "
+                    f"on its inputs after one warm-up call, mean of "
+                    f"{FOLD_REPS})",
     }]}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

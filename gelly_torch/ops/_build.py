@@ -65,11 +65,15 @@ SIGNATURES = {
     },
     "spanner_fold_k2": {
         "spanner_fold_k2_launch": (
-            [_P] * 11 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+            [_P] * 12 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_int, ctypes.c_int, _P],
             ctypes.c_int),
         "spanner_fold_k2_scratch_ints": (
-            [ctypes.c_longlong], ctypes.c_longlong),
+            [ctypes.c_longlong, ctypes.c_longlong], ctypes.c_longlong),
+        "spanner_fold_k2_floor": (
+            [_P] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_int, _P],
+            ctypes.c_int),
         "spanner_fold_k2_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
     "hashset": {

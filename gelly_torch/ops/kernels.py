@@ -700,9 +700,15 @@ def sparse_fold_chunk_k2(nbr, deg, dover, esrc, edst, n, overflow, src,
     does.
 
     On CPU tensors it runs :func:`sparse_fold_chunk_k2_plain`; on CUDA
-    tensors it launches ``csrc/spanner_fold_k2.cu`` (one cooperative
-    launch walks every sub-batch; counted once a call in
-    ``sparse_fold_chunk_k2.launches``) or raises."""
+    tensors it launches ``csrc/spanner_fold_k2.cu`` (a prepass over the
+    chunk, one cooperative launch that walks every sub-batch with one grid
+    barrier each, and a last launch that writes the edge list; counted
+    once a call in ``sparse_fold_chunk_k2.launches``) or raises. A chunk
+    holds at most ``2^30 - 1`` lanes on the card. Each launch leaves in
+    ``sparse_fold_chunk_k2.barriers`` a 1-element ``int32`` tensor on the
+    card that the kernel fills with the grid barriers it met, read off its
+    barrier counter (``-1`` if the counter is not a whole number of
+    barriers); reading it syncs, so the wrapper never does."""
     _check_spanner_state(nbr, deg, dover, esrc, edst, n, overflow,
                          max_degree)
     _check_lanes(nbr.device, src=src, dst=dst, valid=valid)
@@ -722,24 +728,63 @@ def sparse_fold_chunk_k2(nbr, deg, dover, esrc, edst, n, overflow, src,
     from . import _build
 
     lib = _build.load("spanner_fold_k2")
-    scratch = torch.empty(lib.spanner_fold_k2_scratch_ints(span),
+    scratch = torch.empty(lib.spanner_fold_k2_scratch_ints(B, span),
                           dtype=torch.int32, device=nbr.device)
+    met = torch.empty(1, dtype=torch.int32, device=nbr.device)
     with torch.cuda.device(nbr.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.spanner_fold_k2_launch(
             nbr.data_ptr(), deg.data_ptr(), dover.data_ptr(),
             esrc.data_ptr(), edst.data_ptr(), n.data_ptr(),
             overflow.data_ptr(), src.data_ptr(), dst.data_ptr(),
-            valid.data_ptr(), scratch.data_ptr(), B, nbr.shape[0],
-            esrc.shape[0], max_degree, span, stream)
+            valid.data_ptr(), scratch.data_ptr(), met.data_ptr(), B,
+            nbr.shape[0], esrc.shape[0], max_degree, span, stream)
     if rc:
         msg = lib.spanner_fold_k2_error_string(rc).decode()
         raise RuntimeError(f"spanner_fold_k2 launch failed: {msg}")
     sparse_fold_chunk_k2.launches += 1
+    sparse_fold_chunk_k2.barriers = met
     return None
 
 
 sparse_fold_chunk_k2.launches = 0
+sparse_fold_chunk_k2.barriers = None
+
+
+def sparse_fold_chunk_k2_floor(nbr, src, max_degree: int, sub: int) -> None:
+    """The chain floor of :func:`sparse_fold_chunk_k2` on the card: a
+    launch of the kernel's shape over the lanes ``src`` in ``sub``-lane
+    sub-batches that runs only its grid barriers and one dependent row
+    read a lane a sub-batch (row ``src[lane]``, as the gate reads it),
+    with nothing written to the summary. A measurement, not a path: it
+    counts no launch."""
+    if nbr.device.type != "cuda" or src.device != nbr.device:
+        raise ValueError(f"the chain floor runs on a card, got {nbr.device} "
+                         f"and {src.device}")
+    _check_lanes(nbr.device, src=src)
+    if nbr.dtype != torch.int32 or nbr.ndim != 2 \
+            or nbr.shape[1] != max_degree or not nbr.is_contiguous():
+        raise ValueError(f"nbr: want contiguous i32[n, {max_degree}], got "
+                         f"{nbr.dtype} {tuple(nbr.shape)}")
+    B = src.shape[0]
+    if B == 0 or sub < 1:
+        return None
+    span = min(sub, B)
+    from . import _build
+
+    lib = _build.load("spanner_fold_k2")
+    scratch = torch.empty(lib.spanner_fold_k2_scratch_ints(B, span),
+                          dtype=torch.int32, device=nbr.device)
+    sink = torch.zeros(1, dtype=torch.int32, device=nbr.device)
+    with torch.cuda.device(nbr.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.spanner_fold_k2_floor(
+            nbr.data_ptr(), src.data_ptr(), scratch.data_ptr(),
+            sink.data_ptr(), B, nbr.shape[0], max_degree, span, stream)
+    if rc:
+        msg = lib.spanner_fold_k2_error_string(rc).decode()
+        raise RuntimeError(f"spanner_fold_k2_floor launch failed: {msg}")
+    return None
 
 
 # ------------------------------------------------------------------ #

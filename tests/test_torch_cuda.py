@@ -28,6 +28,7 @@ from gelly_torch.library import connected_components as tcc
 from gelly_torch.library import triangles as ttri
 from gelly_torch.ops import kernels
 
+import _fold_k2_cases as fold_cases
 import _spanner_gate_cases as gate_cases
 
 pytestmark = pytest.mark.cuda
@@ -664,7 +665,13 @@ def test_sparse_insert_edges_batched_f3_shape_equals_plain(cuda_device):
 
 # (n, D, E, lanes, sub, fill, valid share): the k = 2 fold's cases — sub
 # of 1, one that does not divide the chunk, one larger than it, full rows,
-# an edge list that overflows, dead lanes, the card's shapes.
+# an edge list that overflows, dead lanes, rows wider than the kernel's
+# 16-slot registers (D = 24 in int4 loads, D = 37 in single ones), the
+# card's shapes; a name: a case of tests/_fold_k2_cases.py (both
+# orientations of a pair gated apart, an ordered pair three times,
+# pass-1 and pass-2 appends past D, a pair across a sub-batch seam,
+# ragged last sub-batches); "f3-shape": F3's fold on a summary an earlier
+# chunk partly filled.
 _FOLD_CASES = {
     "random": (200, 4, 2000, 3000, 64, 0.3, 0.9),
     "sub-1": (64, 4, 400, 300, 1, 0.3, 0.9),
@@ -676,31 +683,103 @@ _FOLD_CASES = {
     "empty": (64, 4, 64, 0, 64, 0.3, 1.0),
     "card-shape": (1 << 16, 16, 1 << 18, 1 << 17, 1 << 14, 0.3, 1.0),
     "card-wide-sub": (1 << 16, 16, 1 << 18, 1 << 17, 1 << 17, 0.0, 1.0),
+    "rows-24": (300, 24, 3000, 3000, 200, 0.5, 0.95),
+    "rows-37": (300, 37, 3000, 3000, 200, 0.5, 0.95),
+    **{name: name for name in fold_cases.NAMES},
+    "f3-shape": "f3-shape",
 }
+
+
+def _f3_shape_fold(device):
+    """F3's fold shape (2^24 slots, D = 16, sub = 2^14, 2^22-lane Zipf
+    chunks): the summary after a first chunk through the plain fold on
+    the card, and the second chunk. The plain version runs on the card
+    (on the CPU it takes minutes)."""
+    n, D, E, L, sub = 1 << 24, 16, 1 << 23, 1 << 22, 1 << 14
+    rng = np.random.default_rng(24)
+    st = _on(_gate_state(rng, n, D, E), device)
+    chunks = []
+    for _ in range(2):
+        src = (rng.zipf(1.3, L) % n).astype(np.int32)
+        dst = (rng.zipf(1.3, L) % n).astype(np.int32)
+        valid = np.ones(L, bool)
+        valid[-1000:] = False  # a stream's padding lanes
+        chunks.append([torch.from_numpy(x).to(device)
+                       for x in (src, dst, valid)])
+    kernels.sparse_fold_chunk_k2_plain(*st, *chunks[0], D, sub)
+    assert 0 < int(st[5]) < E and int(st[2]) > 0  # partly filled
+    return st, chunks[1], D, sub
 
 
 @pytest.mark.parametrize("case", sorted(_FOLD_CASES))
 def test_sparse_fold_chunk_k2_equals_plain(cuda_device, case):
-    n, D, E, L, sub, fill, share = _FOLD_CASES[case]
-    rng = np.random.default_rng(len(case) * 13 + L)
-    st = _gate_state(rng, n, D, E, fill, preload=min(E, 5))
-    src = (rng.zipf(1.4, L) % n).astype(np.int32)
-    dst = rng.integers(0, n, L).astype(np.int32)
-    if L >= 200:  # duplicate pairs, some reversed, and self-loops
-        src[100:150], dst[100:150] = src[:50], dst[:50]
-        src[150:200], dst[150:200] = dst[:50], src[:50]
-        dst[::37] = src[::37]
-    valid = rng.random(L) < share
+    spec = _FOLD_CASES[case]
+    if spec == "f3-shape":
+        st, lanes, D, sub = _f3_shape_fold(cuda_device)
+        L = lanes[0].shape[0]
+        want = [x.clone() for x in st]
+        got = [x.clone() for x in st]
+        del st
+        kernels.sparse_fold_chunk_k2_plain(*want, *lanes, D, sub)
+        before = kernels.sparse_fold_chunk_k2.launches
+        kernels.sparse_fold_chunk_k2(*got, *lanes, D, sub)
+        torch.cuda.synchronize()
+        assert kernels.sparse_fold_chunk_k2.launches == before + 1
+        assert _met_barriers() == -(-L // sub) + 1
+        assert _equal(got, want)
+        return
+    if isinstance(spec, str):
+        st, src, dst, valid, D, sub = fold_cases.case(spec)
+        L = src.shape[0]
+    else:
+        n, D, E, L, sub, fill, share = spec
+        rng = np.random.default_rng(len(case) * 13 + L)
+        st = _gate_state(rng, n, D, E, fill, preload=min(E, 5))
+        src = (rng.zipf(1.4, L) % n).astype(np.int32)
+        dst = rng.integers(0, n, L).astype(np.int32)
+        if L >= 200:  # duplicate pairs, some reversed, and self-loops
+            src[100:150], dst[100:150] = src[:50], dst[:50]
+            src[150:200], dst[150:200] = dst[:50], src[:50]
+            dst[::37] = src[::37]
+        valid = rng.random(L) < share
     lanes = [torch.from_numpy(x) for x in (src, dst, valid)]
     want = _on(st, "cpu")
     kernels.sparse_fold_chunk_k2(*want, *lanes, D, sub)
     got = _on(st, cuda_device)
     before = kernels.sparse_fold_chunk_k2.launches
+    kernels.sparse_fold_chunk_k2.barriers = None
     kernels.sparse_fold_chunk_k2(*got, *(x.to(cuda_device) for x in lanes),
                                  D, sub)
     torch.cuda.synchronize()
     assert kernels.sparse_fold_chunk_k2.launches == before + (L > 0)
+    if L > 0:
+        assert _met_barriers() == -(-L // min(sub, L)) + 1
+    else:
+        assert kernels.sparse_fold_chunk_k2.barriers is None
     assert _equal(got, want)
+
+
+def _met_barriers() -> int:
+    """The grid barriers the last fold launch met, as its kernel read
+    them off its barrier counter: one a sub-batch and one in its tail is
+    the design."""
+    return int(kernels.sparse_fold_chunk_k2.barriers)
+
+
+def test_sparse_fold_chunk_k2_floor_reads_only(cuda_device):
+    """The chain floor's launch leaves the summary as it was and counts
+    no launch of the fold."""
+    n, D, L, sub = 1 << 12, 16, 5000, 1 << 10
+    rng = np.random.default_rng(3)
+    st = _on(_gate_state(rng, n, D, 64, 0.5), cuda_device)
+    nbr = st[0].clone()
+    src = torch.from_numpy((rng.zipf(1.4, L) % n).astype(np.int32)).to(
+        cuda_device)
+    before = kernels.sparse_fold_chunk_k2.launches
+    assert kernels.sparse_fold_chunk_k2_floor(st[0], src, D, sub) is None
+    torch.cuda.synchronize()
+    assert kernels.sparse_fold_chunk_k2.launches == before
+    assert torch.equal(st[0], nbr)
 
 
 def test_spanner_gate_refuses_what_it_cannot_take(cuda_device):
