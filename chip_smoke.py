@@ -29,7 +29,28 @@ Phases (any failure exits nonzero and prints no result line):
    fold_backend="kernel"), merge_every=4)``. Every emission must equal the
    same run with ``fold_backend="plain"``, the final labels must equal a
    ``scipy.sparse.csgraph`` oracle, and the kernel's launch count in that
-   run must be exactly 3 per dedup-branch chunk (counted independently);
+   run must be exactly 3 per chunk that takes the dedup fold (capacity at
+   least ``RAW_DEDUP_MIN_CHUNK``, counted independently; a chunk whose
+   distinct pairs overflow ``unique_cap`` gathers too, its rounds masked
+   on the card). Both runs keep every union-find round on the card: 0
+   host syncs, 3 ``rooted_fixpoint`` launches a chunk (the dedup fold's
+   tail, its gated re-run and gated fallback), a ``pointer_jump`` a
+   close;
+U. the union-find fixpoints (``csrc/unionfind_fixpoint.cu``) on inputs
+   captured from the paths: phase 4's first dedup chunk's tail
+   (``rooted_fixpoint``, pair form) and first close (``pointer_jump``),
+   taken in a rerun of its first window, and a ``merge_forest_stack``
+   (``union_edges``) of the raw plan with ``merge="gather"`` on four
+   logical shards over ``2^25`` edges (its emissions equal phase 4's).
+   Each must equal its plain version on the card, rounds met included
+   (``pointer_jump``: its longest walk ``d`` hops against the plain
+   loop's ``ceil(log2 d)`` doubling rounds); prints its time (CUDA
+   events, L2 flushed, mean of 20, 5 for the merge), the plain
+   version's and the least time for the bytes it must move (each lane's
+   pair once, each hop of each chase once a round, each hook once, the
+   forest read and the new one written once). Phase 7 does the same
+   for its first star call (``rooted_fixpoint``, star form), as
+   captured and with its gate open;
 5. wedge kernel: ``wedge_count_matrix`` on the wedge mask of the triangle
    path's first window at ``N = 2^15``, and on a dense random mask at
    ``N = 4096`` (every block live, every tile mirrored), must equal
@@ -70,7 +91,10 @@ Phases (any failure exits nonzero and prints no result line):
    insert, the sampler step and the k = 2 fold (its launches in F2, F3,
    L1 and L4 as ``phase_launches``; its µs and grid barriers a
    sub-batch on F3's second chunk, its chain floor there, F2's chunk
-   times), each with the JAX function it replaces,
+   times) and the three union-find fixpoints (their launches in phase 4,
+   and for ``union_edges`` in phase U's merge run; other phases' as
+   ``phase_launches``; rounds met), each with the JAX function it
+   replaces,
    the gather's and the sampler's launches on the mesh as
    ``mesh_launches``, the gather's and entry 2's in phase L1 as
    ``multiquery_launches``, the gather's in a traced run of phase M1 as
@@ -707,12 +731,22 @@ HAND_KERNELS = ("sorted_window_gather", "wedge_count_matrix",
 SPANNER_FIELDS = ("nbr", "deg", "deg_overflow", "esrc", "edst", "n",
                   "overflow")
 NO_LAUNCHES = (0,) * len(HAND_KERNELS)
+# The union-find fixpoints (csrc/unionfind_fixpoint.cu): every CC path
+# runs them, so they are counted apart from HAND_KERNELS, whose counts
+# the phases check kernel by kernel.
+FIXPOINT_KERNELS = ("rooted_fixpoint", "pointer_jump", "union_edges")
 
 
 def reset_launches(kernels) -> None:
     """Every hand kernel's launch count to 0 (just before a driven run)."""
-    for name in HAND_KERNELS:
+    for name in HAND_KERNELS + FIXPOINT_KERNELS:
         getattr(kernels, name).launches = 0
+
+
+def fixpoint_counts(kernels) -> dict:
+    """The union-find fixpoint kernels' launch counts."""
+    return {name: getattr(kernels, name).launches
+            for name in FIXPOINT_KERNELS}
 
 
 def launch_counts(kernels) -> tuple:
@@ -758,6 +792,156 @@ def time_ms(torch, fn, device, reps: int = REPS, warmup: int = 3) -> float:
         end.synchronize()
         total += start.elapsed_time(end)
     return total / reps
+
+
+class FirstCall:
+    """While installed, captures (as clones) the arguments of the first
+    call that ``ops/unionfind.py`` makes to the fixpoint kernel ``name``
+    and that ``want(args, kwargs)`` accepts; every call goes through to
+    the kernel. It swaps ``unionfind``'s reference to the kernels module
+    for a view of it, so the kernels and their counts stay as they are."""
+
+    def __init__(self, torch, unionfind, name: str,
+                 want=lambda args, kwargs: True):
+        self.torch, self.uf, self.name, self.want = torch, unionfind, name, want
+        self.args = self.kwargs = None
+
+    def _clone(self, x):
+        return x.clone() if isinstance(x, self.torch.Tensor) else x
+
+    def __enter__(self):
+        real = self.uf.kernels
+        outer = self
+
+        def shim(*args, **kwargs):
+            if outer.args is None and outer.want(args, kwargs):
+                outer.args = tuple(outer._clone(a) for a in args)
+                outer.kwargs = {k: outer._clone(v) for k, v in kwargs.items()}
+            return getattr(real, outer.name)(*args, **kwargs)
+
+        class View:
+            def __getattr__(self, attr):
+                return shim if attr == outer.name else getattr(real, attr)
+
+        self.real = real
+        self.uf.kernels = View()
+        return self
+
+    def __exit__(self, *exc):
+        self.uf.kernels = self.real
+        return False
+
+
+def walk(torch, p, x):
+    """``(roots, reads)``: each lane of ``x`` walked to its root in the
+    forest ``p``, and the forest reads the walk takes (its depth plus the
+    read that finds the root)."""
+    reads = torch.ones(x.shape[0], dtype=torch.int64, device=x.device)
+    cur, g = x, p[x]
+    while True:
+        moving = g != cur
+        if not bool(moving.any()):
+            return cur, reads
+        reads += moving
+        cur, g = g, p[g]
+
+
+def fixpoint_bytes(torch, name: str, args, kwargs) -> int:
+    """The bytes the fixpoint ``name`` must move on these inputs, replayed
+    round by round with plain tensor ops: each lane's pair once, each hop
+    of each chase once a round, each hook written once, the forest read
+    and the new forest written once (union_edges: each round's two
+    reads a lane and its doubling step over every slot, then the jump)."""
+    from gelly_torch.ops.segments import masked_scatter_min
+
+    p = args[0]
+    n = p.shape[0]
+    if name == "pointer_jump":
+        ident = torch.arange(n, dtype=torch.int32, device=p.device)
+        return int(4 * walk(torch, p, ident)[1].sum()) + 4 * n
+    x, y = args[1], args[2]
+    valid = args[3] if len(args) > 3 else kwargs.get("valid")
+    act = (torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+           if valid is None else valid)
+    lanes = x.shape[0]
+    total = 8 * n + 9 * lanes
+    if name == "union_edges":
+        r = p
+        while True:
+            lu, lv = r[x], r[y]
+            lo, hi = torch.minimum(lu, lv), torch.maximum(lu, lv)
+            live = act & (lo != hi)
+            b = masked_scatter_min(r, hi, lo, live)
+            b = b[b]
+            total += int(8 * act.sum() + 4 * live.sum()) + 12 * n
+            if torch.equal(b, r):
+                return total + 8 * n  # the jump over a flat forest
+            r = b
+    star = kwargs.get("star", False)
+    gate, n_valid = kwargs.get("gate"), kwargs.get("n_valid")
+    if gate is not None and not bool(gate):
+        return total
+    if n_valid is not None:
+        act = act & (torch.arange(lanes, device=x.device) < n_valid)
+    while True:
+        ru, reads = walk(torch, p, x)
+        if star:
+            rv = ru[y]
+            total += int(4 * reads.sum())
+        else:
+            rv, reads_y = walk(torch, p, y)
+            total += int(4 * (reads + reads_y)[act].sum())
+        lo, hi = torch.minimum(ru, rv), torch.maximum(ru, rv)
+        live = act & (lo != hi)
+        total += int(4 * live.sum())
+        if not bool(live.any()):
+            return total
+        p = masked_scatter_min(p, hi, lo, live)
+
+
+def fixpoint_phase(torch, device, name: str, call: FirstCall, where: str,
+                   reps: int = REPS, open_gate: bool = False) -> dict:
+    """One fixpoint kernel on inputs captured from a path: equal to its
+    plain version (rounds met included), timed (CUDA events, L2 flushed,
+    mean of ``reps``) beside its plain version and the least time the
+    card could take for the bytes it must move. ``open_gate``: the same
+    inputs with the gate taken away (a fixpoint whose gate was closed)."""
+    from gelly_torch.ops import kernels
+
+    check(call.args is not None, f"{where}: no {name} call was captured")
+    fn, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
+    args, kwargs = call.args, dict(call.kwargs)
+    if open_gate:
+        kwargs.pop("gate", None)
+        where += ", gate open"
+    got = fn(*args, **kwargs)
+    met = int(fn.met)
+    want = plain(*args, **kwargs)
+    rounds = plain.rounds
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    check(torch.equal(got, want),
+          f"{name} on {where} != its plain version (max abs err {err})")
+    if name == "pointer_jump":
+        check(rounds == (0 if met <= 1 else (met - 1).bit_length()),
+              f"{name} on {where}: longest walk {met} hops, but the plain "
+              f"loop took {rounds} doubling rounds")
+    else:
+        check(met == rounds, f"{name} on {where}: {met} rounds met, the "
+                             f"plain loop {rounds}")
+    ms = time_ms(torch, lambda: fn(*args, **kwargs), device, reps=reps)
+    plain_ms = time_ms(torch, lambda: plain(*args, **kwargs), device,
+                       reps=max(3, reps // 4), warmup=1)
+    nbytes = fixpoint_bytes(torch, name, args, kwargs)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    lanes = args[1].shape[0] if len(args) > 1 else 0
+    print(f"kernel {name} on {where}: slots={args[0].shape[0]} "
+          f"lanes={lanes} exact=True rounds_met={met} "
+          f"(plain {rounds}) kernel_ms={ms:.6f} plain_ms={plain_ms:.6f} "
+          f"bound_ms={bound_ms:.6f} ({nbytes} B / {HBM_BYTES_PER_S:.4g})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_bytes": nbytes, "rounds_met": met, "plain_rounds": rounds,
+            "max_abs_err": err, "timed_on": where}
 
 
 def scipy_oracle(src: np.ndarray, dst: np.ndarray, n: int) -> np.ndarray:
@@ -1356,6 +1540,7 @@ def compact_cc_phase(torch, device, src, dst, oracle) -> None:
             "peak_mem_bytes": torch.cuda.max_memory_allocated(device),
             "wire_bytes": res.stats["h2d_bytes"],
             "launches": launch_counts(kernels),
+            "fixpoints": fixpoint_counts(kernels),
         }
         return [x.cpu().numpy() for x in out] if pull else out, stats
 
@@ -1368,7 +1553,8 @@ def compact_cc_phase(torch, device, src, dst, oracle) -> None:
               f"host_syncs/unit={st['host_syncs'] / max(st['units'], 1):.3f} "
               f"peak_mem={st['peak_mem_bytes']} B "
               f"wire_bytes/edge={st['wire_bytes'] / n_edges:.4f} "
-              f"kernel launches={st['launches']}{extra}")
+              f"kernel launches={st['launches']} "
+              f"fixpoint launches={st['fixpoints']}{extra}")
         print(f"  stage busy s: {busy}")
 
     agg = compact_plan()
@@ -1381,9 +1567,21 @@ def compact_cc_phase(torch, device, src, dst, oracle) -> None:
           f" codec_workers={workers} available_cores={available_cores()} "
           f"torch_threads={torch.get_num_threads()}")
 
-    warm, st = run(compact_plan(), CC_FOLD_BATCH * CC_CHUNK)
+    star = FirstCall(torch, unionfind, "rooted_fixpoint",
+                     lambda args, kwargs: kwargs.get("star", False))
+    with star:
+        warm, st = run(compact_plan(), CC_FOLD_BATCH * CC_CHUNK)
     report("compact warm-up (16 chunks)", st, CC_FOLD_BATCH * CC_CHUNK)
+    check(st["fixpoints"]["rooted_fixpoint"] > 0,
+          "the compact warm-up launched no rooted_fixpoint")
     del warm
+    star_check = fixpoint_phase(torch, device, "rooted_fixpoint", star,
+                                "phase 7's first star call")
+    star_check["launches"] = st["fixpoints"]["rooted_fixpoint"]
+    star_check["open_gate"] = fixpoint_phase(
+        torch, device, "rooted_fixpoint", star, "phase 7's first star call",
+        open_gate=True)
+    del star
     runs = []
     for i in range(2):
         labels, st = run(agg, CC_EDGES)
@@ -1471,6 +1669,7 @@ def compact_cc_phase(torch, device, src, dst, oracle) -> None:
               f"{CC_EDGES / dt:.1f} edges/s wall={dt:.4f} s "
               f"wire_bytes/edge={wire / CC_EDGES:.4f} "
               f"(share of run 1's wall: {dt / st['wall_s']:.4f})")
+    return star_check
 
 
 
@@ -3859,22 +4058,15 @@ P5_ACK_TENANTS = 64  # checkpoint-gated acks: N5's scale
 P6_EDGES = 1 << 23
 
 
-def dedup_frames(torch, device, src, dst, n_edges: int, frame: int,
-                 capacity: int) -> list:
+def dedup_frames(n_edges: int, frame: int, capacity: int) -> list:
     """Independently of the fold: whether each ``frame``-edge chunk of
-    ``capacity`` lanes takes the raw plan's dedup branch (capacity >=
-    ``RAW_DEDUP_MIN_CHUNK`` and distinct pairs within the unique cap)."""
+    ``capacity`` lanes takes the raw plan's dedup fold (capacity >=
+    ``RAW_DEDUP_MIN_CHUNK``; its gathers run whether or not the distinct
+    pairs fit the unique cap)."""
     from gelly_torch.library import connected_components as cc
 
-    cap = max(1 << 20, 3 * (capacity >> 4))
-    flags = []
-    for lo in range(0, n_edges, frame):
-        s = torch.from_numpy(src[lo:lo + frame]).to(device).long()
-        d = torch.from_numpy(dst[lo:lo + frame]).to(device).long()
-        key = (torch.minimum(s, d) << 32) | torch.maximum(s, d)
-        flags.append(capacity >= cc.RAW_DEDUP_MIN_CHUNK
-                     and int(torch.unique(key).numel()) <= cap)
-    return flags
+    return [capacity >= cc.RAW_DEDUP_MIN_CHUNK
+            for _ in range(0, n_edges, frame)]
 
 
 def wire_cc_plan():
@@ -4231,8 +4423,7 @@ def ingest_phase(torch, device, src, dst, labels, oracle, dedup_flags,
         os.unlink(tpath)
 
         # P2. The raw wire into the kernel fold, a STATS probe mid-stream.
-        flags2 = dedup_frames(torch, device, src, dst, N_EDGES, P_FRAME,
-                              P_WIRE_CHUNK)
+        flags2 = dedup_frames(N_EDGES, P_FRAME, P_WIRE_CHUNK)
         r2 = raw_wire_run(torch, device, src, dst, N_EDGES,
                           probe_stats=True)
         launches["P2"] = r2["launches"]
@@ -4332,8 +4523,7 @@ def ingest_phase(torch, device, src, dst, labels, oracle, dedup_flags,
         del outs3, res3
 
         # P4. Kill -9 of the server mid-stream, restart, resend.
-        flags4 = dedup_frames(torch, device, src, dst, P4_FRAMES * P_FRAME,
-                              P_FRAME, P_WIRE_CHUNK)
+        flags4 = dedup_frames(P4_FRAMES * P_FRAME, P_FRAME, P_WIRE_CHUNK)
         frames = [edge_payload(src[lo:lo + P_FRAME], dst[lo:lo + P_FRAME])
                   for lo in range(0, P4_FRAMES * P_FRAME, P_FRAME)]
         try:
@@ -6487,15 +6677,17 @@ def k_run(torch, device, fn):
     wall = time.perf_counter() - t
     return out, {"wall_s": wall, "host_syncs": unionfind.host_sync.count,
                  "peak_mem_bytes": torch.cuda.max_memory_allocated(device),
-                 "launches": dict(zip(HAND_KERNELS, launch_counts(kernels)))}
+                 "launches": dict(zip(HAND_KERNELS, launch_counts(kernels))),
+                 "fixpoints": fixpoint_counts(kernels)}
 
 
 def k_report(name: str, n_events: int, st: dict, extra: str = "") -> None:
     launched = {k: v for k, v in st["launches"].items() if v}
+    fixpoints = {k: v for k, v in st["fixpoints"].items() if v}
     print(f"phase {name}: {n_events / st['wall_s']:.1f} edges/s "
           f"wall={st['wall_s']:.4f} s host_syncs={st['host_syncs']} "
-          f"peak_mem={st['peak_mem_bytes']} B kernel launches={launched}"
-          f"{extra}")
+          f"peak_mem={st['peak_mem_bytes']} B kernel launches={launched} "
+          f"fixpoint launches={fixpoints}{extra}")
 
 
 def k_expect_launches(name: str, st: dict, expect: dict) -> None:
@@ -6693,6 +6885,7 @@ def mesh_cc_phase(torch, device, src, dst, labels, oracle,
     del s2, d2, ev, got, keys, vals
     return {"gather_launches":
             k1[("kernel", "replicated")]["launches"]["sorted_window_gather"],
+            "fixpoint_launches": k1[("kernel", "replicated")]["fixpoints"],
             "gather_err": gather_err,
             "rounds": [f[1] for f in folds]}
 
@@ -7116,14 +7309,8 @@ def engine_checks(torch, device, mesh, src, dst) -> dict:
     for c in EdgeChunkSource(src, dst, chunk_size=O3_CHUNK,
                              table=IdentityVertexTable(n)):
         parts = split_chunk(c, S)
-        for d in local:
-            p = parts[d].to(device)
-            cap = max(1 << 20, 3 * (p.capacity >> 4))
-            key = ((torch.minimum(p.src, p.dst).long() << 32)
-                   | torch.maximum(p.src, p.dst).long())[p.valid]
-            distinct = int(torch.unique(key).numel())
-            dedup += (p.capacity >= cc.RAW_DEDUP_MIN_CHUNK
-                      and distinct <= min(cap, p.capacity))
+        dedup += sum(parts[d].capacity >= cc.RAW_DEDUP_MIN_CHUNK
+                     for d in local)
     n_windows = -(-src.shape[0] // (O3_CHUNK * O3_MERGE_EVERY))
     check(dedup == len(local) * -(-src.shape[0] // O3_CHUNK),
           f"(a): {dedup} of this process's shard-chunks take the dedup "
@@ -8152,6 +8339,7 @@ def main() -> int:
             "edges_per_s": N_EDGES / wall,
             "h2d_bytes": res.stats["h2d_bytes"],
             "launches": kernels.sorted_window_gather.launches,
+            "fixpoints": fixpoint_counts(kernels),
             "host_syncs": unionfind.host_sync.count,
             "peak_mem_bytes": torch.cuda.max_memory_allocated(device),
         }
@@ -8165,20 +8353,24 @@ def main() -> int:
               f"wall={s['wall_s']:.4f} s "
               f"peak_mem={s['peak_mem_bytes']} B "
               f"host_syncs/chunk={s['host_syncs'] / n_chunks:.2f} "
-              f"gather_launches={s['launches']}")
+              f"gather_launches={s['launches']} "
+              f"fixpoint_launches={s['fixpoints']}")
 
-    # Independent count of the chunks that take the dedup-and-kernel
-    # branch: chunk >= RAW_DEDUP_MIN_CHUNK and distinct pairs <= cap.
+    # Independent count of the chunks that take the dedup fold (chunk >=
+    # RAW_DEDUP_MIN_CHUNK): the kernel backend gathers 3 times in each,
+    # whether its distinct pairs fit unique_cap or overflow it (the
+    # overflow is a device value that masks the rounds).
     dedup_flags = []
+    overflows = 0
     for lo in range(0, N_EDGES, CHUNK):
         s = torch.from_numpy(src[lo:lo + CHUNK]).to(device).long()
         d = torch.from_numpy(dst[lo:lo + CHUNK]).to(device).long()
         key = (torch.minimum(s, d) << 32) | torch.maximum(s, d)
-        distinct = int(torch.unique(key).numel())
-        dedup_flags.append(CHUNK >= cc.RAW_DEDUP_MIN_CHUNK
-                           and distinct <= unique_cap)
+        overflows += int(torch.unique(key).numel()) > unique_cap
+        dedup_flags.append(CHUNK >= cc.RAW_DEDUP_MIN_CHUNK)
     dedup_chunks = sum(dedup_flags)
-    print(f"dedup-branch chunks: {dedup_chunks} of {n_chunks}")
+    print(f"dedup-fold chunks: {dedup_chunks} of {n_chunks} "
+          f"({overflows} over unique_cap)")
     check(len(labels) == len(labels_plain) == -(-n_chunks // MERGE_EVERY),
           f"emission count {len(labels)} / {len(labels_plain)}")
     for i, (a, b) in enumerate(zip(labels, labels_plain)):
@@ -8196,6 +8388,66 @@ def main() -> int:
     check(st["launches"] == 3 * dedup_chunks,
           f"{st['launches']} launches != 3 x {dedup_chunks} dedup chunks")
     check(st_plain["launches"] == 0, "the plain backend launched the kernel")
+    for name, s in (("kernel", st), ("plain", st_plain)):
+        # Every fold and close on the card, no round read on the host: the
+        # dedup fold's three gated fixpoints a chunk, a jump a close.
+        check(s["host_syncs"] == 0, f"fold_backend={name}: "
+              f"{s['host_syncs']} host syncs (want 0 a chunk)")
+        check(s["fixpoints"]["rooted_fixpoint"] == 3 * dedup_chunks,
+              f"fold_backend={name}: {s['fixpoints']['rooted_fixpoint']} "
+              f"rooted_fixpoint launches != 3 x {dedup_chunks}")
+        check(s["fixpoints"]["pointer_jump"] >= len(labels),
+              f"fold_backend={name}: {s['fixpoints']['pointer_jump']} "
+              f"pointer_jump launches for {len(labels)} closes")
+
+    # U. the union-find fixpoints on inputs captured from the paths: phase
+    # 4's first dedup chunk's tail and first close (its first emission
+    # again), and a 4-shard gather merge's merge_forest_stack (the raw
+    # plan with merge="gather" over 2 K1 chunks, its emission phase 4's
+    # at that boundary).
+    mark("U", t_start)
+    tail = FirstCall(torch, unionfind, "rooted_fixpoint")
+    close = FirstCall(torch, unionfind, "pointer_jump")
+    with tail, close:
+        first = next(iter(edge_stream_from_source(
+            EdgeChunkSource(src, dst, chunk_size=CHUNK,
+                            table=IdentityVertexTable(N_VERTICES)),
+            N_VERTICES).aggregate(cc.connected_components(
+                N_VERTICES, merge="gather", ingest_combine=False,
+                fold_backend="kernel"), merge_every=MERGE_EVERY)))
+    check(np.array_equal(first.cpu().numpy(), labels[0]),
+          "phase U: the captured run's first emission != phase 4's")
+    u_edges = 2 * K1_CHUNK
+    merge = FirstCall(torch, unionfind, "union_edges")
+    reset_launches(kernels)
+    with merge:
+        merged = list(edge_stream_from_source(
+            EdgeChunkSource(src[:u_edges], dst[:u_edges], chunk_size=K1_CHUNK,
+                            table=IdentityVertexTable(N_VERTICES)),
+            N_VERTICES, device=device).aggregate(cc.connected_components(
+                N_VERTICES, merge="gather", ingest_combine=False,
+                fold_backend="kernel", merge_mode="replicated"),
+                mesh=k_mesh(device), merge_every=1))
+    u_merge_launches = fixpoint_counts(kernels)
+    check(len(merged) == u_edges // K1_CHUNK and all(
+        np.array_equal(x.cpu().numpy(), labels[i])
+        for i, x in enumerate(merged)),
+        "phase U: the 4-shard gather merge's emissions != phase 4's")
+    check(u_merge_launches["union_edges"] >= len(merged),
+          f"phase U: {u_merge_launches['union_edges']} union_edges "
+          f"launches for {len(merged)} merge_forest_stack merges")
+    del first, merged
+    u = {"rooted_fixpoint": fixpoint_phase(
+             torch, device, "rooted_fixpoint", tail,
+             "phase 4's first dedup chunk's tail"),
+         "pointer_jump": fixpoint_phase(
+             torch, device, "pointer_jump", close, "phase 4's first close"),
+         "union_edges": fixpoint_phase(
+             torch, device, "union_edges", merge,
+             "a 4-shard merge_forest_stack", reps=5)}
+    print(f"phase U merge run launches: {u_merge_launches}")
+    del tail, close, merge
+    torch.cuda.empty_cache()
 
     # R. the sync audit on this stream's first chunks; R1 joins at the end
     mark("R", t_start)
@@ -8457,7 +8709,7 @@ def main() -> int:
 
     # 7. the compact CC path
     mark("7", t_start)
-    compact_cc_phase(torch, device, src, dst, oracle)
+    star = compact_cc_phase(torch, device, src, dst, oracle)
     del src, dst, oracle
 
     # 8. result lines
@@ -8658,7 +8910,47 @@ def main() -> int:
                     f"run (grid barriers met in that call; warm_ms: again "
                     f"on its inputs after one warm-up call, mean of "
                     f"{FOLD_REPS})",
-    }]}))
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "gelly_torch/csrc/unionfind_fixpoint.cu",
+        "replaces": replaces,
+        "launches": launches,
+        "phase_launches": phases,
+        "max_abs_err": max(c["max_abs_err"] for c in checks),
+        "ms": checks[0]["ms"],
+        "plain_ms": checks[0]["plain_ms"],
+        "bound_ms": checks[0]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "bound_bytes": checks[0]["bound_bytes"],
+        "rounds_met": checks[0]["rounds_met"],
+        "plain_rounds": checks[0]["plain_rounds"],
+        "timed_on": checks[0]["timed_on"],
+        "other_inputs": [{k: c[k] for k in (
+            "timed_on", "ms", "plain_ms", "bound_ms", "rounds_met",
+            "plain_rounds")} for c in checks[1:]],
+    } for name, replaces, launches, phases, checks in (
+        ("rooted_fixpoint", "gelly_tpu/ops/unionfind.py:158",
+         st["fixpoints"]["rooted_fixpoint"],
+         {"4 kernel": st["fixpoints"]["rooted_fixpoint"],
+          "4 plain": st_plain["fixpoints"]["rooted_fixpoint"],
+          "7 warm-up": star["launches"],
+          "K1": k14["fixpoint_launches"]["rooted_fixpoint"]},
+         [u["rooted_fixpoint"], star, star["open_gate"]]),
+        ("pointer_jump", "gelly_tpu/ops/unionfind.py:40",
+         st["fixpoints"]["pointer_jump"],
+         {"4 kernel": st["fixpoints"]["pointer_jump"],
+          "4 plain": st_plain["fixpoints"]["pointer_jump"],
+          "K1": k14["fixpoint_launches"]["pointer_jump"]},
+         [u["pointer_jump"]]),
+        ("union_edges", "gelly_tpu/ops/unionfind.py:52",
+         u_merge_launches["union_edges"],
+         {"U 4-shard gather merge": u_merge_launches["union_edges"],
+          "4 kernel": st["fixpoints"]["union_edges"],
+          "K1": k14["fixpoint_launches"]["union_edges"]},
+         [u["union_edges"]]),
+    )]}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -300,6 +300,9 @@ DEVICE_SCOPES: dict[tuple[str, str], str] = {
     ("kernels.py", "hashset_contains"): "ops/hashset.py:contains_chunk",
     ("kernels.py", "row_insert_chunk"): "core/neighborhood.py:_row_step",
     ("kernels.py", "sampler_step"): "library/triangles.py:_sampler_step",
+    ("kernels.py", "rooted_fixpoint"): "ops/unionfind.py:_rooted_fixpoint",
+    ("kernels.py", "pointer_jump"): "ops/unionfind.py:pointer_jump",
+    ("kernels.py", "union_edges"): "ops/unionfind.py:union_edges",
 }
 
 #: ``gelly_tpu`` jit sites that are not one def of the same name in the

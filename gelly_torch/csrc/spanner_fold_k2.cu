@@ -84,6 +84,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "grid_barrier.cuh"
 #include "lowest_lane.cuh"
 
 namespace {
@@ -447,30 +448,6 @@ __device__ __forceinline__ void block_sum2(int& a, int& b, int* sh) {
     for (int w = 0; w < kWarps; ++w) {
         a += sh[w];
         b += sh[kWarps + w];
-    }
-    __syncthreads();
-}
-
-__device__ __forceinline__ unsigned load_acquire(const unsigned* x) {
-    unsigned v;
-    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
-                 : "=r"(v) : "l"(x) : "memory");
-    return v;
-}
-
-// Every block meets here: what each thread wrote before it is visible to
-// every thread after it (a release add and an acquire spin by one thread
-// a block, ordered with the others by the block barriers). The counter
-// ends at the grid's blocks times the barriers met.
-__device__ __forceinline__ void grid_barrier(unsigned* bar,
-                                             unsigned& target) {
-    __syncthreads();
-    target += gridDim.x;
-    if (threadIdx.x == 0) {
-        asm volatile("red.release.gpu.global.add.u32 [%0], %1;"
-                     :: "l"(bar), "r"(1u) : "memory");
-        while (static_cast<int>(load_acquire(bar) - target) < 0) {
-        }
     }
     __syncthreads();
 }

@@ -97,6 +97,18 @@ SIGNATURES = {
             ctypes.c_int),
         "sampler_step_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
+    "unionfind_fixpoint": {
+        "unionfind_scratch_ints": (
+            [ctypes.c_longlong, ctypes.c_int], ctypes.c_longlong),
+        "unionfind_rooted_fixpoint_launch": (
+            [_P] * 8 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],
+            ctypes.c_int),
+        "unionfind_union_edges_launch": (
+            [_P] * 8 + [ctypes.c_longlong, ctypes.c_int, _P], ctypes.c_int),
+        "unionfind_pointer_jump_launch": (
+            [_P] * 3 + [ctypes.c_int, _P], ctypes.c_int),
+        "unionfind_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
     "matching_step": {
         "matching_step_launch": (
             [_P] * 6 + [ctypes.c_longlong, ctypes.c_int, _P], ctypes.c_int),

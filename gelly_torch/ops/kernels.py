@@ -39,7 +39,12 @@ and of the XLA device loops that eager PyTorch cannot run as written
 - :func:`row_insert_chunk` — the wrapper of ``csrc/row_insert.cu``,
   replacing ``gelly_tpu/core/neighborhood.py``'s ``_row_step``;
 - :func:`sampler_step` — the wrapper of ``csrc/sampler_step.cu``,
-  replacing ``gelly_tpu/library/triangles.py``'s ``_sampler_step``.
+  replacing ``gelly_tpu/library/triangles.py``'s ``_sampler_step``;
+- :func:`rooted_fixpoint`, :func:`pointer_jump` and :func:`union_edges`
+  — the wrappers of the three kernels of ``csrc/unionfind_fixpoint.cu``,
+  replacing ``gelly_tpu/ops/unionfind.py``'s ``_chase_roots`` /
+  ``_rooted_fixpoint``, ``pointer_jump`` and ``union_edges`` loops, every
+  round on the card.
 
 Each of these runs its ``*_plain`` version on CPU tensors and its kernel
 on CUDA tensors (or raises), and counts launches in ``.launches``.
@@ -59,6 +64,7 @@ import numpy as np
 import torch
 
 from .rowtable import put_where_, row_append_batch, row_insert
+from .segments import masked_scatter_min
 
 # Output tile edge of the wedge kernel; the mask's side must be a multiple.
 TILE = 128
@@ -1267,3 +1273,287 @@ def sampler_step(state, src, dst, valid, num_vertices: int):
 
 
 sampler_step.launches = 0
+
+
+# ------------------------------------------------------------------ #
+# The union-find fixpoints (csrc/unionfind_fixpoint.cu)
+
+def _check_forest(parent: torch.Tensor) -> None:
+    if parent.dtype != torch.int32 or parent.ndim != 1:
+        raise ValueError(f"forest: want 1-D int32, got {parent.dtype} "
+                         f"{tuple(parent.shape)}")
+
+
+def _check_scalars(device, **scalars) -> None:
+    for name, t in scalars.items():
+        if t is not None and (t.numel() != 1 or t.device != device):
+            raise ValueError(f"{name}: want one element on {device}, got "
+                             f"{tuple(t.shape)} on {t.device}")
+
+
+def _fixpoint_library():
+    from . import _build
+
+    return _build.load("unionfind_fixpoint")
+
+
+def _fixpoint_failed(lib, what: str, rc: int) -> RuntimeError:
+    msg = lib.unionfind_error_string(rc).decode()
+    return RuntimeError(f"{what} launch failed: {msg}")
+
+
+def chase_roots_plain(p: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Pair-sized pointer chase of ``x`` to its TRUE roots in the forest
+    ``p`` (``gelly_tpu``'s ``_chase_roots``): one counted host sync a
+    level."""
+    from .unionfind import _any
+
+    g = p[x]
+    while _any(g != x):
+        x, g = g, p[g]
+    return x
+
+
+def rooted_fixpoint_plain(parent, x, y, valid=None, *, star: bool = False,
+                          gate=None, n_valid=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`rooted_fixpoint`: the reference's
+    ``_rooted_fixpoint`` loop, one counted host sync a round and a chase
+    level (:func:`chase_roots_plain`), and one for ``gate``. Leaves its
+    rounds in ``rooted_fixpoint_plain.rounds``."""
+    from .unionfind import _any, host_sync
+
+    rooted_fixpoint_plain.rounds = 0
+    if gate is not None and not bool(host_sync(gate)):
+        return parent.clone()
+    act = valid
+    if act is None:
+        act = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+    if n_valid is not None:
+        act = act & (torch.arange(x.shape[0], device=x.device) < n_valid)
+    p = parent
+    rounds = 0
+    while True:
+        rounds += 1
+        ru = chase_roots_plain(p, x)
+        rv = ru[y] if star else chase_roots_plain(p, y)
+        lo = torch.minimum(ru, rv)
+        hi = torch.maximum(ru, rv)
+        live = act & (lo != hi)
+        p = masked_scatter_min(p, hi, lo, live)
+        if not _any(live):
+            break
+    rooted_fixpoint_plain.rounds = rounds
+    return p
+
+
+rooted_fixpoint_plain.rounds = 0
+
+
+def rooted_fixpoint(parent, x, y, valid=None, *, star: bool = False,
+                    gate=None, n_valid=None) -> torch.Tensor:
+    """The exact hook loop of the pair-sized unions (``gelly_tpu``'s
+    ``_rooted_fixpoint`` with its ``_chase_roots``): each round chases
+    the lanes to their TRUE roots in the forest as it stood at the
+    round's start, then hooks ``max(ru, rv) -> min(ru, rv)`` with one
+    scatter-min over the live lanes (valid, roots apart); it ends after
+    the first round with no live lane. Returns a new forest.
+
+    The pair form takes ``rv`` as the chase of ``y``; the star form
+    (``star=True``) takes ``rv = ru[y]`` (``y`` is the row index ``ri``,
+    every lane's ``ru`` chased). ``x`` and ``y`` are ``int32`` lanes, in
+    range on every lane; a lane is valid where ``valid`` (``bool``, None:
+    every lane) holds and it lies below ``n_valid`` (a one-element device
+    integer, None: no bound). ``gate`` (a one-element device ``bool``,
+    None: open) closed runs no round.
+
+    On CPU tensors it runs :func:`rooted_fixpoint_plain`; on CUDA tensors
+    it launches ``csrc/unionfind_fixpoint.cu`` (one cooperative launch,
+    counted in ``rooted_fixpoint.launches``) or raises. The kernel reads
+    ``gate`` and ``n_valid`` itself, so nothing here syncs; each launch
+    leaves in ``rooted_fixpoint.met`` a 1-element ``int32`` device tensor
+    with the rounds it met (0 for a closed gate, -1 if a walk passed the
+    slot count: a cycle)."""
+    _check_forest(parent)
+    lanes = {"x": x, "ri" if star else "y": y}
+    if valid is not None:
+        lanes["valid"] = valid
+    _check_lanes(parent.device, **lanes)
+    _check_scalars(parent.device, gate=gate, n_valid=n_valid)
+    if parent.device.type == "cpu":
+        return rooted_fixpoint_plain(parent, x, y, valid, star=star,
+                                     gate=gate, n_valid=n_valid)
+    if parent.device.type != "cuda":
+        raise ValueError(f"rooted_fixpoint runs on CPU or CUDA, got "
+                         f"{parent.device}")
+    p = parent.clone(memory_format=torch.contiguous_format)
+    n, L = p.shape[0], x.shape[0]
+    if n == 0:
+        return p
+    lib = _fixpoint_library()
+    scratch = torch.empty(lib.unionfind_scratch_ints(L, int(star)),
+                          dtype=torch.int32, device=p.device)
+    met = torch.empty(1, dtype=torch.int32, device=p.device)
+    g = None if gate is None else gate.reshape(1).to(torch.bool)
+    nv = None if n_valid is None else torch.clamp(
+        n_valid.reshape(1), max=L).to(torch.int32)
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.unionfind_rooted_fixpoint_launch(
+            p.data_ptr(), x.data_ptr(), y.data_ptr(),
+            None if valid is None else valid.data_ptr(),
+            None if nv is None else nv.data_ptr(),
+            None if g is None else g.data_ptr(), scratch.data_ptr(),
+            met.data_ptr(), L, n, int(star), stream)
+    if rc:
+        raise _fixpoint_failed(lib, "rooted_fixpoint", rc)
+    rooted_fixpoint.launches += 1
+    rooted_fixpoint.met = met
+    return p
+
+
+rooted_fixpoint.launches = 0
+rooted_fixpoint.met = None
+
+
+def pointer_jump_plain(parent: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`pointer_jump`: the reference's
+    doubling loop ``p <- p[p]``, one counted host sync a round; leaves
+    its doubling rounds in ``pointer_jump_plain.rounds``."""
+    from .unionfind import _any
+
+    p = parent
+    rounds = 0
+    while True:
+        pp = p[p]
+        if not _any(pp != p):
+            break
+        p = pp
+        rounds += 1
+    pointer_jump_plain.rounds = rounds
+    return p
+
+
+pointer_jump_plain.rounds = 0
+
+
+def pointer_jump(parent: torch.Tensor) -> torch.Tensor:
+    """Full path compression: every slot's root (``gelly_tpu``'s
+    ``pointer_jump``, whose doubling loop ends at exactly that). On CPU
+    tensors it runs :func:`pointer_jump_plain`; on CUDA tensors it
+    launches ``csrc/unionfind_fixpoint.cu`` (one plain launch, a thread
+    a slot walking to its root, written to a new tensor; counted in
+    ``pointer_jump.launches``) or raises. Each launch leaves in
+    ``pointer_jump.met`` a 1-element ``int32`` device tensor with its
+    longest walk in hops (``d`` hops take the reference
+    ``ceil(log2(d))`` doubling rounds)."""
+    _check_forest(parent)
+    if parent.device.type == "cpu":
+        return pointer_jump_plain(parent)
+    if parent.device.type != "cuda":
+        raise ValueError(f"pointer_jump runs on CPU or CUDA, got "
+                         f"{parent.device}")
+    p = parent.contiguous()
+    out = torch.empty_like(p)
+    if p.shape[0] == 0:
+        return out
+    lib = _fixpoint_library()
+    longest = torch.empty(1, dtype=torch.int32, device=p.device)
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.unionfind_pointer_jump_launch(
+            p.data_ptr(), out.data_ptr(), longest.data_ptr(), p.shape[0],
+            stream)
+    if rc:
+        raise _fixpoint_failed(lib, "pointer_jump", rc)
+    pointer_jump.launches += 1
+    pointer_jump.met = longest
+    return out
+
+
+pointer_jump.launches = 0
+pointer_jump.met = None
+
+
+def union_edges_plain(parent, src, dst, valid=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`union_edges`: the reference's
+    Shiloach-Vishkin loop, one counted host sync a round, then
+    :func:`pointer_jump_plain`; leaves its rounds in
+    ``union_edges_plain.rounds``."""
+    from .unionfind import _any
+
+    if valid is None:
+        valid = torch.ones(src.shape[0], dtype=torch.bool,
+                           device=src.device)
+    p = parent
+    rounds = 0
+    while True:
+        rounds += 1
+        lu = p[src]
+        lv = p[dst]
+        lo = torch.minimum(lu, lv)
+        hi = torch.maximum(lu, lv)
+        live = valid & (lo != hi)
+        p2 = masked_scatter_min(p, hi, lo, live)
+        p2 = p2[p2]  # one doubling step (monotone: p2[i] <= i)
+        changed = _any(p2 != p)
+        p = p2
+        if not changed:
+            break
+    union_edges_plain.rounds = rounds
+    return pointer_jump_plain(p)
+
+
+union_edges_plain.rounds = 0
+
+
+def union_edges(parent, src, dst, valid=None) -> torch.Tensor:
+    """Union every valid ``(src, dst)`` edge into the forest and return
+    the compressed forest (``gelly_tpu``'s ``union_edges``): each round
+    one scatter-min hook of ``max(p[src], p[dst]) -> min(...)`` read from
+    the forest at the round's start and one doubling step, until a round
+    changes nothing, then :func:`pointer_jump`. ``src`` and ``dst`` are
+    ``int32`` lanes in range; ``valid`` a ``bool`` mask (None: every
+    lane).
+
+    On CPU tensors it runs :func:`union_edges_plain`; on CUDA tensors it
+    launches ``csrc/unionfind_fixpoint.cu`` (one cooperative launch for
+    the rounds, counted in ``union_edges.launches``, then
+    :func:`pointer_jump`) or raises. Each launch leaves in
+    ``union_edges.met`` a 1-element ``int32`` device tensor with the
+    rounds it met."""
+    _check_forest(parent)
+    lanes = {"src": src, "dst": dst}
+    if valid is not None:
+        lanes["valid"] = valid
+    _check_lanes(parent.device, **lanes)
+    if parent.device.type == "cpu":
+        return union_edges_plain(parent, src, dst, valid)
+    if parent.device.type != "cuda":
+        raise ValueError(f"union_edges runs on CPU or CUDA, got "
+                         f"{parent.device}")
+    r = parent.clone(memory_format=torch.contiguous_format)
+    n = r.shape[0]
+    if n == 0:
+        return r
+    s = r.clone()
+    t = torch.empty_like(r)
+    lib = _fixpoint_library()
+    scratch = torch.empty(lib.unionfind_scratch_ints(0, -1),
+                          dtype=torch.int32, device=r.device)
+    met = torch.empty(1, dtype=torch.int32, device=r.device)
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.unionfind_union_edges_launch(
+            r.data_ptr(), s.data_ptr(), t.data_ptr(), src.data_ptr(),
+            dst.data_ptr(), None if valid is None else valid.data_ptr(),
+            scratch.data_ptr(), met.data_ptr(), src.shape[0], n, stream)
+    if rc:
+        raise _fixpoint_failed(lib, "union_edges", rc)
+    union_edges.launches += 1
+    union_edges.met = met
+    del s, t  # the scratch goes back before the jump takes its output
+    return pointer_jump(r)
+
+
+union_edges.launches = 0
+union_edges.met = None

@@ -8,11 +8,15 @@ a whole chunk of edges is unioned at once. At convergence every vertex's
 root is the **minimum vertex slot in its component**, the canonical label
 both packages emit.
 
-Each ``lax.while_loop`` of the reference becomes a Python loop whose
-condition is one host sync per round, and each ``lax.cond`` a Python ``if``
-on a synced scalar; ``host_sync.count`` counts those syncs. Keeping the
-fixpoints on the device is later work. Every function returns new tensors
-and leaves its inputs untouched.
+The reference's ``lax.while_loop`` fixpoints run as the hand kernels of
+``csrc/unionfind_fixpoint.cu`` (:func:`~gelly_torch.ops.kernels.
+rooted_fixpoint`, :func:`~gelly_torch.ops.kernels.pointer_jump`,
+:func:`~gelly_torch.ops.kernels.union_edges`), every round on the card,
+and its ``lax.cond`` s as launches gated by device booleans: on the card
+no function here reads a value on the host. On CPU tensors the kernels'
+plain versions run the same control flow as Python loops, one counted
+:func:`host_sync` a round or gate. Every function returns new tensors and
+leaves its inputs untouched.
 """
 
 from __future__ import annotations
@@ -21,12 +25,14 @@ import numpy as np
 import torch
 
 from ..core.device import DEFAULT_DEVICE, resolve_device, to_numpy
+from . import kernels
 from .segments import INT_MAX, masked_scatter_min
 
 
 def host_sync(t: torch.Tensor):
     """Python value of a one-element tensor: the one device->host sync per
-    fixpoint round or branch. ``host_sync.count`` counts calls."""
+    round or branch of a plain fixpoint (and of the loops that keep their
+    rounds on the host). ``host_sync.count`` counts calls."""
     host_sync.count += 1
     return t.item()
 
@@ -45,72 +51,35 @@ def fresh_forest(capacity: int,
                         device=resolve_device(device))
 
 
+def _i32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as contiguous ``int32`` lanes (no copy when it is already)."""
+    return t.to(torch.int32).contiguous()
+
+
+def _mask(valid: torch.Tensor | None) -> torch.Tensor | None:
+    """A lane mask as the kernels take it: contiguous ``bool``, or None."""
+    return None if valid is None else valid.to(torch.bool).contiguous()
+
+
 def pointer_jump(parent: torch.Tensor) -> torch.Tensor:
-    """Full path compression: parent <- parent[parent] until fixpoint."""
-    p = parent
-    while True:
-        pp = p[p]
-        if not _any(pp != p):
-            return p
-        p = pp
+    """Full path compression: parent <- parent[parent] until fixpoint,
+    i.e. every slot's root (:func:`~gelly_torch.ops.kernels.
+    pointer_jump`)."""
+    return kernels.pointer_jump(parent)
 
 
 def union_edges(parent: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
-                valid: torch.Tensor) -> torch.Tensor:
+                valid: torch.Tensor | None = None) -> torch.Tensor:
     """Union all valid (src, dst) edges into the forest; returns the
     compressed forest.
 
-    Shiloach-Vishkin shape: each round one masked scatter-min hook
-    (``max(root) -> min(root)``) and one pointer-doubling step, until a
-    round changes nothing; then a full :func:`pointer_jump`. Order-free:
-    the result is the same canonical forest for any edge order.
+    Shiloach-Vishkin shape (:func:`~gelly_torch.ops.kernels.union_edges`):
+    each round one masked scatter-min hook (``max(root) -> min(root)``)
+    and one pointer-doubling step, until a round changes nothing; then a
+    full :func:`pointer_jump`. Order-free: the result is the same
+    canonical forest for any edge order. ``valid`` None: every edge.
     """
-    p = parent
-    while True:
-        lu = p[src]
-        lv = p[dst]
-        lo = torch.minimum(lu, lv)
-        hi = torch.maximum(lu, lv)
-        live = valid & (lo != hi)
-        p2 = masked_scatter_min(p, hi, lo, live)
-        p2 = p2[p2]  # one doubling step (monotone: p2[i] <= i)
-        changed = _any(p2 != p)
-        p = p2
-        if not changed:
-            return pointer_jump(p)
-
-
-def _chase_roots(p: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Pair-sized pointer chase to the TRUE roots of x."""
-    g = p[x]
-    while _any(g != x):
-        x, g = g, p[g]
-    return x
-
-
-def _rooted_fixpoint(parent: torch.Tensor, src: torch.Tensor, rv_fn,
-                     valid: torch.Tensor, live0: bool) -> torch.Tensor:
-    """Shared exact hook loop of the pair-sized union kernels: per round,
-    chase ``src`` to true roots, resolve the partner roots with
-    ``rv_fn(p, ru)``, hook root-to-root with one scatter-min; exit after
-    the first round in which no pair is live. ``live0`` False runs zero
-    rounds.
-
-    Hooks write ``lo < p[hi] = hi`` at true roots only, so chains stay
-    strictly decreasing (acyclic) and every live round strictly lowers
-    some entry (termination).
-    """
-    p = parent
-    live_any = bool(live0)
-    while live_any:
-        ru = _chase_roots(p, src)
-        rv = rv_fn(p, ru)
-        lo = torch.minimum(ru, rv)
-        hi = torch.maximum(ru, rv)
-        live = valid & (lo != hi)
-        p = masked_scatter_min(p, hi, lo, live)
-        live_any = _any(live)
-    return p
+    return kernels.union_edges(parent, _i32(src), _i32(dst), _mask(valid))
 
 
 def union_pairs_rooted(parent: torch.Tensor, src: torch.Tensor,
@@ -119,15 +88,16 @@ def union_pairs_rooted(parent: torch.Tensor, src: torch.Tensor,
 
     Each round chases both endpoints to their TRUE roots and hooks
     root-to-root with one masked scatter-min, until every valid pair's
-    roots agree. The forest is returned **without** a global flatten
-    (depth can grow by O(1) per call; the window-close transform runs one
-    :func:`pointer_jump`).
+    roots agree (:func:`~gelly_torch.ops.kernels.rooted_fixpoint`, pair
+    form). Hooks write ``lo < p[hi] = hi`` at true roots only, so chains
+    stay strictly decreasing (acyclic) and every live round strictly
+    lowers some entry (termination). The forest is returned **without**
+    a global flatten (depth can grow by O(1) per call; the window-close
+    transform runs one :func:`pointer_jump`).
     """
-    src = torch.where(valid, src, 0)
-    dst = torch.where(valid, dst, 0)
-    return _rooted_fixpoint(
-        parent, src, lambda p, ru: _chase_roots(p, dst), valid, True
-    )
+    return kernels.rooted_fixpoint(
+        parent, _i32(torch.where(valid, src, 0)),
+        _i32(torch.where(valid, dst, 0)), _mask(valid))
 
 
 def union_pairs_compact(parent: torch.Tensor, src: torch.Tensor,
@@ -187,10 +157,12 @@ def union_pairs_star(parent: torch.Tensor, v: torch.Tensor, ri: torch.Tensor,
        then one scatter-min hook MASKED to verified roots
        (``p[hi] == hi``; a hook at an interior node would replace a real
        parent edge). No host sync.
-    2. a depth-limited check: ``any(valid & (ru != ru[ri]))`` — the ONE
-       counted :func:`host_sync` of a call that converges in step 1.
-    3. the exact fixpoint (:func:`_rooted_fixpoint`) only when the check
-       found live pairs.
+    2. a depth-limited check: ``any(valid & (ru != ru[ri]))``, a device
+       boolean;
+    3. the exact fixpoint (:func:`~gelly_torch.ops.kernels.
+       rooted_fixpoint`, star form) gated by that boolean: it runs only
+       when the check found live pairs (on CPU tensors its one counted
+       :func:`host_sync` reads the gate).
 
     Every step is a deterministic scatter-min, so the forest equals
     ``gelly_tpu``'s bit for bit. Like :func:`union_pairs_rooted`, it is
@@ -213,8 +185,9 @@ def union_pairs_star(parent: torch.Tensor, v: torch.Tensor, ri: torch.Tensor,
         live = valid & (lo != hi) & (p[hi] == hi)
         p = masked_scatter_min(p, hi, lo, live)
     ru = chase_fixed(p, v, check_depth)
-    live0 = bool(host_sync((valid & (ru != ru[ri])).any()))
-    return _rooted_fixpoint(p, v, lambda p_, ru_: ru_[ri], valid, live0)
+    live0 = (valid & (ru != ru[ri])).any()
+    return kernels.rooted_fixpoint(p, _i32(v), _i32(ri), _mask(valid),
+                                   star=True, gate=live0)
 
 
 def _dedup_pairs(src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor,
@@ -266,12 +239,18 @@ def union_edges_dedup(parent: torch.Tensor, src: torch.Tensor,
        hook lo under hi MASKED to verified roots (``p[hi] == hi``);
     4. survivors compact into ``tail_cap`` lanes (cumsum + scatter) and
        finish in the exact pair-sized fixpoint
-       (:func:`union_pairs_rooted`);
+       (:func:`~gelly_torch.ops.kernels.rooted_fixpoint`);
     5. one ``p[p]`` halving keeps entry depth low for the next chunk.
 
     Exactness never depends on the caps: ``unique_cap`` overflow falls
     back to the exact fixpoint over the ORIGINAL pairs, ``tail_cap``
-    overflow re-runs it over the distinct pairs.
+    overflow re-runs it over the distinct pairs. The reference's two
+    ``lax.cond`` s stay on the device: the overflow is a device boolean
+    that masks the hook rounds (so an overflow chunk leaves the forest as
+    it was) and gates the fallback, the survivor count ``nalive`` a
+    device integer that bounds the tail's lanes and gates the re-run;
+    each fixpoint is a launch whose closed gate runs no round. On the
+    card nothing here reads a value on the host.
 
     ``backend`` selects how the hook rounds' first-level chases of the lo
     endpoints run: ``"plain"`` (the reference's ``"xla"``) gathers
@@ -300,15 +279,9 @@ def union_edges_dedup(parent: torch.Tensor, src: torch.Tensor,
         tail_cap = max(1 << 16, unique_cap // 4)
     tail_cap = min(tail_cap, unique_cap)
     uu_c, vv_c, live0, ucount = _dedup_pairs(src, dst, valid, unique_cap)
-
-    if host_sync(ucount) > unique_cap:
-        # unique_cap overflow: distinct pairs beyond the cap were sliced
-        # away, so run the exact fixpoint over the ORIGINAL pairs.
-        p = union_pairs_rooted(
-            parent, torch.where(valid, src, 0), torch.where(valid, dst, 0),
-            valid,
-        )
-        return p[p]
+    # unique_cap overflow: distinct pairs beyond the cap were sliced away.
+    over = ucount > unique_cap
+    fits = ~over
 
     # Dead lanes (duplicates, masked pairs) never hook and never reach the
     # tail; slot 0 keeps their gathers in range.
@@ -339,7 +312,7 @@ def union_edges_dedup(parent: torch.Tensor, src: torch.Tensor,
         lo = torch.minimum(g, h)
         hi = torch.maximum(g, h)
         alive = live0 & (lo != hi)
-        hook = alive & (p[hi] == hi)
+        hook = alive & (p[hi] == hi) & fits
         if hit is not None:
             # Window-missed lanes: their chased root is unknown, so they
             # may not hook this round; they resolve in the exact tail.
@@ -348,25 +321,29 @@ def union_edges_dedup(parent: torch.Tensor, src: torch.Tensor,
         p = masked_scatter_min(p, hi, lo, hook)
     alive32 = alive.to(torch.int32)
     pos = torch.cumsum(alive32, 0, dtype=torch.int32) - 1
-    nalive = host_sync(alive32.sum())
+    nalive = alive32.sum()
     tgt = torch.where(alive & (pos < tail_cap), pos, tail_cap).long()
     cu = torch.zeros(tail_cap + 1, dtype=torch.int32, device=p.device)
     cv = torch.zeros(tail_cap + 1, dtype=torch.int32, device=p.device)
     cu = cu.scatter(0, tgt, uu_s)[:tail_cap]
     cv = cv.scatter(0, tgt, vv_s)[:tail_cap]
-    clive = (torch.arange(tail_cap, dtype=torch.int32, device=p.device)
-             < min(nalive, tail_cap))
-    p = union_pairs_rooted(p, cu, cv, clive)
-    if nalive > tail_cap:
-        # Tail overflow: exact fixpoint over ALL distinct pairs.
-        p = union_pairs_rooted(p, uu_c, vv_c, live0)
+    # The survivors: the first min(nalive, tail_cap) lanes.
+    p = kernels.rooted_fixpoint(p, cu, cv, gate=fits, n_valid=nalive)
+    # Tail overflow: exact fixpoint over ALL distinct pairs.
+    p = kernels.rooted_fixpoint(p, uu_s, vv_s, live0,
+                                gate=fits & (nalive > tail_cap))
+    # unique_cap overflow: the exact fixpoint over the ORIGINAL pairs,
+    # from the forest the masked rounds left as it was.
+    p = kernels.rooted_fixpoint(
+        p, _i32(torch.where(valid, src, 0)), _i32(torch.where(valid, dst, 0)),
+        _mask(valid), gate=over)
     return p[p]
 
 
 def merge_forests(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Union two forests over the same slot space (DisjointSet.merge)."""
     idx = torch.arange(a.shape[0], dtype=torch.int32, device=a.device)
-    return union_edges(a, idx, b, torch.ones_like(idx, dtype=torch.bool))
+    return union_edges(a, idx, b)
 
 
 def merge_forest_stack(stacked: torch.Tensor) -> torch.Tensor:
@@ -376,10 +353,7 @@ def merge_forest_stack(stacked: torch.Tensor) -> torch.Tensor:
     idx = torch.arange(n, dtype=torch.int32,
                        device=stacked.device).expand(k, n).reshape(-1)
     dsts = stacked.reshape(-1)
-    return union_edges(
-        fresh_forest(n, stacked.device), idx, dsts,
-        torch.ones(k * n, dtype=torch.bool, device=stacked.device),
-    )
+    return union_edges(fresh_forest(n, stacked.device), idx, dsts)
 
 
 def chase_depth(parent) -> int:

@@ -1,7 +1,9 @@
 """gelly_torch on the card: each CUDA kernel vs its plain version (the
 gather, the wedge kernel, both entries of the spanner gate, the k = 2
-chunk fold, the matching fold and the hash set's parallel insert, on
-random states and on their edge cases); the CC (raw,
+chunk fold, the matching fold, the hash set's parallel insert and the
+union-find fixpoints, on random states and on their edge cases, the
+fixpoints also at the raw fold's widths and on a chain 2^16 deep); the
+CC (raw,
 compact and sparse plans), window-triangle, degree and bipartiteness
 (raw, dense and sparse plans) paths, the spanner plans, the matching and
 the stream API on CUDA vs the same paths on the CPU; the engine's pinned
@@ -30,6 +32,7 @@ from gelly_torch.ops import kernels
 
 import _fold_k2_cases as fold_cases
 import _spanner_gate_cases as gate_cases
+import _unionfind_cases as uf_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -1521,3 +1524,124 @@ def test_tenant_tier_on_card_equals_cpu(cuda_device, kind, monkeypatch):
     for t in edges:
         assert got[t].dtype == want[t].dtype
         assert got[t].tobytes() == want[t].tobytes(), t
+
+
+# --------------------------------------------------------------------- #
+# The union-find fixpoints (csrc/unionfind_fixpoint.cu)
+
+
+def _fixpoints_equal_plain(p, s, d, v, ri):
+    """Each of the three kernels on the card against its plain version on
+    the same inputs (run on the card too), rounds met included."""
+    got = kernels.pointer_jump(p)
+    want = kernels.pointer_jump_plain(p)
+    assert torch.equal(got, want)
+    hops = int(kernels.pointer_jump.met)
+    rounds = kernels.pointer_jump_plain.rounds
+    assert rounds == (0 if hops <= 1 else (hops - 1).bit_length())
+    got = kernels.union_edges(p, s, d, v)
+    assert torch.equal(got, kernels.union_edges_plain(p, s, d, v))
+    assert int(kernels.union_edges.met) == kernels.union_edges_plain.rounds
+    ms, md = torch.where(v, s, 0), torch.where(v, d, 0)
+    got = kernels.rooted_fixpoint(p, ms, md, v)
+    assert torch.equal(got, kernels.rooted_fixpoint_plain(p, ms, md, v))
+    assert int(kernels.rooted_fixpoint.met) \
+        == kernels.rooted_fixpoint_plain.rounds
+    got = kernels.rooted_fixpoint(p, ms, ri, v, star=True)
+    assert torch.equal(got, kernels.rooted_fixpoint_plain(
+        p, ms, ri, v, star=True))
+    assert int(kernels.rooted_fixpoint.met) \
+        == kernels.rooted_fixpoint_plain.rounds
+
+
+@pytest.mark.parametrize("name", list(uf_cases.cases()))
+def test_unionfind_fixpoints_equal_plain(cuda_device, name):
+    forest = uf_cases.cases()[name]
+    n = forest.shape[0]
+    rng = np.random.default_rng(n)
+    s, d, v = uf_cases.zipf_pairs(rng, n, max(16, n // 2))
+    ri = rng.integers(0, s.shape[0], s.shape[0]).astype(np.int32)
+    t = [torch.from_numpy(a).to(cuda_device) for a in (forest, s, d, v, ri)]
+    before = (kernels.pointer_jump.launches, kernels.union_edges.launches,
+              kernels.rooted_fixpoint.launches)
+    _fixpoints_equal_plain(*t)
+    # union_edges launches its rounds, then the jump.
+    assert (kernels.pointer_jump.launches, kernels.union_edges.launches,
+            kernels.rooted_fixpoint.launches) \
+        == (before[0] + 2, before[1] + 1, before[2] + 2)
+
+
+def test_unionfind_fixpoints_at_path_width(cuda_device):
+    """A ``2^24``-slot forest folded from a ``2^22``-edge Zipf chunk, a
+    ``2^18``-lane tail and a ``2^22``-lane fallback (and merge) on it."""
+    from gelly_torch.ops import unionfind
+
+    n, chunk = 1 << 24, 1 << 22
+    rng = np.random.default_rng(24)
+    s, d, v = (torch.from_numpy(a).to(cuda_device)
+               for a in uf_cases.zipf_pairs(rng, n, chunk))
+    p = unionfind.union_edges_dedup(
+        unionfind.fresh_forest(n, cuda_device), s, d, v,
+        unique_cap=3 * (chunk >> 4), backend="plain")
+    s2, d2, v2 = (torch.from_numpy(a).to(cuda_device)
+                  for a in uf_cases.zipf_pairs(rng, n, chunk))
+    tail = 1 << 18
+    ri = torch.from_numpy(rng.integers(0, tail, tail).astype(np.int32)).to(
+        cuda_device)
+    _fixpoints_equal_plain(p, s2[:tail], d2[:tail], v2[:tail], ri)
+    ms, md = torch.where(v2, s2, 0), torch.where(v2, d2, 0)
+    got = kernels.rooted_fixpoint(p, ms, md, v2)
+    assert torch.equal(got, kernels.rooted_fixpoint_plain(p, ms, md, v2))
+    assert int(kernels.rooted_fixpoint.met) \
+        == kernels.rooted_fixpoint_plain.rounds
+    st = torch.stack([p, got])
+    assert torch.equal(unionfind.merge_forest_stack(st),
+                       unionfind.merge_forest_stack(st.cpu()).to(cuda_device))
+
+
+@pytest.mark.parametrize("backend", ["plain", "kernel"])
+def test_dedup_fold_reads_nothing_on_the_host(cuda_device, backend):
+    from gelly_torch.ops import unionfind
+
+    n, chunk = 1 << 24, 1 << 22
+    rng = np.random.default_rng(22)
+    s, d, v = (torch.from_numpy(a).to(cuda_device)
+               for a in uf_cases.zipf_pairs(rng, n, chunk))
+    p = unionfind.fresh_forest(n, cuda_device)
+    before = unionfind.host_sync.count
+    gathers = kernels.sorted_window_gather.launches
+    got = {}
+    for ucap in (1 << 20, 1 << 10):  # fits, then unique_cap overflows
+        got[ucap] = unionfind.union_edges_dedup(p, s, d, v, unique_cap=ucap,
+                                                backend=backend)
+        assert unionfind.host_sync.count == before
+        assert kernels.sorted_window_gather.launches - gathers \
+            == (3 if backend == "kernel" else 0)
+        gathers = kernels.sorted_window_gather.launches
+    want = unionfind.union_edges_dedup(p.cpu(), s.cpu(), d.cpu(), v.cpu(),
+                                       unique_cap=1 << 20, backend=backend)
+    assert torch.equal(got[1 << 20].cpu(), want)
+    # The fallback's forest has the same components.
+    assert torch.equal(kernels.pointer_jump(got[1 << 10]),
+                       kernels.pointer_jump(got[1 << 20]))
+
+
+def test_unionfind_fixpoints_on_a_chain_2_16_deep(cuda_device):
+    n, depth = 1 << 17, 1 << 16
+    p = torch.from_numpy(uf_cases.chain(n, depth)).to(cuda_device)
+    roots = kernels.pointer_jump(p)
+    assert int(kernels.pointer_jump.met) == depth
+    assert torch.equal(roots[:depth + 1],
+                       torch.zeros(depth + 1, dtype=torch.int32,
+                                   device=cuda_device))
+    # The chain's deep end joined to singletons past it.
+    x = torch.arange(depth - 8, depth + 1, dtype=torch.int32,
+                     device=cuda_device)
+    y = x + (n - depth - 16)
+    got = kernels.rooted_fixpoint(p, x, y)
+    assert torch.equal(got, kernels.rooted_fixpoint_plain(p, x, y))
+    assert int(kernels.rooted_fixpoint.met) == 2
+    got = kernels.union_edges(p, x, y)
+    assert torch.equal(got, kernels.union_edges_plain(p, x, y))
+    assert int(kernels.union_edges.met) \
+        == kernels.union_edges_plain.rounds

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from gelly_torch.ops import kernels as tk
 from gelly_torch.ops import segments as ts
 from gelly_torch.ops import unionfind as tu
 from gelly_tpu.ops import segments as js
@@ -74,7 +75,7 @@ def test_pointer_jump_labels_depth(name):
           ju.component_labels(jnp.asarray(parent), jnp.asarray(seen)))
     assert tu.chase_depth(_t(parent)) == ju.chase_depth(parent)
     x = rng.integers(0, N, 300).astype(np.int32)
-    _same(tu._chase_roots(_t(parent), _t(x)),
+    _same(tk.chase_roots_plain(_t(parent), _t(x)),
           ju._chase_roots(jnp.asarray(parent), jnp.asarray(x)))
 
 
@@ -107,14 +108,14 @@ def test_union_edges_rooted_and_fixpoint():
           ju.union_edges(P, S, D, V))
     _same(tu.union_pairs_rooted(_t(parent), _t(s), _t(d), _t(v)),
           ju.union_pairs_rooted(P, S, D, V))
-    # _rooted_fixpoint with a partner-root function, and with live0 off.
+    # The fixpoint's star form (rv = ru[ri]), and with live0 off.
     ri = rng.integers(0, s.shape[0], s.shape[0]).astype(np.int32)
-    _same(tu._rooted_fixpoint(_t(parent), _t(s), lambda p, ru: ru[_t(ri)],
-                              _t(v), True),
+    _same(tk.rooted_fixpoint_plain(_t(parent), _t(s), _t(ri), _t(v),
+                                   star=True),
           ju._rooted_fixpoint(P, S, lambda p, ru: ru[jnp.asarray(ri)], V,
                               jnp.bool_(True)))
-    _same(tu._rooted_fixpoint(_t(parent), _t(s), lambda p, ru: ru, _t(v),
-                              False), P)
+    _same(tk.rooted_fixpoint_plain(_t(parent), _t(s), _t(s), _t(v),
+                                   gate=torch.tensor(False)), P)
 
 
 def test_merge_forests_and_stack():
