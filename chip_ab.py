@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time gelly_torch's raw CC path and window-triangle path on one CUDA
-card for several checkouts, each in its own process, in the order given.
+"""Time gelly_torch's raw CC path and window-triangle path, or its
+bipartiteness plans, on one CUDA card for several checkouts, each in its
+own process, in the order given.
 
-    python3 chip_ab.py [--cc-only] [--reps=R] OLD_TREE . . OLD_TREE
+    python3 chip_ab.py [--cc-only | --bip-only] [--reps=R] OLD_TREE . . OLD_TREE
 
 A checkout is a directory holding a ``gelly_torch`` package (the repo root,
 or an older commit unpacked with ``git archive``). For each one, in turn,
@@ -15,7 +16,12 @@ with every wall:
   ``fold_backend="kernel"`` and ``"plain"``;
 - the triangle path of phase 6: ``2^24`` Zipf edges over ``2^15`` slots,
   EVENT time, 4 windows, ``window_triangle_counts_batched(batch=4)``
-  (skipped with ``--cc-only``).
+  (skipped with ``--cc-only``);
+- with ``--bip-only``, instead of both: the bipartiteness check of
+  ``chip_smoke.py`` phase E2, the CC stream made bipartite (``src & ~1``,
+  ``dst | 1``) over ``2^24`` slots in ``2^22``-edge chunks,
+  ``merge_every=4``, ``fold_batch=4``, through the sparse codec, the
+  dense codec and the raw fold.
 
 The streams (seed 17) are made once and shared through ``.npy`` files
 under ``.scratch/ab/`` beside this script. Alternating the order (old,
@@ -72,7 +78,7 @@ def streams():
     return out
 
 
-def child(tree: str, cc_only: bool, reps: int) -> dict:
+def child(tree: str, cc_only: bool, bip_only: bool, reps: int) -> dict:
     import torch
 
     sys.path.insert(0, os.path.abspath(tree))
@@ -80,6 +86,7 @@ def child(tree: str, cc_only: bool, reps: int) -> dict:
     from gelly_torch.core.io import EdgeChunkSource, TimeCharacteristic
     from gelly_torch.core.stream import edge_stream_from_source
     from gelly_torch.core.vertices import IdentityVertexTable
+    from gelly_torch.library import bipartiteness as bp
     from gelly_torch.library import connected_components as cc
     from gelly_torch.library import triangles as tri
     from gelly_torch.ops import _build
@@ -119,10 +126,30 @@ def child(tree: str, cc_only: bool, reps: int) -> dict:
         torch.stack(counts).cpu()
         return time.perf_counter() - t
 
+    bsrc, bdst = (src & ~1, dst | 1) if bip_only else (None, None)
+
+    def bip_wall(**plan) -> float:
+        stream = edge_stream_from_source(
+            EdgeChunkSource(bsrc, bdst, chunk_size=CHUNK,
+                            table=IdentityVertexTable(N_VERTICES)),
+            N_VERTICES)
+        agg = bp.bipartiteness_check(N_VERTICES, **plan)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        list(stream.aggregate(agg, merge_every=MERGE_EVERY,
+                              fold_batch=MERGE_EVERY))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
     out = {"tree": tree}
-    paths = [("cc_kernel_s", lambda: cc_wall("kernel")),
-             ("cc_plain_s", lambda: cc_wall("plain"))]
-    if not cc_only:
+    if bip_only:
+        paths = [("bip_sparse_s", lambda: bip_wall()),
+                 ("bip_dense_s", lambda: bip_wall(codec="dense")),
+                 ("bip_raw_s", lambda: bip_wall(ingest_combine=False))]
+    else:
+        paths = [("cc_kernel_s", lambda: cc_wall("kernel")),
+                 ("cc_plain_s", lambda: cc_wall("plain"))]
+    if not (cc_only or bip_only):
         paths.append(("tri_s", tri_wall))
     for name, fn in paths:
         fn()  # warm-up
@@ -135,10 +162,11 @@ def main() -> int:
     opts = [a for a in args if a.startswith("--") and a != "--child"]
     args = [a for a in args if a not in opts]
     cc_only = "--cc-only" in opts
+    bip_only = "--bip-only" in opts
     reps = int(next((a.split("=", 1)[1] for a in opts
                      if a.startswith("--reps=")), 3))
     if len(args) >= 2 and args[0] == "--child":
-        print(json.dumps(child(args[1], cc_only, reps)))
+        print(json.dumps(child(args[1], cc_only, bip_only, reps)))
         return 0
     trees = args
     if not trees:

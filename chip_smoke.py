@@ -93,7 +93,9 @@ U. the union-find fixpoints (``csrc/unionfind_fixpoint.cu``) on inputs
    sub-batch on F3's second chunk, its chain floor there, F2's chunk
    times) and the three union-find fixpoints (their launches in phase 4,
    and for ``union_edges`` in phase U's merge run; other phases' as
-   ``phase_launches``; rounds met), each with the JAX function it
+   ``phase_launches``; rounds met) and the two parity kernels (their
+   launches in E2's first sparse codec run, every other E run's and L1's
+   and L2's as ``phase_launches``), each with the JAX function it
    replaces,
    the gather's and the sampler's launches on the mesh as
    ``mesh_launches``, the gather's and entry 2's in phase L1 as
@@ -169,9 +171,10 @@ O. O1: two hosts each fold their half of phase 4's chunks through a
    ``diag(A³) / 2``).
 
 The degree and bipartiteness paths (after phase B, on the native degree and
-parity codecs, never disabled; neither launches a hand kernel, counted;
-each timed run prints its wall, edges or events a second, stage busy
-seconds, H2D bytes, host syncs a unit and peak device memory):
+parity codecs, never disabled; neither launches a hand kernel of
+``HAND_KERNELS``, counted; each timed run prints its wall, edges or events
+a second, stage busy seconds, H2D bytes, host syncs a unit and peak device
+memory):
 
 D. degrees. D1 (``bench.py:bench_degrees``' call): ``data/facebook_like.txt``
    read with ``read_edge_list``, cast to i32 and tiled to 64M edges over
@@ -203,7 +206,19 @@ E. bipartiteness. E1 (``bench.py:bench_bipartiteness``' call): 16M Zipf
    every root colored 0, the final labels equal to scipy's and to the
    dense codec's and the raw fold's; then the stop and resume of D2. E3:
    phase 4's stream without its self-loops, ``ok`` at every boundary equal
-   to the double-cover oracle and never back once ``False``.
+   to the double-cover oracle and never back once ``False``. Every run
+   (warm-ups, the stopped and the resumed one included) prints its
+   parity kernel launches (``union_edges_parity``,
+   ``pointer_jump_parity``) and the rounds each union met and each
+   close's longest walk (``MetLog``), and must launch both, one jump a
+   union and one a close, and read no round on the host (0 host syncs).
+   Then the parity kernels on inputs captured from E2 (``FirstCall``):
+   the raw fold's first union, the sparse codec fold's first union and
+   the first close's ``pointer_jump_parity`` (``2^24`` slots), each equal
+   to its plain version on the card (rounds met included), timed (CUDA
+   events, L2 flushed, mean of 20) beside the plain version and the
+   least time for the bytes it must move
+   (``parity_fixpoint_bytes``).
 
 The per-window Merger plan and the spanner (phase F) and the matching
 (phase G), after phase E (F1 right after phase 4); every timed run prints
@@ -269,14 +284,15 @@ L. L1: ``run_aggregation(None, stream, queries=[cc_query(2^24,
    F3's emissions: the same plan), each freed once compared; the gather
    launched 3 times a dedup chunk and entry 2 of ``csrc/spanner_gate.cu``
    at each of the spanner's merge windows and each emission's
-   merge-on-read, the k = 2 fold kernel once a chunk (counted); the fused
-   wall and H2D bytes beside the sum of
+   merge-on-read, the k = 2 fold kernel once a chunk, both parity
+   kernels in the fused run and the standalone bipartiteness run
+   (counted); the fused wall and H2D bytes beside the sum of
    the four standalone runs'. L2: the trio ``cc_query``,
    ``degrees_query``, ``bipartiteness_query`` with ``compressed=True,
    codec="sparse"``, ``fold_batch=4``: the shared compress stage took
-   every chunk (counted), the wire bytes an edge, every emission equal to
-   the three standalone sparse-codec runs' (and the CC labels to phase
-   4's). L3: L2's trio on ``make_mesh(4, devices=[cuda:0] * 4)``: every
+   every chunk (counted), the wire bytes an edge, both parity kernels
+   launched, every emission equal to the three standalone sparse-codec
+   runs' (and the CC labels to phase 4's). L3: L2's trio on ``make_mesh(4, devices=[cuda:0] * 4)``: every
    emission equal to L2's (CC labels and degrees; bipartiteness's ``ok``).
    L4: L1's quartet checkpointed every second window (a 3.7 GB write
    each) and stopped once the window-2 checkpoint is on disk (after the
@@ -462,7 +478,8 @@ R. R1: ``python -m gelly_torch.analysis --all gelly_torch`` in a child
    inside a device scope whose line carries neither, and when a plan's
    emission differs from its reference: phase 4's first emission (the
    CC plans), ``np.bincount`` (degrees), the same run with the debug
-   mode off (bipartiteness, the tenant round).
+   mode off (bipartiteness, the tenant round), and when the bipartiteness
+   plan counts a host sync (its rounds run on the card).
 
 Windows (phase H) and the stream API (phase I), after phase G (I5 after
 phase 6); each timed run prints its wall, edges a second, stage busy
@@ -596,6 +613,7 @@ removed at the end of each phase.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import shutil
@@ -731,10 +749,12 @@ HAND_KERNELS = ("sorted_window_gather", "wedge_count_matrix",
 SPANNER_FIELDS = ("nbr", "deg", "deg_overflow", "esrc", "edst", "n",
                   "overflow")
 NO_LAUNCHES = (0,) * len(HAND_KERNELS)
-# The union-find fixpoints (csrc/unionfind_fixpoint.cu): every CC path
-# runs them, so they are counted apart from HAND_KERNELS, whose counts
-# the phases check kernel by kernel.
-FIXPOINT_KERNELS = ("rooted_fixpoint", "pointer_jump", "union_edges")
+# The union-find fixpoints and the parity union-find
+# (csrc/unionfind_fixpoint.cu): every CC and bipartiteness path runs
+# them, so they are counted apart from HAND_KERNELS, whose counts the
+# phases check kernel by kernel.
+FIXPOINT_KERNELS = ("rooted_fixpoint", "pointer_jump", "union_edges",
+                    "union_edges_parity", "pointer_jump_parity")
 
 
 def reset_launches(kernels) -> None:
@@ -794,42 +814,98 @@ def time_ms(torch, fn, device, reps: int = REPS, warmup: int = 3) -> float:
     return total / reps
 
 
-class FirstCall:
-    """While installed, captures (as clones) the arguments of the first
-    call that ``ops/unionfind.py`` makes to the fixpoint kernel ``name``
-    and that ``want(args, kwargs)`` accepts; every call goes through to
-    the kernel. It swaps ``unionfind``'s reference to the kernels module
-    for a view of it, so the kernels and their counts stay as they are."""
+class KernelView:
+    """While installed, ``module.kernels`` (``ops/unionfind.py``'s or
+    ``ops/parity_unionfind.py``'s reference to the kernels module) is a
+    view of it in which each kernel named in ``hooks`` runs
+    ``hooks[name](fn, args, kwargs)``, ``fn`` the kernel the view stands
+    over; the kernels and their counts stay as they are. Views nest."""
 
-    def __init__(self, torch, unionfind, name: str,
+    def __init__(self, module, hooks: dict):
+        self.mod, self.hooks = module, hooks
+
+    def __enter__(self):
+        real = self.real = self.mod.kernels
+        hooks = self.hooks
+
+        def shim(name):
+            return lambda *args, **kwargs: hooks[name](
+                getattr(real, name), args, kwargs)
+
+        shims = {name: shim(name) for name in hooks}
+
+        class View:
+            def __getattr__(self, attr):
+                return shims[attr] if attr in shims else getattr(real, attr)
+
+        self.mod.kernels = View()
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.kernels = self.real
+        return False
+
+
+class FirstCall(KernelView):
+    """While installed, captures (as clones) the arguments of the first
+    call that ``module`` makes to the fixpoint kernel ``name`` and that
+    ``want(args, kwargs)`` accepts; every call goes through to the
+    kernel."""
+
+    def __init__(self, torch, module, name: str,
                  want=lambda args, kwargs: True):
-        self.torch, self.uf, self.name, self.want = torch, unionfind, name, want
+        self.torch, self.want = torch, want
         self.args = self.kwargs = None
+        super().__init__(module, {name: self._call})
 
     def _clone(self, x):
         return x.clone() if isinstance(x, self.torch.Tensor) else x
 
-    def __enter__(self):
-        real = self.uf.kernels
-        outer = self
+    def _call(self, fn, args, kwargs):
+        if self.args is None and self.want(args, kwargs):
+            self.args = tuple(self._clone(a) for a in args)
+            self.kwargs = {k: self._clone(v) for k, v in kwargs.items()}
+        return fn(*args, **kwargs)
 
-        def shim(*args, **kwargs):
-            if outer.args is None and outer.want(args, kwargs):
-                outer.args = tuple(outer._clone(a) for a in args)
-                outer.kwargs = {k: outer._clone(v) for k, v in kwargs.items()}
-            return getattr(real, outer.name)(*args, **kwargs)
 
-        class View:
-            def __getattr__(self, attr):
-                return shim if attr == outer.name else getattr(real, attr)
+class MetLog(KernelView):
+    """While installed, keeps the ``met`` tensor of every call that
+    ``ops/parity_unionfind.py`` makes to the parity kernels on the card
+    (a union's rounds, a close's longest walk), read once the run is
+    over; the union's own jump is not a call of the module's."""
 
-        self.real = real
-        self.uf.kernels = View()
-        return self
+    NAMES = ("union_edges_parity", "pointer_jump_parity")
 
-    def __exit__(self, *exc):
-        self.uf.kernels = self.real
-        return False
+    def __init__(self, torch, module):
+        self.torch = torch
+        self.mets = {name: [] for name in self.NAMES}
+        super().__init__(module, {
+            name: functools.partial(self._call, name) for name in self.NAMES})
+
+    def _call(self, name, fn, args, kwargs):
+        from gelly_torch.ops import kernels
+
+        out = fn(*args, **kwargs)
+        if self.launched(args):
+            # The kernel's own attribute: ``fn`` may be an outer view's.
+            self.mets[name].append(getattr(kernels, name).met)
+        return out
+
+    @staticmethod
+    def launched(args) -> bool:
+        """Did the call launch a kernel (and set its ``met``)?"""
+        return args[0].device.type == "cuda"
+
+    def summary(self) -> dict:
+        """Per kernel: its calls, and the sum, least and most of what
+        they met."""
+        out = {}
+        for name, mets in self.mets.items():
+            vals = self.torch.cat(mets).tolist() if mets else []
+            out[name] = {"calls": len(vals), "sum": sum(vals),
+                         "min": min(vals, default=0),
+                         "max": max(vals, default=0)}
+        return out
 
 
 def walk(torch, p, x):
@@ -899,6 +975,46 @@ def fixpoint_bytes(torch, name: str, args, kwargs) -> int:
         p = masked_scatter_min(p, hi, lo, live)
 
 
+def parity_fixpoint_bytes(torch, name: str, args, kwargs) -> int:
+    """The bytes the parity kernel ``name`` must move on these inputs,
+    replayed round by round with plain tensor ops. pointer_jump_parity:
+    each read of each slot's walk, the slot's own word included (parent
+    and rel, 8 B), and the new forest written once (8 B a slot).
+    union_edges_parity: the forest (parent and rel) read once and the new
+    one written once, each lane's u, v, q and valid once, each round's
+    two word reads a valid lane, a hook a live lane and its doubling step
+    over every slot (the scatter target's word, the word it points at,
+    the new word written), then the jump's walks over the packed words
+    (4 B a read)."""
+    from gelly_torch.ops.segments import masked_scatter_min
+
+    p, r = args[0], args[1]
+    n = p.shape[0]
+    ident = torch.arange(n, dtype=torch.int32, device=p.device)
+    if name == "pointer_jump_parity":
+        return int(8 * walk(torch, p, ident)[1].sum()) + 8 * n
+    u, v, q = args[3], args[4], args[5]
+    valid = args[6] if len(args) > 6 else kwargs.get("valid")
+    act = (torch.ones(u.shape[0], dtype=torch.bool, device=u.device)
+           if valid is None else valid)
+    total = 16 * n + 13 * u.shape[0]
+    w = p * 2 + r
+    while True:
+        wu, wv = w[u], w[v]
+        lu, lv = wu >> 1, wv >> 1
+        live = act & (lu != lv)
+        link = (wu & 1) ^ (wv & 1) ^ q
+        b = masked_scatter_min(w, torch.maximum(lu, lv),
+                               torch.minimum(lu, lv) * 2 + link, live)
+        sp = b[b >> 1]
+        nw = (sp >> 1) * 2 + ((b ^ sp) & 1)
+        total += int(8 * act.sum() + 4 * live.sum()) + 12 * n
+        if torch.equal(nw, w):
+            break
+        w = nw
+    return total + int(4 * walk(torch, w >> 1, ident)[1].sum())
+
+
 def fixpoint_phase(torch, device, name: str, call: FirstCall, where: str,
                    reps: int = REPS, open_gate: bool = False) -> dict:
     """One fixpoint kernel on inputs captured from a path: equal to its
@@ -919,10 +1035,14 @@ def fixpoint_phase(torch, device, name: str, call: FirstCall, where: str,
     want = plain(*args, **kwargs)
     rounds = plain.rounds
     torch.cuda.synchronize()
-    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
-    check(torch.equal(got, want),
+    # The parity kernels return (parent, rel[, failed]).
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max((int((a.long() - b.long()).abs().max()) if a.numel() else 0)
+              for a, b in zip(got, want))
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
           f"{name} on {where} != its plain version (max abs err {err})")
-    if name == "pointer_jump":
+    if name in ("pointer_jump", "pointer_jump_parity"):
         check(rounds == (0 if met <= 1 else (met - 1).bit_length()),
               f"{name} on {where}: longest walk {met} hops, but the plain "
               f"loop took {rounds} doubling rounds")
@@ -932,9 +1052,12 @@ def fixpoint_phase(torch, device, name: str, call: FirstCall, where: str,
     ms = time_ms(torch, lambda: fn(*args, **kwargs), device, reps=reps)
     plain_ms = time_ms(torch, lambda: plain(*args, **kwargs), device,
                        reps=max(3, reps // 4), warmup=1)
-    nbytes = fixpoint_bytes(torch, name, args, kwargs)
+    parity = name.endswith("_parity")
+    nbytes = (parity_fixpoint_bytes if parity else fixpoint_bytes)(
+        torch, name, args, kwargs)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    lanes = args[1].shape[0] if len(args) > 1 else 0
+    first_lane = 3 if parity else 1
+    lanes = args[first_lane].shape[0] if len(args) > first_lane else 0
     print(f"kernel {name} on {where}: slots={args[0].shape[0]} "
           f"lanes={lanes} exact=True rounds_met={met} "
           f"(plain {rounds}) kernel_ms={ms:.6f} plain_ms={plain_ms:.6f} "
@@ -1708,6 +1831,7 @@ def drive(torch, device, agg, source, n, n_events, merge_every, fold_batch,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(device),
         "h2d_bytes": res.stats["h2d_bytes"],
         "launches": launch_counts(kernels),
+        "fixpoints": fixpoint_counts(kernels),
     }
     return ([pull(x) for x in out] if pull else out), stats
 
@@ -2014,13 +2138,53 @@ def bipartite_oracle_at(src, dst, n: int, bounds) -> list[bool]:
     return out
 
 
-def bipartiteness_phase(torch, device, src, dst) -> None:
+def parity_drive(torch, device, label: str, launches: dict, agg, *args,
+                 **knobs):
+    """A phase E :func:`drive` under a :class:`MetLog`: prints the run's
+    parity kernel launches and what their calls met, keeps the launches
+    in ``launches[label]``, and checks that the run went through both
+    parity kernels, every call met a whole number of rounds, and no
+    round was read on the host."""
+    from gelly_torch.ops import parity_unionfind as puf
+
+    with MetLog(torch, puf) as log:
+        out, st = drive(torch, device, agg, *args, **knobs)
+    met = log.summary()
+    fx = {k: st["fixpoints"][k] for k in MetLog.NAMES}
+    union, jump = met["union_edges_parity"], met["pointer_jump_parity"]
+    print(f"{label}: parity launches {fx}; union rounds met: "
+          f"{union['calls']} calls, {union['sum']} in all, "
+          f"{union['min']}-{union['max']} a call; closes' longest walk "
+          f"{jump['min']}-{jump['max']} hops over {jump['calls']} closes; "
+          f"host_syncs={st['host_syncs']}")
+    check(fx["union_edges_parity"] > 0 and fx["pointer_jump_parity"] > 0,
+          f"{label}: the run did not launch both parity kernels: {fx}")
+    # Every union goes through the module; each launches the jump once,
+    # and each close one more.
+    check(fx["union_edges_parity"] == union["calls"]
+          and fx["pointer_jump_parity"] == union["calls"] + jump["calls"],
+          f"{label}: launches {fx} for {union['calls']} unions and "
+          f"{jump['calls']} closes")
+    check(union["min"] >= 1 and jump["min"] >= 0,
+          f"{label}: a parity call met {union['min']} rounds / a walk "
+          f"{jump['min']} hops")
+    check(st["host_syncs"] == 0,
+          f"{label}: {st['host_syncs']} host syncs (want 0)")
+    launches[label] = fx
+    return out, st
+
+
+def bipartiteness_phase(torch, device, src, dst) -> dict:
     """Phase E: the bipartiteness check at BASELINE #4's size (E1), a
     bipartite stream at Twitter scale (E2) and an odd-cycle stream at
-    Twitter scale (E3)."""
+    Twitter scale (E3), every run through the parity kernels; then the
+    parity kernels on inputs captured from E2 (its raw fold's first
+    union, its sparse codec fold's first union, its first close's jump).
+    Returns the parity launches of each run and the timed checks."""
     from gelly_torch.core.io import EdgeChunkSource
     from gelly_torch.core.vertices import IdentityVertexTable
     from gelly_torch.library import bipartiteness as bp
+    from gelly_torch.ops import parity_unionfind as puf
     from gelly_torch.utils import native
 
     check(native.parity_combine_available()
@@ -2034,17 +2198,19 @@ def bipartiteness_phase(torch, device, src, dst) -> None:
     print(f"phase E1 stream: {E1_EDGES} Zipf edges over {E1_N} slots "
           f"(seed {E1_SEED}) in {time.perf_counter() - t0:.2f} s")
 
-    def e1_run(pull=pull):
+    launches: dict = {}
+
+    def e1_run(label, pull=pull):
         agg = bp.bipartiteness_check(E1_N)
         check(agg.stack_payloads is None, "E1 did not take the dense codec")
-        return drive(torch, device, agg,
-                     EdgeChunkSource(s1, d1, chunk_size=E1_CHUNK,
-                                     table=IdentityVertexTable(E1_N)),
-                     E1_N, E1_EDGES, MERGE_EVERY, MERGE_EVERY, pull)
+        return parity_drive(torch, device, label, launches, agg,
+                            EdgeChunkSource(s1, d1, chunk_size=E1_CHUNK,
+                                            table=IdentityVertexTable(E1_N)),
+                            E1_N, E1_EDGES, MERGE_EVERY, MERGE_EVERY, pull)
 
-    _, st = e1_run()
+    _, st = e1_run("E1 warm-up")
     report_run("phase E1 warm-up", st)
-    runs = [e1_run() for _ in range(2)]
+    runs = [e1_run(f"E1 run {i + 1}") for i in range(2)]
     for i, (_, st) in enumerate(runs):
         report_run(f"phase E1 bipartiteness run {i + 1}", st)
     out = runs[0][0]
@@ -2066,16 +2232,26 @@ def bipartiteness_phase(torch, device, src, dst) -> None:
     s2, d2 = src & ~1, dst | 1
     e2 = s2.shape[0]
 
-    def e2_run(plan=None, pull=pull, **knobs):
+    def e2_run(plan=None, pull=pull, what="sparse codec", **knobs):
         agg = plan or bp.bipartiteness_check(n)
-        return drive(torch, device, agg,
-                     EdgeChunkSource(s2, d2, chunk_size=CHUNK,
-                                     table=IdentityVertexTable(n)),
-                     n, e2, MERGE_EVERY, MERGE_EVERY, pull, **knobs)
+        if knobs.get("resume"):
+            what += ", resumed"
+        elif knobs.get("stop_after"):
+            what += ", stopped"
+        return parity_drive(torch, device, f"E2 {what}", launches, agg,
+                            EdgeChunkSource(s2, d2, chunk_size=CHUNK,
+                                            table=IdentityVertexTable(n)),
+                            n, e2, MERGE_EVERY, MERGE_EVERY, pull, **knobs)
 
     check(bp.bipartiteness_check(n).stack_payloads is not None,
           "E2 did not take the sparse codec")
-    runs = [e2_run() for _ in range(2)]
+    # Run 1's first fold union and first close are kept for the timed
+    # checks below.
+    sparse_call = FirstCall(torch, puf, "union_edges_parity")
+    close_call = FirstCall(torch, puf, "pointer_jump_parity")
+    with sparse_call, close_call:
+        runs = [e2_run(what="sparse codec run 1")]
+    runs.append(e2_run(what="sparse codec run 2"))
     for i, (_, st) in enumerate(runs):
         report_run(f"phase E2 sparse codec run {i + 1}", st)
     out = runs[0][0]
@@ -2102,10 +2278,15 @@ def bipartiteness_phase(torch, device, src, dst) -> None:
     print(f"phase E2: {len(out)} emissions ok=True, every edge two-colored "
           f"and every root colored 0; the final labels equal scipy's "
           f"({time.perf_counter() - t0:.2f} s)")
+    raw_call = FirstCall(torch, puf, "union_edges_parity")
     for name, plan in (
             ("dense codec", bp.bipartiteness_check(n, codec="dense")),
             ("raw fold", bp.bipartiteness_check(n, ingest_combine=False))):
-        got, st = e2_run(plan)
+        if name == "raw fold":
+            with raw_call:
+                got, st = e2_run(plan, what=name)
+        else:
+            got, st = e2_run(plan, what=name)
         report_run(f"phase E2 {name}", st)
         check(len(got) == len(out) and same(got[-1], out[-1]),
               f"E2: the {name}'s final emission differs from the sparse "
@@ -2121,10 +2302,11 @@ def bipartiteness_phase(torch, device, src, dst) -> None:
     e3 = s3.shape[0]
 
     def e3_run(pull=pull):
-        return drive(torch, device, bp.bipartiteness_check(n),
-                     EdgeChunkSource(s3, d3, chunk_size=CHUNK,
-                                     table=IdentityVertexTable(n)),
-                     n, e3, MERGE_EVERY, MERGE_EVERY, pull)
+        return parity_drive(torch, device, "E3 sparse codec", launches,
+                            bp.bipartiteness_check(n),
+                            EdgeChunkSource(s3, d3, chunk_size=CHUNK,
+                                            table=IdentityVertexTable(n)),
+                            n, e3, MERGE_EVERY, MERGE_EVERY, pull)
 
     out, st = e3_run()
     report_run("phase E3 sparse codec", st)
@@ -2141,6 +2323,22 @@ def bipartiteness_phase(torch, device, src, dst) -> None:
           f"the {len(got)} boundaries {got} equals the double-cover oracle "
           f"({time.perf_counter() - t0:.2f} s)")
     check_native_codecs("phase E")
+    del s3, d3, keep
+    torch.cuda.empty_cache()
+
+    # The parity kernels on inputs captured from E2, each against its
+    # plain version, its time and its bound.
+    timed = {"union_edges_parity": [
+        fixpoint_phase(torch, device, "union_edges_parity", raw_call,
+                       "E2's raw fold's first union"),
+        fixpoint_phase(torch, device, "union_edges_parity", sparse_call,
+                       "E2's sparse codec fold's first union")],
+        "pointer_jump_parity": [
+        fixpoint_phase(torch, device, "pointer_jump_parity", close_call,
+                       "E2's first close")]}
+    del raw_call, sparse_call, close_call
+    torch.cuda.empty_cache()
+    return {"launches": launches, **timed}
 
 
 # ---------------------------------------------------------------------- #
@@ -2866,13 +3064,25 @@ def same_tree(torch, a, b) -> bool:
     return True
 
 
+def parity_launches(st: dict, what: str) -> dict:
+    """A fused run's parity kernel launches, checked: its bipartiteness
+    query folded and closed through both kernels."""
+    fx = {k: st["fixpoints"][k] for k in MetLog.NAMES}
+    print(f"phase {what}: parity launches {fx} "
+          f"host_syncs={st['host_syncs']}")
+    check(fx["union_edges_parity"] > 0 and fx["pointer_jump_parity"] > 0,
+          f"phase {what}: parity launches {fx}")
+    return fx
+
+
 def multiquery_phase(torch, device, src, dst, labels, cc_run, dedup_chunks,
                      f3) -> dict:
     """Phase L. ``labels`` and ``cc_run`` are phase 4's kernel run (host
     labels a window, its stats), ``f3`` F3's run: its emissions on the
     card (``"out"``, taken and freed here as they are compared), wall and
     H2D bytes. Returns the gather's and entry 2's launches in L1, the k = 2
-    fold's in L1 and L4, and L2's emissions (on the card) and wall."""
+    fold's in L1 and L4, the parity kernels' in L1 and L2, and L2's
+    emissions (on the card) and wall."""
     from gelly_torch.engine.checkpoint import read_checkpoint_header
     from gelly_torch.parallel.mesh import make_mesh
 
@@ -2901,6 +3111,7 @@ def multiquery_phase(torch, device, src, dst, labels, cc_run, dedup_chunks,
                expect={"sorted_window_gather": 3 * dedup_chunks,
                        "sparse_insert_edges_batched": merges,
                        "sparse_fold_chunk_k2": n_chunks})
+    parity = {"L1": parity_launches(st, "L1")}
     check(len(out) == n_windows and all(
         sorted(e) == ["bipartiteness", "cc", "degrees", "spanner"]
         for e in out), f"L1: {len(out)} emissions")
@@ -2970,6 +3181,7 @@ def multiquery_phase(torch, device, src, dst, labels, cc_run, dedup_chunks,
     del deg
     bip, st_bip = alone(quartet_queries()[2].agg)
     report_run("phase L1 standalone bipartiteness", st_bip)
+    parity["L1 standalone"] = parity_launches(st_bip, "L1 standalone")
     for i, (a, e) in enumerate(zip(bip, out)):
         check(same_tree(torch, a, e.pop("bipartiteness")),
               f"L1 window {i}: bipartiteness != the standalone run's")
@@ -2998,11 +3210,13 @@ def multiquery_phase(torch, device, src, dst, labels, cc_run, dedup_chunks,
         "sorted_window_gather")], "merge_launches": st["launches"][
         HAND_KERNELS.index("sparse_insert_edges_batched")],
         "fold_launches": {"L1": st["launches"][HAND_KERNELS.index(
-            "sparse_fold_chunk_k2")], "L4": l4_folds}}
+            "sparse_fold_chunk_k2")], "L4": l4_folds},
+        "parity_launches": parity}
 
     # L2. The shared sparse codec: one multi-query payload a chunk.
     out2, st2 = fused(codec_trio(), fold_batch=L_FOLD_BATCH)
     report_run("phase L2 fused codec trio", st2)
+    parity["L2"] = parity_launches(st2, "L2")
     check_native_codecs("phase L2")
     check(st2["stats"]["multiquery.compressed_chunks"] == n_chunks,
           f"L2: {st2['stats']['multiquery.compressed_chunks']} compressed "
@@ -3521,6 +3735,9 @@ def sync_audit_phase(torch, device, src, dst, labels0) -> dict:
         result[name] = (rec.total, delta)
         print(f"phase R2 {name}: syncs={rec.total} counted={rec.counted} "
               f"host_sync.count={delta} uncounted={rec.total - rec.counted}")
+        # The parity rounds run on the card.
+        check(name != "bipartiteness" or delta == 0,
+              f"phase R2 {name}: {delta} counted host syncs (want 0)")
         for (path, line, fn), n in sorted(rec.sites.items(),
                                           key=lambda kv: -kv[1]):
             if path in ("counted", "outside gelly_torch"):
@@ -8478,7 +8695,7 @@ def main() -> int:
     # scale, after their bench-size cells)
     degrees_phase(torch, device, src, dst)
     torch.cuda.empty_cache()
-    bipartiteness_phase(torch, device, src, dst)
+    e = bipartiteness_phase(torch, device, src, dst)
     torch.cuda.empty_cache()
 
     # F2-F4. the k-spanner; G. weighted matching
@@ -8950,7 +9167,14 @@ def main() -> int:
           "4 kernel": st["fixpoints"]["union_edges"],
           "K1": k14["fixpoint_launches"]["union_edges"]},
          [u["union_edges"]]),
-    )]}))
+    ) + tuple(
+        (name, f"gelly_tpu/ops/parity_unionfind.py:{line}",
+         e["launches"]["E2 sparse codec run 1"][name],
+         {**{k: v[name] for k, v in e["launches"].items()},
+          **{k: v[name] for k, v in mq["parity_launches"].items()}},
+         e[name])
+        for name, line in (("union_edges_parity", 57),
+                           ("pointer_jump_parity", 43)))]}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

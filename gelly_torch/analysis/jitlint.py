@@ -303,6 +303,10 @@ DEVICE_SCOPES: dict[tuple[str, str], str] = {
     ("kernels.py", "rooted_fixpoint"): "ops/unionfind.py:_rooted_fixpoint",
     ("kernels.py", "pointer_jump"): "ops/unionfind.py:pointer_jump",
     ("kernels.py", "union_edges"): "ops/unionfind.py:union_edges",
+    ("kernels.py", "union_edges_parity"):
+        "ops/parity_unionfind.py:union_edges_parity",
+    ("kernels.py", "pointer_jump_parity"):
+        "ops/parity_unionfind.py:pointer_jump_parity",
 }
 
 #: ``gelly_tpu`` jit sites that are not one def of the same name in the

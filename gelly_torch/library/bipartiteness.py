@@ -17,6 +17,12 @@ sticky ``failed`` bit, the analog of the merge collapsing to
 
 :func:`bipartiteness_query` is the plan as a fused multi-query query
 (``engine/multiquery.py``).
+
+Every fold, combine, stacked merge and close reaches the parity
+union-find's two loops (``union_edges_parity``, ``pointer_jump_parity``),
+which on the card run as the hand kernels of
+``csrc/unionfind_fixpoint.cu``, every round on the card: on a CUDA device
+no entry of these plans reads a value on the host.
 """
 
 from __future__ import annotations

@@ -107,6 +107,11 @@ SIGNATURES = {
             [_P] * 8 + [ctypes.c_longlong, ctypes.c_int, _P], ctypes.c_int),
         "unionfind_pointer_jump_launch": (
             [_P] * 3 + [ctypes.c_int, _P], ctypes.c_int),
+        "unionfind_union_edges_parity_launch": (
+            [_P] * 10 + [ctypes.c_longlong, ctypes.c_int, _P],
+            ctypes.c_int),
+        "unionfind_pointer_jump_parity_launch": (
+            [_P] * 6 + [ctypes.c_int, _P], ctypes.c_int),
         "unionfind_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
     "matching_step": {

@@ -44,7 +44,12 @@ and of the XLA device loops that eager PyTorch cannot run as written
   — the wrappers of the three kernels of ``csrc/unionfind_fixpoint.cu``,
   replacing ``gelly_tpu/ops/unionfind.py``'s ``_chase_roots`` /
   ``_rooted_fixpoint``, ``pointer_jump`` and ``union_edges`` loops, every
-  round on the card.
+  round on the card;
+- :func:`union_edges_parity` and :func:`pointer_jump_parity` — the
+  wrappers of the two parity entries of the same file, replacing
+  ``gelly_tpu/ops/parity_unionfind.py``'s ``union_edges_parity`` and
+  ``pointer_jump_parity`` loops (the bipartiteness summary), every round
+  on the card.
 
 Each of these runs its ``*_plain`` version on CPU tensors and its kernel
 on CUDA tensors (or raises), and counts launches in ``.launches``.
@@ -64,7 +69,7 @@ import numpy as np
 import torch
 
 from .rowtable import put_where_, row_append_batch, row_insert
-from .segments import masked_scatter_min
+from .segments import INT_MAX, masked_scatter_min
 
 # Output tile edge of the wedge kernel; the mask's side must be a multiple.
 TILE = 128
@@ -1557,3 +1562,195 @@ def union_edges(parent, src, dst, valid=None) -> torch.Tensor:
 
 union_edges.launches = 0
 union_edges.met = None
+
+
+# ------------------------------------------------------------------ #
+# The parity union-find (csrc/unionfind_fixpoint.cu, parity entries)
+
+def _check_parity(parent: torch.Tensor, rel: torch.Tensor) -> None:
+    _check_forest(parent)
+    if rel.dtype != torch.int32 or rel.shape != parent.shape:
+        raise ValueError(f"rel: want int32 {tuple(parent.shape)}, got "
+                         f"{rel.dtype} {tuple(rel.shape)}")
+    if rel.device != parent.device:
+        raise ValueError(f"rel on {rel.device}, parent on {parent.device}")
+
+
+def pointer_jump_parity_plain(parent: torch.Tensor, rel: torch.Tensor):
+    """Plain PyTorch version of :func:`pointer_jump_parity`: the
+    reference's doubling loop ``p, r <- p[p], r ^ r[p]``, one counted
+    host sync a round; leaves its doubling rounds in
+    ``pointer_jump_parity_plain.rounds``."""
+    from .unionfind import _any
+
+    p, r = parent, rel
+    rounds = 0
+    while True:
+        pp = p[p]
+        if not _any(pp != p):
+            break
+        p, r = pp, r ^ r[p]
+        rounds += 1
+    pointer_jump_parity_plain.rounds = rounds
+    return p, r
+
+
+pointer_jump_parity_plain.rounds = 0
+
+
+def pointer_jump_parity(parent: torch.Tensor, rel: torch.Tensor):
+    """Full path compression carrying parity (``gelly_tpu``'s
+    ``pointer_jump_parity``): ``(parent', rel')``, new tensors. The
+    reference doubles ``p, r <- p[p], r ^ r[p]`` while some slot is at
+    depth 2 or more, so with no slot that deep the input comes back as
+    it was; otherwise each slot gets its root, and as ``rel`` the XOR of
+    ``rel`` along its path without the root's, XORed with the root's
+    ``rel`` where its depth is odd (a root gets 0).
+
+    On CPU tensors it runs :func:`pointer_jump_parity_plain`; on CUDA
+    tensors it launches ``csrc/unionfind_fixpoint.cu`` (a thread a slot
+    walks to its root, then a launch that reads the longest walk on the
+    card and puts the input ``rel`` back where it is under 2 hops;
+    counted once in ``pointer_jump_parity.launches``) or raises. Each
+    call leaves in ``pointer_jump_parity.met`` a 1-element ``int32``
+    device tensor with its longest walk in hops (-1 past the slot count:
+    a cycle)."""
+    _check_parity(parent, rel)
+    if parent.device.type == "cpu":
+        return pointer_jump_parity_plain(parent, rel)
+    if parent.device.type != "cuda":
+        raise ValueError(f"pointer_jump_parity runs on CPU or CUDA, got "
+                         f"{parent.device}")
+    p, r = parent.contiguous(), rel.contiguous()
+    out_p, out_r = torch.empty_like(p), torch.empty_like(r)
+    n = p.shape[0]
+    if n == 0:
+        return out_p, out_r
+    lib = _fixpoint_library()
+    scratch = torch.empty(lib.unionfind_scratch_ints(0, -1),
+                          dtype=torch.int32, device=p.device)
+    met = torch.empty(1, dtype=torch.int32, device=p.device)
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.unionfind_pointer_jump_parity_launch(
+            p.data_ptr(), r.data_ptr(), out_p.data_ptr(), out_r.data_ptr(),
+            scratch.data_ptr(), met.data_ptr(), n, stream)
+    if rc:
+        raise _fixpoint_failed(lib, "pointer_jump_parity", rc)
+    pointer_jump_parity.launches += 1
+    pointer_jump_parity.met = met
+    return out_p, out_r
+
+
+pointer_jump_parity.launches = 0
+pointer_jump_parity.met = None
+
+
+def union_edges_parity_plain(parent, rel, failed, u, v, q, valid=None):
+    """Plain PyTorch version of :func:`union_edges_parity`: the
+    reference's loop, one counted host sync a round, then
+    :func:`pointer_jump_parity_plain`; leaves its rounds in
+    ``union_edges_parity_plain.rounds``."""
+    from .unionfind import _any
+
+    if valid is None:
+        valid = torch.ones(u.shape[0], dtype=torch.bool, device=u.device)
+    p, r = parent, rel
+    rounds = 0
+    while True:
+        rounds += 1
+        lu, lv = p[u], p[v]
+        link_q = r[u] ^ r[v] ^ q
+        same = lu == lv
+        failed = failed | (valid & same & (link_q == 1)).any()
+        live = valid & ~same
+        lo = torch.minimum(lu, lv)
+        hi = torch.maximum(lu, lv)
+        # Ties on one (hi, lo) pair with opposite parity resolve to one
+        # link now and surface as a same-parent conflict a round later.
+        packed = masked_scatter_min(p * 2 + r, hi, lo * 2 + link_q, live)
+        p2, r2 = packed >> 1, packed & 1
+        p3 = p2[p2]
+        r3 = r2 ^ r2[p2]
+        changed = _any((p3 != p) | (r3 != r))
+        p, r = p3, r3
+        if not changed:
+            break
+    union_edges_parity_plain.rounds = rounds
+    p, r = pointer_jump_parity_plain(p, r)
+    return p, r, failed
+
+
+union_edges_parity_plain.rounds = 0
+
+
+def union_edges_parity(parent, rel, failed, u, v, q, valid=None):
+    """Union every valid lane ``(u, v)`` with required parity ``q``
+    between its endpoints into the parity forest ``(parent, rel,
+    failed)`` (``gelly_tpu``'s ``union_edges_parity``) and return the
+    compressed forest ``(parent', rel', failed')``, new tensors.
+
+    Each round reads ``p[u], p[v]`` and ``rel[u] ^ rel[v] ^ q`` from the
+    forest at the round's start; a valid lane whose endpoints share a
+    parent against that parity sets ``failed``, the others hook
+    ``max -> min`` through one scatter-min of the packed word
+    ``parent * 2 + rel``; then one parity-carrying doubling step. The
+    loop ends after the first round in which no word moved, then
+    :func:`pointer_jump_parity`. ``u``, ``v`` and ``q`` are ``int32``
+    lanes (``u``, ``v`` in range on every lane), ``valid`` a
+    ``bool`` mask (None: every lane), ``failed`` a one-element ``bool``
+    tensor. The packed word is ``int32``: a forest of ``2^30`` slots or
+    more is refused on every device, where the reference would overflow.
+
+    On CPU tensors it runs :func:`union_edges_parity_plain`; on CUDA
+    tensors it launches ``csrc/unionfind_fixpoint.cu`` (one cooperative
+    launch for the rounds, counted in ``union_edges_parity.launches``,
+    then :func:`pointer_jump_parity`) or raises. ``failed'`` stays on the
+    card. Each launch leaves in ``union_edges_parity.met`` a 1-element
+    ``int32`` device tensor with the rounds it met."""
+    _check_parity(parent, rel)
+    n = parent.shape[0]
+    if 2 * n >= INT_MAX:
+        raise ValueError(
+            "union_edges_parity: vertex capacity must be < 2^30 "
+            f"(got {n}; the packed parity scatter word is int32)")
+    lanes = {"u": u, "v": v, "q": q}
+    if valid is not None:
+        lanes["valid"] = valid
+    _check_lanes(parent.device, **lanes)
+    _check_scalars(parent.device, failed=failed)
+    if failed.dtype != torch.bool:
+        raise ValueError(f"failed: want bool, got {failed.dtype}")
+    if parent.device.type == "cpu":
+        return union_edges_parity_plain(parent, rel, failed, u, v, q, valid)
+    if parent.device.type != "cuda":
+        raise ValueError(f"union_edges_parity runs on CPU or CUDA, got "
+                         f"{parent.device}")
+    if n == 0:
+        return parent.clone(), rel.clone(), failed.clone()
+    w = parent * 2 + rel
+    s = w.clone()
+    t = torch.empty_like(w)
+    lib = _fixpoint_library()
+    scratch = torch.empty(lib.unionfind_scratch_ints(0, -1),
+                          dtype=torch.int32, device=w.device)
+    odd = torch.empty(1, dtype=torch.int32, device=w.device)
+    met = torch.empty(1, dtype=torch.int32, device=w.device)
+    with torch.cuda.device(w.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.unionfind_union_edges_parity_launch(
+            w.data_ptr(), s.data_ptr(), t.data_ptr(), u.data_ptr(),
+            v.data_ptr(), q.data_ptr(),
+            None if valid is None else valid.data_ptr(), scratch.data_ptr(),
+            odd.data_ptr(), met.data_ptr(), u.shape[0], n, stream)
+    if rc:
+        raise _fixpoint_failed(lib, "union_edges_parity", rc)
+    union_edges_parity.launches += 1
+    union_edges_parity.met = met
+    del s, t  # the scratch goes back before the jump takes its output
+    p, r = pointer_jump_parity(w >> 1, w & 1)
+    return p, r, failed | (odd[0] != 0).reshape(failed.shape)
+
+
+union_edges_parity.launches = 0
+union_edges_parity.met = None

@@ -8,10 +8,15 @@ required parity ``q`` asserts ``color(u) ^ color(v) == q`` (graph edges use
 their parities is an odd cycle and sets the sticky ``failed`` bit.
 
 Hooks are a scatter-min of the packed word ``parent * 2 + rel``, so parent
-and parity move together. Each ``lax.while_loop`` of the reference becomes
-a Python loop whose exit test is one counted
-:func:`~gelly_torch.ops.unionfind.host_sync` per round; ``failed`` stays a
-device bool updated every round and is never synced inside a loop. Every
+and parity move together. The reference's two ``lax.while_loop`` s run as
+the hand kernels of ``csrc/unionfind_fixpoint.cu``
+(:func:`~gelly_torch.ops.kernels.union_edges_parity`,
+:func:`~gelly_torch.ops.kernels.pointer_jump_parity`), every round on the
+card, so on the card no function here reads a value on the host;
+``failed`` stays a device bool. On CPU tensors the kernels' plain versions
+run the same loops in Python, one counted
+:func:`~gelly_torch.ops.unionfind.host_sync` a round. The packed word is
+``int32``, so a forest of ``2^30`` slots or more is refused. Every
 function returns new tensors.
 """
 
@@ -22,8 +27,9 @@ from typing import NamedTuple
 import torch
 
 from ..core.device import DEFAULT_DEVICE, resolve_device
+from . import kernels
 from .segments import INT_MAX, masked_scatter_min
-from .unionfind import _any
+from .unionfind import _i32, _mask
 
 
 class ParityForest(NamedTuple):
@@ -45,13 +51,9 @@ def fresh_parity_forest(capacity: int,
 
 def pointer_jump_parity(parent: torch.Tensor, rel: torch.Tensor):
     """Full path compression carrying parity: ``rel' = rel ^ rel[parent]``
-    until ``parent[parent] == parent``."""
-    p, r = parent, rel
-    while True:
-        pp = p[p]
-        if not _any(pp != p):
-            return p, r
-        p, r = pp, r ^ r[p]
+    until ``parent[parent] == parent``
+    (:func:`~gelly_torch.ops.kernels.pointer_jump_parity`)."""
+    return kernels.pointer_jump_parity(parent, rel)
 
 
 def union_edges_parity(f: ParityForest, u: torch.Tensor, v: torch.Tensor,
@@ -60,33 +62,16 @@ def union_edges_parity(f: ParityForest, u: torch.Tensor, v: torch.Tensor,
     endpoints; returns the compressed forest.
 
     Each round hooks ``max(root) -> min(root)`` with the edge-implied
-    parity and takes one parity-carrying doubling step. A valid edge whose
-    endpoints already share a parent against their parities sets
-    ``failed``. The loop exits only after a round in which **both** parent
-    and parity are stable: that round re-checked every edge against the
-    settled coloring, so no odd cycle escapes (parents settle first; the
-    parities within one more round).
+    parity and takes one parity-carrying doubling step
+    (:func:`~gelly_torch.ops.kernels.union_edges_parity`). A valid edge
+    whose endpoints already share a parent against their parities sets
+    ``failed``. The loop exits only after a round in which **both**
+    parent and parity are stable: that round re-checked every edge
+    against the settled coloring, so no odd cycle escapes (parents settle
+    first; the parities within one more round).
     """
-    p, r, failed = f.parent, f.rel, f.failed
-    while True:
-        lu, lv = p[u], p[v]
-        link_q = r[u] ^ r[v] ^ q
-        same = lu == lv
-        failed = failed | (valid & same & (link_q == 1)).any()
-        live = valid & ~same
-        lo = torch.minimum(lu, lv)
-        hi = torch.maximum(lu, lv)
-        # Ties on one (hi, lo) pair with opposite parity resolve to one
-        # link now and surface as a same-parent conflict a round later.
-        packed = masked_scatter_min(p * 2 + r, hi, lo * 2 + link_q, live)
-        p2, r2 = packed >> 1, packed & 1
-        p3 = p2[p2]
-        r3 = r2 ^ r2[p2]
-        changed = _any((p3 != p) | (r3 != r))
-        p, r = p3, r3
-        if not changed:
-            break
-    p, r = pointer_jump_parity(p, r)
+    p, r, failed = kernels.union_edges_parity(
+        f.parent, f.rel, f.failed, _i32(u), _i32(v), _i32(q), _mask(valid))
     return ParityForest(p, r, failed)
 
 

@@ -51,11 +51,14 @@ def mark_seen(seen: torch.Tensor, idx: torch.Tensor, valid) -> torch.Tensor:
     """seen[idx] |= valid — bool presence scatter.
 
     Every write stores the same value (True), so duplicate indices need no
-    reduction; masked lanes write into a spare slot past the end.
+    reduction; masked lanes write into a spare slot past the end. The
+    fill value is a kernel argument, so nothing is read or copied on the
+    host (an index put of ``True`` copies a host scalar to the card and
+    synchronizes).
     """
     n = seen.shape[0]
     hit = torch.zeros(n + 1, dtype=torch.bool, device=seen.device)
-    hit[torch.where(valid, idx, n).long()] = True
+    hit.index_fill_(0, torch.where(valid, idx, n).long(), True)
     return seen | hit[:n]
 
 

@@ -1,8 +1,10 @@
 """gelly_torch on the card: each CUDA kernel vs its plain version (the
 gather, the wedge kernel, both entries of the spanner gate, the k = 2
-chunk fold, the matching fold, the hash set's parallel insert and the
-union-find fixpoints, on random states and on their edge cases, the
-fixpoints also at the raw fold's widths and on a chain 2^16 deep); the
+chunk fold, the matching fold, the hash set's parallel insert, the
+union-find fixpoints and the parity union-find, on random states and on
+their edge cases, the fixpoints also at the raw fold's widths and on a
+chain 2^16 deep, the parity kernels at phase E's width and on a chain
+2^16 deep); the
 CC (raw,
 compact and sparse plans), window-triangle, degree and bipartiteness
 (raw, dense and sparse plans) paths, the spanner plans, the matching and
@@ -31,6 +33,7 @@ from gelly_torch.library import triangles as ttri
 from gelly_torch.ops import kernels
 
 import _fold_k2_cases as fold_cases
+import _parity_cases as par_cases
 import _spanner_gate_cases as gate_cases
 import _unionfind_cases as uf_cases
 
@@ -447,11 +450,23 @@ def test_bipartiteness_plans_on_card_equal_cpu(cuda_device, plan, kind):
         src, dst = src & ~1, dst | 1
 
     def run(device):
+        from gelly_torch.ops import unionfind
+
+        syncs = unionfind.host_sync.count
+        launches = (kernels.union_edges_parity.launches,
+                    kernels.pointer_jump_parity.launches)
         res = _event_stream(src, dst, None, n, device).aggregate(
             tbp.bipartiteness_check(n, **_PLANS[plan]), merge_every=4,
             fold_batch=2, ingest_workers=2)
         out = list(res)
         assert all(r.labels.device.type == device for r in out)
+        if device == "cuda":
+            # Every fold, combine and close went through the parity
+            # kernels, and no round was read on the host.
+            assert unionfind.host_sync.count == syncs
+            assert kernels.union_edges_parity.launches > launches[0]
+            assert kernels.pointer_jump_parity.launches \
+                >= launches[1] + len(out)
         return [tuple(x.cpu() for x in r) for r in out]
 
     on_card, on_cpu = run("cuda"), run("cpu")
@@ -1645,3 +1660,118 @@ def test_unionfind_fixpoints_on_a_chain_2_16_deep(cuda_device):
     assert torch.equal(got, kernels.union_edges_plain(p, x, y))
     assert int(kernels.union_edges.met) \
         == kernels.union_edges_plain.rounds
+
+
+# The parity union-find (csrc/unionfind_fixpoint.cu, parity entries)
+
+
+def _parity_equal_plain(p, r, failed, u, v, q, valid):
+    """Both parity kernels on the card against their plain versions on the
+    same inputs (run on the card too), rounds met included; the union's
+    forest."""
+    got = kernels.pointer_jump_parity(p, r)
+    want = kernels.pointer_jump_parity_plain(p, r)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    hops = int(kernels.pointer_jump_parity.met)
+    rounds = kernels.pointer_jump_parity_plain.rounds
+    assert rounds == (0 if hops <= 1 else (hops - 1).bit_length())
+    got = kernels.union_edges_parity(p, r, failed, u, v, q, valid)
+    want = kernels.union_edges_parity_plain(p, r, failed, u, v, q, valid)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert int(kernels.union_edges_parity.met) \
+        == kernels.union_edges_parity_plain.rounds
+    return got
+
+
+def _parity_case(name, device):
+    if name in par_cases.lane_cases():
+        u, v, q, valid, _ = par_cases.lane_cases()[name]
+        n = par_cases.LANE_N
+        p, r = np.arange(n, dtype=np.int32), np.zeros(n, np.int32)
+    else:
+        p, r = par_cases.cases()[name]
+        u, v, q, valid = par_cases.case_lanes(name, p.shape[0])
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in (p, r, u, v, q, valid)]
+
+
+@pytest.mark.parametrize("name", list(par_cases.cases())
+                         + sorted(par_cases.lane_cases()))
+def test_parity_kernels_equal_plain(cuda_device, name):
+    p, r, u, v, q, valid = _parity_case(name, cuda_device)
+    failed = torch.zeros((), dtype=torch.bool, device=cuda_device)
+    before = (kernels.union_edges_parity.launches,
+              kernels.pointer_jump_parity.launches)
+    got = _parity_equal_plain(p, r, failed, u, v, q, valid)
+    # union_edges_parity launches its rounds, then the jump.
+    assert (kernels.union_edges_parity.launches,
+            kernels.pointer_jump_parity.launches) \
+        == (before[0] + 1, before[1] + 2)
+    assert got[2].device.type == "cuda" and got[2].dtype == torch.bool
+    if name in par_cases.lane_cases():
+        assert bool(got[2]) is par_cases.lane_cases()[name][4]
+
+
+def test_parity_kernels_at_phase_e_width(cuda_device):
+    """``2^22``-lane Zipf chunks on ``2^24`` slots, as phase E's raw fold
+    takes them (odd cycles included), a close's jump and a 2-stack
+    merge's union (``merge_parity_stack``'s lanes)."""
+    from gelly_torch.ops import parity_unionfind as puf
+
+    n, chunk = 1 << 24, 1 << 22
+    rng = np.random.default_rng(24)
+    f = puf.fresh_parity_forest(n, cuda_device)
+    forests = []
+    for parities in ("graph", "random"):
+        u, v, q, valid = (torch.from_numpy(a).to(cuda_device)
+                          for a in par_cases.zipf_lanes(rng, n, chunk, 0.9,
+                                                        parities))
+        got = _parity_equal_plain(f.parent, f.rel, f.failed, u, v, q, valid)
+        f = puf.ParityForest(*got)
+        forests.append(f)
+    assert bool(f.failed)
+    fresh = puf.fresh_parity_forest(n, cuda_device)
+    idx = torch.arange(n, dtype=torch.int32, device=cuda_device).repeat(2)
+    got = _parity_equal_plain(
+        fresh.parent, fresh.rel, forests[0].failed | forests[1].failed, idx,
+        torch.cat([x.parent for x in forests]),
+        torch.cat([x.rel for x in forests]),
+        torch.ones(2 * n, dtype=torch.bool, device=cuda_device))
+    st = puf.ParityForest(*(torch.stack(x) for x in zip(*forests)))
+    assert all(torch.equal(a, b) for a, b in zip(
+        puf.merge_parity_stack(st), got))
+
+
+def test_parity_kernels_on_a_chain_2_16_deep(cuda_device):
+    n, depth = 1 << 17, 1 << 16
+    p, r = (torch.from_numpy(a).to(cuda_device) for a in par_cases.chain(
+        np.random.default_rng(16), n, depth))
+    got = kernels.pointer_jump_parity(p, r)
+    assert int(kernels.pointer_jump_parity.met) == depth
+    want = kernels.pointer_jump_parity_plain(p, r)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    # The chain's deep end joined to singletons past it.
+    x = torch.arange(depth - 8, depth + 1, dtype=torch.int32,
+                     device=cuda_device)
+    y = x + (n - depth - 16)
+    q = torch.ones_like(x)
+    failed = torch.zeros((), dtype=torch.bool, device=cuda_device)
+    got = kernels.union_edges_parity(p, r, failed, x, y, q)
+    want = kernels.union_edges_parity_plain(p, r, failed, x, y, q)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert int(kernels.union_edges_parity.met) \
+        == kernels.union_edges_parity_plain.rounds
+
+
+def test_parity_kernels_refuse_on_card(cuda_device):
+    big = 1 << 30
+    wide = torch.zeros(1, dtype=torch.int32, device=cuda_device).expand(big)
+    lanes = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    failed = torch.zeros((), dtype=torch.bool, device=cuda_device)
+    before = kernels.union_edges_parity.launches
+    with pytest.raises(ValueError, match="< 2\\^30"):
+        kernels.union_edges_parity(wide, wide, failed, lanes, lanes, lanes)
+    with pytest.raises(ValueError, match="failed"):
+        kernels.union_edges_parity(
+            lanes, lanes, failed.cpu(), lanes, lanes, lanes)
+    assert kernels.union_edges_parity.launches == before

@@ -241,14 +241,20 @@ def test_two_coloring_with_unseen_slots(seed):
 
 
 def test_rounds_are_counted_host_syncs():
-    # Each fixpoint round is one counted sync; the odd-cycle flag is not
-    # synced inside the loops (a failing run takes as many syncs as the
-    # same parents with a clean verdict).
+    # On CPU tensors the kernels' plain versions run: each fixpoint round
+    # is one counted sync (the union's rounds, then the jump's doubling
+    # rounds and its last test); the odd-cycle flag is not synced inside
+    # the loops (a failing run takes as many syncs as the same parents
+    # with a clean verdict). On the card no round is read on the host.
+    from gelly_torch.ops import kernels as tk
+
     f = tp.fresh_parity_forest(16, "cpu")
     u, v, q, valid = _cycle(9)
     before = tuf.host_sync.count
     odd = tp.union_edges_parity(f, _t(u), _t(v), _t(q), _t(valid))
     odd_syncs = tuf.host_sync.count - before
+    assert odd_syncs == (tk.union_edges_parity_plain.rounds
+                         + tk.pointer_jump_parity_plain.rounds + 1)
     before = tuf.host_sync.count
     even = tp.union_edges_parity(f, _t(u), _t(v), _t(1 - q), _t(valid))
     even_syncs = tuf.host_sync.count - before
